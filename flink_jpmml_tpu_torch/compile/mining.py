@@ -1,0 +1,198 @@
+"""MiningModel → PyTorch: segmentation of TreeModel segments.
+
+The port of ``flink_jpmml_tpu/compile/mining.py``, for the aggregation
+methods sum / average / weightedAverage / max / median (and the vote
+methods of a classification forest):
+
+1. **Fused tree-ensemble fast path**: every segment is a canonical
+   TreeModel with a ``<True/>`` predicate (the GBM shape, BASELINE config
+   2) → :func:`~flink_jpmml_tpu_torch.compile.trees.lower_tree_ensemble`
+   packs all trees into one padded tensor family.
+2. **Generic aggregation**: segments with predicates (or non-tree
+   segments) lower independently and combine per ``multipleModelMethod``
+   with vectorized active-segment masks. A segment whose family is not
+   ported raises :class:`NotPortedError` from ``lower_model``.
+
+``modelChain``, ``selectFirst`` and ``selectAll`` are not ported yet.
+
+Missing semantics match the JAX package: a missing result from any
+*active* segment poisons aggregate results; inactive segments are
+excluded; no active segment ⇒ missing.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from flink_jpmml_tpu_torch.compile.common import (
+    Lowered,
+    LowerCtx,
+    ModelOutput,
+    lower_predicate,
+)
+from flink_jpmml_tpu_torch.compile.trees import lower_tree_ensemble
+from flink_jpmml_tpu_torch.pmml import ir
+from flink_jpmml_tpu_torch.utils.exceptions import (
+    ModelCompilationException,
+    NotPortedError,
+)
+
+_AGG_METHODS = (
+    "sum",
+    "average",
+    "weightedAverage",
+    "max",
+    "median",
+    "majorityVote",
+    "weightedMajorityVote",
+)
+
+
+def lower_mining(model: ir.MiningModelIR, ctx: LowerCtx) -> Lowered:
+    method = model.segmentation.multiple_model_method
+    segments = model.segmentation.segments
+
+    if method in ("modelChain", "selectFirst", "selectAll"):
+        raise NotPortedError(
+            f"multipleModelMethod {method!r} is not ported yet"
+        )
+    if method not in _AGG_METHODS:
+        raise ModelCompilationException(
+            f"unsupported multipleModelMethod {method!r}"
+        )
+
+    all_true = all(
+        isinstance(s.predicate, ir.TruePredicate) for s in segments
+    )
+    all_trees = all(
+        isinstance(s.model, ir.TreeModelIR)
+        and s.model.missing_value_strategy
+        not in ("weightedConfidence", "aggregateNodes")
+        for s in segments
+    )
+    if all_true and all_trees:
+        classification = segments[0].model.function_name == "classification"
+        fused_ok = (
+            method in ("majorityVote", "weightedMajorityVote")
+            if classification
+            else method in ("sum", "average", "weightedAverage", "max", "median")
+        )
+        if fused_ok:
+            return lower_tree_ensemble(
+                [s.model for s in segments],
+                [s.weight for s in segments],
+                method,
+                ctx,
+            )
+    return _lower_aggregate(segments, method, ctx)
+
+
+def _lower_segments(segments, ctx) -> List[Lowered]:
+    from flink_jpmml_tpu_torch.compile.compiler import lower_model
+
+    sub = ctx if ctx.nested else dataclasses.replace(ctx, nested=True)
+    return [lower_model(s.model, sub) for s in segments]
+
+
+def _active(pred_fn, X, M):
+    if pred_fn is None:
+        return torch.ones((X.shape[0],), dtype=torch.bool, device=X.device)
+    return pred_fn(X, M).is_true
+
+
+def _lower_aggregate(
+    segments: Tuple[ir.Segment, ...], method: str, ctx: LowerCtx
+) -> Lowered:
+    lows = _lower_segments(segments, ctx)
+    pred_fns = [
+        None
+        if isinstance(s.predicate, ir.TruePredicate)
+        else lower_predicate(s.predicate, ctx)
+        for s in segments
+    ]
+    weights = np.asarray([s.weight for s in segments], np.float32)
+    params = {f"s{i}": l.params for i, l in enumerate(lows)}
+
+    if method in ("majorityVote", "weightedMajorityVote"):
+        if any(not l.is_classification for l in lows):
+            raise ModelCompilationException(
+                f"{method} requires classification segments"
+            )
+        global_labels: List[str] = []
+        for l in lows:
+            for lbl in l.labels:
+                if lbl not in global_labels:
+                    global_labels.append(lbl)
+        maps = [
+            np.asarray([global_labels.index(lbl) for lbl in l.labels], np.int64)
+            for l in lows
+        ]
+        C = len(global_labels)
+
+        def vfn(p, X, M):
+            B = X.shape[0]
+            votes = torch.zeros((B, C), dtype=torch.float32, device=X.device)
+            for i, l in enumerate(lows):
+                o = l.fn(p[f"s{i}"], X, M)
+                active = _active(pred_fns[i], X, M)
+                glb = torch.from_numpy(maps[i]).to(X.device)[o.label_idx]
+                w = float(weights[i]) if method == "weightedMajorityVote" else 1.0
+                onehot = torch.nn.functional.one_hot(glb, C).to(torch.float32)
+                # invalid/inactive segments abstain; they do not poison
+                votes = votes + torch.where(
+                    (active & o.valid)[:, None], onehot * w, 0.0
+                )
+            total = votes.sum(dim=1, keepdim=True)
+            probs = votes / torch.clamp(total, min=1e-30)
+            label_idx = torch.argmax(votes, dim=1)
+            value = torch.gather(probs, 1, label_idx[:, None])[:, 0]
+            valid = total[:, 0] > 0
+            return ModelOutput(
+                value=value, valid=valid, probs=probs, label_idx=label_idx
+            )
+
+        return Lowered(fn=vfn, params=params, labels=tuple(global_labels))
+
+    def afn(p, X, M):
+        vals, valids, actives = [], [], []
+        for i, l in enumerate(lows):
+            o = l.fn(p[f"s{i}"], X, M)
+            active = _active(pred_fns[i], X, M)
+            vals.append(o.value)
+            valids.append(~active | o.valid)
+            actives.append(active)
+        V = torch.stack(vals, dim=1)  # [B, N]
+        A = torch.stack(actives, dim=1)
+        ok = torch.stack(valids, dim=1)
+        count = A.sum(dim=1)
+        all_ok = ok.all(dim=1) & (count > 0)
+        Af = A.to(torch.float32)
+        if method == "sum":
+            value = (V * Af).sum(dim=1)
+        elif method == "average":
+            value = (V * Af).sum(dim=1) / torch.clamp(count, min=1)
+        elif method == "weightedAverage":
+            w = torch.from_numpy(weights).to(V.device)
+            wsum = Af @ w
+            value = (V * Af * w[None, :]).sum(dim=1) / torch.where(
+                wsum == 0, 1.0, wsum
+            )
+            all_ok = all_ok & (wsum != 0)
+        elif method == "max":
+            value = torch.where(A, V, -torch.inf).max(dim=1).values
+        else:  # median over the ACTIVE subset: +inf pads sort last, then
+            # index by the active count c (mean of ranks (c−1)//2, c//2)
+            Vs = torch.sort(torch.where(A, V, torch.inf), dim=1).values
+            c = count.long()
+            lo = torch.clamp((c - 1) // 2, min=0)
+            hi = torch.clamp(c // 2, min=0)
+            vlo = torch.gather(Vs, 1, lo[:, None])[:, 0]
+            vhi = torch.gather(Vs, 1, hi[:, None])[:, 0]
+            value = 0.5 * (vlo + vhi)
+        return ModelOutput(value=value, valid=all_ok)
+
+    return Lowered(fn=afn, params=params)

@@ -1,0 +1,81 @@
+"""Carry a rank-wire model's tables across from the JAX package.
+
+``quantized_params_from_jax`` takes the JAX scorer's packed tables as
+numpy arrays — the XLA-backend params ``feat``, ``qthr``, ``dleft``,
+``P_i8``, ``count_i8``, ``vhi``, ``vlo`` and the wire's ``cuts`` /
+``repl`` / ``has_repl`` — and returns the port's tables on the requested
+device: the same keys as ``QuantizedScorer.params`` of a scorer the port
+builds from the same PMML (with the Hopper kernel's tables when the model
+fits the kernel), plus the wire as ``cuts`` (f32[F, C], +inf padded),
+``n_cuts`` (i64[F]), ``repl`` and ``has_repl``.
+
+It imports nothing of the JAX package: the caller hands over numpy
+arrays (``np.asarray`` of the JAX arrays; bf16 arrives as ml_dtypes'
+bfloat16, whose bits are reinterpreted, not rounded again).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from flink_jpmml_tpu_torch.compile import qtrees_cuda
+from flink_jpmml_tpu_torch.utils.device import resolve_device
+
+
+def _bf16(a) -> torch.Tensor:
+    """A numpy bf16 array (ml_dtypes) or f32 array → torch.bfloat16."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(
+            np.array(a, copy=True).view(np.int16)
+        ).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16)
+
+
+def quantized_params_from_jax(
+    np_params: Dict[str, Union[np.ndarray, Sequence[np.ndarray]]],
+    device: Optional[Union[str, torch.device]] = None,
+) -> Dict[str, torch.Tensor]:
+    dev = resolve_device(device)
+    # np.array copies: arrays viewed from JAX buffers are read-only
+    feat = np.array(np_params["feat"], np.int64)
+    qthr = np.array(np_params["qthr"])
+    dleft = np.array(np_params["dleft"], bool)
+    P = np.array(np_params["P_i8"], np.int8)
+    count = np.array(np_params["count_i8"], np.int8)
+    vhi = _bf16(np_params["vhi"])
+    vlo = _bf16(np_params["vlo"])
+    out: Dict[str, torch.Tensor] = {
+        "feat": torch.from_numpy(feat),
+        "qthr": torch.from_numpy(qthr.astype(np.int64)),
+        "dleft": torch.from_numpy(dleft),
+        "P_i8": torch.from_numpy(P),
+        "count_i8": torch.from_numpy(count),
+        "vhi": vhi,
+        "vlo": vlo,
+    }
+    cuts = [np.asarray(c, np.float32) for c in np_params["cuts"]]
+    F = len(cuts)
+    width = max((len(c) for c in cuts), default=0)
+    padded = np.full((F, max(width, 1)), np.inf, np.float32)
+    for j, c in enumerate(cuts):
+        padded[j, : len(c)] = c
+    out["cuts"] = torch.from_numpy(padded)
+    out["n_cuts"] = torch.tensor([len(c) for c in cuts], dtype=torch.int64)
+    out["repl"] = torch.from_numpy(np.array(np_params["repl"], np.float32))
+    out["has_repl"] = torch.from_numpy(np.array(np_params["has_repl"], bool))
+    if (
+        qthr.dtype == np.uint8
+        and feat.shape[1] <= qtrees_cuda.MAX_SPLITS
+        and 0 < F <= qtrees_cuda.MAX_FIELDS
+    ):
+        vals = (vhi.float() + vlo.float()).numpy()
+        out.update({
+            k: torch.from_numpy(v) for k, v in qtrees_cuda.pack_tables(
+                feat, qthr, dleft, P, count, vals, n_fields=F
+            ).items()
+        })
+    return {k: v.to(dev) for k, v in out.items()}

@@ -1,0 +1,107 @@
+"""Card-only tests of the PyTorch port: the Hopper kernel against its
+plain version and the block pipeline on a CUDA device. They skip where
+there is no card. This file imports neither jax nor the JAX package, so
+it runs on a machine that has only torch:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from flink_jpmml_tpu_torch.assets_gen import gen_gbm
+from flink_jpmml_tpu_torch.compile import compile_pmml, qtrees_cuda
+from flink_jpmml_tpu_torch.pmml import parse_pmml_file
+from flink_jpmml_tpu_torch.runtime.block import BlockPipeline, FiniteBlockSource
+from flink_jpmml_tpu_torch.utils.config import BatchConfig, RuntimeConfig
+
+pytestmark = pytest.mark.cuda
+RTOL, ATOL = 1e-4, 1e-5  # the repo's rank-wire bar
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card with nvcc")
+    return torch.device("cuda")
+
+
+def _X(rng, n, F, missing=0.2):
+    X = rng.normal(0.0, 1.5, size=(n, F)).astype(np.float32)
+    X[rng.random(size=X.shape) < missing] = np.nan
+    return X
+
+
+def _gbm(tmp_path, batch, device=None, **kw):
+    doc = parse_pmml_file(gen_gbm(str(tmp_path), **kw))
+    return compile_pmml(doc, batch_size=batch, device=device)
+
+
+def test_kernel_matches_plain_on_the_card(card, tmp_path):
+    q = _gbm(tmp_path, 256, n_trees=19, depth=6, n_features=32).quantized_scorer()
+    assert q.backend == "cuda" and q.device.type == "cuda"
+    tables = {k: q.params[k] for k in qtrees_cuda.TABLE_KEYS}
+    for n in (1, 127, 1000):
+        codes = torch.from_numpy(q.wire.encode(_X(np.random.default_rng(n),
+                                                  n, 32))).to(card)
+        before = qtrees_cuda.ensemble_sum.launches
+        got = qtrees_cuda.ensemble_sum(codes, tables, 32)
+        ref = qtrees_cuda.ensemble_sum_reference(codes, tables)
+        torch.cuda.synchronize()
+        assert qtrees_cuda.ensemble_sum.launches == before + 1
+        torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+
+
+def test_padded_leaves_never_hit_on_the_card(card):
+    feat = np.zeros((1, 1), np.int64)
+    tables = {k: torch.from_numpy(v).to(card)
+              for k, v in qtrees_cuda.pack_tables(
+                  feat, np.array([[3]], np.uint8), np.array([[False]]),
+                  np.array([[[1, -1, 0]]], np.int8), np.array([[1, 1, -5]]),
+                  np.array([[1.0, 2.0, 100.0]], np.float32), 1).items()}
+    codes = torch.tensor([[0], [3], [4], [255]], dtype=torch.uint8,
+                         device=card)
+    assert qtrees_cuda.ensemble_sum(codes, tables, 1).tolist() == [
+        1.0, 1.0, 2.0, 2.0]
+
+
+def test_wrapper_rejects_tables_off_the_card(card, tmp_path):
+    q = _gbm(tmp_path, 64, device="cpu", n_trees=5, depth=3,
+             n_features=4).quantized_scorer()
+    tables = {k: q.params[k] for k in qtrees_cuda.TABLE_KEYS}
+    with pytest.raises(ValueError, match="contiguous on cuda"):
+        qtrees_cuda.ensemble_sum(
+            torch.zeros(4, 4, dtype=torch.uint8, device=card), tables, 4
+        )
+
+
+def test_narrower_batch_raises_on_the_card(card, tmp_path):
+    q = _gbm(tmp_path, 64, n_trees=5, depth=3, n_features=4).quantized_scorer()
+    before = qtrees_cuda.ensemble_sum.launches
+    with pytest.raises(ValueError, match="packed for 4"):
+        q.predict_wire(np.zeros((64, 3), np.uint8))
+    assert qtrees_cuda.ensemble_sum.launches == before
+
+
+def test_block_pipeline_on_the_card_matches_the_cpu_port(card, tmp_path):
+    kw = dict(n_trees=40, depth=6, n_features=32)
+    cm = _gbm(tmp_path, 512, **kw)
+    X = _X(np.random.default_rng(3), 5000, 32)
+    got = []
+    pipe = BlockPipeline(
+        FiniteBlockSource(X, 1500), cm,
+        lambda out, n, off: got.append((off, n, np.asarray(out)[:n].copy())),
+        RuntimeConfig(batch=BatchConfig(size=512, deadline_us=2000)),
+    )
+    assert pipe.backend == "rank_wire_cuda"
+    pipe.run_until_exhausted(timeout=120)
+    expect = 0
+    for off, n, _ in got:
+        assert off == expect
+        expect += n
+    assert expect == 5000
+    q_cpu = _gbm(tmp_path, 512, device="cpu", **kw).quantized_scorer()
+    ref = q_cpu.predict_wire(q_cpu.wire.encode(X)).numpy()[:5000]
+    np.testing.assert_allclose(np.concatenate([v for _, _, v in got]), ref,
+                               rtol=RTOL, atol=ATOL)
