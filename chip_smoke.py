@@ -9,15 +9,18 @@ It imports the port (``flink_jpmml_tpu_torch``) and nothing of JAX or the
 JAX package, and prints one JSON line per phase:
 
 1. card — the ``nvidia-smi`` name / power-limit line and the torch device;
-2. build — compiles ``flink_jpmml_tpu_torch/csrc/qtrees_ensemble.cu`` with
-   nvcc for sm_90a (into ``build/``) and binds it;
-3. kernel — the ensemble-sum kernel against its plain PyTorch version on
-   the card, at the main path's shape (the 500-tree, depth-6, 32-feature
-   GBM, [262144, 32] uint8 codes with about 20% missing cells), on a
-   19-tree model, and on a batch whose length is not a multiple of the
-   kernel's 128-row block, at rtol 1e-4 / atol 1e-5;
+2. build — compiles ``flink_jpmml_tpu_torch/csrc/qtrees_ensemble.cu`` (the
+   leaf-rows kernel) with nvcc for sm_90a (into ``build/``) and binds it;
+3. kernel — the kernel (one f32 row per leaf: the GBM's leaf values)
+   against its plain PyTorch version on the card, bit for bit, at the main
+   path's shape (the 500-tree, depth-6, 32-feature GBM, [262144, 32] uint8
+   codes with about 20% missing cells), on a 19-tree model, and on a batch
+   whose length is not a multiple of the kernel's 128-row block;
 4. timing — CUDA-event medians of the kernel and of the plain version at
-   the main path's shape, beside the least time the card could take;
+   the main path's shape, beside the least time the card could take for
+   the work these inputs need (``ops``: one integer step per split on each
+   tree's hit path, C f32 adds per tree; ``bytes``: codes, tables and
+   output once);
 5. main path — ``gen_gbm`` → ``parse_pmml_file`` → ``compile_pmml``
    (batch 16384, default device: the card) → ``BlockPipeline`` over a
    ``CyclingBlockSource`` in dispatches of 262,144 records, for at least
@@ -25,7 +28,21 @@ JAX package, and prints one JSON line per phase:
    just after, and a 4,096-record sample is scored again on the CPU
    (``device="cpu"``, the kernel's plain version) and, on the card, by the
    torch twin of the XLA scorer from the unpacked path matrix (``P_i8`` /
-   ``count_i8``), which does not go through the kernel's table packer.
+   ``count_i8``), which does not go through the kernel's table packer;
+6. vote kernel — the same kernel with the class rows of a vote forest
+   against its plain version on the card, bit for bit: the 500-tree, depth-6, 32-feature, 3-class
+   majorityVote forest (``gen_vote_forest``) at [262144, 32] with about
+   20% missing cells, its weightedMajorityVote twin, a 19-tree forest, a
+   10-class forest and a 100,003-row batch;
+7. vote timing — as 4, for the vote forest;
+8. vote main path — as 5, over the majorityVote forest, with a sink that
+   takes the (value, shares, label) triple. The 4,096-record head is held
+   to the CPU port and to the torch twin at rtol 1e-4 / atol 1e-5 for
+   shares and values; labels must be equal on rows whose classes do not
+   tie on vote count, and on a tied row the kernel path's label is the
+   lowest tied class and the other's one of the tied classes (the twin's
+   f32 contraction rounds tied totals in an order of its own). Ties are
+   found from exact integer vote counts.
 
 Then the kernels line, the ``nvidia-smi`` line, and last the contract
 line ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -54,8 +71,10 @@ MISSING = 0.2
 # 132 SMs x 64 INT32 lanes x 1.98 GHz boost (the data sheet's 67 TFLOP/s
 # float32 figure is the FP32 pipe, 128 lanes, with an FMA as two ops).
 # Each step is taken as at least one instruction, so the bound is a floor.
+# f32 adds run on the FP32 pipe, at the data sheet's 67 TFLOP/s.
 PEAK_BYTES_S = 3.35e12
 PEAK_INT32_OPS_S = 132 * 64 * 1.98e9
+PEAK_F32_FLOP_S = 67e12
 
 
 def emit(obj) -> None:
@@ -89,13 +108,19 @@ def cuda_ms(fn, warmup: int, repeats: int) -> float:
     return statistics.median(times)
 
 
-def model_tables(workdir: str, n_trees: int, name: str):
-    """gen_gbm → parse → compile on the card → (compiled, rank-wire scorer)."""
-    from flink_jpmml_tpu_torch.assets_gen import gen_gbm
+def model_tables(workdir: str, n_trees: int, name: str, votes=None):
+    """gen_gbm (or, with ``votes`` = gen_vote_forest's keywords, a vote
+    forest) → parse → compile on the card → (doc, compiled, rank-wire
+    scorer)."""
+    from flink_jpmml_tpu_torch.assets_gen import gen_gbm, gen_vote_forest
     from flink_jpmml_tpu_torch.compile import compile_pmml
     from flink_jpmml_tpu_torch.pmml import parse_pmml_file
 
-    doc = parse_pmml_file(gen_gbm(workdir, n_trees=n_trees, name=name))
+    if votes is None:
+        path = gen_gbm(workdir, n_trees=n_trees, name=name)
+    else:
+        path = gen_vote_forest(workdir, n_trees=n_trees, name=name, **votes)
+    doc = parse_pmml_file(path)
     cm = compile_pmml(doc, batch_size=BATCH)
     q = cm.quantized_scorer()
     if q is None or q.backend != "cuda":
@@ -110,30 +135,186 @@ def features(rng, n: int, F: int) -> np.ndarray:
     return X
 
 
-def check_kernel(q, X: np.ndarray, label: str) -> dict:
-    """Kernel vs plain version on the card for one model and batch."""
+def check_kernel(q, X: np.ndarray, label: str, phase: str) -> dict:
+    """Kernel vs plain version on the card for one model and batch, bit for
+    bit (the same gather, masks and ascending-tree f32 adds)."""
     import torch
 
     from flink_jpmml_tpu_torch.compile import qtrees_cuda
 
     tables = {k: q.params[k] for k in qtrees_cuda.TABLE_KEYS}
     codes = torch.from_numpy(q.wire.encode(X)).cuda()
-    got = qtrees_cuda.ensemble_sum(codes, tables, len(q.wire.fields))
-    ref = qtrees_cuda.ensemble_sum_reference(codes, tables)
+    got = qtrees_cuda.leaf_rows(codes, tables, len(q.wire.fields))
+    ref = qtrees_cuda.leaf_rows_reference(codes, tables)
     torch.cuda.synchronize()
-    if got.shape != (X.shape[0],) or not bool(torch.isfinite(got).all()):
+    C = tables["rows"].shape[2]
+    if got.shape != (X.shape[0], C) or not bool(torch.isfinite(got).all()):
         raise RuntimeError(f"{label}: bad kernel output {tuple(got.shape)}")
-    err = float((got - ref).abs().max())
-    ok = bool(torch.allclose(got, ref, rtol=RTOL, atol=ATOL))
     row = {
-        "case": label, "rows": X.shape[0], "trees": q.n_trees,
+        "case": label, "rows": X.shape[0], "trees": q.n_trees, "classes": C,
         "missing_share": float((codes == qtrees_cuda.SENTINEL).float().mean()),
-        "max_abs_err": err, "ok": ok,
+        "max_abs_err": float((got - ref).abs().max()),
+        "ok": bool(torch.equal(got, ref)),
     }
-    if not ok:
-        emit({"phase": "kernel", **row})
-        raise RuntimeError(f"{label}: kernel disagrees with its plain version")
+    if not row["ok"]:
+        emit({"phase": phase, **row})
+        raise RuntimeError(f"{label}: kernel differs from its plain version")
     return row
+
+
+def vote_counts(q, codes) -> np.ndarray:
+    """Exact integer vote counts i64[N, C] of a majorityVote forest: each
+    tree's hit leaf label, from the front half and the leaf labels (not
+    from the f32 class rows)."""
+    import torch
+
+    from flink_jpmml_tpu_torch.compile import qtrees_cuda
+
+    tables = {k: q.params[k] for k in qtrees_cuda.TABLE_KEYS}
+    lab = q.params["lab"].long()
+    n = codes.shape[0]
+    counts = torch.zeros((n, len(q.labels)), dtype=torch.int64,
+                         device=codes.device)
+    rows = torch.arange(n, device=codes.device)
+    ones = torch.ones(n, dtype=torch.int64, device=codes.device)
+    for t, hit in qtrees_cuda._leaf_hits(codes, tables):
+        if not bool((hit.sum(dim=1) == 1).all()):
+            raise RuntimeError(f"tree {t}: not exactly one leaf hit")
+        leaf = hit.long().argmax(dim=1)
+        counts.index_put_((rows, lab[t, leaf]), ones, accumulate=True)
+    return counts.cpu().numpy()
+
+
+def check_votes(got, ref, counts: np.ndarray, label: str) -> dict:
+    """(value, shares, label) triples ``got`` (the kernel path) against
+    ``ref``: shares and values at the rank-wire bar, labels by the tie rule
+    of the module docstring → errors and the number of tied rows."""
+    gv, gp, gl = (np.asarray(a) for a in got)
+    rv, rp, rl = (np.asarray(a) for a in ref)
+    n = counts.shape[0]
+    if gp.shape != rp.shape or not np.isfinite(gp).all():
+        raise RuntimeError(f"{label}: shares {gp.shape} vs {rp.shape}")
+    if not (np.allclose(gp, rp, rtol=RTOL, atol=ATOL)
+            and np.allclose(gv, rv, rtol=RTOL, atol=ATOL)):
+        raise RuntimeError(f"{label}: shares or values differ: "
+                           f"{float(np.abs(gp - rp).max())}")
+    top = counts == counts.max(axis=1, keepdims=True)
+    tied = top.sum(axis=1) > 1
+    rows = np.arange(n)
+    if not (np.array_equal(gl[~tied], rl[~tied])
+            and np.array_equal(gl[tied], top.argmax(axis=1)[tied])
+            and top[rows, rl][tied].all()):
+        raise RuntimeError(f"{label}: labels break the tie rule")
+    return {"max_abs_err": float(np.abs(gp - rp).max()),
+            "value_max_abs_err": float(np.abs(gv - rv).max()),
+            "tied_rows": int(tied.sum()),
+            "tied_label_differs": int((gl != rl)[tied].sum())}
+
+
+def needed_ops(codes, tables) -> dict:
+    """The operations these inputs need: per record and tree, one integer
+    step for each split on the hit leaf's path (the bits of its ``on``
+    mask) and C f32 adds for its row; found with the plain front half."""
+    import torch
+
+    from flink_jpmml_tpu_torch.compile import qtrees_cuda
+
+    bits = torch.arange(64, device=codes.device)
+    depth = ((tables["on"][..., None] >> bits) & 1).sum(dim=-1)  # [T, L]
+    steps = hits = 0
+    for t, hit in qtrees_cuda._leaf_hits(codes, tables):
+        steps += int((hit * depth[t]).sum())
+        hits += int(hit.sum())
+    return {"int_steps": steps, "f32_adds": hits * tables["rows"].shape[2]}
+
+
+def time_kernel(q, X: np.ndarray) -> dict:
+    """CUDA-event medians of the kernel and its plain version on one batch,
+    beside the least time the card could take: each input read once and
+    the output written once over HBM's rate, or the needed integer steps
+    and f32 adds over their pipes' rates, whichever is longer."""
+    import torch
+
+    from flink_jpmml_tpu_torch.compile import qtrees_cuda
+
+    tables = {k: q.params[k] for k in qtrees_cuda.TABLE_KEYS}
+    codes = torch.from_numpy(q.wire.encode(X)).cuda()
+    F = codes.shape[1]
+    kern_ms = cuda_ms(lambda: qtrees_cuda.leaf_rows(codes, tables, F), 3, 20)
+    plain_ms = cuda_ms(
+        lambda: qtrees_cuda.leaf_rows_reference(codes, tables), 1, 3)
+    N = codes.shape[0]
+    T, S = tables["split"].shape
+    _, L, C = tables["rows"].shape
+    n_bytes = codes.numel() + 4 * N * C + sum(
+        t.numel() * t.element_size() for t in tables.values()
+    )
+    ops = needed_ops(codes, tables)
+    bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
+    ops_ms = max(ops["int_steps"] / PEAK_INT32_OPS_S,
+                 ops["f32_adds"] / PEAK_F32_FLOP_S) * 1e3
+    return {
+        "rows": N, "trees": T, "splits": S, "leaves": L, "classes": C,
+        "kernel_ms": kern_ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "bytes": n_bytes, "bytes_ms": bytes_ms, "ops": ops, "ops_ms": ops_ms,
+        # what this version executes: every split and every leaf test
+        "executed_int_steps": N * T * (S + L),
+        "kernel_records_per_s": N / (kern_ms * 1e-3),
+        "library_ms": None,
+    }
+
+
+def drive(cm, data: np.ndarray, sink, count: list, counter) -> dict:
+    """BlockPipeline over ``data`` until MIN_DISPATCHES dispatches of
+    DISPATCH records reached the sink; ``counter`` (a kernel wrapper) is
+    reset just before and read just after."""
+    from flink_jpmml_tpu_torch.runtime.block import (
+        BlockPipeline,
+        CyclingBlockSource,
+    )
+    from flink_jpmml_tpu_torch.utils.config import BatchConfig, RuntimeConfig
+
+    pipe = BlockPipeline(
+        CyclingBlockSource(data, block_size=DISPATCH),
+        cm,
+        sink,
+        RuntimeConfig(batch=BatchConfig(
+            size=BATCH, deadline_us=5000, queue_capacity=4 * DISPATCH,
+        )),
+        max_dispatch_chunks=DISPATCH // BATCH,
+    )
+    if pipe.backend != "rank_wire_cuda":
+        raise RuntimeError(f"pipeline backend {pipe.backend}")
+    target = MIN_DISPATCHES * DISPATCH
+    counter.launches = 0
+    t0 = time.perf_counter()
+    pipe.start()
+    deadline = t0 + 600
+    while (count[0] < target and pipe.error is None
+           and time.perf_counter() < deadline):
+        time.sleep(0.01)
+    pipe.stop()
+    pipe.join(timeout=60)
+    dt = time.perf_counter() - t0
+    launches = counter.launches
+    snap = pipe.metrics.snapshot()
+    dispatches = int(snap["batches"])
+    if count[0] < target:
+        raise RuntimeError(f"main path scored {count[0]} < {target} records")
+    if launches < dispatches or launches == 0:
+        raise RuntimeError(f"{launches} kernel launches for {dispatches} "
+                           "dispatches")
+    return {
+        "backend": pipe.backend,
+        "records": count[0], "seconds": dt, "records_per_s": count[0] / dt,
+        "dispatches": dispatches, "launches": launches,
+        "records_per_dispatch": snap["batch_fill_records"] / max(dispatches, 1),
+        "encode_s": snap.get("encode_s"), "h2d_stall_s": snap.get("h2d_stall_s"),
+        "batch_latency_p50_s": snap.get("batch_latency_s_p50"),
+        "batch_latency_p99_s": snap.get("batch_latency_s_p99"),
+    }
 
 
 def main() -> int:
@@ -145,11 +326,6 @@ def main() -> int:
     from flink_jpmml_tpu_torch.compile import qtrees_cuda
     from flink_jpmml_tpu_torch.compile.compiler import compile_pmml
     from flink_jpmml_tpu_torch.compile.qtrees import _match_ensemble, _torch_qfn
-    from flink_jpmml_tpu_torch.runtime.block import (
-        BlockPipeline,
-        CyclingBlockSource,
-    )
-    from flink_jpmml_tpu_torch.utils.config import BatchConfig, RuntimeConfig
 
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -169,35 +345,14 @@ def main() -> int:
     F = len(q.wire.fields)
     X_main = features(rng, DISPATCH, F)
     rows = [
-        check_kernel(q, X_main, "gbm500_262144"),
-        check_kernel(q19, features(rng, 65536, F), "gbm19_65536"),
-        check_kernel(q, features(rng, 100_003, F), "gbm500_ragged_100003"),
+        check_kernel(q, X_main, "gbm500_262144", "kernel"),
+        check_kernel(q19, features(rng, 65536, F), "gbm19_65536", "kernel"),
+        check_kernel(q, features(rng, 100_003, F), "gbm500_ragged_100003",
+                     "kernel"),
     ]
     emit({"phase": "kernel", "cases": rows})
-
-    tables = {k: q.params[k] for k in qtrees_cuda.TABLE_KEYS}
-    codes = torch.from_numpy(q.wire.encode(X_main)).cuda()
-    kern_ms = cuda_ms(lambda: qtrees_cuda.ensemble_sum(codes, tables, F),
-                      3, 20)
-    plain_ms = cuda_ms(
-        lambda: qtrees_cuda.ensemble_sum_reference(codes, tables), 1, 3
-    )
-    N = codes.shape[0]
-    T, S = tables["split"].shape
-    L = tables["vals"].shape[1]
-    n_bytes = codes.numel() + 4 * N + sum(
-        t.numel() * t.element_size() for t in tables.values()
-    )
-    n_ops = N * T * (S + L)
-    bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
-    ops_ms = n_ops / PEAK_INT32_OPS_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    emit({"phase": "timing", "rows": N, "trees": T, "splits": S,
-          "leaves": L, "kernel_ms": kern_ms, "plain_ms": plain_ms,
-          "bound_ms": bound_ms, "bytes": n_bytes, "bytes_ms": bytes_ms,
-          "ops": n_ops, "ops_ms": ops_ms,
-          "kernel_records_per_s": N / (kern_ms * 1e-3),
-          "library_ms": None})
+    timing = time_kernel(q, X_main)
+    emit({"phase": "timing", **timing})
 
     # -- main path ---------------------------------------------------------
     data = features(rng, 4 * DISPATCH, F)
@@ -216,36 +371,8 @@ def main() -> int:
     # warm the path once outside the counted window
     q.predict_wire(q.wire.encode(data[:BATCH]))
     torch.cuda.synchronize()
-    pipe = BlockPipeline(
-        CyclingBlockSource(data, block_size=DISPATCH),
-        cm,
-        sink,
-        RuntimeConfig(batch=BatchConfig(
-            size=BATCH, deadline_us=5000, queue_capacity=4 * DISPATCH,
-        )),
-        max_dispatch_chunks=DISPATCH // BATCH,
-    )
-    if pipe.backend != "rank_wire_cuda":
-        raise RuntimeError(f"pipeline backend {pipe.backend}")
-    target = MIN_DISPATCHES * DISPATCH
-    qtrees_cuda.ensemble_sum.launches = 0
-    t0 = time.perf_counter()
-    pipe.start()
-    deadline = t0 + 600
-    while (count[0] < target and pipe.error is None
-           and time.perf_counter() < deadline):
-        time.sleep(0.01)
-    pipe.stop()
-    pipe.join(timeout=60)
-    dt = time.perf_counter() - t0
-    launches = qtrees_cuda.ensemble_sum.launches
-    snap = pipe.metrics.snapshot()
-    dispatches = int(snap["batches"])
-    if count[0] < target:
-        raise RuntimeError(f"main path scored {count[0]} < {target} records")
-    if launches < dispatches or launches == 0:
-        raise RuntimeError(f"{launches} kernel launches for {dispatches} "
-                           "dispatches")
+    run = drive(cm, data, sink, count, qtrees_cuda.leaf_rows)
+    launches = run["launches"]
 
     cm_cpu = compile_pmml(doc, batch_size=BATCH, device="cpu")
     q_cpu = cm_cpu.quantized_scorer()
@@ -268,31 +395,96 @@ def main() -> int:
         raise RuntimeError(f"main path disagrees with the torch twin on the "
                            f"unpacked tables: {twin_err}")
     emit({
-        "phase": "main_path", "backend": pipe.backend,
+        "phase": "main_path", **run,
         "cpu_backend": f"rank_wire_{q_cpu.backend}",
-        "records": count[0], "seconds": dt, "records_per_s": count[0] / dt,
-        "dispatches": dispatches, "launches": launches,
-        "records_per_dispatch": snap["batch_fill_records"] / max(dispatches, 1),
-        "encode_s": snap.get("encode_s"), "h2d_stall_s": snap.get("h2d_stall_s"),
-        "batch_latency_p50_s": snap.get("batch_latency_s_p50"),
-        "batch_latency_p99_s": snap.get("batch_latency_s_p99"),
         "cpu_check_rows": sample, "cpu_check_max_abs_err": err,
         "twin_check_max_abs_err": twin_err,
     })
 
-    emit({"kernels": [{
-        "name": "qtrees_ensemble_sum",
-        "route": "cuda",
-        "source": "flink_jpmml_tpu_torch/csrc/qtrees_ensemble.cu",
-        "replaces": "flink_jpmml_tpu/compile/qtrees_pallas.py:170",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": kern_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None,
-    }]})
+    # -- vote forest: kernel -----------------------------------------------
+    vote_kw = dict(depth=6, n_features=32, n_classes=3, seed=0)
+    vdoc, vcm, vq = model_tables(workdir, 500, "votes_500.pmml",
+                                 votes=vote_kw)
+    _, _, vq_w = model_tables(workdir, 500, "votes_w500.pmml",
+                              votes=dict(vote_kw, weighted=True))
+    _, _, vq19 = model_tables(workdir, 19, "votes_19.pmml", votes=vote_kw)
+    _, _, vq_c10 = model_tables(workdir, 500, "votes_c10.pmml",
+                                votes=dict(vote_kw, n_classes=10))
+    vrows = [
+        check_kernel(vq, X_main, "votes500_262144", "vote_kernel"),
+        check_kernel(vq_w, X_main, "weighted500_262144", "vote_kernel"),
+        check_kernel(vq19, features(rng, 65536, F), "votes19_65536",
+                     "vote_kernel"),
+        check_kernel(vq_c10, features(rng, 65536, F), "votes500_c10_65536",
+                     "vote_kernel"),
+        check_kernel(vq, features(rng, 100_003, F), "votes500_ragged_100003",
+                     "vote_kernel"),
+    ]
+    emit({"phase": "vote_kernel", "cases": vrows})
+    vtiming = time_kernel(vq, X_main)
+    emit({"phase": "vote_timing", **vtiming})
+
+    # -- vote forest: main path ----------------------------------------------
+    vkept = {}
+    vcount = [0]
+    C = len(vq.labels)
+
+    def vote_sink(out, n, first_off):
+        value, probs, lab = (np.asarray(o) for o in out)
+        if (value.ndim != 1 or value.shape[0] < n
+                or probs.shape != (value.shape[0], C)
+                or lab.shape != value.shape):
+            raise RuntimeError(f"vote sink got {value.shape} / {probs.shape}"
+                               f" / {lab.shape} for {n} records")
+        if first_off == 0:
+            vkept["head"] = tuple(a[:sample].copy()
+                                  for a in (value, probs, lab))
+        vcount[0] += n
+
+    vq.predict_wire(vq.wire.encode(data[:BATCH]))
+    torch.cuda.synchronize()
+    vrun = drive(vcm, data, vote_sink, vcount, qtrees_cuda.leaf_rows)
+
+    head_codes = vq.wire.encode(data[:sample])
+    counts = vote_counts(vq, torch.from_numpy(head_codes).cuda())
+    vq_cpu = compile_pmml(vdoc, batch_size=BATCH,
+                          device="cpu").quantized_scorer()
+    cpu_ref = [o.numpy()[:sample] for o in vq_cpu.predict_padded(
+        *vq_cpu.pad_wire(head_codes))]
+    cpu_check = check_votes(vkept["head"], cpu_ref, counts, "CPU port")
+    vtwin = _torch_qfn(_match_ensemble(vdoc)[2], True, False,
+                       vq.wire.sentinel, vdoc.targets)
+    with torch.no_grad():
+        twin_ref = [o.cpu().numpy() for o in vtwin(
+            vq.params, torch.from_numpy(head_codes).cuda())]
+    twin_check = check_votes(vkept["head"], twin_ref, counts, "torch twin")
+    emit({
+        "phase": "vote_main_path", **vrun,
+        "cpu_backend": f"rank_wire_{vq_cpu.backend}",
+        "check_rows": sample, "cpu_check": cpu_check,
+        "twin_check": twin_check,
+    })
+
+    def kernel_entry(name, replaces, launches, checked, t):
+        return {
+            "name": name, "route": "cuda",
+            "source": "flink_jpmml_tpu_torch/csrc/qtrees_ensemble.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in checked),
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "ops": t["ops"],
+        }
+
+    # one kernel, two paths: each entry reads its own path's launches
+    emit({"kernels": [
+        kernel_entry("qtrees_leaf_rows (regression sum, C=1)",
+                     "flink_jpmml_tpu/compile/qtrees_pallas.py:170 and :218",
+                     launches, rows, timing),
+        kernel_entry("qtrees_leaf_rows (vote shares)",
+                     "flink_jpmml_tpu/compile/qtrees_pallas.py:187 and :238",
+                     vrun["launches"], vrows, vtiming),
+    ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

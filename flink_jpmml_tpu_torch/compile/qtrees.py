@@ -14,12 +14,15 @@ instead of raw floats:
   compares of the dense path.
 - **Wire dtype.** ``uint8`` when every feature has <= 254 cuts, else
   ``uint16``. The top code (255/65535) is the missing-value sentinel.
-- **Backends.** ``"cuda"``: the Hopper kernel of ``qtrees_cuda.py`` (uint8
-  wire, at most 64 split slots per tree, a linear regression aggregate
-  whose coefficients fold into the leaf values); on a CPU device its
-  wrapper runs the kernel's plain version. ``"torch"``: the twin of the
-  JAX package's XLA ``qfn`` in plain PyTorch, for every other model the
-  wire takes (uint16 wires, max/median aggregates, classification).
+- **Backends.** ``"cuda"``: the Hopper kernel of ``qtrees_cuda.py``
+  (uint8 wire, at most 64 split slots per tree and 256 fields) — the
+  ensemble sum for a linear regression aggregate whose coefficients fold
+  into the leaf values, the vote shares for a majorityVote /
+  weightedMajorityVote forest of at most ``MAX_CLASSES`` classes; on a
+  CPU device the wrapper runs the kernel's plain version
+  (``"cuda_plain"``). ``"torch"``: the twin of the JAX package's XLA
+  ``qfn`` in plain PyTorch, for every other model the wire takes (uint16
+  wires, max/median aggregates, ``single``-method trees, wider targets).
 
 Host encode runs through numpy ``searchsorted`` (the JAX package's
 fall-back branch and its semantic oracle); the C++ bucketizer, the fused
@@ -268,17 +271,25 @@ def _torch_qfn(method: str, classification: bool, fused_linear: bool,
     def qfn_cls(pp, Xq):
         hit = _hit(pp, Xq)
         probs = _pair("btl,tlc->bc", hit, pp["phi"], pp["plo"])
+        lab = None
         if method == "single":
             # the label is the leaf's score attribute, not argmax
             lab = torch.round(
                 torch.einsum("btl,tl->b", hit, pp["lab"])
             ).long()
-        else:
-            lab = torch.argmax(probs, dim=1)
-        value = torch.gather(probs, 1, lab[:, None])[:, 0]
-        value = apply_targets_value(value, targets)
-        return value.float(), probs.float(), lab
+        return _vote_epilogue(probs, targets, lab)
     return qfn_cls
+
+
+def _vote_epilogue(probs: torch.Tensor, targets, lab=None):
+    """(value, probs, label) from f32[B, C] class shares, as the JAX
+    package's classification epilogue (qtrees.py:1076-1087): the label is
+    the argmax unless given, the value its share after Targets."""
+    if lab is None:
+        lab = torch.argmax(probs, dim=1)
+    value = torch.gather(probs, 1, lab[:, None])[:, 0]
+    value = apply_targets_value(value, targets)
+    return value.float(), probs.float(), lab
 
 
 def build_quantized_scorer(
@@ -291,9 +302,11 @@ def build_quantized_scorer(
     the CUDA card; raises DeviceUnavailableError without one).
 
     Returns None when the model shape is outside the fast path's contract
-    (the JAX package's eligibility rules, unchanged). The Hopper kernel
-    scores the model when it fits it (a uint8 wire, a linear aggregate,
-    at most 64 split slots and 256 fields), the torch twin otherwise."""
+    (the JAX package's eligibility rules, unchanged). A Hopper kernel
+    scores the model when it fits one (a uint8 wire, at most 64 split
+    slots and 256 fields, and a linear regression aggregate or a
+    majorityVote / weightedMajorityVote forest of at most ``MAX_CLASSES``
+    classes), the torch twin otherwise."""
     dev = resolve_device(device)
     config = config or CompileConfig()
     if doc.transformations.derived_fields or doc.output_fields:
@@ -435,30 +448,43 @@ def build_quantized_scorer(
         has_repl=has_repl,
     )
 
+    # the JAX package's Pallas conditions (qtrees.py:1012-1018) under the
+    # kernels' own limits
     kernel_fits = (
         dtype is np.uint8
-        and not classification
-        and fused_linear
         and S <= qtrees_cuda.MAX_SPLITS
         and F <= qtrees_cuda.MAX_FIELDS
+        and (
+            (not classification and fused_linear)
+            or (
+                classification
+                and method in ("majorityVote", "weightedMajorityVote")
+                and len(packed.labels) <= qtrees_cuda.MAX_CLASSES
+            )
+        )
     )
     if kernel_fits:
-        # the kernel sums one f32 table: vhi + vlo (qtrees.py:1028)
-        vals_tbl = params["vhi"].float() + params["vlo"].float()
+        # the kernel sums one f32 row per hit leaf: the bf16 pair's sum
+        # (qtrees.py:1028)
+        hi, lo = ("phi", "plo") if classification else ("vhi", "vlo")
         params.update(qtrees_cuda.pack_tables(
-            feat, qthr, dleft, P.astype(np.int8), p["count"], vals_tbl.numpy(),
-            n_fields=F,
+            feat, qthr, dleft, P.astype(np.int8), p["count"], params[hi],
+            params[lo], n_fields=F,
         ))
 
         def fn(pp, Xq):
-            raw = qtrees_cuda.ensemble_sum(
+            rows = qtrees_cuda.leaf_rows(
                 Xq, {k: pp[k] for k in qtrees_cuda.TABLE_KEYS}, F
             )
-            return apply_targets_value(raw, targets).float()
-        chosen = "cuda" if dev.type == "cuda" else "cuda_plain"
+            if classification:
+                return _vote_epilogue(rows, targets)
+            return apply_targets_value(rows[:, 0], targets).float()
     else:
         fn = _torch_qfn(method, classification, fused_linear, sentinel, targets)
-        chosen = "torch"
+    chosen = (
+        "torch" if not kernel_fits
+        else "cuda" if dev.type == "cuda" else "cuda_plain"
+    )
 
     return QuantizedScorer(
         wire=wire,

@@ -1,18 +1,25 @@
-"""Hopper kernel for the rank-wire ensemble sum, its plain version, and
+"""Hopper kernel for the rank-wire tree ensembles, its plain version, and
 the host packer of its tables.
 
 Replaces the Pallas TPU kernels ``flink_jpmml_tpu/compile/qtrees_pallas.py``
-``_kernel`` and ``_kernel_mega`` (both compute the same f32[B] ensemble
-sum; on Hopper the tree loop lives inside the block, so one CUDA kernel,
-``csrc/qtrees_ensemble.cu``, serves both).
+``_kernel`` / ``_kernel_mega`` (the f32[B] ensemble sum of a regression
+forest) and ``_kernel_cls`` / ``_kernel_mega_cls`` (the f32[B, C] vote
+shares of a majorityVote / weightedMajorityVote forest). On Hopper the
+tree loop lives inside the block, and each tree hits exactly one leaf, so
+one CUDA kernel (``csrc/qtrees_ensemble.cu``) serves all four: per record,
+the f32 sum over trees of the hit leaf's f32[C] row, with C = 1 for the
+regression sum. Its front half (``go_mask`` / ``leaf_hit``) is the TPU
+kernels' ``_leaf_hits``.
 
-Bound on an H100: per record the kernel moves F bytes of codes in and 4
-bytes of score out (36 B for the 32-feature GBM: 2.8 µs for 262,144
-records at 3.35 TB/s) and does T·(S+L) integer compare-and-select steps
-(63.5k for 500 depth-6 trees: 1.0 ms for 262,144 records at the card's
-1.67e13/s INT32 issue rate, 132 SMs × 64 INT32 lanes × 1.98 GHz, taking
-each step as at least one integer instruction). It is bound by operations. The design note at the
-top of the ``.cu`` file says what the kernel does about that.
+Bound on an H100: per record the kernel moves F bytes of codes in and
+4·C bytes out (about 3 µs for 262,144 32-feature records at 3.35 TB/s);
+the inputs need one integer step per split on each tree's hit path and
+C f32 adds per tree (for 500 complete depth-6 trees, 7.9e8 integer steps
+per 262,144 records: 47 µs at the card's 1.67e13/s INT32 issue rate, 132
+SMs × 64 INT32 lanes × 1.98 GHz). It is bound by operations. This first
+version executes every split and tests every leaf (T·(S+L) steps per
+record), so it runs far above that floor; the design note at the top of
+the ``.cu`` file says what it does and what is left.
 
 Tables (``pack_tables``, numpy, host side): the TPU kernel's one-hot
 feature-select matmul and block-diagonal int8 path matrices exist because
@@ -22,15 +29,17 @@ directly, and the path matrix becomes two 64-bit masks per leaf:
 - ``split`` i32[T, S]: ``feat | qthr << 16 | dleft << 24`` per split;
 - ``on`` i64[T, L]: bit s set iff split s lies on the leaf's path;
 - ``left`` i64[T, L]: bit s set iff the path goes left at split s;
-- ``vals`` f32[T, L]: leaf values (``vhi + vlo``, coefficients folded in).
+- ``rows`` f32[T, L, C]: each leaf's row, ``f32(hi) + f32(lo)`` of the
+  JAX package's bf16 pair — ``vhi`` / ``vlo`` (leaf values, aggregate
+  coefficients folded in, C = 1) or ``phi`` / ``plo`` (class rows).
 
 Leaf l is hit iff ``(go & on[l]) == left[l]``; this equals the JAX
 package's ``sign @ P == count`` because ``count`` is the number of nonzero
 ``P`` entries on the path. Padded leaves (``count = -5``) get ``on = 0,
 left = 1`` and never match.
 
-Dispatch (``ensemble_sum``): a CUDA tensor launches the kernel or raises;
-a CPU tensor runs :func:`ensemble_sum_reference`, the plain PyTorch version
+Dispatch (``leaf_rows``): a CUDA tensor launches the kernel or raises; a
+CPU tensor runs the plain PyTorch version (:func:`leaf_rows_reference`),
 with the same arithmetic and the same ascending-tree f32 order. There is
 no fall-back from one to the other. The kernel is built with ``nvcc`` from
 the repository's sources on first use, into ``build/`` beside the package
@@ -46,7 +55,7 @@ import pathlib
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -56,7 +65,12 @@ from flink_jpmml_tpu_torch.utils.exceptions import FlinkJpmmlTpuError
 SENTINEL = 255  # uint8 wire missing code
 MAX_SPLITS = 64  # one 64-bit go-left mask per tree
 MAX_FIELDS = 256  # staged codes per block fit the default shared memory
-TABLE_KEYS = ("split", "on", "left", "vals")
+# the kernel keeps one f32 accumulator per class in registers; 16 covers
+# every vote forest of the repo's fixtures (3 classes) with room, and a
+# wider target stays on the torch twin. Must equal kMaxClasses in the .cu
+# source.
+MAX_CLASSES = 16
+TABLE_KEYS = ("split", "on", "left", "rows")
 
 _PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 SOURCE = _PKG_DIR / "csrc" / "qtrees_ensemble.cu"
@@ -80,19 +94,10 @@ class KernelLaunchError(FlinkJpmmlTpuError):
 # ---------------------------------------------------------------------------
 
 
-def pack_tables(
-    feat: np.ndarray,   # i[T, S] feature index per split
-    qthr: np.ndarray,   # u8[T, S] rank thresholds
-    dleft: np.ndarray,  # bool[T, S] missing → left
-    P: np.ndarray,      # i8[T, S, L] path matrix (+1 left, -1 right, 0 off)
-    count: np.ndarray,  # i8[T, L] path lengths (-5 = padded leaf)
-    vals: np.ndarray,   # f32[T, L] leaf values
-    n_fields: int,
-) -> Dict[str, np.ndarray]:
-    """Per-tree tables of the kernel (see the module docstring). Raises
-    ValueError on shapes the kernel does not take."""
+def _pack_masks(feat, qthr, dleft, P, count, n_fields) -> Dict[str, np.ndarray]:
+    """``split`` / ``on`` / ``left`` of one forest (see the module
+    docstring). Raises ValueError on shapes the kernel does not take."""
     T, S = feat.shape
-    L = P.shape[2]
     if S > MAX_SPLITS:
         raise ValueError(f"{S} split slots per tree > {MAX_SPLITS}")
     if not 0 < n_fields <= MAX_FIELDS:
@@ -131,8 +136,46 @@ def pack_tables(
         "split": split.view(np.int32),
         "on": on.view(np.int64),
         "left": left.view(np.int64),
-        "vals": np.ascontiguousarray(vals, np.float32),
     }
+
+
+def pack_tables(
+    feat: np.ndarray,   # i[T, S] feature index per split
+    qthr: np.ndarray,   # u8[T, S] rank thresholds
+    dleft: np.ndarray,  # bool[T, S] missing → left
+    P: np.ndarray,      # i8[T, S, L] path matrix (+1 left, -1 right, 0 off)
+    count: np.ndarray,  # i8[T, L] path lengths (-5 = padded leaf)
+    hi: torch.Tensor,   # bf16[T, L] leaf values or bf16[T, L, C] class rows
+    lo: torch.Tensor,   # bf16, the low half of the same
+    n_fields: int,
+) -> Dict[str, np.ndarray]:
+    """Per-tree tables of the kernel (see the module docstring). Raises
+    ValueError on shapes the kernel does not take.
+
+    ``rows`` is ``f32(hi) + f32(lo)``, with a trailing axis of 1 for a
+    [T, L] pair: exact in f32 (lo lies below hi's last bit, so the pair
+    spans at most 17 significant bits), and no product of the kernel
+    touches it, so one f32 table carries the pair without loss. A kernel
+    that moves the rows onto tensor-core products must take the pair apart
+    again (ROADMAP, "Precision trap")."""
+    T, S = np.shape(feat)
+    L = np.shape(P)[2]
+    if hi.dtype != torch.bfloat16 or lo.dtype != torch.bfloat16:
+        raise ValueError(f"leaf rows must be a bf16 pair, got {hi.dtype} / "
+                         f"{lo.dtype}")
+    if hi.dim() == 2:
+        hi, lo = hi[..., None], lo[..., None]
+    if hi.dim() != 3 or tuple(hi.shape[:2]) != (T, L) or hi.shape != lo.shape:
+        raise ValueError(f"leaf rows {tuple(hi.shape)} / {tuple(lo.shape)} "
+                         f"do not match [{T}, {L}, C]")
+    C = hi.shape[2]
+    if not 0 < C <= MAX_CLASSES:
+        raise ValueError(f"{C} classes outside (0, {MAX_CLASSES}]")
+    out = _pack_masks(feat, qthr, dleft, P, count, n_fields)
+    out["rows"] = np.ascontiguousarray(
+        (hi.float() + lo.float()).cpu().numpy(), np.float32
+    )
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -140,28 +183,43 @@ def pack_tables(
 # ---------------------------------------------------------------------------
 
 
-def ensemble_sum_reference(codes: torch.Tensor, tables: Dict[str, torch.Tensor]):
-    """Plain PyTorch version of the kernel: u8[N, F] codes → f32[N] sums.
-
-    The same gather / compare / mask / f32 arithmetic as the kernel, tree
-    by tree in ascending order, so its sums are the kernel's bit for bit
-    (each tree contributes exactly one leaf value)."""
+def _leaf_hits(
+    codes: torch.Tensor, tables: Dict[str, torch.Tensor]
+) -> Iterator[Tuple[int, torch.Tensor]]:
+    """The kernel's front half in plain PyTorch: for each tree t in
+    ascending order, ``(t, hit)`` with ``hit`` bool[N, L] the leaves whose
+    path masks the record's go-left mask matches."""
     split = tables["split"].long() & 0xFFFFFFFF
     feat = split & 0xFFFF
     qthr = (split >> 16) & 0xFF
     dleft = ((split >> 24) & 1).bool()
-    on, left, vals = tables["on"], tables["left"], tables["vals"]
+    on, left = tables["on"], tables["left"]
     T, S = split.shape
     shifts = torch.arange(S, device=codes.device)
     x_all = codes.long()
-    acc = torch.zeros(codes.shape[0], dtype=torch.float32, device=codes.device)
     for t in range(T):
         x = x_all[:, feat[t]]  # [N, S]
         go_bit = torch.where(x == SENTINEL, dleft[t], x <= qthr[t])
         # distinct powers of two: the sum is the bitwise or
         go = (go_bit.long() << shifts).sum(dim=1)  # [N]
-        hit = (go[:, None] & on[t][None, :]) == left[t][None, :]
-        acc = acc + torch.where(hit, vals[t][None, :], 0.0).sum(dim=1)
+        yield t, (go[:, None] & on[t][None, :]) == left[t][None, :]
+
+
+def leaf_rows_reference(codes: torch.Tensor, tables: Dict[str, torch.Tensor]):
+    """Plain PyTorch version of the kernel: u8[N, F] codes → f32[N, C].
+
+    The same front half as the kernel; per tree the last hit leaf's row
+    (none: nothing) is added to the f32 accumulator, one add per class,
+    trees in ascending order, so its sums are the kernel's bit for bit."""
+    rows = tables["rows"]
+    L, C = rows.shape[1], rows.shape[2]
+    leaf_ids = torch.arange(L, device=codes.device)
+    acc = torch.zeros((codes.shape[0], C), dtype=torch.float32,
+                      device=codes.device)
+    for t, hit in _leaf_hits(codes, tables):
+        idx = torch.where(hit, leaf_ids[None, :], -1).amax(dim=1)  # [N]
+        row = rows[t][idx.clamp(min=0)]  # [N, C]
+        acc = acc + torch.where(idx[:, None] >= 0, row, 0.0)
     return acc
 
 
@@ -186,7 +244,7 @@ def _nvcc() -> str:
 
 def build(verbose: bool = False) -> ctypes.CDLL:
     """Compile ``csrc/qtrees_ensemble.cu`` for sm_90a (once per source
-    content) and bind it; → the loaded library."""
+    content) and bind its entry point; → the loaded library."""
     global _LIB
     with _LIB_LOCK:
         if _LIB is not None:
@@ -207,23 +265,26 @@ def build(verbose: bool = False) -> ctypes.CDLL:
                 print(res.stderr, end="")
             os.replace(tmp, lib_path)
         lib = ctypes.CDLL(str(lib_path))
-        fn = lib.qtrees_ensemble_sum
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, i64, i32, p, p, p, p, i32, i32, i32, i32, p, p]
-        fn.restype = ctypes.c_int
+        lib.qtrees_leaf_rows.argtypes = [
+            p, i64, i32, p, p, p, p, i32, i32, i32, i32, i32, p, p]
+        lib.qtrees_leaf_rows.restype = ctypes.c_int
         _LIB = lib
         return lib
 
 
 def _check_tables(tables: Dict[str, torch.Tensor], device: torch.device):
-    split = tables["split"]
-    T, S = split.shape
-    L = tables["vals"].shape[1]
+    """Types, shapes and placement of the kernel's tables → (T, S, L, C)."""
+    split, rows = tables["split"], tables["rows"]
+    if split.dim() != 2 or rows.dim() != 3:
+        raise ValueError(f"tables 'split' {tuple(split.shape)} / 'rows' "
+                         f"{tuple(rows.shape)} must be 2-D / 3-D")
+    (T, S), (L, C) = split.shape, rows.shape[1:]
     expect = {
         "split": (torch.int32, (T, S)),
         "on": (torch.int64, (T, L)),
         "left": (torch.int64, (T, L)),
-        "vals": (torch.float32, (T, L)),
+        "rows": (torch.float32, (T, L, C)),
     }
     for key, (dtype, shape) in expect.items():
         t = tables[key]
@@ -239,19 +300,12 @@ def _check_tables(tables: Dict[str, torch.Tensor], device: torch.device):
             )
     if S > MAX_SPLITS:
         raise ValueError(f"{S} split slots per tree > {MAX_SPLITS}")
-    return T, S, L
+    if not 0 < C <= MAX_CLASSES:
+        raise ValueError(f"{C} classes outside (0, {MAX_CLASSES}]")
+    return T, S, L, C
 
 
-def ensemble_sum(codes: torch.Tensor, tables: Dict[str, torch.Tensor],
-                 n_fields: int):
-    """u8[N, F] rank codes → f32[N] ensemble sums (before Targets).
-
-    ``n_fields`` is the field count the tables were packed for
-    (:func:`pack_tables`); codes of another width raise, since the kernel
-    gathers ``code[feat]`` from a row of exactly that width. On a CUDA
-    tensor: launch the kernel on the current stream (counted in
-    ``ensemble_sum.launches``) or raise. On a CPU tensor: the plain
-    version."""
+def _check_codes(codes: torch.Tensor, n_fields: int) -> None:
     if codes.dtype != torch.uint8 or codes.dim() != 2:
         raise ValueError(f"codes must be u8[N, F], got {codes.dtype}"
                          f"{tuple(codes.shape)}")
@@ -260,28 +314,45 @@ def ensemble_sum(codes: torch.Tensor, tables: Dict[str, torch.Tensor],
                          f"were packed for {n_fields}")
     if not 0 < n_fields <= MAX_FIELDS:
         raise ValueError(f"{n_fields} fields outside (0, {MAX_FIELDS}]")
-    if codes.device.type == "cpu":
-        return ensemble_sum_reference(codes, tables)
-    if codes.device.type != "cuda":
+    if codes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {codes.device}")
-    if not codes.is_contiguous():
+    if codes.device.type == "cuda" and not codes.is_contiguous():
         raise ValueError("codes must be contiguous")
-    T, S, L = _check_tables(tables, codes.device)
+
+
+def leaf_rows(codes: torch.Tensor, tables: Dict[str, torch.Tensor],
+              n_fields: int):
+    """u8[N, F] rank codes → f32[N, C]: per record, the sum over trees of
+    the hit leaf's row — the ensemble sum before Targets (C = 1) or the
+    vote shares of a majorityVote / weightedMajorityVote forest (the
+    weights are folded into the rows).
+
+    ``n_fields`` is the field count the tables were packed for
+    (:func:`pack_tables`); codes of another width raise, since the kernel
+    gathers ``code[feat]`` from a row of exactly that width. On a CUDA
+    tensor: launch the kernel on the current stream (counted in
+    ``leaf_rows.launches``) or raise — on codes of another width, more than
+    ``MAX_CLASSES`` classes, or tables that are not on the card. On a CPU
+    tensor: the plain version, under the same checks of the tables."""
+    _check_codes(codes, n_fields)
+    T, S, L, C = _check_tables(tables, codes.device)
+    if codes.device.type == "cpu":
+        return leaf_rows_reference(codes, tables)
     lib = build()
     N, F = codes.shape
-    out = torch.empty((N,), dtype=torch.float32, device=codes.device)
+    out = torch.empty((N, C), dtype=torch.float32, device=codes.device)
     stream = torch.cuda.current_stream(codes.device).cuda_stream
-    rc = lib.qtrees_ensemble_sum(
+    rc = lib.qtrees_leaf_rows(
         codes.data_ptr(), N, F,
         tables["split"].data_ptr(), tables["on"].data_ptr(),
-        tables["left"].data_ptr(), tables["vals"].data_ptr(),
-        T, S, L, SENTINEL, out.data_ptr(), stream,
+        tables["left"].data_ptr(), tables["rows"].data_ptr(),
+        T, S, L, C, SENTINEL, out.data_ptr(), stream,
     )
     if rc != 0:
-        raise KernelLaunchError(f"qtrees_ensemble_sum launch failed: "
+        raise KernelLaunchError(f"qtrees_leaf_rows launch failed: "
                                 f"cudaError {rc}")
-    ensemble_sum.launches += 1
+    leaf_rows.launches += 1
     return out
 
 
-ensemble_sum.launches = 0
+leaf_rows.launches = 0

@@ -2,12 +2,20 @@
 
 ``quantized_params_from_jax`` takes the JAX scorer's packed tables as
 numpy arrays — the XLA-backend params ``feat``, ``qthr``, ``dleft``,
-``P_i8``, ``count_i8``, ``vhi``, ``vlo`` and the wire's ``cuts`` /
-``repl`` / ``has_repl`` — and returns the port's tables on the requested
-device: the same keys as ``QuantizedScorer.params`` of a scorer the port
-builds from the same PMML (with the Hopper kernel's tables when the model
-fits the kernel), plus the wire as ``cuts`` (f32[F, C], +inf padded),
-``n_cuts`` (i64[F]), ``repl`` and ``has_repl``.
+``P_i8``, ``count_i8``, then ``vhi`` / ``vlo`` for a regression forest or
+``phi`` / ``plo`` / ``lab`` for a classification forest, and the wire's
+``cuts`` / ``repl`` / ``has_repl`` — and returns the port's tables on the
+requested device: the same keys as ``QuantizedScorer.params`` of a scorer
+the port builds from the same PMML, plus the wire as ``cuts`` (f32[F, K],
++inf padded), ``n_cuts`` (i64[F]), ``repl`` and ``has_repl``.
+
+The Hopper kernel's tables (``qtrees_cuda.TABLE_KEYS``, packed from
+``vhi`` / ``vlo`` or from ``phi`` / ``plo``) come along when the shapes fit
+the kernel (uint8 wire, S ≤ 64, F ≤ 256, C ≤ ``MAX_CLASSES``).
+The tables do not carry the aggregate, so whether a scorer takes the
+kernel also depends on it: the port's own scorer packs them only for a
+linear regression aggregate or a majorityVote / weightedMajorityVote
+forest.
 
 It imports nothing of the JAX package: the caller hands over numpy
 arrays (``np.asarray`` of the JAX arrays; bf16 arrives as ml_dtypes'
@@ -46,17 +54,21 @@ def quantized_params_from_jax(
     dleft = np.array(np_params["dleft"], bool)
     P = np.array(np_params["P_i8"], np.int8)
     count = np.array(np_params["count_i8"], np.int8)
-    vhi = _bf16(np_params["vhi"])
-    vlo = _bf16(np_params["vlo"])
     out: Dict[str, torch.Tensor] = {
         "feat": torch.from_numpy(feat),
         "qthr": torch.from_numpy(qthr.astype(np.int64)),
         "dleft": torch.from_numpy(dleft),
         "P_i8": torch.from_numpy(P),
         "count_i8": torch.from_numpy(count),
-        "vhi": vhi,
-        "vlo": vlo,
     }
+    classification = "phi" in np_params
+    if classification:
+        out["phi"] = _bf16(np_params["phi"])
+        out["plo"] = _bf16(np_params["plo"])
+        out["lab"] = torch.from_numpy(np.array(np_params["lab"], np.float32))
+    else:
+        out["vhi"] = _bf16(np_params["vhi"])
+        out["vlo"] = _bf16(np_params["vlo"])
     cuts = [np.asarray(c, np.float32) for c in np_params["cuts"]]
     F = len(cuts)
     width = max((len(c) for c in cuts), default=0)
@@ -67,15 +79,16 @@ def quantized_params_from_jax(
     out["n_cuts"] = torch.tensor([len(c) for c in cuts], dtype=torch.int64)
     out["repl"] = torch.from_numpy(np.array(np_params["repl"], np.float32))
     out["has_repl"] = torch.from_numpy(np.array(np_params["has_repl"], bool))
+    hi, lo = ("phi", "plo") if classification else ("vhi", "vlo")
     if (
         qthr.dtype == np.uint8
         and feat.shape[1] <= qtrees_cuda.MAX_SPLITS
         and 0 < F <= qtrees_cuda.MAX_FIELDS
+        and (not classification
+             or out["phi"].shape[2] <= qtrees_cuda.MAX_CLASSES)
     ):
-        vals = (vhi.float() + vlo.float()).numpy()
-        out.update({
-            k: torch.from_numpy(v) for k, v in qtrees_cuda.pack_tables(
-                feat, qthr, dleft, P, count, vals, n_fields=F
-            ).items()
-        })
+        tables = qtrees_cuda.pack_tables(
+            feat, qthr, dleft, P, count, out[hi], out[lo], n_fields=F
+        )
+        out.update({k: torch.from_numpy(v) for k, v in tables.items()})
     return {k: v.to(dev) for k, v in out.items()}

@@ -1,5 +1,6 @@
-"""Card-only tests of the PyTorch port: the Hopper kernel against its
-plain version and the block pipeline on a CUDA device. They skip where
+"""Card-only tests of the PyTorch port: the Hopper kernel (ensemble sum
+and vote shares) against its plain version and the block pipeline on a
+CUDA device. They skip where
 there is no card. This file imports neither jax nor the JAX package, so
 it runs on a machine that has only torch:
 
@@ -10,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from flink_jpmml_tpu_torch.assets_gen import gen_gbm
+from flink_jpmml_tpu_torch.assets_gen import gen_gbm, gen_vote_forest
 from flink_jpmml_tpu_torch.compile import compile_pmml, qtrees_cuda
 from flink_jpmml_tpu_torch.pmml import parse_pmml_file
 from flink_jpmml_tpu_torch.runtime.block import BlockPipeline, FiniteBlockSource
@@ -45,25 +46,27 @@ def test_kernel_matches_plain_on_the_card(card, tmp_path):
     for n in (1, 127, 1000):
         codes = torch.from_numpy(q.wire.encode(_X(np.random.default_rng(n),
                                                   n, 32))).to(card)
-        before = qtrees_cuda.ensemble_sum.launches
-        got = qtrees_cuda.ensemble_sum(codes, tables, 32)
-        ref = qtrees_cuda.ensemble_sum_reference(codes, tables)
+        before = qtrees_cuda.leaf_rows.launches
+        got = qtrees_cuda.leaf_rows(codes, tables, 32)
+        ref = qtrees_cuda.leaf_rows_reference(codes, tables)
         torch.cuda.synchronize()
-        assert qtrees_cuda.ensemble_sum.launches == before + 1
+        assert qtrees_cuda.leaf_rows.launches == before + 1
+        assert got.shape == (n, 1)
         torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
 
 
 def test_padded_leaves_never_hit_on_the_card(card):
     feat = np.zeros((1, 1), np.int64)
+    vals = torch.tensor([[1.0, 2.0, 100.0]], dtype=torch.bfloat16)
     tables = {k: torch.from_numpy(v).to(card)
               for k, v in qtrees_cuda.pack_tables(
                   feat, np.array([[3]], np.uint8), np.array([[False]]),
                   np.array([[[1, -1, 0]]], np.int8), np.array([[1, 1, -5]]),
-                  np.array([[1.0, 2.0, 100.0]], np.float32), 1).items()}
+                  vals, torch.zeros_like(vals), 1).items()}
     codes = torch.tensor([[0], [3], [4], [255]], dtype=torch.uint8,
                          device=card)
-    assert qtrees_cuda.ensemble_sum(codes, tables, 1).tolist() == [
-        1.0, 1.0, 2.0, 2.0]
+    assert qtrees_cuda.leaf_rows(codes, tables, 1).tolist() == [
+        [1.0], [1.0], [2.0], [2.0]]
 
 
 def test_wrapper_rejects_tables_off_the_card(card, tmp_path):
@@ -71,17 +74,17 @@ def test_wrapper_rejects_tables_off_the_card(card, tmp_path):
              n_features=4).quantized_scorer()
     tables = {k: q.params[k] for k in qtrees_cuda.TABLE_KEYS}
     with pytest.raises(ValueError, match="contiguous on cuda"):
-        qtrees_cuda.ensemble_sum(
+        qtrees_cuda.leaf_rows(
             torch.zeros(4, 4, dtype=torch.uint8, device=card), tables, 4
         )
 
 
 def test_narrower_batch_raises_on_the_card(card, tmp_path):
     q = _gbm(tmp_path, 64, n_trees=5, depth=3, n_features=4).quantized_scorer()
-    before = qtrees_cuda.ensemble_sum.launches
+    before = qtrees_cuda.leaf_rows.launches
     with pytest.raises(ValueError, match="packed for 4"):
         q.predict_wire(np.zeros((64, 3), np.uint8))
-    assert qtrees_cuda.ensemble_sum.launches == before
+    assert qtrees_cuda.leaf_rows.launches == before
 
 
 def test_block_pipeline_on_the_card_matches_the_cpu_port(card, tmp_path):
@@ -105,3 +108,69 @@ def test_block_pipeline_on_the_card_matches_the_cpu_port(card, tmp_path):
     ref = q_cpu.predict_wire(q_cpu.wire.encode(X)).numpy()[:5000]
     np.testing.assert_allclose(np.concatenate([v for _, _, v in got]), ref,
                                rtol=RTOL, atol=ATOL)
+
+
+def _votes(tmp_path, batch, device=None, **kw):
+    doc = parse_pmml_file(gen_vote_forest(str(tmp_path), **kw))
+    return compile_pmml(doc, batch_size=batch, device=device)
+
+
+def _vote_tables(q):
+    return {k: q.params[k] for k in qtrees_cuda.TABLE_KEYS}
+
+
+@pytest.mark.parametrize("n_trees,weighted", [(19, False), (500, True)])
+def test_vote_kernel_equals_plain_on_the_card(card, tmp_path, n_trees,
+                                              weighted):
+    # bit for bit: the kernel and its plain version add the same class rows
+    # in the same ascending tree order
+    q = _votes(tmp_path, 1024, n_trees=n_trees, depth=6, n_features=32,
+               n_classes=3, weighted=weighted).quantized_scorer()
+    assert q.backend == "cuda" and q.is_classification
+    codes = torch.from_numpy(q.wire.encode(
+        _X(np.random.default_rng(n_trees), 4096, 32))).to(card)
+    before = qtrees_cuda.leaf_rows.launches
+    got = qtrees_cuda.leaf_rows(codes, _vote_tables(q), 32)
+    ref = qtrees_cuda.leaf_rows_reference(codes, _vote_tables(q))
+    torch.cuda.synchronize()
+    assert qtrees_cuda.leaf_rows.launches == before + 1
+    assert got.shape == (4096, 3)
+    assert torch.equal(got, ref)
+
+
+def test_vote_kernel_ragged_batch_on_the_card(card, tmp_path):
+    q = _votes(tmp_path, 256, n_trees=40, depth=5, n_features=32,
+               n_classes=10).quantized_scorer()
+    for n in (1, 127, 1001):
+        codes = torch.from_numpy(q.wire.encode(
+            _X(np.random.default_rng(n), n, 32))).to(card)
+        got = qtrees_cuda.leaf_rows(codes, _vote_tables(q), 32)
+        ref = qtrees_cuda.leaf_rows_reference(codes, _vote_tables(q))
+        torch.cuda.synchronize()
+        assert got.shape == (n, 10)
+        assert torch.equal(got, ref)
+
+
+def test_vote_pipeline_on_the_card_matches_the_cpu_port(card, tmp_path):
+    kw = dict(n_trees=40, depth=6, n_features=32, n_classes=3)
+    cm = _votes(tmp_path, 512, **kw)
+    X = _X(np.random.default_rng(4), 5000, 32)
+    got = []
+    pipe = BlockPipeline(
+        FiniteBlockSource(X, 1500), cm,
+        lambda out, n, off: got.append(
+            (off, n, [np.asarray(o)[:n].copy() for o in out])),
+        RuntimeConfig(batch=BatchConfig(size=512, deadline_us=2000)),
+    )
+    assert pipe.backend == "rank_wire_cuda"
+    pipe.run_until_exhausted(timeout=120)
+    expect = 0
+    for off, n, _ in got:
+        assert off == expect
+        expect += n
+    assert expect == 5000
+    q_cpu = _votes(tmp_path, 512, device="cpu", **kw).quantized_scorer()
+    ref = [o.numpy()[:5000] for o in q_cpu.predict_wire(q_cpu.wire.encode(X))]
+    for i in range(3):  # value, shares, label: the same arithmetic
+        np.testing.assert_array_equal(
+            np.concatenate([parts[i] for _, _, parts in got]), ref[i])

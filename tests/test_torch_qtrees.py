@@ -8,6 +8,7 @@ the repo's rank-wire bar rtol 1e-4 / atol 1e-5 (tests/test_qtrees_pallas.py
 — the order of the f32 tree sum differs between the backends). Tables
 carry across through ``convert.quantized_params_from_jax``."""
 
+import dataclasses
 import xml.etree.ElementTree as ET
 
 import numpy as np
@@ -20,7 +21,11 @@ from flink_jpmml_tpu_torch import convert
 from flink_jpmml_tpu_torch.assets_gen import gen_gbm
 from flink_jpmml_tpu_torch.compile import compile_pmml, qtrees_cuda
 from flink_jpmml_tpu_torch.compile.common import apply_targets_value
-from flink_jpmml_tpu_torch.compile.qtrees import build_quantized_scorer
+from flink_jpmml_tpu_torch.compile.qtrees import (
+    _match_ensemble,
+    _torch_qfn,
+    build_quantized_scorer,
+)
 from flink_jpmml_tpu_torch.pmml import parse_pmml as tparse_str
 from flink_jpmml_tpu_torch.pmml import parse_pmml_file as tparse
 
@@ -150,19 +155,20 @@ class TestKernelPlainVersion:
                                                    device="cpu")
         X = _X(np.random.default_rng(0), B, kw["n_features"], missing)
         codes = jx.wire.encode(X)
-        before = qtrees_cuda.ensemble_sum.launches
-        raw = qtrees_cuda.ensemble_sum(torch.from_numpy(codes), tables,
-                                       kw["n_features"])
-        assert qtrees_cuda.ensemble_sum.launches == before  # CPU: no launch
-        got = apply_targets_value(raw, td.targets).numpy()
+        before = qtrees_cuda.leaf_rows.launches
+        raw = qtrees_cuda.leaf_rows(torch.from_numpy(codes), tables,
+                                    kw["n_features"])
+        assert qtrees_cuda.leaf_rows.launches == before  # CPU: no launch
+        assert raw.shape == (B, 1)
+        got = apply_targets_value(raw[:, 0], td.targets).numpy()
         np.testing.assert_allclose(got, np.asarray(jp.predict_wire(codes)),
                                    rtol=RTOL, atol=ATOL)
         np.testing.assert_allclose(got, np.asarray(jx.predict_wire(codes)),
                                    rtol=RTOL, atol=ATOL)
         np.testing.assert_array_equal(
             got,
-            qtrees_cuda.ensemble_sum_reference(torch.from_numpy(codes), tables)
-            .add(0.5).numpy(),  # gen_gbm's Targets rescaleConstant
+            qtrees_cuda.leaf_rows_reference(torch.from_numpy(codes), tables)
+            [:, 0].add(0.5).numpy(),  # gen_gbm's Targets rescaleConstant
         )
 
     def test_oversized_and_ragged_batches(self, tmp_path):
@@ -221,9 +227,16 @@ class TestTorchTwin:
         xml = _forest_xml(
             "weightedMajorityVote" if weighted else "majorityVote", weighted
         )
-        tq = build_quantized_scorer(tparse_str(xml), device="cpu")
+        td = tparse_str(xml)
+        kq = build_quantized_scorer(td, device="cpu")
         jq = jax_bqs(parse_pmml(xml), backend="xla")
-        assert tq.backend == "torch" and tq.is_classification
+        assert kq.backend == "cuda_plain" and kq.is_classification
+        # the twin's majority / weighted branch, on the same tables: it
+        # still scores vote forests the kernel does not take (uint16
+        # wires, > 64 split slots, > MAX_CLASSES classes)
+        tq = dataclasses.replace(kq, backend="torch", _fn=_torch_qfn(
+            _match_ensemble(td)[2], True, False, kq.wire.sentinel,
+            td.targets))
         X = _X(np.random.default_rng(5), 128, 4, missing=0.15)
         Xq = jq.wire.encode(X)
         tv, tp, tl = tq.predict_wire(Xq)
@@ -245,9 +258,9 @@ class TestKernelWrapper:
     def test_rejects_what_the_kernel_does_not_take(self, tmp_path):
         tables = self._tables(tmp_path)
         with pytest.raises(ValueError, match="u8"):
-            qtrees_cuda.ensemble_sum(torch.zeros(4, 4), tables, 4)
+            qtrees_cuda.leaf_rows(torch.zeros(4, 4), tables, 4)
         with pytest.raises(ValueError, match="no kernel"):
-            qtrees_cuda.ensemble_sum(
+            qtrees_cuda.leaf_rows(
                 torch.zeros(4, 4, dtype=torch.uint8, device="meta"), tables, 4
             )
 
@@ -259,7 +272,7 @@ class TestKernelWrapper:
         q = build_quantized_scorer(td, batch_size=8, device="cpu")
         codes = np.zeros((8, width), np.uint8)
         with pytest.raises(ValueError, match="packed for 4"):
-            qtrees_cuda.ensemble_sum(
+            qtrees_cuda.leaf_rows(
                 torch.from_numpy(codes),
                 {k: q.params[k] for k in qtrees_cuda.TABLE_KEYS}, 4,
             )
@@ -269,18 +282,19 @@ class TestKernelWrapper:
     def test_packer_rejects_inconsistent_tables(self):
         feat = np.zeros((1, 1), np.int64)
         P = np.array([[[1, -1]]], np.int8)
-        vals = np.zeros((1, 2), np.float32)
+        vals = torch.zeros((1, 2), dtype=torch.bfloat16)
         ok = qtrees_cuda.pack_tables(feat, feat.astype(np.uint8), feat > 0,
-                                     P, np.array([[1, 1]]), vals, 2)
+                                     P, np.array([[1, 1]]), vals, vals, 2)
         assert ok["on"].tolist() == [[1, 1]] and ok["left"].tolist() == [[1, 0]]
+        assert ok["rows"].shape == (1, 2, 1)
         with pytest.raises(ValueError, match="path counts"):
             qtrees_cuda.pack_tables(feat, feat.astype(np.uint8), feat > 0,
-                                    P, np.array([[2, 1]]), vals, 2)
+                                    P, np.array([[2, 1]]), vals, vals, 2)
         with pytest.raises(ValueError, match="split slots"):
             qtrees_cuda.pack_tables(
                 np.zeros((1, 65), np.int64), np.zeros((1, 65), np.uint8),
                 np.zeros((1, 65), bool), np.zeros((1, 65, 2), np.int8),
-                np.array([[-5, -5]]), vals, 2,
+                np.array([[-5, -5]]), vals, vals, 2,
             )
 
     def test_padded_leaves_never_hit(self):
@@ -288,13 +302,13 @@ class TestKernelWrapper:
         # padded slot's value must never be added
         feat = np.zeros((1, 1), np.int64)
         P = np.array([[[1, -1, 0]]], np.int8)
-        vals = np.array([[1.0, 2.0, 100.0]], np.float32)
+        vals = torch.tensor([[1.0, 2.0, 100.0]], dtype=torch.bfloat16)
         tables = {k: torch.from_numpy(v) for k, v in qtrees_cuda.pack_tables(
             feat, np.array([[3]], np.uint8), np.array([[False]]), P,
-            np.array([[1, 1, -5]]), vals, 1).items()}
+            np.array([[1, 1, -5]]), vals, torch.zeros_like(vals), 1).items()}
         codes = torch.tensor([[0], [3], [4], [255]], dtype=torch.uint8)
-        out = qtrees_cuda.ensemble_sum(codes, tables, 1)
-        assert out.tolist() == [1.0, 1.0, 2.0, 2.0]  # 255: missing → right
+        out = qtrees_cuda.leaf_rows(codes, tables, 1)
+        assert out.tolist() == [[1.0], [1.0], [2.0], [2.0]]  # 255: missing → right
 
 
 def _forest_xml(method="majorityVote", weighted=False, n_trees=7, seed=21):
