@@ -10,18 +10,29 @@ JAX package, and prints one JSON line per phase:
 
 1. card — the ``nvidia-smi`` name / power-limit line and the torch device;
 2. build — compiles ``flink_jpmml_tpu_torch/csrc/qtrees_ensemble.cu`` (the
-   leaf-rows kernel) with nvcc for sm_90a (into ``build/``) and binds it;
+   leaf-rows kernel, one instance per class bucket) with nvcc for sm_90a
+   (into ``build/``), binds it, and prints what ptxas reported for each
+   instance (registers, static shared memory, stack, spills); any spill
+   fails the phase;
 3. kernel — the kernel (one f32 row per leaf: the GBM's leaf values)
    against its plain PyTorch version on the card, bit for bit, at the main
    path's shape (the 500-tree, depth-6, 32-feature GBM, [262144, 32] uint8
    codes with about 20% missing cells), on a 19-tree model, and on a batch
-   whose length is not a multiple of the kernel's 128-row block;
-4. timing — CUDA-event medians of the kernel and of the plain version at
+   whose length is not a multiple of a block's records;
+4. walk kernel — the same check on seeded forests the fixtures lack
+   (``ragged_forest``: 200 trees of depths 1-12 with single-leaf trees and
+   padded split and leaf slots, at C = 1 and C = 3, and at C = 16 over 256
+   fields, where a block shrinks to 64 threads; ``caterpillar_forest``: a
+   64-split chain of depth 64 and 65 leaves, at C = 1 and C = 16), over
+   random codes with 20% missing and ragged batch lengths;
+5. timing — CUDA-event medians of the kernel and of the plain version at
    the main path's shape, beside the least time the card could take for
    the work these inputs need (``ops``: one integer step per split on each
-   tree's hit path, C f32 adds per tree; ``bytes``: codes, tables and
-   output once);
-5. main path — ``gen_gbm`` → ``parse_pmml_file`` → ``compile_pmml``
+   tree's hit path, C f32 adds per tree; ``bytes``: codes, the kernel's
+   table and output once); beside them ``design_int_steps``, N × Σ
+   depth[t] from the table's headers: the steps the walk is built to take,
+   a count from the design, not a reading of the card;
+6. main path — ``gen_gbm`` → ``parse_pmml_file`` → ``compile_pmml``
    (batch 16384, default device: the card) → ``BlockPipeline`` over a
    ``CyclingBlockSource`` in dispatches of 262,144 records, for at least
    16 dispatches; the kernel's launch count is reset just before and read
@@ -29,13 +40,13 @@ JAX package, and prints one JSON line per phase:
    (``device="cpu"``, the kernel's plain version) and, on the card, by the
    torch twin of the XLA scorer from the unpacked path matrix (``P_i8`` /
    ``count_i8``), which does not go through the kernel's table packer;
-6. vote kernel — the same kernel with the class rows of a vote forest
-   against its plain version on the card, bit for bit: the 500-tree, depth-6, 32-feature, 3-class
-   majorityVote forest (``gen_vote_forest``) at [262144, 32] with about
-   20% missing cells, its weightedMajorityVote twin, a 19-tree forest, a
-   10-class forest and a 100,003-row batch;
-7. vote timing — as 4, for the vote forest;
-8. vote main path — as 5, over the majorityVote forest, with a sink that
+7. vote kernel — the same kernel with the class rows of a vote forest
+   against its plain version on the card, bit for bit: the 500-tree,
+   depth-6, 32-feature, 3-class majorityVote forest (``gen_vote_forest``)
+   at [262144, 32] with about 20% missing cells, its weightedMajorityVote
+   twin, a 19-tree forest, a 10-class forest and a 100,003-row batch;
+8. vote timing — as 5, for the vote forest;
+9. vote main path — as 6, over the majorityVote forest, with a sink that
    takes the (value, shares, label) triple. The 4,096-record head is held
    to the CPU port and to the torch twin at rtol 1e-4 / atol 1e-5 for
    shares and values; labels must be equal on rows whose classes do not
@@ -43,6 +54,10 @@ JAX package, and prints one JSON line per phase:
    lowest tied class and the other's one of the tied classes (the twin's
    f32 contraction rounds tied totals in an order of its own). Ties are
    found from exact integer vote counts.
+
+The forest generators (``ragged_forest``, ``caterpillar_forest``,
+``random_codes``) import nothing beyond numpy and torch; the CPU tests
+import them too, so the card and the CPU see the same trees.
 
 Then the kernels line, the ``nvidia-smi`` line, and last the contract
 line ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -75,6 +90,122 @@ MISSING = 0.2
 PEAK_BYTES_S = 3.35e12
 PEAK_INT32_OPS_S = 132 * 64 * 1.98e9
 PEAK_F32_FLOP_S = 67e12
+
+
+def _grow(rng, depth: int, n_splits: int) -> list:
+    """A random full binary tree of exactly ``depth`` levels and
+    ``n_splits`` splits, as its leaves' paths: lists of (split, +1 left /
+    -1 right) from the root, splits numbered as they were made."""
+    paths = [[]]
+    made = 0
+    while made < n_splits:
+        deep = [i for i, p in enumerate(paths) if len(p) < depth]
+        longest = max(len(p) for p in paths)
+        if longest < depth:  # first reach the depth, then grow at random
+            deep = [i for i in deep if len(paths[i]) == longest]
+        p = paths.pop(deep[int(rng.integers(len(deep)))])
+        paths += [p + [(made, 1)], p + [(made, -1)]]
+        made += 1
+    return paths
+
+
+def _caterpillar_paths(n_splits: int) -> list:
+    """Split k's left child is leaf k, its right one split k + 1; the last
+    split's right child is the last leaf: ``n_splits + 1`` leaves, one of
+    them at depth ``n_splits``."""
+    return ([[(j, -1) for j in range(k)] + [(k, 1)] for k in range(n_splits)]
+            + [[(j, -1) for j in range(n_splits)]])
+
+
+def _single_leaf_paths() -> list:
+    """A one-leaf tree as the compiler packs it: a manufactured no-op split
+    (feature 0, the top rank, missing → left) with the leaf on both sides
+    (flink_jpmml_tpu_torch/compile/trees.py pack_ensemble)."""
+    return [[(0, 1)], [(0, -1)]]
+
+
+def forest_inputs(trees: list, n_fields: int, n_classes: int, seed: int,
+                  pad_splits: int = 0, pad_leaves: int = 0,
+                  single: tuple = ()) -> dict:
+    """``qtrees_cuda.pack_tables``'s keyword arguments for trees given as
+    leaf paths: split and leaf slots in a random order per tree (so the
+    walk cannot lean on preorder numbering), ``pad_*`` unused slots beyond
+    the largest tree (padded leaves carry count -5), random features,
+    thresholds, missing directions and leaf rows (a bf16 hi/lo pair). The
+    trees numbered in ``single`` are single-leaf trees
+    (``_single_leaf_paths``): their split is the no-op one and both
+    leaves carry the same row."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n_split = [1 + max(s for p in paths for s, _ in p) for paths in trees]
+    S = max(n_split) + pad_splits
+    L = max(len(paths) for paths in trees) + pad_leaves
+    T = len(trees)
+    feat = rng.integers(0, n_fields, size=(T, S))
+    qthr = rng.integers(0, 255, size=(T, S)).astype(np.uint8)
+    dleft = rng.random(size=(T, S)) < 0.5
+    P = np.zeros((T, S, L), np.int8)
+    count = np.full((T, L), -5, np.int8)
+    vals = rng.normal(0.0, 1.0, size=(T, L, n_classes)).astype(np.float32)
+    for t, paths in enumerate(trees):
+        slot = rng.permutation(S)[: n_split[t]]
+        leaf = rng.permutation(L)[: len(paths)]
+        if t in single:
+            feat[t, slot[0]], qthr[t, slot[0]], dleft[t, slot[0]] = 0, 254, True
+            vals[t, leaf[1]] = vals[t, leaf[0]]
+        for l, path in zip(leaf, paths):
+            count[t, l] = len(path)
+            for s, go in path:
+                P[t, slot[s], l] = go
+    v = torch.from_numpy(vals if n_classes > 1 else vals[..., 0])
+    hi = v.to(torch.bfloat16)
+    lo = (v - hi.float()).to(torch.bfloat16)
+    return dict(feat=feat, qthr=qthr, dleft=dleft, P=P, count=count, hi=hi,
+                lo=lo, n_fields=n_fields)
+
+
+def ragged_forest(seed: int, n_trees: int, n_fields: int,
+                  n_classes: int) -> dict:
+    """``pack_tables``'s inputs for a seeded forest of mixed depths 1-12
+    (up to 60 splits a tree), with single-leaf trees among them and padded
+    split and leaf slots."""
+    rng = np.random.default_rng(seed)
+    # every depth once in each 12 trees, in a shuffled order
+    depths = rng.permutation(np.resize(np.arange(1, 13), n_trees))
+    single = tuple(range(3, n_trees, 17))
+    trees = []
+    for t, depth in enumerate(depths.tolist()):
+        if t in single:
+            trees.append(_single_leaf_paths())
+            continue
+        hi = min(60, 2 ** depth - 1)
+        trees.append(_grow(rng, depth, int(rng.integers(depth, hi + 1))))
+    return forest_inputs(trees, n_fields, n_classes, seed + 1,
+                         pad_splits=2, pad_leaves=3, single=single)
+
+
+def caterpillar_forest(seed: int, n_fields: int, n_classes: int) -> dict:
+    """``pack_tables``'s inputs for three trees: the 64-split caterpillar
+    (depth 64, 65 leaves: every split and leaf slot of the kernel's widest
+    tree), a complete depth-2 tree and a single-leaf tree."""
+    rng = np.random.default_rng(seed)
+    trees = [_caterpillar_paths(64), _grow(rng, 2, 3), _single_leaf_paths()]
+    out = forest_inputs(trees, n_fields, n_classes, seed + 1, single=(2,))
+    # low thresholds and missing → right, so that records go deep: each
+    # split sends ~3% of the uniform codes and ~5% of the missing ones left
+    out["qthr"][0] = rng.integers(0, 16, size=64)
+    out["dleft"][0] = rng.random(size=64) < 0.05
+    return out
+
+
+def random_codes(seed: int, n: int, n_fields: int, missing: float):
+    """u8[n, F] rank codes: uniform over 0..254, ``missing`` of them the
+    sentinel 255."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 255, size=(n, n_fields)).astype(np.uint8)
+    codes[rng.random(size=codes.shape) < missing] = 255
+    return codes
 
 
 def emit(obj) -> None:
@@ -136,22 +267,36 @@ def features(rng, n: int, F: int) -> np.ndarray:
 
 
 def check_kernel(q, X: np.ndarray, label: str, phase: str) -> dict:
-    """Kernel vs plain version on the card for one model and batch, bit for
-    bit (the same gather, masks and ascending-tree f32 adds)."""
+    """Kernel vs plain version on the card for one model's tables and the
+    wire's codes of ``X``, bit for bit."""
     import torch
 
     from flink_jpmml_tpu_torch.compile import qtrees_cuda
 
     tables = {k: q.params[k] for k in qtrees_cuda.TABLE_KEYS}
     codes = torch.from_numpy(q.wire.encode(X)).cuda()
-    got = qtrees_cuda.leaf_rows(codes, tables, len(q.wire.fields))
+    return check_tables(tables, codes, label, phase)
+
+
+def check_tables(tables: dict, codes, label: str, phase: str) -> dict:
+    """Kernel vs plain version on the card, bit for bit: the walk and the
+    masks select the same leaf, whose row both add in ascending tree
+    order."""
+    import torch
+
+    from flink_jpmml_tpu_torch.compile import qtrees_cuda
+
+    got = qtrees_cuda.leaf_rows(codes, tables, codes.shape[1])
     ref = qtrees_cuda.leaf_rows_reference(codes, tables)
     torch.cuda.synchronize()
-    C = tables["rows"].shape[2]
-    if got.shape != (X.shape[0], C) or not bool(torch.isfinite(got).all()):
+    N = codes.shape[0]
+    T, _, C = tables["rows"].shape
+    if got.shape != (N, C) or not bool(torch.isfinite(got).all()):
         raise RuntimeError(f"{label}: bad kernel output {tuple(got.shape)}")
+    depth = (tables["walk"][:, 0] >> 8) & 0xFF
     row = {
-        "case": label, "rows": X.shape[0], "trees": q.n_trees, "classes": C,
+        "case": label, "rows": N, "trees": T, "classes": C,
+        "depth_min": int(depth.min()), "depth_max": int(depth.max()),
         "missing_share": float((codes == qtrees_cuda.SENTINEL).float().mean()),
         "max_abs_err": float((got - ref).abs().max()),
         "ok": bool(torch.equal(got, ref)),
@@ -160,6 +305,33 @@ def check_kernel(q, X: np.ndarray, label: str, phase: str) -> dict:
         emit({"phase": phase, **row})
         raise RuntimeError(f"{label}: kernel differs from its plain version")
     return row
+
+
+def check_walk_cases(rng) -> list:
+    """The kernel on forests the fixtures lack, bit for bit against its
+    plain version: ragged depths 1-12 with single-leaf trees and padded
+    slots (C = 1 and C = 3, and C = 16 over 256 fields: 64-thread blocks),
+    and the 64-split caterpillar (depth 64, 65 leaves), each over a batch
+    that is no multiple of a block's records."""
+    import torch
+
+    from flink_jpmml_tpu_torch.compile import qtrees_cuda
+
+    cases = [
+        ("ragged200_c1_100003", ragged_forest(5, 200, 32, 1), 100_003),
+        ("ragged200_c3_100003", ragged_forest(6, 200, 32, 3), 100_003),
+        ("caterpillar64_c1_65537", caterpillar_forest(7, 32, 1), 65_537),
+        ("caterpillar64_c16_4099", caterpillar_forest(8, 32, 16), 4_099),
+        ("ragged60_f256_c16_5003", ragged_forest(9, 60, 256, 16), 5_003),
+    ]
+    rows = []
+    for label, inputs, n in cases:
+        tables = {k: torch.from_numpy(v).cuda()
+                  for k, v in qtrees_cuda.pack_tables(**inputs).items()}
+        codes = torch.from_numpy(random_codes(
+            int(rng.integers(1 << 30)), n, inputs["n_fields"], MISSING)).cuda()
+        rows.append(check_tables(tables, codes, label, "walk_kernel"))
+    return rows
 
 
 def vote_counts(q, codes) -> np.ndarray:
@@ -246,9 +418,9 @@ def time_kernel(q, X: np.ndarray) -> dict:
     N = codes.shape[0]
     T, S = tables["split"].shape
     _, L, C = tables["rows"].shape
-    n_bytes = codes.numel() + 4 * N * C + sum(
-        t.numel() * t.element_size() for t in tables.values()
-    )
+    # what the kernel reads and writes: codes, the walk table, the output
+    walk = tables["walk"]
+    n_bytes = codes.numel() + 4 * N * C + walk.numel() * walk.element_size()
     ops = needed_ops(codes, tables)
     bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
     ops_ms = max(ops["int_steps"] / PEAK_INT32_OPS_S,
@@ -259,8 +431,9 @@ def time_kernel(q, X: np.ndarray) -> dict:
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "bytes": n_bytes, "bytes_ms": bytes_ms, "ops": ops, "ops_ms": ops_ms,
-        # what this version executes: every split and every leaf test
-        "executed_int_steps": N * T * (S + L),
+        # the walk's trip counts, depth[t] per record and tree, from the
+        # headers: what the design executes, not measured on the card
+        "design_int_steps": N * int(((walk[:, 0] >> 8) & 0xFF).sum()),
         "kernel_records_per_s": N / (kern_ms * 1e-3),
         "library_ms": None,
     }
@@ -333,10 +506,14 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    qtrees_cuda.build(verbose=False)
+    qtrees_cuda.build()
+    ptxas = qtrees_cuda.ptxas_report()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "source": "flink_jpmml_tpu_torch/csrc/qtrees_ensemble.cu",
-          "arch": "sm_90a"})
+          "arch": "sm_90a", "ptxas": ptxas})
+    if not ptxas or any(k.get("spill_stores", 1) or k.get("spill_loads", 1)
+                        for k in ptxas):
+        raise RuntimeError("ptxas reported spills (or no report)")
 
     rng = np.random.default_rng(0)
     workdir = tempfile.mkdtemp(prefix="fjt-smoke-")
@@ -351,6 +528,9 @@ def main() -> int:
                      "kernel"),
     ]
     emit({"phase": "kernel", "cases": rows})
+    # its own generator, so the main paths' data stay as they were
+    wrows = check_walk_cases(np.random.default_rng(1))
+    emit({"phase": "walk_kernel", "cases": wrows})
     timing = time_kernel(q, X_main)
     emit({"phase": "timing", **timing})
 
@@ -480,10 +660,12 @@ def main() -> int:
     emit({"kernels": [
         kernel_entry("qtrees_leaf_rows (regression sum, C=1)",
                      "flink_jpmml_tpu/compile/qtrees_pallas.py:170 and :218",
-                     launches, rows, timing),
+                     launches,
+                     rows + [r for r in wrows if r["classes"] == 1], timing),
         kernel_entry("qtrees_leaf_rows (vote shares)",
                      "flink_jpmml_tpu/compile/qtrees_pallas.py:187 and :238",
-                     vrun["launches"], vrows, vtiming),
+                     vrun["launches"],
+                     vrows + [r for r in wrows if r["classes"] > 1], vtiming),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,46 +4,64 @@ the host packer of its tables.
 Replaces the Pallas TPU kernels ``flink_jpmml_tpu/compile/qtrees_pallas.py``
 ``_kernel`` / ``_kernel_mega`` (the f32[B] ensemble sum of a regression
 forest) and ``_kernel_cls`` / ``_kernel_mega_cls`` (the f32[B, C] vote
-shares of a majorityVote / weightedMajorityVote forest). On Hopper the
-tree loop lives inside the block, and each tree hits exactly one leaf, so
-one CUDA kernel (``csrc/qtrees_ensemble.cu``) serves all four: per record,
-the f32 sum over trees of the hit leaf's f32[C] row, with C = 1 for the
-regression sum. Its front half (``go_mask`` / ``leaf_hit``) is the TPU
-kernels' ``_leaf_hits``.
+shares of a majorityVote / weightedMajorityVote forest), all four built on
+``_leaf_hits``. On Hopper the tree loop lives inside the block, and each
+tree hits exactly one leaf, so one CUDA kernel (``csrc/qtrees_ensemble.cu``)
+serves all four: per record, the f32 sum over trees of the hit leaf's
+f32[C] row, with C = 1 for the regression sum, trees added in ascending
+order, one f32 add per class per tree.
 
 Bound on an H100: per record the kernel moves F bytes of codes in and
 4·C bytes out (about 3 µs for 262,144 32-feature records at 3.35 TB/s);
 the inputs need one integer step per split on each tree's hit path and
 C f32 adds per tree (for 500 complete depth-6 trees, 7.9e8 integer steps
 per 262,144 records: 47 µs at the card's 1.67e13/s INT32 issue rate, 132
-SMs × 64 INT32 lanes × 1.98 GHz). It is bound by operations. This first
-version executes every split and tests every leaf (T·(S+L) steps per
-record), so it runs far above that floor; the design note at the top of
-the ``.cu`` file says what it does and what is left.
+SMs × 64 INT32 lanes × 1.98 GHz). It is bound by operations. The kernel
+walks each tree from the root to the hit leaf, ``depth[t]`` steps per
+record and tree, so it executes what the inputs need and little more
+(a leaf reached early idles for the rest of the tree's depth); the
+design note at the top of the ``.cu`` file says how and what is left.
 
-Tables (``pack_tables``, numpy, host side): the TPU kernel's one-hot
+Tables (``pack_tables``, numpy, host side). The TPU kernel's one-hot
 feature-select matmul and block-diagonal int8 path matrices exist because
 gathers are slow on a TPU; on Hopper the kernel gathers each split's code
-directly, and the path matrix becomes two 64-bit masks per leaf:
+directly. The plain version keeps the path matrix as two 64-bit masks per
+leaf; the kernel reads the ``walk`` table:
 
 - ``split`` i32[T, S]: ``feat | qthr << 16 | dleft << 24`` per split;
 - ``on`` i64[T, L]: bit s set iff split s lies on the leaf's path;
 - ``left`` i64[T, L]: bit s set iff the path goes left at split s;
 - ``rows`` f32[T, L, C]: each leaf's row, ``f32(hi) + f32(lo)`` of the
   JAX package's bf16 pair — ``vhi`` / ``vlo`` (leaf values, aggregate
-  coefficients folded in, C = 1) or ``phi`` / ``plo`` (class rows).
+  coefficients folded in, C = 1) or ``phi`` / ``plo`` (class rows);
+- ``walk`` i64[T, W]: one slice per tree, W even so that every slice is
+  a multiple of 16 bytes. Word 0 is the header ``root | depth << 8``;
+  words 1 .. S are the split nodes (node ``1 + s`` for split slot s),
+  words S + 1 .. S + L the leaf nodes (node ``1 + S + l``), then the
+  tree's ``rows`` as f32 pairs. A split's node word is ``feat | qthr << 8
+  | dleft << 16 | left << 32 | right << 40`` with ``left`` / ``right`` its
+  children's node numbers (8 bits each: S ≤ 64 allows 65 leaves, 7 bits
+  would not reach the last); a leaf's word names itself as both children,
+  so the walk idles on it. ``depth`` is the tree's longest path, so every
+  lane of a warp takes the same number of steps through a tree.
 
 Leaf l is hit iff ``(go & on[l]) == left[l]``; this equals the JAX
 package's ``sign @ P == count`` because ``count`` is the number of nonzero
 ``P`` entries on the path. Padded leaves (``count = -5``) get ``on = 0,
-left = 1`` and never match.
+left = 1`` and never match; in ``walk`` padded split and leaf slots are
+zero words that no child names. ``_pack_walk`` orders each leaf's path by
+the number of leaves under each of its splits (the root has them all), not
+by the split numbering, and raises unless the paths form a full binary
+tree, so the walk reaches exactly the leaf the masks select.
 
 Dispatch (``leaf_rows``): a CUDA tensor launches the kernel or raises; a
-CPU tensor runs the plain PyTorch version (:func:`leaf_rows_reference`),
-with the same arithmetic and the same ascending-tree f32 order. There is
-no fall-back from one to the other. The kernel is built with ``nvcc`` from
-the repository's sources on first use, into ``build/`` beside the package
-(bound through a plain C interface with ``ctypes``).
+CPU tensor runs the plain PyTorch version (:func:`leaf_rows_reference`,
+the mask form), with the same arithmetic and the same ascending-tree f32
+order. There is no fall-back from one to the other. The kernel reads only
+``walk``; the wrapper takes the other tables' shapes for its dimensions,
+and the mask tables stay for the plain version. The kernel is built with
+``nvcc`` from the repository's sources on first use, into ``build/`` beside
+the package (bound through a plain C interface with ``ctypes``).
 """
 
 from __future__ import annotations
@@ -52,6 +70,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -64,13 +83,13 @@ from flink_jpmml_tpu_torch.utils.exceptions import FlinkJpmmlTpuError
 
 SENTINEL = 255  # uint8 wire missing code
 MAX_SPLITS = 64  # one 64-bit go-left mask per tree
-MAX_FIELDS = 256  # staged codes per block fit the default shared memory
+MAX_FIELDS = 256  # a node word holds the feature in 8 bits
 # the kernel keeps one f32 accumulator per class in registers; 16 covers
 # every vote forest of the repo's fixtures (3 classes) with room, and a
 # wider target stays on the torch twin. Must equal kMaxClasses in the .cu
 # source.
 MAX_CLASSES = 16
-TABLE_KEYS = ("split", "on", "left", "rows")
+TABLE_KEYS = ("split", "on", "left", "rows", "walk")
 
 _PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 SOURCE = _PKG_DIR / "csrc" / "qtrees_ensemble.cu"
@@ -92,6 +111,13 @@ class KernelLaunchError(FlinkJpmmlTpuError):
 # ---------------------------------------------------------------------------
 # Host packer
 # ---------------------------------------------------------------------------
+
+
+def walk_words(S: int, L: int, C: int) -> int:
+    """Words per tree in the ``walk`` table: the header, S split and L
+    leaf nodes, L·C f32 rows, rounded up to an even count (16 bytes)."""
+    words = 1 + S + L + (L * C + 1) // 2
+    return words + words % 2
 
 
 def _pack_masks(feat, qthr, dleft, P, count, n_fields) -> Dict[str, np.ndarray]:
@@ -139,6 +165,103 @@ def _pack_masks(feat, qthr, dleft, P, count, n_fields) -> Dict[str, np.ndarray]:
     }
 
 
+def _pack_walk(feat, qthr, dleft, P, count) -> np.ndarray:
+    """The ``walk`` node words of one forest, i64[T, 1 + S + L] (see the
+    module docstring; :func:`pack_tables` appends the rows). Raises
+    ValueError unless each tree's real leaves (``count >= 0``) and the
+    splits on their paths form a full binary tree.
+
+    Each leaf's path is put in root-to-leaf order by the number of real
+    leaves under each of its splits, which falls strictly from the root
+    (all of them) along every path of a full binary tree; consecutive
+    splits on the path give a parent's child on the path's side, the last
+    one the leaf. Then the tree check: no child slot is named twice with
+    different nodes, every split on a path has both children, all paths
+    start at one root, and every other node has exactly one parent. Since
+    the leaf count falls strictly along every edge there is no cycle, so
+    the nodes form a full binary tree whose root-to-leaf paths are the
+    leaves' paths."""
+    feat = np.asarray(feat, np.int64)
+    qthr = np.asarray(qthr, np.int64)
+    dleft = np.asarray(dleft, bool).astype(np.int64)
+    P = np.asarray(P, np.int64)
+    T, S, L = P.shape
+    n_nodes = 1 + S + L
+    if n_nodes > 256:
+        raise ValueError(f"{S} split and {L} leaf slots: node numbers do not "
+                         "fit 8 bits")
+    real = np.asarray(count) >= 0  # [T, L]
+    no_leaf = ~real.any(axis=1)
+    if no_leaf.any():
+        raise ValueError(f"tree {int(np.argmax(no_leaf))} has no real leaf")
+    on = (P != 0) & real[:, None, :]  # [T, S, L]
+    under = on.sum(axis=2)  # [T, S]: real leaves under each split
+    path_len = on.sum(axis=1)  # [T, L]
+    # each leaf's splits, most leaves under first; off-path splits last
+    key = np.where(on, under[:, :, None], -1)
+    order = np.argsort(-key, axis=1, kind="stable")  # [T, S, L]
+    ranked = np.take_along_axis(key, order, axis=1)
+    step = np.arange(S)[None, :, None]
+    on_path = step < path_len[:, None, :]  # [T, S, L]: k-th split exists
+    falls = ranked[:, :-1] > ranked[:, 1:]
+    _raise_at(~falls & on_path[:, 1:], "a leaf's path is no root-to-leaf "
+              "chain (two of its splits have as many leaves under them)")
+
+    # edges: the k-th split of each path → the (k+1)-th, or the leaf
+    leaf_node = np.broadcast_to(1 + S + np.arange(L), (T, L))
+    nxt = np.concatenate([1 + order[:, 1:], np.zeros((T, 1, L), np.int64)],
+                         axis=1)
+    last = step == (path_len[:, None, :] - 1)
+    child_of = np.where(last, leaf_node[:, None, :], nxt)
+    go = np.take_along_axis(P, order, axis=1)  # direction at the k-th split
+    tt, kk, ll = np.nonzero(on_path)
+    parent = 1 + order[tt, kk, ll]
+    side = (go[tt, kk, ll] < 0).astype(np.int64)  # 0: left, 1: right
+    kid = child_of[tt, kk, ll]
+    kid_min = np.full((T, n_nodes, 2), n_nodes, np.int64)
+    child = np.zeros((T, n_nodes, 2), np.int64)  # 0 where no child
+    np.minimum.at(kid_min, (tt, parent, side), kid)
+    np.maximum.at(child, (tt, parent, side), kid)
+    _raise_at(((child > 0) & (kid_min != child)).any(axis=(1, 2)),
+              "a split has two children on one side (two leaves share a "
+              "path)")
+    splits = under > 0  # [T, S]: the splits on some real leaf's path
+    _raise_at((splits & ~(child[:, 1:S + 1] > 0).all(axis=2)).any(axis=1),
+              "a split lacks a child")
+    first = np.where(path_len > 0, 1 + order[:, 0, :], leaf_node)
+    root = np.where(real, first, n_nodes).min(axis=1)  # [T]
+    _raise_at((real & (first != root[:, None])).any(axis=1),
+              "the leaves' paths start at more than one root")
+    parents = np.zeros((T, n_nodes), np.int64)
+    for side in (0, 1):
+        np.add.at(parents, (np.arange(T)[:, None], child[:, :, side]), 1)
+    parents[:, 0] = 0  # "no child" entries
+    is_node = np.concatenate([np.zeros((T, 1), bool), splits, real], axis=1)
+    want = is_node.astype(np.int64)
+    want[np.arange(T), root] = 0
+    _raise_at((parents != want).any(axis=1),
+              "a node is not reached exactly once from the root")
+
+    words = np.zeros((T, n_nodes), np.int64)
+    words[:, 0] = root | np.where(real, path_len, 0).max(axis=1) << 8
+    words[:, 1:S + 1] = np.where(
+        splits,
+        feat | qthr << 8 | dleft << 16
+        | child[:, 1:S + 1, 0] << 32 | child[:, 1:S + 1, 1] << 40,
+        0,
+    )
+    words[:, S + 1:] = np.where(real, leaf_node << 32 | leaf_node << 40, 0)
+    return words
+
+
+def _raise_at(bad: np.ndarray, what: str) -> None:
+    """ValueError naming the first tree (axis 0) where ``bad`` holds."""
+    trees = np.flatnonzero(bad.reshape(bad.shape[0], -1).any(axis=1))
+    if trees.size:
+        raise ValueError(f"tree {int(trees[0])}: {what}; the walk takes "
+                         "only full binary trees")
+
+
 def pack_tables(
     feat: np.ndarray,   # i[T, S] feature index per split
     qthr: np.ndarray,   # u8[T, S] rank thresholds
@@ -175,6 +298,11 @@ def pack_tables(
     out["rows"] = np.ascontiguousarray(
         (hi.float() + lo.float()).cpu().numpy(), np.float32
     )
+    nodes = _pack_walk(feat, qthr, dleft, P, count)
+    rows = np.zeros((T, 2 * (walk_words(S, L, C) - nodes.shape[1])),
+                    np.float32)
+    rows[:, : L * C] = out["rows"].reshape(T, L * C)
+    out["walk"] = np.concatenate([nodes, rows.view(np.int64)], axis=1)
     return out
 
 
@@ -242,18 +370,17 @@ def _nvcc() -> str:
     raise KernelBuildError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
 
 
-def build(verbose: bool = False) -> ctypes.CDLL:
+def build() -> ctypes.CDLL:
     """Compile ``csrc/qtrees_ensemble.cu`` for sm_90a (once per source
-    content) and bind its entry point; → the loaded library."""
+    content) and bind its entry point; → the loaded library. ptxas's
+    report lands beside the library (:func:`ptxas_report`)."""
     global _LIB
     with _LIB_LOCK:
         if _LIB is not None:
             return _LIB
-        src = SOURCE.read_bytes()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        lib_path = BUILD_DIR / f"qtrees_ensemble_{tag}.so"
+        lib_path = _lib_path()
         if not lib_path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = BUILD_DIR / f".{lib_path.name}.{os.getpid()}.tmp"
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
             res = subprocess.run(cmd, capture_output=True, text=True)
@@ -261,31 +388,76 @@ def build(verbose: bool = False) -> ctypes.CDLL:
                 raise KernelBuildError(
                     f"nvcc failed ({res.returncode}):\n{res.stderr}"
                 )
-            if verbose:
-                print(res.stderr, end="")
+            lib_path.with_suffix(".ptxas.txt").write_text(res.stderr)
             os.replace(tmp, lib_path)
         lib = ctypes.CDLL(str(lib_path))
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.qtrees_leaf_rows.argtypes = [
-            p, i64, i32, p, p, p, p, i32, i32, i32, i32, i32, p, p]
+            p, i64, i32, p, i32, i32, i32, i32, i32, i32, p, p]
         lib.qtrees_leaf_rows.restype = ctypes.c_int
         _LIB = lib
         return lib
 
 
+def _lib_path() -> pathlib.Path:
+    tag = hashlib.sha256(
+        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"qtrees_ensemble_{tag}.so"
+
+
+def ptxas_report() -> list:
+    """Per kernel of the built library, what ``-Xptxas -v`` said:
+    ``{"kernel", "registers", "smem_bytes", "stack_bytes", "spill_stores",
+    "spill_loads"}`` (static shared memory; the tables and codes are
+    dynamic). Empty before :func:`build` compiled the current source."""
+    log = _lib_path().with_suffix(".ptxas.txt")
+    if not log.exists():
+        return []
+    out = []
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            out.append({"kernel": m.group(1)})
+            continue
+        if not out:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[-1].update(stack_bytes=int(m.group(1)),
+                           spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[-1].update(registers=int(m.group(1)),
+                           smem_bytes=int(smem.group(1)) if smem else 0)
+    return out
+
+
 def _check_tables(tables: Dict[str, torch.Tensor], device: torch.device):
-    """Types, shapes and placement of the kernel's tables → (T, S, L, C)."""
+    """Types, shapes and placement of the tables that run on ``device`` →
+    (T, S, L, C), read from the shapes of ``split`` and ``rows``. On the
+    card only ``walk``, the kernel's one table, must be there; on the CPU
+    the plain version reads ``split``, ``on``, ``left`` and ``rows``."""
     split, rows = tables["split"], tables["rows"]
     if split.dim() != 2 or rows.dim() != 3:
         raise ValueError(f"tables 'split' {tuple(split.shape)} / 'rows' "
                          f"{tuple(rows.shape)} must be 2-D / 3-D")
     (T, S), (L, C) = split.shape, rows.shape[1:]
-    expect = {
-        "split": (torch.int32, (T, S)),
-        "on": (torch.int64, (T, L)),
-        "left": (torch.int64, (T, L)),
-        "rows": (torch.float32, (T, L, C)),
-    }
+    if S > MAX_SPLITS:
+        raise ValueError(f"{S} split slots per tree > {MAX_SPLITS}")
+    if not 0 < C <= MAX_CLASSES:
+        raise ValueError(f"{C} classes outside (0, {MAX_CLASSES}]")
+    expect = {"walk": (torch.int64, (T, walk_words(S, L, C)))}
+    if device.type == "cpu":
+        expect.update({
+            "split": (torch.int32, (T, S)),
+            "on": (torch.int64, (T, L)),
+            "left": (torch.int64, (T, L)),
+            "rows": (torch.float32, (T, L, C)),
+        })
     for key, (dtype, shape) in expect.items():
         t = tables[key]
         if t.dtype != dtype or tuple(t.shape) != shape:
@@ -298,10 +470,9 @@ def _check_tables(tables: Dict[str, torch.Tensor], device: torch.device):
                 f"table {key!r} must be contiguous on {device} (got "
                 f"{t.device}, contiguous={t.is_contiguous()})"
             )
-    if S > MAX_SPLITS:
-        raise ValueError(f"{S} split slots per tree > {MAX_SPLITS}")
-    if not 0 < C <= MAX_CLASSES:
-        raise ValueError(f"{C} classes outside (0, {MAX_CLASSES}]")
+    # the kernel copies whole 16-byte tree slices of it
+    if device.type == "cuda" and tables["walk"].data_ptr() % 16:
+        raise ValueError("table 'walk' must start on a 16-byte boundary")
     return T, S, L, C
 
 
@@ -332,8 +503,9 @@ def leaf_rows(codes: torch.Tensor, tables: Dict[str, torch.Tensor],
     gathers ``code[feat]`` from a row of exactly that width. On a CUDA
     tensor: launch the kernel on the current stream (counted in
     ``leaf_rows.launches``) or raise — on codes of another width, more than
-    ``MAX_CLASSES`` classes, or tables that are not on the card. On a CPU
-    tensor: the plain version, under the same checks of the tables."""
+    ``MAX_CLASSES`` classes, or a ``walk`` table that is not on the card
+    (the other tables lend only their shapes). On a CPU tensor: the plain
+    version, with all five tables on the CPU."""
     _check_codes(codes, n_fields)
     T, S, L, C = _check_tables(tables, codes.device)
     if codes.device.type == "cpu":
@@ -343,10 +515,8 @@ def leaf_rows(codes: torch.Tensor, tables: Dict[str, torch.Tensor],
     out = torch.empty((N, C), dtype=torch.float32, device=codes.device)
     stream = torch.cuda.current_stream(codes.device).cuda_stream
     rc = lib.qtrees_leaf_rows(
-        codes.data_ptr(), N, F,
-        tables["split"].data_ptr(), tables["on"].data_ptr(),
-        tables["left"].data_ptr(), tables["rows"].data_ptr(),
-        T, S, L, C, SENTINEL, out.data_ptr(), stream,
+        codes.data_ptr(), N, F, tables["walk"].data_ptr(), T,
+        tables["walk"].shape[1], S, L, C, SENTINEL, out.data_ptr(), stream,
     )
     if rc != 0:
         raise KernelLaunchError(f"qtrees_leaf_rows launch failed: "

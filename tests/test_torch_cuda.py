@@ -1,8 +1,9 @@
 """Card-only tests of the PyTorch port: the Hopper kernel (ensemble sum
-and vote shares) against its plain version and the block pipeline on a
-CUDA device. They skip where
-there is no card. This file imports neither jax nor the JAX package, so
-it runs on a machine that has only torch:
+and vote shares) against its plain version, on the fixtures and on the
+seeded ragged and caterpillar forests of ``chip_smoke.py``, and the block
+pipeline on a CUDA device. They skip where there is no card. This file
+imports neither jax nor the JAX package, so it runs on a machine that has
+only torch:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import caterpillar_forest, ragged_forest, random_codes
 from flink_jpmml_tpu_torch.assets_gen import gen_gbm, gen_vote_forest
 from flink_jpmml_tpu_torch.compile import compile_pmml, qtrees_cuda
 from flink_jpmml_tpu_torch.pmml import parse_pmml_file
@@ -174,3 +176,66 @@ def test_vote_pipeline_on_the_card_matches_the_cpu_port(card, tmp_path):
     for i in range(3):  # value, shares, label: the same arithmetic
         np.testing.assert_array_equal(
             np.concatenate([parts[i] for _, _, parts in got]), ref[i])
+
+
+WALK_CASES = {
+    "ragged_c1": lambda: ragged_forest(11, 60, 32, 1),
+    "ragged_c3": lambda: ragged_forest(12, 60, 32, 3),
+    "caterpillar_c1": lambda: caterpillar_forest(13, 32, 1),
+    "caterpillar_c16": lambda: caterpillar_forest(14, 32, 16),
+    # 256 fields at C = 16: the staged codes and two table chunks fit the
+    # shared-memory target only at 64 threads a block (256 records)
+    "ragged_f256_c16": lambda: ragged_forest(17, 60, 256, 16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WALK_CASES))
+def test_walk_kernel_equals_plain_on_the_card(card, case):
+    # ragged depths, single-leaf trees, padded slots, the 65th leaf, the
+    # widest codes; batch lengths around a block's 1,024 records (256
+    # threads x 4 records at 32 fields) put the ragged tail's masked
+    # records through the barriers
+    inputs = WALK_CASES[case]()
+    tables = {k: torch.from_numpy(v).to(card)
+              for k, v in qtrees_cuda.pack_tables(**inputs).items()}
+    C = tables["rows"].shape[2]
+    F = inputs["n_fields"]
+    for n in (1, 1023, 1025, 5000):
+        codes = torch.from_numpy(random_codes(n, n, F, 0.2)).to(card)
+        before = qtrees_cuda.leaf_rows.launches
+        got = qtrees_cuda.leaf_rows(codes, tables, F)
+        ref = qtrees_cuda.leaf_rows_reference(codes, tables)
+        torch.cuda.synchronize()
+        assert qtrees_cuda.leaf_rows.launches == before + 1
+        assert got.shape == (n, C)
+        assert torch.equal(got, ref), (case, n)
+
+
+def test_walk_kernel_on_an_unaligned_codes_width(card):
+    # 7 fields: the codes are staged byte by byte, not word by word
+    inputs = ragged_forest(15, 30, 7, 3)
+    tables = {k: torch.from_numpy(v).to(card)
+              for k, v in qtrees_cuda.pack_tables(**inputs).items()}
+    codes = torch.from_numpy(random_codes(16, 3001, 7, 0.2)).to(card)
+    got = qtrees_cuda.leaf_rows(codes, tables, 7)
+    assert torch.equal(got, qtrees_cuda.leaf_rows_reference(codes, tables))
+
+
+def test_walk_kernel_needs_only_the_walk_table_on_the_card(card):
+    # the mask tables stay on the host: the wrapper reads their shapes only
+    host = {k: torch.from_numpy(v)
+            for k, v in qtrees_cuda.pack_tables(
+                **ragged_forest(18, 30, 32, 3)).items()}
+    codes = torch.from_numpy(random_codes(19, 2049, 32, 0.2))
+    tables = dict(host, walk=host["walk"].to(card))
+    got = qtrees_cuda.leaf_rows(codes.to(card), tables, 32)
+    assert torch.equal(got.cpu(), qtrees_cuda.leaf_rows(codes, host, 32))
+
+
+def test_ptxas_reports_no_spills(card):
+    qtrees_cuda.build()
+    report = qtrees_cuda.ptxas_report()
+    assert len(report) == 3  # one instance per class bucket: 1, 4, 16
+    for kernel in report:
+        assert kernel["spill_stores"] == 0 and kernel["spill_loads"] == 0, \
+            kernel
