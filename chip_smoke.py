@@ -55,9 +55,41 @@ JAX package, and prints one JSON line per phase:
    f32 contraction rounds tied totals in an order of its own). Ties are
    found from exact integer vote counts.
 
-The forest generators (``ragged_forest``, ``caterpillar_forest``,
-``random_codes``) import nothing beyond numpy and torch; the CPU tests
-import them too, so the card and the CPU see the same trees.
+10. native — builds the C++ host data plane
+    (``flink_jpmml_tpu_torch/_native/fjt_native.cpp``, g++) and prints its
+    build seconds and the host's core count; holds the C++ bucketizer
+    (``QuantizedWire.encode``) byte for byte to its plain version
+    (``encode_reference``, numpy) on the GBM's uint8 lockstep tables, a
+    skewed uint8 wire that takes the ragged branch, a uint16 model
+    (``gen_gbm(hist_bins=None)``) and a skewed uint16 wire, over cells
+    with NaN, ±inf, exact cut values and ±0.0 (``edge_cells``); and
+    times both at [262144, 32] on the host (median ms);
+11. encode stage — the device encode stage (``encode_device``) on the
+    card against the host encode, byte for byte and dtype for dtype, on
+    the GBM, the vote forest and the uint16 model, with the same cells;
+    its CUDA-event median ms per 262,144 records; and the uint16 model
+    scored on the card host-encoded and fused (the torch twin over a
+    staged uint16 batch) against the CPU port;
+12. fused main path / vote fused main path — 6 and 9 again with no
+    ``encode_mode`` set, so the scorer takes its own placement on the
+    card, which must be fused: raw f32 ships (128 bytes a record) and the
+    encode stage runs on the card in front of the kernel; the heads are
+    held to the CPU port as in 6 and 9;
+13. device shares — for each main path, the kernel's, the encode
+    stage's and the H2D copy's timed milliseconds times the dispatches,
+    over the wall: an estimate of the card's idle share (the H2D copies
+    of 262,144 records' codes and f32 cells from pinned memory are timed
+    in phase 11).
+
+Every main path runs the C++ ring. Phases 6 and 9 set the scorer's
+``encode_mode = "host"`` (the C++ bucketizer); each main path prints the
+encode placement that ran (``encode_mode``), with ``h2d_bytes`` per
+record: 32 host-encoded, 128 fused.
+
+The generators (``ragged_forest``, ``caterpillar_forest``,
+``random_codes``, ``edge_cells``, ``synthetic_wire``) import nothing
+beyond numpy and torch and the port; the CPU tests import them too, so
+the card and the CPU see the same trees and cells.
 
 Then the kernels line, the ``nvidia-smi`` line, and last the contract
 line ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
@@ -68,6 +100,7 @@ device it exits 1 at once.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -206,6 +239,51 @@ def random_codes(seed: int, n: int, n_fields: int, missing: float):
     codes = rng.integers(0, 255, size=(n, n_fields)).astype(np.uint8)
     codes[rng.random(size=codes.shape) < missing] = 255
     return codes
+
+
+def edge_cells(rng, cuts, n: int) -> np.ndarray:
+    """f32[n, F] cells for the encode checks: N(0, 1.5) values, with 20%
+    NaN, 2% +inf, 2% -inf, 3% -0.0, 3% +0.0 and 10% exact cut values of
+    the cell's own feature (where it has cuts)."""
+    F = len(cuts)
+    X = rng.normal(0.0, 1.5, size=(n, F)).astype(np.float32)
+    u = rng.random(size=(n, F))
+    for j, c in enumerate(cuts):
+        sel = (u[:, j] >= 0.30) & (u[:, j] < 0.40)
+        if len(c):
+            X[sel, j] = c[rng.integers(0, len(c), size=int(sel.sum()))]
+    X[u < MISSING] = np.nan
+    X[(u >= 0.20) & (u < 0.22)] = np.inf
+    X[(u >= 0.22) & (u < 0.24)] = -np.inf
+    X[(u >= 0.24) & (u < 0.27)] = -0.0
+    X[(u >= 0.27) & (u < 0.30)] = 0.0
+    return X
+
+
+def synthetic_wire(seed: int, sizes, dtype):
+    """A rank wire over made-up cut tables of the given sizes (0.0 among
+    each non-empty table, so ±0.0 cells meet a cut), uint8 or uint16,
+    with a missingValueReplacement on every third field."""
+    from flink_jpmml_tpu_torch.compile.qtrees import QuantizedWire
+
+    rng = np.random.default_rng(seed)
+    cuts = tuple(
+        np.unique(np.concatenate([[0.0], rng.normal(0.0, 1.5, size=k - 1)])
+                  .astype(np.float32)) if k else np.empty(0, np.float32)
+        for k in sizes)
+    F = len(sizes)
+    has_repl = np.arange(F) % 3 == 1
+    repl = np.where(has_repl, rng.normal(0.0, 1.0, size=F), 0.0)
+    return QuantizedWire(
+        fields=tuple(f"x{j}" for j in range(F)), cuts=cuts, dtype=dtype,
+        sentinel=int(np.iinfo(dtype).max), repl=repl.astype(np.float32),
+        has_repl=has_repl)
+
+
+def skewed_sizes(n_fields: int, long: int) -> list:
+    """Cut-table sizes with one long table among short ones, so that the
+    padding blowup sends the host encode down the ragged branch."""
+    return [long] + [4, 0, 7] * ((n_fields - 1) // 3) + [3] * ((n_fields - 1) % 3)
 
 
 def emit(obj) -> None:
@@ -439,6 +517,132 @@ def time_kernel(q, X: np.ndarray) -> dict:
     }
 
 
+def host_ms(fn, repeats: int) -> float:
+    """Median host milliseconds of ``fn()`` (one warm-up call first)."""
+    fn()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def check_codes(got: np.ndarray, ref: np.ndarray, label: str,
+                phase: str) -> dict:
+    """Rank codes against the plain version: dtype for dtype, byte for
+    byte."""
+    row = {"case": label, "rows": int(ref.shape[0]), "fields": int(ref.shape[1]),
+           "dtype": str(got.dtype),
+           "sentinel_share": float((ref == np.iinfo(ref.dtype).max).mean()),
+           "mismatches": int((got != ref).sum()) if got.shape == ref.shape
+           else -1,
+           "ok": bool(got.dtype == ref.dtype and np.array_equal(got, ref))}
+    if not row["ok"]:
+        emit({"phase": phase, **row, "ref_dtype": str(ref.dtype)})
+        raise RuntimeError(f"{label}: codes differ from the plain version")
+    return row
+
+
+def check_native(rng, wires) -> dict:
+    """Build the C++ host plane; hold its bucketizer to the numpy plain
+    version on each ``(label, wire, branch, rows)`` and time both on the
+    first wire at DISPATCH rows."""
+    from flink_jpmml_tpu_torch.runtime import native
+
+    built_before = native.lib_path().exists()
+    t0 = time.perf_counter()
+    native.load()
+    build_s = time.perf_counter() - t0
+    cases = []
+    for label, wire, branch, rows in wires:
+        taken = "lockstep" if wire._pow2_tables()[0] is not None else "ragged"
+        if taken != branch:
+            raise RuntimeError(f"{label}: takes the {taken} branch, "
+                               f"not {branch}")
+        X = edge_cells(rng, wire.cuts, rows)
+        row = check_codes(wire.encode(X), wire.encode_reference(X), label,
+                          "native")
+        cases.append({**row, "branch": taken})
+    wire = wires[0][1]
+    X = edge_cells(rng, wire.cuts, DISPATCH)
+    native_ms = host_ms(lambda: wire.encode(X), 7)
+    plain_ms = host_ms(lambda: wire.encode_reference(X), 3)
+    return {
+        "source": "flink_jpmml_tpu_torch/_native/fjt_native.cpp",
+        "build_s": build_s, "built_before": built_before,
+        "host_cpus": os.cpu_count(),
+        "host_cpus_usable": len(os.sched_getaffinity(0)),
+        "cases": cases, "timed_case": wires[0][0],
+        "timed_rows": DISPATCH, "native_ms": native_ms, "plain_ms": plain_ms,
+        "native_records_per_s": DISPATCH / (native_ms * 1e-3),
+    }
+
+
+def check_encode_stage(rng, scorers, q16_cpu) -> dict:
+    """The device encode stage on the card against the host encode, byte
+    for byte, on each ``(label, scorer, rows)``; its CUDA-event time at
+    DISPATCH rows on the first scorer; and the uint16 scorer (the last)
+    scored host-encoded and fused on the card against the CPU port."""
+    import torch
+
+    cases = []
+    for label, q, rows in scorers:
+        X = edge_cells(rng, q.wire.cuts, rows)
+        got = q.encode_device(X)
+        if got.device.type != "cuda":
+            raise RuntimeError(f"{label}: encode stage ran on {got.device}")
+        cases.append(check_codes(got.cpu().numpy(), q.wire.encode(X), label,
+                                 "encode_stage"))
+    q = scorers[0][1]
+    X = edge_cells(rng, q.wire.cuts, DISPATCH)
+    Xd = torch.from_numpy(X).cuda()
+    stage_ms = cuda_ms(lambda: q.encode_device(Xd), 3, 20)
+    F = Xd.shape[1]
+    # what each placement copies to the card a dispatch, from pinned memory
+    pinned_f32 = torch.from_numpy(X).pin_memory()
+    pinned_codes = torch.from_numpy(q.wire.encode(X)).pin_memory()
+    h2d_f32_ms = cuda_ms(lambda: pinned_f32.to("cuda", non_blocking=True), 3, 20)
+    h2d_codes_ms = cuda_ms(
+        lambda: pinned_codes.to("cuda", non_blocking=True), 3, 20)
+    # the stage reads the f32 batch and writes the codes once
+    n_bytes = Xd.numel() * 4 + Xd.numel() * np.dtype(q.wire.dtype).itemsize
+    label16, q16, _ = scorers[-1]
+    X = edge_cells(rng, q16.wire.cuts, q16.batch_size)
+    ref = q16_cpu.predict_wire(q16_cpu.wire.encode(X)).numpy()
+    host = q16.predict_wire(q16.wire.encode(X)).cpu().numpy()
+    fused = q16.predict_fused(X).cpu().numpy()
+    errs = {"host_vs_cpu": float(np.abs(host - ref).max()),
+            "fused_vs_cpu": float(np.abs(fused - ref).max()),
+            "fused_vs_host": float(np.abs(fused - host).max())}
+    if not (np.isfinite(host).all() and np.allclose(host, ref, rtol=RTOL, atol=ATOL)
+            and np.allclose(fused, ref, rtol=RTOL, atol=ATOL)):
+        raise RuntimeError(f"{label16} scored on the card differs from the "
+                           f"CPU port: {errs}")
+    return {
+        "cases": cases, "timed_case": scorers[0][0], "timed_rows": DISPATCH,
+        "fields": F, "stage_ms": stage_ms,
+        "stage_records_per_s": DISPATCH / (stage_ms * 1e-3),
+        "h2d_f32_ms": h2d_f32_ms, "h2d_codes_ms": h2d_codes_ms,
+        "bytes": n_bytes, "bytes_ms": n_bytes / PEAK_BYTES_S * 1e3,
+        "uint16_scoring": {"case": label16, "backend": q16.backend,
+                           "rows": int(X.shape[0]), **errs},
+    }
+
+
+def device_shares(run: dict, kernel_ms: float, stage_ms: float = 0.0,
+                  h2d_ms: float = 0.0) -> dict:
+    """The kernel's, the encode stage's and the H2D copies' shares of a
+    main path's wall, from their timed milliseconds a dispatch: an
+    estimate of the card's busy share, not a profiler trace."""
+    n, wall_ms = run["dispatches"], run["seconds"] * 1e3
+    busy = n * (kernel_ms + stage_ms + h2d_ms) / wall_ms
+    return {"kernel_share": n * kernel_ms / wall_ms,
+            "stage_share": n * stage_ms / wall_ms,
+            "h2d_share": n * h2d_ms / wall_ms,
+            "device_idle_share_est": 1.0 - busy}
+
+
 def drive(cm, data: np.ndarray, sink, count: list, counter) -> dict:
     """BlockPipeline over ``data`` until MIN_DISPATCHES dispatches of
     DISPATCH records reached the sink; ``counter`` (a kernel wrapper) is
@@ -460,6 +664,8 @@ def drive(cm, data: np.ndarray, sink, count: list, counter) -> dict:
     )
     if pipe.backend != "rank_wire_cuda":
         raise RuntimeError(f"pipeline backend {pipe.backend}")
+    q = cm.quantized_scorer()
+    placement = q.encode_placement
     target = MIN_DISPATCHES * DISPATCH
     counter.launches = 0
     t0 = time.perf_counter()
@@ -479,12 +685,25 @@ def drive(cm, data: np.ndarray, sink, count: list, counter) -> dict:
     if launches < dispatches or launches == 0:
         raise RuntimeError(f"{launches} kernel launches for {dispatches} "
                            "dispatches")
+    if snap.get(f"encode_{placement}") != dispatches:
+        raise RuntimeError(f"{snap.get(f'encode_{placement}')} of "
+                           f"{dispatches} dispatches encoded by {placement}")
+    h2d_per_record = snap["h2d_bytes"] / snap["batch_fill_records"]
+    if h2d_per_record != q.staged_bytes_per_record:
+        raise RuntimeError(f"{h2d_per_record} H2D bytes a record, expected "
+                           f"{q.staged_bytes_per_record} ({placement})")
+    encode_s = snap.get("encode_s", 0.0)
     return {
-        "backend": pipe.backend,
+        "backend": pipe.backend, "encode_mode": placement,
+        "host_cpus": os.cpu_count(),
         "records": count[0], "seconds": dt, "records_per_s": count[0] / dt,
         "dispatches": dispatches, "launches": launches,
+        "launches_per_dispatch": launches / dispatches,
         "records_per_dispatch": snap["batch_fill_records"] / max(dispatches, 1),
-        "encode_s": snap.get("encode_s"), "h2d_stall_s": snap.get("h2d_stall_s"),
+        "h2d_bytes_per_record": h2d_per_record,
+        "encode_s": encode_s, "encode_share": encode_s / dt,
+        "encode_ms_per_dispatch": 1e3 * encode_s / dispatches,
+        "h2d_stall_s": snap.get("h2d_stall_s"),
         "batch_latency_p50_s": snap.get("batch_latency_s_p50"),
         "batch_latency_p99_s": snap.get("batch_latency_s_p99"),
     }
@@ -520,6 +739,29 @@ def main() -> int:
     doc, cm, q = model_tables(workdir, 500, "gbm_500.pmml")
     _, _, q19 = model_tables(workdir, 19, "gbm_19.pmml")
     F = len(q.wire.fields)
+
+    # -- the C++ host plane (before anything else encodes) -------------------
+    from flink_jpmml_tpu_torch.assets_gen import gen_gbm
+    from flink_jpmml_tpu_torch.pmml import parse_pmml_file
+
+    doc16 = parse_pmml_file(gen_gbm(workdir, n_trees=500, name="gbm_u16.pmml",
+                                    hist_bins=None))
+    q16 = compile_pmml(doc16, batch_size=1024).quantized_scorer()
+    q16_cpu = compile_pmml(doc16, batch_size=1024,
+                           device="cpu").quantized_scorer()
+    if q16.wire.dtype is not np.uint16 or not q16.supports_fused:
+        raise RuntimeError(f"gbm_u16: wire {q16.wire.dtype}, fused "
+                           f"{q16.supports_fused}")
+    nat = check_native(np.random.default_rng(2), [
+        ("gbm500_u8_lockstep", q.wire, "lockstep", DISPATCH),
+        ("skewed_u8_ragged", synthetic_wire(3, skewed_sizes(F, 200), np.uint8),
+         "ragged", 100_003),
+        ("gbm500_u16_lockstep", q16.wire, "lockstep", 100_003),
+        ("skewed_u16_ragged",
+         synthetic_wire(4, skewed_sizes(F, 3000), np.uint16), "ragged",
+         100_003),
+    ])
+    emit({"phase": "native", **nat})
     X_main = features(rng, DISPATCH, F)
     rows = [
         check_kernel(q, X_main, "gbm500_262144", "kernel"),
@@ -548,11 +790,12 @@ def main() -> int:
             kept["head"] = vals[:sample].copy()
         count[0] += n
 
-    # warm the path once outside the counted window
+    # warm the path once outside the counted window; the host encode is
+    # asked for by hand (the card's default is the fused placement)
+    q.encode_mode = "host"
     q.predict_wire(q.wire.encode(data[:BATCH]))
     torch.cuda.synchronize()
     run = drive(cm, data, sink, count, qtrees_cuda.leaf_rows)
-    launches = run["launches"]
 
     cm_cpu = compile_pmml(doc, batch_size=BATCH, device="cpu")
     q_cpu = cm_cpu.quantized_scorer()
@@ -621,6 +864,7 @@ def main() -> int:
                                   for a in (value, probs, lab))
         vcount[0] += n
 
+    vq.encode_mode = "host"
     vq.predict_wire(vq.wire.encode(data[:BATCH]))
     torch.cuda.synchronize()
     vrun = drive(vcm, data, vote_sink, vcount, qtrees_cuda.leaf_rows)
@@ -645,26 +889,95 @@ def main() -> int:
         "twin_check": twin_check,
     })
 
-    def kernel_entry(name, replaces, launches, checked, t):
+    # -- the device encode stage ----------------------------------------------
+    enc = check_encode_stage(np.random.default_rng(3), [
+        ("gbm500_u8", q, DISPATCH), ("votes500_u8", vq, 100_003),
+        ("gbm500_u16", q16, 100_003),
+    ], q16_cpu)
+    emit({"phase": "encode_stage", **enc})
+
+    # -- the main paths again, fused: raw f32 ships, encoded on the card -----
+    # (the scorer's own choice on the card, with no encode_mode set)
+    q.encode_mode = None
+    fkept = {}
+    fcount = [0]
+
+    def fused_sink(out, n, first_off):
+        vals = np.asarray(out)
+        if vals.ndim != 1 or vals.shape[0] < n:
+            raise RuntimeError(f"sink got {vals.shape} for {n} records")
+        if first_off == 0:
+            fkept["head"] = vals[:sample].copy()
+        fcount[0] += n
+
+    q.predict_fused(data[:BATCH])
+    torch.cuda.synchronize()
+    frun = drive(cm, data, fused_sink, fcount, qtrees_cuda.leaf_rows)
+    if frun["encode_mode"] != "fused" or frun["h2d_bytes_per_record"] != 4 * F:
+        raise RuntimeError(f"fused main path ran {frun['encode_mode']} with "
+                           f"{frun['h2d_bytes_per_record']} bytes a record")
+    fhead = fkept["head"]
+    ferr = float(np.abs(fhead - ref).max())
+    if (fhead.shape != (sample,) or not np.isfinite(fhead).all()
+            or not np.allclose(fhead, ref, rtol=RTOL, atol=ATOL)):
+        raise RuntimeError(f"fused main path disagrees with the CPU port: "
+                           f"{ferr}")
+    emit({"phase": "fused_main_path", **frun, "cpu_check_rows": sample,
+          "cpu_check_max_abs_err": ferr,
+          "host_path_max_abs_diff": float(np.abs(fhead - head).max())})
+
+    vq.encode_mode = None
+    vfkept = {}
+
+    def vote_fused_sink(out, n, first_off):
+        if first_off == 0:
+            vfkept["head"] = tuple(np.asarray(o)[:sample].copy() for o in out)
+        vote_sink(out, n, first_off)
+
+    vq.predict_fused(data[:BATCH])
+    torch.cuda.synchronize()
+    vcount[0] = 0
+    vfrun = drive(vcm, data, vote_fused_sink, vcount, qtrees_cuda.leaf_rows)
+    if (vfrun["encode_mode"] != "fused"
+            or vfrun["h2d_bytes_per_record"] != 4 * F):
+        raise RuntimeError(f"vote fused path ran {vfrun['encode_mode']} with "
+                           f"{vfrun['h2d_bytes_per_record']} bytes a record")
+    vf_check = check_votes(vfkept["head"], cpu_ref, counts, "CPU port, fused")
+    emit({"phase": "vote_fused_main_path", **vfrun, "check_rows": sample,
+          "cpu_check": vf_check})
+    emit({"phase": "device_shares",
+          "main_path": device_shares(run, timing["kernel_ms"], 0.0,
+                                     enc["h2d_codes_ms"]),
+          "vote_main_path": device_shares(vrun, vtiming["kernel_ms"], 0.0,
+                                          enc["h2d_codes_ms"]),
+          "fused_main_path": device_shares(frun, timing["kernel_ms"],
+                                           enc["stage_ms"], enc["h2d_f32_ms"]),
+          "vote_fused_main_path": device_shares(
+              vfrun, vtiming["kernel_ms"], enc["stage_ms"],
+              enc["h2d_f32_ms"])})
+
+    def kernel_entry(name, replaces, runs, checked, t):
         return {
             "name": name, "route": "cuda",
             "source": "flink_jpmml_tpu_torch/csrc/qtrees_ensemble.cu",
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces,
+            "launches": sum(r["launches"] for r in runs.values()),
+            "launches_by_path": {k: r["launches"] for k, r in runs.items()},
             "max_abs_err": max(r["max_abs_err"] for r in checked),
             "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "ops": t["ops"],
         }
 
-    # one kernel, two paths: each entry reads its own path's launches
+    # one kernel, four paths: each entry reads its own paths' launches
     emit({"kernels": [
         kernel_entry("qtrees_leaf_rows (regression sum, C=1)",
                      "flink_jpmml_tpu/compile/qtrees_pallas.py:170 and :218",
-                     launches,
+                     {"main_path": run, "fused_main_path": frun},
                      rows + [r for r in wrows if r["classes"] == 1], timing),
         kernel_entry("qtrees_leaf_rows (vote shares)",
                      "flink_jpmml_tpu/compile/qtrees_pallas.py:187 and :238",
-                     vrun["launches"],
+                     {"vote_main_path": vrun, "vote_fused_main_path": vfrun},
                      vrows + [r for r in wrows if r["classes"] > 1], vtiming),
     ]})
     print(smi, flush=True)

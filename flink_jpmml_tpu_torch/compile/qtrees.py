@@ -24,9 +24,29 @@ instead of raw floats:
   ``qfn`` in plain PyTorch, for every other model the wire takes (uint16
   wires, max/median aggregates, ``single``-method trees, wider targets).
 
-Host encode runs through numpy ``searchsorted`` (the JAX package's
-fall-back branch and its semantic oracle); the C++ bucketizer, the fused
-on-device encode stage, autotune and kernel layouts are not ported yet.
+Encode placement (``QuantizedScorer.encode_placement``):
+
+- ``"host"``: the C++ bucketizer
+  (``runtime/native.py``, multithreaded; lockstep over +inf-padded
+  power-of-two tables, ragged when the tables are skewed) rank-encodes
+  on the host and the uint8/uint16 codes ship;
+- ``"fused"``: the raw f32 batch ships and the encode stage
+  (:func:`_make_encode_stage`, ``torch.searchsorted`` over the
+  +inf-padded tables) runs on the device in front of the scorer. A model
+  whose padded tables exceed ``_DEVICE_TABLE_BUDGET`` has no stage and
+  stays host-encoded.
+
+The scorer picks from what it sees: fused on a CUDA device when the model
+has a stage (on the H100 it carried 1.3-2.0x the host path's records/s on
+both main paths, PERF.md), host-encoded on the CPU, where the C++
+bucketizer is the faster encode. ``encode_mode`` overrides the choice
+(the JAX package's autotuner sets it there; it is not ported).
+
+Both are byte-identical to :meth:`QuantizedWire.encode_reference`, the
+numpy ``searchsorted`` encode (the JAX package's fall-back branch), which
+stays as the plain version and runs only where a caller asks for it.
+Autotune (which picks the placement in the JAX package) and kernel
+layouts are not ported yet.
 """
 
 from __future__ import annotations
@@ -54,15 +74,36 @@ from flink_jpmml_tpu_torch.compile.trees import (
 )
 from flink_jpmml_tpu_torch.models.prediction import Prediction, decode_batch
 from flink_jpmml_tpu_torch.pmml import ir
+from flink_jpmml_tpu_torch.runtime import native
 from flink_jpmml_tpu_torch.utils.config import CompileConfig
 from flink_jpmml_tpu_torch.utils.device import resolve_device
 from flink_jpmml_tpu_torch.utils.exceptions import ModelCompilationException
 
 # opcodes from trees.py: 0 '<', 1 '<=', 2 '>', 3 '>='
 _SUPPORTED_OPS = frozenset((0, 1, 2, 3))
+# fused-encode cut-table budget: the device encode stage carries an
+# [F, L] +inf-padded f32 table; a pathological uint16 wire would pin tens
+# of MB of device memory per served model for a stage the host
+# bucketizer handles fine
+_DEVICE_TABLE_BUDGET = 16 * 1024 * 1024
 _REGRESSION_METHODS = frozenset(
     ("single", "sum", "average", "weightedAverage", "max", "median")
 )
+
+
+def _pow2_at_least(m: int) -> int:
+    L = 1
+    while L < max(m, 1):
+        L <<= 1
+    return L
+
+
+def _padded_table(cuts, L: int) -> np.ndarray:
+    """[F, L] f32 rows, each feature's sorted cuts then +inf pads."""
+    padded = np.full((max(len(cuts), 1), L), np.inf, np.float32)
+    for j, c in enumerate(cuts):
+        padded[j, : len(c)] = c
+    return padded
 
 
 @dataclass(frozen=True)
@@ -82,13 +123,73 @@ class QuantizedWire:
     repl: np.ndarray  # f32[F]
     has_repl: np.ndarray  # bool[F]
 
+    @property
+    def bytes_per_record(self) -> int:
+        return len(self.fields) * np.dtype(self.dtype).itemsize
+
+    def _cached(self, name: str, make):
+        # the dataclass is frozen: tables derived from the cuts are built
+        # once and kept beside them
+        cached = self.__dict__.get(name)
+        if cached is None:
+            cached = (make(),)
+            object.__setattr__(self, name, cached)
+        return cached[0]
+
+    def _flat_tables(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(cuts_flat f32, offsets i32[F+1]) for the ragged bucketizer."""
+        def make():
+            offs = np.zeros((len(self.cuts) + 1,), np.int32)
+            for j, c in enumerate(self.cuts):
+                offs[j + 1] = offs[j] + len(c)
+            flat = (np.concatenate(self.cuts).astype(np.float32) if offs[-1]
+                    else np.empty((0,), np.float32))
+            return flat, offs
+        return self._cached("_flat_cache", make)
+
+    def _pow2_tables(self) -> Tuple[Optional[np.ndarray], int]:
+        """(+inf-padded [F, L] f32 table, L) for the lockstep bucketizer,
+        or (None, 0) when the padding blowup says the ragged path wins.
+
+        L = next power of two ≥ the longest per-feature cut table; ranks
+        are unchanged by +inf pads (a pad is never < any finite x). The
+        lockstep kernel makes every feature pay L-depth rounds and
+        L-width memory, so it only pays off when cut counts are roughly
+        balanced (GBM exports are): a blowup F·L / Σ|cuts| above 4 with
+        L > 64 takes the ragged kernel."""
+        def make():
+            L = _pow2_at_least(max((len(c) for c in self.cuts), default=0))
+            total = sum(len(c) for c in self.cuts)
+            blowup = (max(len(self.cuts), 1) * L) / max(total, 1)
+            if blowup > 4.0 and L > 64:
+                return None, 0  # skewed: ragged path
+            return _padded_table(self.cuts, L), L
+        return self._cached("_pow2_cache", make)
+
     def encode(
         self, X: np.ndarray, M: Optional[np.ndarray] = None
     ) -> np.ndarray:
         """f32[B, F] (+ optional missing mask) → rank codes [B, F].
 
         NaNs count as missing. Missing cells take the mining-schema
-        replacement value when one is declared, else the sentinel."""
+        replacement value when one is declared, else the sentinel. Runs
+        the multithreaded C++ bucketizer (``runtime/native.py``); raises
+        ``NativeBuildError`` when it cannot be built — the numpy version
+        is :meth:`encode_reference`, taken only on request."""
+        has_repl = self.has_repl.astype(np.uint8)
+        padded, L = self._pow2_tables()
+        if padded is not None:
+            return native.bucketize_pow2(
+                X, padded, L, self.repl, has_repl, self.dtype, mask=M)
+        flat, offs = self._flat_tables()
+        return native.bucketize(
+            X, flat, offs, self.repl, has_repl, self.dtype, mask=M)
+
+    def encode_reference(
+        self, X: np.ndarray, M: Optional[np.ndarray] = None
+    ) -> np.ndarray:
+        """The plain version of :meth:`encode`: numpy ``searchsorted``
+        per column, the same codes byte for byte."""
         X = np.asarray(X, np.float32)
         miss = np.isnan(X)
         if M is not None:
@@ -103,6 +204,59 @@ class QuantizedWire:
             out[:, j] = np.searchsorted(cuts, X[:, j], side="left")
         out[miss] = self.sentinel
         return out
+
+    def encode_records(self, space: prepare.FieldSpace, records) -> np.ndarray:
+        X, M = prepare.from_records(space, records)
+        return self.encode(X, M)
+
+    def device_tables(self) -> Optional[Dict[str, np.ndarray]]:
+        """Operands of the device encode stage, or None when the padded
+        table exceeds ``_DEVICE_TABLE_BUDGET`` (such models stay
+        host-encoded).
+
+        ``enc_cuts`` is the [F, L] +inf-padded cut table (L the next
+        power of two ≥ the longest per-feature table). Unlike
+        :meth:`_pow2_tables` there is no skew rule: the device search is
+        lockstep by construction and +inf pads never change a rank."""
+        def make():
+            L = _pow2_at_least(max((len(c) for c in self.cuts), default=0))
+            if max(len(self.cuts), 1) * L * 4 > _DEVICE_TABLE_BUDGET:
+                return None
+            return {
+                "enc_cuts": _padded_table(self.cuts, L),
+                "enc_repl": self.repl.astype(np.float32),
+                "enc_has_repl": self.has_repl.astype(bool),
+            }
+        return self._cached("_dev_cache", make)
+
+
+def _make_encode_stage(sentinel: int, out_dtype, any_repl: bool):
+    """The device encode stage: f32[B, F] → rank codes [B, F] in the wire
+    dtype, byte-identical to :meth:`QuantizedWire.encode`.
+
+    The port of the JAX package's XLA stage (qtrees.py
+    ``_make_encode_stage``), in torch ops on the scorer's device. NaN
+    cells take the mining-schema replacement where one is declared, else
+    the sentinel; ``rank = #{cut < x}`` comes from one batched
+    ``searchsorted`` (left side) of the [F, B] transposed values over the
+    [F, L] +inf-padded tables: a pad is never < x, so it never adds to a
+    rank, and a +inf cell ranks at its table's real length. Ranks are
+    int32 until the last cast (uint16 is a partial dtype on CUDA)."""
+    wire_dtype = torch.from_numpy(np.zeros(0, out_dtype)).dtype
+
+    def encode_stage(pp, X: torch.Tensor) -> torch.Tensor:
+        Xt = X.float().T.contiguous()  # [F, B]
+        miss = torch.isnan(Xt)
+        if any_repl:
+            has = pp["enc_has_repl"][:, None]
+            Xt = torch.where(miss & has, pp["enc_repl"][:, None], Xt)
+            miss = miss & ~has
+        ranks = torch.searchsorted(pp["enc_cuts"], Xt, right=False,
+                                   out_int32=True)
+        codes = torch.where(miss, sentinel, ranks)
+        return codes.to(wire_dtype).T.contiguous()
+
+    return encode_stage
 
 
 Output = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
@@ -129,10 +283,42 @@ class QuantizedScorer:
     # take
     backend: str = "torch"
     labels: Tuple[str, ...] = ()  # classification class list; () = regression
+    # None: encode_placement decides from the device and supports_fused;
+    # "host" or "fused" overrides that (a model without a stage stays
+    # host-encoded all the same)
+    encode_mode: Optional[str] = None
+    # the device encode stage (_make_encode_stage); None when the model's
+    # padded cut tables exceed _DEVICE_TABLE_BUDGET
+    _encode_stage: object = None
 
     @property
     def is_classification(self) -> bool:
         return bool(self.labels)
+
+    @property
+    def supports_fused(self) -> bool:
+        return self._encode_stage is not None
+
+    @property
+    def encode_placement(self) -> str:
+        """The encode a dispatch runs: "fused" (raw f32 ships, the device
+        stage encodes) or "host" (the C++ bucketizer, codes ship). Without
+        an ``encode_mode``, fused on a CUDA device when the model has a
+        stage, else host."""
+        if not self.supports_fused or self.encode_mode == "host":
+            return "host"
+        if self.encode_mode == "fused" or self.device.type == "cuda":
+            return "fused"
+        return "host"
+
+    @property
+    def staged_bytes_per_record(self) -> float:
+        """Bytes one record costs on the wire under the current encode
+        placement: 4·F raw f32 fused, F codes of the wire dtype on the
+        host path."""
+        if self.encode_placement == "fused":
+            return 4.0 * len(self.wire.fields)
+        return float(self.wire.bytes_per_record)
 
     def pad_wire(self, Xq: np.ndarray) -> Tuple[np.ndarray, int]:
         """Host-side batch alignment → ``(Xq_padded, K)``: a batch whose
@@ -170,6 +356,51 @@ class QuantizedScorer:
     def predict_wire(self, Xq) -> Output:
         Xq, K = self.pad_wire(Xq)
         return self.predict_padded(Xq, K)
+
+    # -- fused encode + score ---------------------------------------------
+
+    def pad_f32(self, X) -> Tuple[np.ndarray, int]:
+        """:meth:`pad_wire`'s f32 twin for the fused path: zero rows up to
+        K whole compile batches (trimmed by ``decode(out, n)``)."""
+        X = np.ascontiguousarray(X, np.float32)
+        n = X.shape[0]
+        bs = self.batch_size
+        if bs is None or n == bs:
+            return X, 1
+        pad = (-n) % bs
+        if pad:
+            X = np.concatenate(
+                [X, np.zeros((pad, X.shape[1]), np.float32)], axis=0
+            )
+        return X, X.shape[0] // bs
+
+    def encode_device(self, X) -> torch.Tensor:
+        """Run only the device encode stage on a raw f32 batch (a numpy
+        array, or a tensor already on the device) → rank codes on the
+        scorer's device, byte-identical to ``wire.encode``. NaN cells are
+        the missing convention."""
+        if self._encode_stage is None:
+            raise ModelCompilationException(
+                "fused encode unavailable for this model (device cut tables "
+                "over budget); use the host-encode path"
+            )
+        if isinstance(X, np.ndarray):
+            X = torch.from_numpy(np.ascontiguousarray(X, np.float32))
+        with torch.no_grad():
+            return self._encode_stage(self.params, X.to(self.device))
+
+    def predict_fused_padded(self, X, K: int = 1) -> Output:
+        """Fused twin of :meth:`predict_padded`: ``X`` is an aligned raw
+        f32 batch from :meth:`pad_f32` (numpy, or staged on the device);
+        the encode stage and the scorer queue on the current stream, one
+        after the other."""
+        return self.predict_padded(self.encode_device(X), K)
+
+    def predict_fused(self, X) -> Output:
+        """Fused entry: align (:meth:`pad_f32`) + encode + score. Callers
+        with an explicit mask fold it in as NaN first."""
+        X, K = self.pad_f32(X)
+        return self.predict_fused_padded(X, K)
 
     def score(self, X, M=None) -> List[Prediction]:
         n = np.asarray(X).shape[0]
@@ -447,6 +678,15 @@ def build_quantized_scorer(
         repl=repl,
         has_repl=has_repl,
     )
+    # the device encode stage stands in front of whichever backend scores
+    # (the JAX package wires it before the XLA and the Pallas program
+    # alike); its tables ride in the params
+    enc_tables = wire.device_tables()
+    encode_stage = None
+    if enc_tables is not None:
+        params.update(enc_tables)
+        encode_stage = _make_encode_stage(
+            sentinel, dtype, bool(has_repl.any()))
 
     # the JAX package's Pallas conditions (qtrees.py:1012-1018) under the
     # kernels' own limits
@@ -496,4 +736,5 @@ def build_quantized_scorer(
         _fn=fn,
         backend=chosen,
         labels=packed.labels if classification else (),
+        _encode_stage=encode_stage,
     )

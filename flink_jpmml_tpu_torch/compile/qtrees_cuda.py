@@ -67,18 +67,18 @@ the package (bound through a plain C interface with ``ctypes``).
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import pathlib
 import re
 import shutil
-import subprocess
 import threading
 from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
 
+from flink_jpmml_tpu_torch.utils.build import BUILD_DIR, build_shared
+from flink_jpmml_tpu_torch.utils.build import lib_path as build_lib_path
 from flink_jpmml_tpu_torch.utils.exceptions import FlinkJpmmlTpuError
 
 SENTINEL = 255  # uint8 wire missing code
@@ -93,7 +93,6 @@ TABLE_KEYS = ("split", "on", "left", "rows", "walk")
 
 _PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 SOURCE = _PKG_DIR / "csrc" / "qtrees_ensemble.cu"
-BUILD_DIR = _PKG_DIR.parent / "build" / "flink_jpmml_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -372,24 +371,19 @@ def _nvcc() -> str:
 
 def build() -> ctypes.CDLL:
     """Compile ``csrc/qtrees_ensemble.cu`` for sm_90a (once per source
-    content) and bind its entry point; → the loaded library. ptxas's
-    report lands beside the library (:func:`ptxas_report`)."""
+    content and flags, :func:`~flink_jpmml_tpu_torch.utils.build.build_shared`)
+    and bind its entry point; → the loaded library. ptxas's report lands
+    beside the library (:func:`ptxas_report`)."""
     global _LIB
     with _LIB_LOCK:
         if _LIB is not None:
             return _LIB
         lib_path = _lib_path()
         if not lib_path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = BUILD_DIR / f".{lib_path.name}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise KernelBuildError(
-                    f"nvcc failed ({res.returncode}):\n{res.stderr}"
-                )
-            lib_path.with_suffix(".ptxas.txt").write_text(res.stderr)
-            os.replace(tmp, lib_path)
+            report = build_shared(_nvcc(), NVCC_FLAGS, SOURCE, lib_path,
+                                  KernelBuildError)
+            if report is not None:
+                lib_path.with_suffix(".ptxas.txt").write_text(report)
         lib = ctypes.CDLL(str(lib_path))
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.qtrees_leaf_rows.argtypes = [
@@ -400,10 +394,7 @@ def build() -> ctypes.CDLL:
 
 
 def _lib_path() -> pathlib.Path:
-    tag = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"qtrees_ensemble_{tag}.so"
+    return build_lib_path(BUILD_DIR, "qtrees_ensemble", SOURCE, NVCC_FLAGS)
 
 
 def ptxas_report() -> list:

@@ -4,17 +4,20 @@ The port of ``flink_jpmml_tpu/runtime/block.py``. Records are contiguous
 float32 blocks end to end:
 
     BlockSource.poll() → [n, F] numpy block
-      → ring (_PyRing)                                   ← backpressure
+      → ring (C++ NativeRing, runtime/native.py)         ← backpressure
       → fill-or-deadline drain into a reused batch buffer
       → multi-chunk aggregation on a backed-up ring
-      → rank encode on the host → staged H2D copy → kernel (CUDA stream)
+      → rank encode (C++ bucketizer on the host, or the device encode
+        stage when the scorer's encode placement is "fused")
+      → staged H2D copy → kernel (CUDA stream)
       → in-flight window (runtime/pipeline.py) → sink(outputs, n, offset)
 
-Ported: the sources, the Python ring, ``BoundScorer``, and
-``BlockPipeline`` with ``start`` / ``stop`` / ``join`` / ``run_for`` /
-``run_until_exhausted``. Not ported yet (the JAX package's hooks at
-block.py:31-51): the C++ ring and bucketizer, checkpoints, the DLQ and
-poison isolation, keyed state, the mesh, prefetch, device-fault recovery,
+Ported: the sources, ``BoundScorer``, and ``BlockPipeline`` over the C++
+ring with ``start`` / ``stop`` / ``join`` / ``run_for`` /
+``run_until_exhausted``. The JAX package's Python ring (its fall-back
+when the C++ library cannot be built) is not ported: the ring raises
+``NativeBuildError`` instead. Not ported yet (the JAX package's hooks at
+block.py:31-51): checkpoints, the DLQ and poison isolation, keyed state, the mesh, prefetch, device-fault recovery,
 admission control and the obs planes. The score loop marks where each
 attaches.
 
@@ -34,6 +37,7 @@ import torch
 
 from flink_jpmml_tpu_torch.compile import prepare
 from flink_jpmml_tpu_torch.compile.compiler import CompiledModel
+from flink_jpmml_tpu_torch.runtime.native import NativeRing
 from flink_jpmml_tpu_torch.runtime.pipeline import (
     DeviceOutput,
     HostStaging,
@@ -100,107 +104,6 @@ class FiniteBlockSource(BlockSource):
         return self._pos >= self._data.shape[0]
 
 
-class _PyRing:
-    """Bounded record ring (chunk list + condition variables) with
-    fill-or-deadline drains into a reused batch buffer."""
-
-    def __init__(self, capacity: int, arity: int, batch_size: int):
-        self._cap = capacity
-        self._chunks: List[Tuple[int, np.ndarray]] = []
-        self._count = 0
-        self._lock = threading.Lock()
-        self._not_empty = threading.Condition(self._lock)
-        self._not_full = threading.Condition(self._lock)
-        self._closed = False
-        self._batch = np.zeros((batch_size, arity), np.float32)
-        self._offsets = np.zeros((batch_size,), np.uint64)
-
-    def push_block(self, block, first_offset, timeout_us=-1) -> int:
-        block = np.ascontiguousarray(block, np.float32)
-        pushed = 0
-        deadline = (
-            None if timeout_us < 0 else time.monotonic() + timeout_us / 1e6
-        )
-        with self._not_full:
-            while pushed < block.shape[0]:
-                while self._count >= self._cap and not self._closed:
-                    remaining = (
-                        None if deadline is None else deadline - time.monotonic()
-                    )
-                    if remaining is not None and remaining <= 0:
-                        return pushed
-                    self._not_full.wait(remaining if remaining else 0.1)
-                if self._closed:
-                    return pushed
-                room = self._cap - self._count
-                take = min(room, block.shape[0] - pushed)
-                self._chunks.append(
-                    (first_offset + pushed, block[pushed : pushed + take])
-                )
-                self._count += take
-                pushed += take
-                self._not_empty.notify()
-        return pushed
-
-    def drain(self, deadline_us: int, idle_timeout_us: int = -1):
-        with self._not_empty:
-            idle_deadline = (
-                None
-                if idle_timeout_us < 0
-                else time.monotonic() + idle_timeout_us / 1e6
-            )
-            while self._count == 0:
-                if self._closed:
-                    return self._batch[:0], self._offsets[:0]
-                if idle_deadline is None:
-                    self._not_empty.wait(0.1)
-                else:
-                    remaining = idle_deadline - time.monotonic()
-                    if remaining <= 0:
-                        return self._batch[:0], self._offsets[:0]
-                    self._not_empty.wait(min(remaining, 0.1))
-            deadline = time.monotonic() + deadline_us / 1e6
-            drained = 0
-            max_n = self._batch.shape[0]
-            while drained < max_n:
-                while self._chunks and drained < max_n:
-                    off, chunk = self._chunks[0]
-                    take = min(chunk.shape[0], max_n - drained)
-                    self._batch[drained : drained + take] = chunk[:take]
-                    self._offsets[drained : drained + take] = np.arange(
-                        off, off + take, dtype=np.uint64
-                    )
-                    if take == chunk.shape[0]:
-                        self._chunks.pop(0)
-                    else:
-                        self._chunks[0] = (off + take, chunk[take:])
-                    self._count -= take
-                    drained += take
-                    self._not_full.notify_all()
-                if drained >= max_n or self._closed:
-                    break
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    break
-                self._not_empty.wait(remaining)
-            return self._batch[:drained], self._offsets[:drained]
-
-    def close(self):
-        with self._lock:
-            self._closed = True
-            self._not_empty.notify_all()
-            self._not_full.notify_all()
-
-    @property
-    def closed(self):
-        with self._lock:
-            return self._closed
-
-    def __len__(self):
-        with self._lock:
-            return self._count
-
-
 class BoundScorer:
     """One compiled model bound for block scoring: its (maybe) rank-wire
     scorer, the ``rank_wire_*``/``f32`` backend tag, and its decode."""
@@ -227,7 +130,10 @@ class BlockPipeline:
     says which scoring path engaged (``rank_wire_cuda`` for the GBM) and
     is also counted in metrics as ``scorer_backend_*``. The model's device
     is the pipeline's device: the card unless it was compiled with
-    ``device="cpu"``.
+    ``device="cpu"``. Records travel the C++ ring, which raises
+    ``NativeBuildError`` when its library cannot be built. The rank-wire
+    scorer's ``encode_placement`` says where each batch is encoded
+    (``dispatch_quantized``).
     """
 
     def __init__(
@@ -255,7 +161,7 @@ class BlockPipeline:
         self._max_dispatch_chunks = max(1, max_dispatch_chunks)
         self._config = config or RuntimeConfig()
         self.metrics = metrics or MetricsRegistry()
-        self._ring = _PyRing(
+        self._ring = NativeRing(
             self._config.batch.queue_capacity, self._arity, self._batch_size
         )
         self._in_flight_max = max(1, in_flight)
@@ -393,7 +299,10 @@ class BlockPipeline:
 
     def _dispatch(self, X, n) -> DeviceOutput:
         """Async dispatch of one drained batch: the rank wire when the
-        model is eligible, the f32 path otherwise."""
+        model is eligible (host-encoded or fused, as the scorer's
+        ``encode_placement`` says), the f32 path otherwise. ``X`` may be a view
+        of the ring's reused drain buffer: both paths are done with it
+        when this returns."""
         q = self._bound.q
         if q is not None:
             return dispatch_quantized(

@@ -1,8 +1,8 @@
 """Overlapped host→device dispatch: the depth-K in-flight window on CUDA.
 
 The port of ``flink_jpmml_tpu/runtime/pipeline.py``. While batch N runs
-on the card, batch N+1 is drained, rank-encoded on the host and copied to
-the device; results are read back only when the window is full (or on
+on the card, batch N+1 is drained, rank-encoded (on the host, or by the
+device encode stage) and copied to the device; results are read back only when the window is full (or on
 flush). Where the JAX package relies on async dispatch,
 ``copy_to_host_async`` and ``block_until_ready``, the port uses:
 
@@ -22,7 +22,8 @@ errors surface where the host blocks; ``close()`` flushes.
 
 Metrics: ``h2d_stall_s`` (host time blocked on device work),
 ``dispatches``, ``window_full_launches``, the ``inflight_depth`` gauge,
-and from :func:`dispatch_quantized` ``encode_s`` / ``h2d_bytes``.
+and from :func:`dispatch_quantized` ``encode_s`` / ``h2d_bytes`` /
+``encode_host`` / ``encode_fused``.
 """
 
 from __future__ import annotations
@@ -129,33 +130,56 @@ def device_output(out, staged: Optional[torch.Tensor] = None) -> DeviceOutput:
 def dispatch_quantized(
     q,
     X,
+    M=None,
     *,
     metrics: Optional[MetricsRegistry] = None,
     staging: Optional[HostStaging] = None,
 ) -> DeviceOutput:
     """Encode + stage + dispatch one raw f32 batch through a
-    :class:`~flink_jpmml_tpu_torch.compile.qtrees.QuantizedScorer`.
+    :class:`~flink_jpmml_tpu_torch.compile.qtrees.QuantizedScorer`: the one
+    place the scorer's encode placement (``q.encode_placement``) is
+    enacted.
 
-    The host rank-encodes the batch (``q.wire.encode``), aligns it to the
-    compile batch (``q.pad_wire``) and, on a CUDA scorer, copies it to the
-    card through ``staging`` (a :class:`HostStaging`; required there) and
-    launches the scorer on the current stream, with the D2H copy of the
-    result queued behind it. Returns at once on the card; on a CPU scorer
-    the work is done when it returns.
+    - ``"host"``: the C++ bucketizer rank-encodes the batch
+      (``q.wire.encode``), ``q.pad_wire`` aligns it and the codes ship;
+    - ``"fused"``: ``q.pad_f32`` aligns the raw f32 batch, it ships, and
+      the device encode stage runs in front of the scorer. The stage knows
+      only the NaN convention, so an explicit mask ``M`` folds in as NaN
+      first. A scorer asked for ``"fused"`` whose tables exceed the device
+      budget stays host-encoded.
 
-    ``metrics`` books ``encode_s`` (host encode + align time) and
-    ``h2d_bytes`` (bytes staged per dispatch)."""
+    On a CUDA scorer the payload is copied into a pinned buffer of
+    ``staging`` (a :class:`HostStaging`; required there) before this
+    returns, so ``X`` may be a view of a buffer that the next ring drain
+    reuses; the H2D copy, the scorer and the D2H copy of the result queue
+    on the current stream. On a CPU scorer the work is done when it
+    returns.
+
+    ``metrics`` books ``encode_s`` (host encode + align time, ≈ 0 fused),
+    ``h2d_bytes`` (bytes staged per dispatch: F codes of the wire dtype a
+    record host-encoded, 4·F fused) and ``encode_<placement>`` (dispatches
+    per placement)."""
     t0 = time.monotonic()
-    payload, K = q.pad_wire(q.wire.encode(X))
+    placement = q.encode_placement
+    if placement == "fused":
+        X = np.asarray(X, np.float32)
+        if M is not None and np.asarray(M).any():
+            X = np.where(M, np.float32(np.nan), X)
+        payload, K = q.pad_f32(X)
+        predict = q.predict_fused_padded
+    else:
+        payload, K = q.pad_wire(q.wire.encode(X, M))
+        predict = q.predict_padded
     if metrics is not None:
         metrics.counter("encode_s").inc(time.monotonic() - t0)
         metrics.counter("h2d_bytes").inc(payload.nbytes)
+        metrics.counter(f"encode_{placement}").inc()
     if q.device.type != "cuda":
-        return device_output(q.predict_padded(payload, K))
+        return device_output(predict(payload, K))
     if staging is None:
         raise ValueError("a CUDA dispatch needs a HostStaging")
     staged = staging.stage(payload)
-    return device_output(q.predict_padded(staged, K), staged)
+    return device_output(predict(staged, K), staged)
 
 
 class DispatcherClosed(FlinkJpmmlTpuError):

@@ -1,8 +1,9 @@
 """Typed failure vocabulary for model load / validate / prepare / extract.
 
 A copy of ``flink_jpmml_tpu/utils/exceptions.py`` (the port imports nothing
-of the JAX package), plus the two errors the port adds:
-:class:`DeviceUnavailableError` and :class:`NotPortedError`.
+of the JAX package), plus the errors the port adds:
+:class:`DeviceUnavailableError`, :class:`NotPortedError` and
+:class:`NativeBuildError`.
 
 Reference parity: the reference's ``…/exceptions/`` package defines
 ``ModelLoadingException``, ``InputValidationException``,
@@ -71,3 +72,10 @@ class NotPortedError(ModelCompilationException):
     """The document needs a part of the JAX package that the PyTorch
     port does not carry yet (another model family, halting trees,
     derived fields, top-level ``<Output>``)."""
+
+
+class NativeBuildError(FlinkJpmmlTpuError):
+    """The C++ host data plane (``_native/fjt_native.cpp``: the ring and
+    the rank-wire bucketizer) could not be built or loaded. The message
+    carries g++'s stderr. The port raises it where the JAX package would
+    drop to the Python ring or the numpy encode."""

@@ -1,7 +1,8 @@
 """Card-only tests of the PyTorch port: the Hopper kernel (ensemble sum
 and vote shares) against its plain version, on the fixtures and on the
-seeded ragged and caterpillar forests of ``chip_smoke.py``, and the block
-pipeline on a CUDA device. They skip where there is no card. This file
+seeded ragged and caterpillar forests of ``chip_smoke.py``, the device
+encode stage against the host encode, and the block pipeline on a CUDA
+device, host-encoded and fused. They skip where there is no card. This file
 imports neither jax nor the JAX package, so it runs on a machine that has
 only torch:
 
@@ -110,6 +111,58 @@ def test_block_pipeline_on_the_card_matches_the_cpu_port(card, tmp_path):
     ref = q_cpu.predict_wire(q_cpu.wire.encode(X)).numpy()[:5000]
     np.testing.assert_allclose(np.concatenate([v for _, _, v in got]), ref,
                                rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("mode", [None, "host"], ids=["default", "host"])
+def test_block_pipeline_placements_on_the_card_match_the_cpu_port(
+        card, tmp_path, mode):
+    # on the card a model with a device stage is fused unless asked for
+    # the host encode
+    kw = dict(n_trees=40, depth=6, n_features=32)
+    cm = _gbm(tmp_path, 512, **kw)
+    cm.quantized_scorer().encode_mode = mode
+    placement = mode or "fused"
+    X = _X(np.random.default_rng(4), 5000, 32)
+    got = []
+    pipe = BlockPipeline(
+        FiniteBlockSource(X, 1500), cm,
+        lambda out, n, off: got.append((off, n, np.asarray(out)[:n].copy())),
+        RuntimeConfig(batch=BatchConfig(size=512, deadline_us=2000)),
+    )
+    assert pipe.backend == "rank_wire_cuda"
+    pipe.run_until_exhausted(timeout=120)
+    assert [off for off, _, _ in got] == list(
+        np.cumsum([0] + [n for _, n, _ in got])[:-1])
+    snap = pipe.metrics.snapshot()
+    assert snap[f"encode_{placement}"] == snap["dispatches"]
+    assert snap["h2d_bytes"] >= 5000 * (4 if placement == "fused" else 1) * 32
+    q_cpu = _gbm(tmp_path, 512, device="cpu", **kw).quantized_scorer()
+    ref = q_cpu.predict_wire(q_cpu.wire.encode(X)).numpy()[:5000]
+    np.testing.assert_allclose(np.concatenate([v for _, _, v in got]), ref,
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(n_trees=40, depth=6, n_features=32),
+    dict(n_trees=300, depth=5, n_features=4, hist_bins=None),  # uint16
+], ids=["uint8", "uint16"])
+def test_encode_stage_on_the_card_is_byte_identical(card, tmp_path, kw):
+    from chip_smoke import edge_cells
+
+    q = _gbm(tmp_path, 256, **kw).quantized_scorer()
+    X = edge_cells(np.random.default_rng(5), q.wire.cuts, 3001)
+    got = q.encode_device(X)
+    assert got.device.type == "cuda"
+    host = q.wire.encode(X)
+    assert got.cpu().numpy().dtype == host.dtype
+    np.testing.assert_array_equal(got.cpu().numpy(), host)
+    # a uint16 batch staged on the card goes through the torch twin
+    q_cpu = _gbm(tmp_path, 256, device="cpu", **kw).quantized_scorer()
+    ref = q_cpu.predict_wire(host).numpy()
+    np.testing.assert_allclose(q.predict_wire(host).cpu().numpy(), ref,
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(q.predict_fused(X).cpu().numpy()[:3001],
+                               ref[:3001], rtol=RTOL, atol=ATOL)
 
 
 def _votes(tmp_path, batch, device=None, **kw):

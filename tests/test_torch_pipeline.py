@@ -1,7 +1,8 @@
 """The PyTorch port's slice as a whole on the CPU: PMML → compile →
 ``BlockPipeline`` over a finite source → sink, against the JAX package's
 ``quantized_scorer().score`` on the same records (the repo's rank-wire
-bar rtol 1e-4 / atol 1e-5), plus the dispatch window's FIFO contract."""
+bar rtol 1e-4 / atol 1e-5), host-encoded and fused, plus the dispatch
+window's FIFO contract."""
 
 import threading
 
@@ -39,8 +40,10 @@ def gbm(tmp_path_factory):
     return path, X, np.asarray([p.score.value for p in ref], np.float32)
 
 
-def _run(path, X, use_quantized=True, block=700, chunks=8):
+def _run(path, X, use_quantized=True, block=700, chunks=8, encode_mode=None):
     cm = compile_pmml(parse_pmml_file(path), batch_size=B, device="cpu")
+    if use_quantized:
+        cm.quantized_scorer().encode_mode = encode_mode
     got = []
     lock = threading.Lock()
 
@@ -78,6 +81,30 @@ def test_block_pipeline_matches_jax_scores(gbm, chunks):
     assert snap["h2d_bytes"] >= X.shape[0] * 8
     if chunks == 1:
         assert all(n <= B for _, n, _ in got)
+
+
+@pytest.mark.parametrize("chunks", [1, 8])
+def test_encode_placements_agree(gbm, chunks):
+    # host-encoded (the CPU's default placement) and the device encode
+    # stage asked for by hand: the same records, offsets and scores, bit
+    # for bit
+    path, X, ref = gbm
+    runs = {}
+    for name, mode in (("host", None), ("fused", "fused")):
+        pipe, got = _run(path, X, chunks=chunks, encode_mode=mode)
+        snap = pipe.metrics.snapshot()
+        assert snap[f"encode_{name}"] == snap["dispatches"]
+        assert pipe.committed_offset == X.shape[0]
+        assert [off for off, _, _ in got] == list(
+            np.cumsum([0] + [n for _, n, _ in got])[:-1])
+        runs[name] = np.concatenate(
+            [np.asarray(out)[:n] for _, n, out in got])
+        # 8 codes a record host-encoded, 8 f32 fused (pad rows aside)
+        per_record = snap["h2d_bytes"] / X.shape[0]
+        assert per_record >= (32 if name == "fused" else 8)
+        assert per_record < (32 if name == "fused" else 8) * B
+    np.testing.assert_allclose(runs["host"], ref, rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(runs["fused"], runs["host"])
 
 
 def test_f32_path_pipeline_matches(gbm):
