@@ -75,13 +75,42 @@ JAX package, and prints one JSON line per phase:
     card, which must be fused: raw f32 ships (128 bytes a record) and the
     encode stage runs on the card in front of the kernel; the heads are
     held to the CPU port as in 6 and 9;
-13. device shares — for each main path, the kernel's, the encode
+13. kafka wire — a port ``MiniKafkaBroker`` on loopback holding 1,048,576
+    rows of the GBM's feature stream (the main paths' generator, seed 0;
+    128 MiB of values) appended with ``append_rows`` (the C++ encoder);
+    read back through ``KafkaClient`` and ``decode_record_batches_rows``,
+    rows and offsets byte-identical to the appended array; the C++,
+    vectorized and Python row decoders equal on the log's first 20,480
+    records; the append seconds, and the C++ and vectorized decoders'
+    host ms per 262,144 rows beside the host's core count;
+14. kafka main path — the fused GBM scored by ``BlockPipeline`` (as in
+    6, no ``encode_mode`` set) from a ``KafkaBlockSource`` over that
+    broker, which seeks back to 0 at the high watermark (``max_wait_ms``
+    20, the default ``max_bytes``: about 30,000 records a fetch), through
+    the prefetch sidecar, with one registry shared by the source and the
+    pipeline, until 19 × 262,144 records reached the sink; the first
+    4,096-record head is held to the CPU port at rtol 1e-4 / atol 1e-5;
+    its dispatches are deadline drains, yet only their live rows cross
+    the bus, so it must ship 128 bytes a record like 12; it prints the
+    decode and fetch times, the prefetch counters, the ``kafka_lag``
+    gauge and its age, the lag forecaster, the pressure score and the
+    record count of every dispatch;
+15. kafka main path serial — 14 again with ``prefetch=False``: fetch and
+    decode on the pipeline's ingest thread, the sidecar's ablation;
+16. device shares — for each main path, the kernel's, the encode
     stage's and the H2D copy's timed milliseconds times the dispatches,
     over the wall: an estimate of the card's idle share (the H2D copies
     of 262,144 records' codes and f32 cells from pinned memory are timed
-    in phase 11).
+    in phase 11); for the Kafka paths, whose dispatches hold what the
+    ring held, the kernel, the encode stage and the H2D copy are timed at
+    each dispatch size the path ran (K compile batches) and weighted by
+    its dispatches and live rows.
 
-Every main path runs the C++ ring. Phases 6 and 9 set the scorer's
+Every main path runs the C++ ring, and its line carries the stage ledger
+of its registry (``attribution``: per stage the count, total ms, p50 /
+p99 ms and share of ``obs.attr.summary``; on the card ``h2d`` is host
+staging plus the issue of the copy, and the card's time shows up as
+``queue_wait`` and ``readback``). Phases 6 and 9 set the scorer's
 ``encode_mode = "host"`` (the C++ bucketizer); each main path prints the
 encode placement that ran (``encode_mode``), with ``h2d_bytes`` per
 record: 32 host-encoded, 128 fused.
@@ -94,7 +123,10 @@ the card and the CPU see the same trees and cells.
 Then the kernels line, the ``nvidia-smi`` line, and last the contract
 line ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
 script exits non-zero without printing the last line. Without a CUDA
-device it exits 1 at once.
+device, or without the port beside it, it exits 1 at once. The flight
+recorder's directory and the generated model files live in a temporary
+directory that the run removes; the broker, the source and the
+pipelines' threads are stopped whether a phase passes or fails.
 """
 
 from __future__ import annotations
@@ -102,6 +134,7 @@ from __future__ import annotations
 import json
 import os
 import statistics
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -643,39 +676,43 @@ def device_shares(run: dict, kernel_ms: float, stage_ms: float = 0.0,
             "device_idle_share_est": 1.0 - busy}
 
 
-def drive(cm, data: np.ndarray, sink, count: list, counter) -> dict:
-    """BlockPipeline over ``data`` until MIN_DISPATCHES dispatches of
-    DISPATCH records reached the sink; ``counter`` (a kernel wrapper) is
-    reset just before and read just after."""
-    from flink_jpmml_tpu_torch.runtime.block import (
-        BlockPipeline,
-        CyclingBlockSource,
-    )
+def drive(cm, source, sink, count: list, counter, *, metrics=None,
+          prefetch=None, target: int = MIN_DISPATCHES * DISPATCH) -> dict:
+    """BlockPipeline over ``source`` until ``target`` records reached the
+    sink, in dispatches of up to DISPATCH records; ``counter`` (a kernel
+    wrapper) is reset just before and read just after. The line carries
+    the pipeline's stage ledger (``attribution``: ``obs.attr.summary`` of
+    its registry)."""
+    from flink_jpmml_tpu_torch.obs import attr
+    from flink_jpmml_tpu_torch.runtime.block import BlockPipeline
     from flink_jpmml_tpu_torch.utils.config import BatchConfig, RuntimeConfig
 
     pipe = BlockPipeline(
-        CyclingBlockSource(data, block_size=DISPATCH),
+        source,
         cm,
         sink,
         RuntimeConfig(batch=BatchConfig(
             size=BATCH, deadline_us=5000, queue_capacity=4 * DISPATCH,
         )),
+        metrics=metrics,
         max_dispatch_chunks=DISPATCH // BATCH,
+        prefetch=prefetch,
     )
     if pipe.backend != "rank_wire_cuda":
         raise RuntimeError(f"pipeline backend {pipe.backend}")
     q = cm.quantized_scorer()
     placement = q.encode_placement
-    target = MIN_DISPATCHES * DISPATCH
     counter.launches = 0
     t0 = time.perf_counter()
     pipe.start()
     deadline = t0 + 600
-    while (count[0] < target and pipe.error is None
-           and time.perf_counter() < deadline):
-        time.sleep(0.01)
-    pipe.stop()
-    pipe.join(timeout=60)
+    try:
+        while (count[0] < target and pipe.error is None
+               and time.perf_counter() < deadline):
+            time.sleep(0.01)
+    finally:
+        pipe.stop()
+        pipe.join(timeout=60)
     dt = time.perf_counter() - t0
     launches = counter.launches
     snap = pipe.metrics.snapshot()
@@ -688,6 +725,8 @@ def drive(cm, data: np.ndarray, sink, count: list, counter) -> dict:
     if snap.get(f"encode_{placement}") != dispatches:
         raise RuntimeError(f"{snap.get(f'encode_{placement}')} of "
                            f"{dispatches} dispatches encoded by {placement}")
+    # only live rows cross the bus (a deadline drain's alignment rows
+    # are zeroed on the card), so every path ships exactly its bytes
     h2d_per_record = snap["h2d_bytes"] / snap["batch_fill_records"]
     if h2d_per_record != q.staged_bytes_per_record:
         raise RuntimeError(f"{h2d_per_record} H2D bytes a record, expected "
@@ -695,6 +734,7 @@ def drive(cm, data: np.ndarray, sink, count: list, counter) -> dict:
     encode_s = snap.get("encode_s", 0.0)
     return {
         "backend": pipe.backend, "encode_mode": placement,
+        "source": type(pipe._source).__name__,
         "host_cpus": os.cpu_count(),
         "records": count[0], "seconds": dt, "records_per_s": count[0] / dt,
         "dispatches": dispatches, "launches": launches,
@@ -706,18 +746,256 @@ def drive(cm, data: np.ndarray, sink, count: list, counter) -> dict:
         "h2d_stall_s": snap.get("h2d_stall_s"),
         "batch_latency_p50_s": snap.get("batch_latency_s_p50"),
         "batch_latency_p99_s": snap.get("batch_latency_s_p99"),
+        "attribution": attr.summary(pipe.metrics),
     }
 
 
+def kafka_wire(rows: np.ndarray) -> tuple:
+    """A port ``MiniKafkaBroker`` holding ``rows`` (appended with the C++
+    encoder), read back through ``KafkaClient`` and
+    ``decode_record_batches_rows``: rows and offsets byte-identical to the
+    appended array, and the C++, vectorized and Python row decoders
+    equal on the log's head. → (broker, phase line); the caller closes
+    the broker."""
+    from flink_jpmml_tpu_torch.runtime import kafka
+
+    n = rows.shape[0]
+    broker = kafka.MiniKafkaBroker(topic="smoke")
+    try:
+        t0 = time.perf_counter()
+        broker.append_rows(rows)
+        append_s = time.perf_counter() - t0
+        client = kafka.KafkaClient(broker.host, broker.port)
+        try:
+            t0 = time.perf_counter()
+            pos, fetches, offs, got = 0, 0, [], []
+            while pos < n:
+                hw, raw = client.fetch_raw("smoke", 0, pos)
+                o, r = kafka.decode_record_batches_rows(raw, rows.shape[1])
+                keep = o >= pos
+                offs.append(o[keep])
+                got.append(r[keep])
+                pos = int(o[-1]) + 1
+                fetches += 1
+            read_s = time.perf_counter() - t0
+        finally:
+            client.close()
+        offs, got = np.concatenate(offs), np.concatenate(got)
+        if (hw != n or offs.tobytes() != np.arange(n, dtype=np.int64).tobytes()
+                or got.tobytes() != rows.tobytes()):
+            raise RuntimeError("rows read back from the broker differ from "
+                               "the appended rows")
+        # one record set of the log's first DISPATCH rows, as stored
+        segs = broker._segs[0]
+        head = b"".join(b for base, _, b in segs if base < DISPATCH)
+        prefix = b"".join(b for base, _, b in segs if base < 20_000)
+        F = rows.shape[1]
+        tiers = {}
+        for name, fn in (("cpp", kafka.decode_record_batches_rows),
+                         ("vectorized", kafka.decode_record_batches_rows_vec),
+                         ("python", kafka.decode_record_batches_rows_py)):
+            o, r = fn(prefix, F)
+            tiers[name] = (o.tobytes(), r.tobytes())
+        if len({v for v in tiers.values()}) != 1:
+            raise RuntimeError("the row decoders disagree on the log's head")
+        n_prefix = len(tiers["python"][0]) // 8
+        if tiers["python"][1] != rows[:n_prefix].tobytes():
+            raise RuntimeError("the Python row decoder differs from the rows")
+        cpp_ms = host_ms(lambda: kafka.decode_record_batches_rows(head, F), 7)
+        vec_ms = host_ms(lambda: kafka.decode_record_batches_rows_vec(head, F),
+                         1)
+        py_ms = host_ms(lambda: kafka.decode_record_batches_rows_py(prefix, F),
+                        1)
+    except BaseException:
+        broker.close()
+        raise
+    return broker, {
+        "rows": n, "fields": F, "value_bytes": rows.nbytes,
+        "log_bytes": sum(len(b) for _, _, b in segs),
+        "append_s": append_s, "read_back_s": read_s, "fetches": fetches,
+        "rows_per_fetch": n / fetches, "read_back_identical": True,
+        "host_cpus": os.cpu_count(),
+        "host_cpus_usable": len(os.sched_getaffinity(0)),
+        "decode_rows": DISPATCH, "cpp_decode_ms": cpp_ms,
+        "vectorized_decode_ms": vec_ms,
+        "python_check_rows": n_prefix, "python_decode_ms": py_ms,
+        "python_ms_per_dispatch_rows": py_ms * DISPATCH / n_prefix,
+        "tiers_identical": True,
+    }
+
+
+def kafka_main_path(cm, broker, n_cols: int, counter, prefetch,
+                    sample: int, ref: np.ndarray) -> dict:
+    """``drive`` over a ``KafkaBlockSource`` reading ``broker`` on
+    loopback that seeks back to 0 at the high watermark (a finite log
+    sustains the run), with one registry shared by the source, the
+    sidecar (``prefetch``: None = auto, on for the Kafka source; False =
+    the serial ablation) and the pipeline. After a seek the offsets
+    restart and the sink sees ``first_off == 0`` again: only the first
+    head is kept. The port's pipeline has no checkpoints yet, so the
+    committed offset going back is harmless here. The sink keeps every
+    dispatch's record count: ``dispatch_shapes`` maps K compile batches
+    to ``[dispatches, live records]``, what ``kafka_device_shares``
+    times."""
+    from flink_jpmml_tpu_torch.runtime import prefetch as prefetch_mod
+    from flink_jpmml_tpu_torch.runtime.kafka import KafkaBlockSource
+    from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry
+
+    hw = broker.high_watermark
+
+    class CyclingKafka(KafkaBlockSource):
+        def poll(self):
+            if self._next >= hw:
+                self.seek(0)
+            return super().poll()
+
+    reg = MetricsRegistry()
+    src = CyclingKafka(broker.host, broker.port, broker.topic, n_cols=n_cols,
+                       max_wait_ms=20, metrics=reg)
+    kept, count, sizes = {}, [0], []
+
+    def sink(out, n, first_off):
+        vals = np.asarray(out)
+        if vals.ndim != 1 or vals.shape[0] < n:
+            raise RuntimeError(f"sink got {vals.shape} for {n} records")
+        if first_off == 0 and "head" not in kept:
+            kept["head"] = vals[:sample].copy()
+        count[0] += n
+        sizes.append(n)
+
+    try:
+        run = drive(cm, src, sink, count, counter, metrics=reg,
+                    prefetch=prefetch, target=19 * DISPATCH)
+    finally:
+        src.close()
+    if (run["encode_mode"] != "fused"
+            or run["h2d_bytes_per_record"] != 4 * n_cols):
+        raise RuntimeError(f"Kafka path ran {run['encode_mode']} with "
+                           f"{run['h2d_bytes_per_record']} bytes a record")
+    if len(sizes) != run["dispatches"] or sum(sizes) != run["records"]:
+        raise RuntimeError(f"{len(sizes)} sink calls with {sum(sizes)} "
+                           f"records for {run['dispatches']} dispatches of "
+                           f"{run['records']}")
+    shapes = {}
+    for n in sizes:
+        k = -(-n // BATCH)
+        row = shapes.setdefault(k, [0, 0])
+        row[0] += 1
+        row[1] += n
+    head = kept["head"]
+    err = float(np.abs(head - ref).max())
+    if (head.shape != (sample,) or not np.isfinite(head).all()
+            or not np.allclose(head, ref, rtol=RTOL, atol=ATOL)):
+        raise RuntimeError(f"Kafka path disagrees with the CPU port: {err}")
+    st = reg.struct_snapshot()
+    cs, gs, hs = st["counters"], st["gauges"], reg.snapshot()
+    sidecar = run["source"] == "PrefetchedBlockSource"
+    if sidecar != (prefetch is None):
+        raise RuntimeError(f"source {run['source']} with prefetch={prefetch}")
+    return {
+        **run, "log_records": hw, "cpu_check_rows": sample,
+        "cpu_check_max_abs_err": err,
+        "dispatch_records": {"min": min(sizes),
+                             "p50": float(np.median(sizes)),
+                             "max": max(sizes)},
+        "dispatch_shapes": dict(sorted(shapes.items())),
+        "kafka_decode_s": cs.get("kafka_decode_s", 0.0),
+        "kafka_decode_ms_per_dispatch_rows":
+            1e3 * cs.get("kafka_decode_s", 0.0) * DISPATCH / run["records"],
+        "kafka_fetch_s_p50": hs.get("kafka_fetch_s_p50"),
+        "kafka_fetch_s_p99": hs.get("kafka_fetch_s_p99"),
+        "prefetch": {
+            "enabled": True, "depth": prefetch_mod.env_depth(),
+            "batches": int(cs.get("prefetch_batches", 0)),
+            "records": int(cs.get("prefetch_records", 0)),
+            "depth_max": gs.get("prefetch_depth", {}).get("max", 0.0),
+            "occupancy_max": gs.get("prefetch_occupancy", {}).get("max", 0.0),
+            "stall_ms": 1000 * cs.get("prefetch_stall_s", 0.0),
+            "block_ms": 1000 * cs.get("prefetch_block_s", 0.0),
+        } if sidecar else {"enabled": False},
+        "kafka_lag": {k: v["value"] for k, v in gs.items()
+                      if k.startswith("kafka_lag{")},
+        # the per-registry planes the source and the score loop tick:
+        # the lag forecaster (no backlog grows on a cycling log, so the
+        # drain ETA and the trend read 0), the lag readings' age, and
+        # the composite backpressure score
+        "lag_forecast": {k: gs[k]["value"] for k in
+                         ("lag_drain_eta_s", "lag_trend", "lag_diverging")
+                         if k in gs},
+        "kafka_lag_age_s": {k: v["value"] for k, v in gs.items()
+                            if k.startswith("kafka_lag_age_s{")},
+        "pressure": {k: gs[k]["value"] for k in
+                     ("pressure", "pressure_ring", "pressure_window",
+                      "pressure_wait", "pressure_prefetch") if k in gs},
+    }
+
+
+def kafka_device_shares(run: dict, q, rng) -> dict:
+    """A Kafka path's card busy share from its own dispatch shapes: for
+    each size of K compile batches, the kernel and the encode stage timed
+    at K × BATCH rows times the dispatches of that size, and the H2D copy
+    timed at K × BATCH rows scaled by the live rows those dispatches
+    shipped. An estimate of the card's busy share, not a profiler
+    trace."""
+    import torch
+
+    from flink_jpmml_tpu_torch.compile import qtrees_cuda
+
+    tables = {k: q.params[k] for k in qtrees_cuda.TABLE_KEYS}
+    F = len(q.wire.fields)
+    kern = stage = h2d = 0.0
+    timed = {}
+    for k, (n_disp, live) in run["dispatch_shapes"].items():
+        X = features(rng, k * BATCH, F)
+        Xd = torch.from_numpy(X).cuda()
+        codes = q.encode_device(Xd)
+        pinned = torch.from_numpy(X).pin_memory()
+        t = {"kernel_ms": cuda_ms(
+                 lambda: qtrees_cuda.leaf_rows(codes, tables, F), 3, 20),
+             "stage_ms": cuda_ms(lambda: q.encode_device(Xd), 3, 20),
+             "h2d_f32_ms": cuda_ms(
+                 lambda: pinned.to("cuda", non_blocking=True), 3, 20)}
+        timed[k] = t
+        kern += n_disp * t["kernel_ms"]
+        stage += n_disp * t["stage_ms"]
+        h2d += live / (k * BATCH) * t["h2d_f32_ms"]
+    wall_ms = run["seconds"] * 1e3
+    return {"kernel_share": kern / wall_ms, "stage_share": stage / wall_ms,
+            "h2d_share": h2d / wall_ms,
+            "device_idle_share_est": 1.0 - (kern + stage + h2d) / wall_ms,
+            "timed_by_batches": timed}
+
+
 def main() -> int:
+    import importlib.util
+
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if importlib.util.find_spec("flink_jpmml_tpu_torch") is None:
+        print("chip_smoke: the port (flink_jpmml_tpu_torch) is not beside "
+              "this script; run it from the root of a checkout",
+              file=sys.stderr)
+        return 1
+    # the flight recorder and the model files live in temporary
+    # directories that the run removes
+    scratch = tempfile.mkdtemp(prefix="fjt-smoke-")
+    os.environ["FJT_FLIGHT_DIR"] = os.path.join(scratch, "flight")
+    try:
+        return run_phases(scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
+
+def run_phases(workdir: str) -> int:
+    import torch
+
     from flink_jpmml_tpu_torch.compile import qtrees_cuda
     from flink_jpmml_tpu_torch.compile.compiler import compile_pmml
     from flink_jpmml_tpu_torch.compile.qtrees import _match_ensemble, _torch_qfn
+    from flink_jpmml_tpu_torch.runtime.block import CyclingBlockSource
 
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -735,7 +1013,6 @@ def main() -> int:
         raise RuntimeError("ptxas reported spills (or no report)")
 
     rng = np.random.default_rng(0)
-    workdir = tempfile.mkdtemp(prefix="fjt-smoke-")
     doc, cm, q = model_tables(workdir, 500, "gbm_500.pmml")
     _, _, q19 = model_tables(workdir, 19, "gbm_19.pmml")
     F = len(q.wire.fields)
@@ -795,7 +1072,8 @@ def main() -> int:
     q.encode_mode = "host"
     q.predict_wire(q.wire.encode(data[:BATCH]))
     torch.cuda.synchronize()
-    run = drive(cm, data, sink, count, qtrees_cuda.leaf_rows)
+    run = drive(cm, CyclingBlockSource(data, block_size=DISPATCH), sink, count,
+                qtrees_cuda.leaf_rows)
 
     cm_cpu = compile_pmml(doc, batch_size=BATCH, device="cpu")
     q_cpu = cm_cpu.quantized_scorer()
@@ -867,7 +1145,8 @@ def main() -> int:
     vq.encode_mode = "host"
     vq.predict_wire(vq.wire.encode(data[:BATCH]))
     torch.cuda.synchronize()
-    vrun = drive(vcm, data, vote_sink, vcount, qtrees_cuda.leaf_rows)
+    vrun = drive(vcm, CyclingBlockSource(data, block_size=DISPATCH), vote_sink,
+                 vcount, qtrees_cuda.leaf_rows)
 
     head_codes = vq.wire.encode(data[:sample])
     counts = vote_counts(vq, torch.from_numpy(head_codes).cuda())
@@ -912,7 +1191,8 @@ def main() -> int:
 
     q.predict_fused(data[:BATCH])
     torch.cuda.synchronize()
-    frun = drive(cm, data, fused_sink, fcount, qtrees_cuda.leaf_rows)
+    frun = drive(cm, CyclingBlockSource(data, block_size=DISPATCH),
+                 fused_sink, fcount, qtrees_cuda.leaf_rows)
     if frun["encode_mode"] != "fused" or frun["h2d_bytes_per_record"] != 4 * F:
         raise RuntimeError(f"fused main path ran {frun['encode_mode']} with "
                            f"{frun['h2d_bytes_per_record']} bytes a record")
@@ -937,7 +1217,8 @@ def main() -> int:
     vq.predict_fused(data[:BATCH])
     torch.cuda.synchronize()
     vcount[0] = 0
-    vfrun = drive(vcm, data, vote_fused_sink, vcount, qtrees_cuda.leaf_rows)
+    vfrun = drive(vcm, CyclingBlockSource(data, block_size=DISPATCH),
+                  vote_fused_sink, vcount, qtrees_cuda.leaf_rows)
     if (vfrun["encode_mode"] != "fused"
             or vfrun["h2d_bytes_per_record"] != 4 * F):
         raise RuntimeError(f"vote fused path ran {vfrun['encode_mode']} with "
@@ -945,6 +1226,22 @@ def main() -> int:
     vf_check = check_votes(vfkept["head"], cpu_ref, counts, "CPU port, fused")
     emit({"phase": "vote_fused_main_path", **vfrun, "check_rows": sample,
           "cpu_check": vf_check})
+    # -- the GBM fed from a Kafka stream on loopback, fused ------------------
+    # 1,048,576 rows of the feature stream (128 MiB of values), the same
+    # generator as the main paths' data, seed 0
+    kdata = features(np.random.default_rng(0), 4 * DISPATCH, F)
+    kref = np.asarray(q_cpu.predict_padded(q_cpu.wire.encode(kdata[:sample])))
+    broker, wire = kafka_wire(kdata)
+    try:
+        emit({"phase": "kafka_wire", **wire})
+        krun = kafka_main_path(cm, broker, F, qtrees_cuda.leaf_rows, None,
+                               sample, kref)
+        emit({"phase": "kafka_main_path", **krun})
+        ksrun = kafka_main_path(cm, broker, F, qtrees_cuda.leaf_rows, False,
+                                sample, kref)
+        emit({"phase": "kafka_main_path_serial", **ksrun})
+    finally:
+        broker.close()
     emit({"phase": "device_shares",
           "main_path": device_shares(run, timing["kernel_ms"], 0.0,
                                      enc["h2d_codes_ms"]),
@@ -954,7 +1251,12 @@ def main() -> int:
                                            enc["stage_ms"], enc["h2d_f32_ms"]),
           "vote_fused_main_path": device_shares(
               vfrun, vtiming["kernel_ms"], enc["stage_ms"],
-              enc["h2d_f32_ms"])})
+              enc["h2d_f32_ms"]),
+          # timed at the Kafka paths' own dispatch shapes
+          "kafka_main_path": kafka_device_shares(
+              krun, q, np.random.default_rng(5)),
+          "kafka_main_path_serial": kafka_device_shares(
+              ksrun, q, np.random.default_rng(5))})
 
     def kernel_entry(name, replaces, runs, checked, t):
         return {
@@ -973,7 +1275,9 @@ def main() -> int:
     emit({"kernels": [
         kernel_entry("qtrees_leaf_rows (regression sum, C=1)",
                      "flink_jpmml_tpu/compile/qtrees_pallas.py:170 and :218",
-                     {"main_path": run, "fused_main_path": frun},
+                     {"main_path": run, "fused_main_path": frun,
+                      "kafka_main_path": krun,
+                      "kafka_main_path_serial": ksrun},
                      rows + [r for r in wrows if r["classes"] == 1], timing),
         kernel_entry("qtrees_leaf_rows (vote shares)",
                      "flink_jpmml_tpu/compile/qtrees_pallas.py:187 and :238",

@@ -14,12 +14,21 @@ float32 blocks end to end:
 
 Ported: the sources, ``BoundScorer``, and ``BlockPipeline`` over the C++
 ring with ``start`` / ``stop`` / ``join`` / ``run_for`` /
-``run_until_exhausted``. The JAX package's Python ring (its fall-back
-when the C++ library cannot be built) is not ported: the ring raises
+``run_until_exhausted``; the prefetch sidecar (``runtime/prefetch.py``:
+a source that marks itself ``prefetchable``, as ``KafkaBlockSource``
+does, is polled on a sidecar thread; ``prefetch=False`` turns it off,
+and ``stop()`` parks it before the ring closes); the stage ledger
+(``obs/attr.py``: ``encode``, ``h2d``, ``queue_wait`` and ``readback``
+from ``runtime/pipeline.py``, ``sink`` here, and ``fetch``, ``decode``
+and ``prefetch_wait`` from the Kafka source and the sidecar, all in the
+pipeline's registry); and the freshness and pressure planes, ticked
+from the score loop. The JAX package's Python ring (its fall-back when
+the C++ library cannot be built) is not ported: the ring raises
 ``NativeBuildError`` instead. Not ported yet (the JAX package's hooks at
-block.py:31-51): checkpoints, the DLQ and poison isolation, keyed state, the mesh, prefetch, device-fault recovery,
-admission control and the obs planes. The score loop marks where each
-attaches.
+block.py:31-51): checkpoints, the DLQ and poison isolation, keyed
+state, the mesh, device-fault recovery (and with it the freshness hooks
+of its recovery and fallback paths), admission control, the drift
+plane and journey tracing. The score loop marks where each attaches.
 
 The sink receives host tensors (the pinned buffer the D2H copy filled)
 once their dispatch has completed; :meth:`BlockPipeline.decode` turns one
@@ -37,6 +46,10 @@ import torch
 
 from flink_jpmml_tpu_torch.compile import prepare
 from flink_jpmml_tpu_torch.compile.compiler import CompiledModel
+from flink_jpmml_tpu_torch.obs import attr as attr_mod
+from flink_jpmml_tpu_torch.obs import freshness as fresh_mod
+from flink_jpmml_tpu_torch.obs import pressure as pressure_mod
+from flink_jpmml_tpu_torch.runtime import prefetch as prefetch_mod
 from flink_jpmml_tpu_torch.runtime.native import NativeRing
 from flink_jpmml_tpu_torch.runtime.pipeline import (
     DeviceOutput,
@@ -133,7 +146,9 @@ class BlockPipeline:
     ``device="cpu"``. Records travel the C++ ring, which raises
     ``NativeBuildError`` when its library cannot be built. The rank-wire
     scorer's ``encode_placement`` says where each batch is encoded
-    (``dispatch_quantized``).
+    (``dispatch_quantized``). ``prefetch`` (None = auto: the source's
+    own ``prefetchable`` mark) wraps the source in the prefetch sidecar;
+    ``FJT_PREFETCH_DISABLE`` turns it off either way.
     """
 
     def __init__(
@@ -146,6 +161,7 @@ class BlockPipeline:
         in_flight: int = 2,
         use_quantized: bool = True,
         max_dispatch_chunks: int = 8,
+        prefetch: Optional[bool] = None,
     ):
         if model.batch_size is None:
             raise InputValidationException(
@@ -161,6 +177,12 @@ class BlockPipeline:
         self._max_dispatch_chunks = max(1, max_dispatch_chunks)
         self._config = config or RuntimeConfig()
         self.metrics = metrics or MetricsRegistry()
+        # pipelined ingest: a prefetchable source (the Kafka source:
+        # network fetch + wire decode) is polled on a sidecar thread, so
+        # the ingest thread only moves decoded blocks into the ring
+        self._source = prefetch_mod.maybe_wrap_block(
+            self._source, metrics=self.metrics, enable=prefetch
+        )
         self._ring = NativeRing(
             self._config.batch.queue_capacity, self._arity, self._batch_size
         )
@@ -208,6 +230,11 @@ class BlockPipeline:
 
     def stop(self) -> None:
         self._stop.set()
+        stop_sidecar = getattr(self._source, "stop_prefetch", None)
+        if stop_sidecar is not None:
+            # park the sidecar before the ring closes, or it would keep
+            # fetching into its handoff queue until the process exits
+            stop_sidecar()
         self._ring.close()
 
     def join(self, timeout: Optional[float] = None) -> None:
@@ -328,15 +355,31 @@ class BlockPipeline:
         batches = self.metrics.counter("batches")
         fill = self.metrics.counter("batch_fill_records")
         lat = self.metrics.histogram("batch_latency_s")
+        ledger = attr_mod.ledger_for(self.metrics)
+        # per-registry singletons shared with the source, which stamps
+        # event times at fetch; ticked from this loop, no thread of their
+        # own
+        freshness = fresh_mod.freshness_for(self.metrics)
+        monitor = pressure_mod.pressure_for(self.metrics)
+        ring_occ = self.metrics.gauge("ring_occupancy")
+        ring_cap = float(max(self._config.batch.queue_capacity, 1))
 
         def _complete(res: DeviceOutput, meta):
             """FIFO completion: sink, then commit — offsets only advance
             past records that reached the sink."""
             n, first_off, t_start = meta
-            self._sink(res.result(), n, first_off)
-            lat.observe(time.monotonic() - t_start)
+            out = res.result()  # the event wait is booked by the window
+            t_sink = time.monotonic()
+            self._sink(out, n, first_off)
+            t_done = time.monotonic()
+            ledger.observe("sink", t_done - t_sink)
+            lat.observe(t_done - t_start)
             records_out.inc(n)
             self.committed_offset = first_off + n
+            # consume the source's ingest stamps for this offset range
+            # (record_staleness_s, the sink watermark)
+            freshness.observe_sink(first_off, n)
+            monitor.maybe_tick()
 
         disp = OverlappedDispatcher(
             depth=self._in_flight_max if self._in_flight_max > 1 else 0,
@@ -354,6 +397,8 @@ class BlockPipeline:
                     if self._stop.is_set() and not self._drain_all:
                         break  # stop(): skip the uncommitted backlog
                     idle_us = min(batch_cfg.deadline_us, 20_000) if len(disp) else -1
+                    # pre-drain occupancy peak-hold for the pressure score
+                    monitor.note_ring(min(len(self._ring) / ring_cap, 1.0))
                     if self._carry_drain:
                         X, offsets = self._carry_drain.pop(0)
                     else:
@@ -361,6 +406,7 @@ class BlockPipeline:
                             batch_cfg.deadline_us, idle_us
                         )
                     n = X.shape[0]
+                    ring_occ.set(min(len(self._ring) / ring_cap, 1.0))
                     if n == self._batch_size and self._max_dispatch_chunks > 1:
                         X, offsets, n = self._aggregate_full_batches(
                             X, offsets, self._batch_size
@@ -374,6 +420,9 @@ class BlockPipeline:
                     # suspect-mode poison isolation and the DLQ, device-
                     # fault failover, keyed state, journey tracing)
                     first_off = int(offsets[0])
+                    # the dispatch-stage watermark advances with this
+                    # batch's own ingest-stamp event times
+                    freshness.propagate_low_watermark("dispatch", first_off, n)
                     disp.launch(
                         lambda X=X, n=n: self._dispatch(X, n),
                         meta=(n, first_off, time.monotonic()),

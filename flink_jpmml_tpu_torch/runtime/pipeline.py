@@ -10,7 +10,9 @@ flush). Where the JAX package relies on async dispatch,
   kernel and D2H copy are queued in order;
 - pinned host staging buffers (:class:`HostStaging`) with ``non_blocking``
   H2D copies; a buffer is refilled only after the event recorded behind
-  its last H2D copy has fired;
+  its last H2D copy has fired. Only a dispatch's live rows cross the bus:
+  the zero rows that align it to whole compile batches are written on
+  the card;
 - a ``non_blocking`` D2H copy into a fresh pinned buffer queued at
   dispatch, and an event behind it (:class:`DeviceOutput`): readiness is
   ``event.query()``, the wait is ``event.synchronize()``.
@@ -24,6 +26,26 @@ Metrics: ``h2d_stall_s`` (host time blocked on device work),
 ``dispatches``, ``window_full_launches``, the ``inflight_depth`` gauge,
 and from :func:`dispatch_quantized` ``encode_s`` / ``h2d_bytes`` /
 ``encode_host`` / ``encode_fused``.
+
+Stage ledger (``obs/attr.py``, ``stage_seconds{stage=...}``), booked
+where the JAX package books it, with host clocks around calls that are
+already there — no stage adds a ``torch.cuda.synchronize()`` or an
+event wait:
+
+- ``encode``: the host encode and alignment in :func:`dispatch_quantized`
+  (≈ 0 fused);
+- ``h2d``: the copy into pinned staging plus the issue of the
+  asynchronous H2D copy, the kernel launch and the D2H copy. On the card
+  this is host time; the copy itself runs later on the stream. On the
+  CPU the work is synchronous, so it includes the scoring;
+- ``queue_wait``: :meth:`OverlappedDispatcher.launch` waiting on the
+  oldest dispatch of a full window;
+- ``readback``: :meth:`OverlappedDispatcher.finish_oldest` waiting on
+  the oldest dispatch otherwise (a flush, the close).
+
+The card's own time therefore shows up in ``queue_wait`` and
+``readback``: the host waits there for the events behind the queued
+work.
 """
 
 from __future__ import annotations
@@ -35,6 +57,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from flink_jpmml_tpu_torch.obs import attr as attr_mod
 from flink_jpmml_tpu_torch.utils.exceptions import FlinkJpmmlTpuError
 from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry
 
@@ -69,31 +92,42 @@ class DeviceOutput:
 class HostStaging:
     """Pinned host buffers for H2D copies, used in rotation.
 
-    ``stage(payload)`` copies a numpy batch into the next buffer and
-    queues its ``non_blocking`` copy to the device on the current stream;
-    before refilling a buffer it waits for the event recorded behind that
+    ``stage(payload, rows)`` copies a numpy batch into the next buffer
+    and queues its ``non_blocking`` copy into the head of a device tensor
+    of ``rows`` rows on the current stream; the rows past the payload are
+    zeroed there, so alignment padding never crosses the bus. Before
+    refilling a buffer it waits for the event recorded behind that
     buffer's previous H2D copy, so a copy in flight is never overwritten.
-    ``slots`` must exceed the dispatch window's depth for staging to
-    overlap device work."""
+    A buffer is kept while it holds the payload, so a stream of deadline
+    drains of varying length reuses it. ``slots`` must exceed the
+    dispatch window's depth for staging to overlap device work."""
 
     def __init__(self, device: torch.device, slots: int = 3):
         self._device = device
         self._slots = [None] * max(1, slots)  # (buffer, event) per slot
         self._next = 0
 
-    def stage(self, payload: np.ndarray) -> torch.Tensor:
+    def stage(self, payload: np.ndarray, rows: int) -> torch.Tensor:
         i = self._next
         self._next = (i + 1) % len(self._slots)
         held = self._slots[i]
         src = torch.from_numpy(np.ascontiguousarray(payload))
+        n = src.shape[0]
         if held is not None:
             held[1].synchronize()  # its last H2D copy has landed
-        if held is None or held[0].shape != src.shape or held[0].dtype != src.dtype:
-            buf = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        if (held is None or held[0].shape[0] < n
+                or held[0].shape[1:] != src.shape[1:]
+                or held[0].dtype != src.dtype):
+            buf = torch.empty((rows,) + tuple(src.shape[1:]),
+                              dtype=src.dtype, pin_memory=True)
         else:
             buf = held[0]
-        buf.copy_(src)
-        dev = buf.to(self._device, non_blocking=True)
+        buf[:n].copy_(src)
+        dev = torch.empty((rows,) + tuple(src.shape[1:]), dtype=src.dtype,
+                          device=self._device)
+        dev[:n].copy_(buf[:n], non_blocking=True)
+        if rows > n:
+            dev[n:].zero_()
         ev = torch.cuda.Event()
         ev.record()
         self._slots[i] = (buf, ev)
@@ -155,31 +189,45 @@ def dispatch_quantized(
     on the current stream. On a CPU scorer the work is done when it
     returns.
 
-    ``metrics`` books ``encode_s`` (host encode + align time, ≈ 0 fused),
+    A batch that is not whole compile batches is aligned with zero rows
+    up to K of them (``pad_f32`` / ``pad_wire`` on the CPU); on the card
+    only its live rows are staged and the zero rows are written there.
+
+    ``metrics`` books ``encode_s`` (host encode time, ≈ 0 fused),
     ``h2d_bytes`` (bytes staged per dispatch: F codes of the wire dtype a
-    record host-encoded, 4·F fused) and ``encode_<placement>`` (dispatches
-    per placement)."""
+    live record host-encoded, 4·F fused) and ``encode_<placement>`` (dispatches
+    per placement), and the ``encode`` and ``h2d`` stages of its stage
+    ledger (see the module docstring)."""
     t0 = time.monotonic()
     placement = q.encode_placement
     if placement == "fused":
-        X = np.asarray(X, np.float32)
+        payload = np.ascontiguousarray(X, np.float32)
         if M is not None and np.asarray(M).any():
-            X = np.where(M, np.float32(np.nan), X)
-        payload, K = q.pad_f32(X)
-        predict = q.predict_fused_padded
+            payload = np.where(M, np.float32(np.nan), payload)
+        pad, predict = q.pad_f32, q.predict_fused_padded
     else:
-        payload, K = q.pad_wire(q.wire.encode(X, M))
-        predict = q.predict_padded
+        payload = q.wire.encode(X, M)
+        pad, predict = q.pad_wire, q.predict_padded
+    n, bs = payload.shape[0], q.batch_size
+    rows = n if bs is None else -(-n // bs) * bs
+    K = rows // bs if bs else 1
+    t1 = time.monotonic()
+    ledger = attr_mod.ledger_for(metrics)
     if metrics is not None:
-        metrics.counter("encode_s").inc(time.monotonic() - t0)
+        metrics.counter("encode_s").inc(t1 - t0)
         metrics.counter("h2d_bytes").inc(payload.nbytes)
         metrics.counter(f"encode_{placement}").inc()
+        ledger.observe("encode", t1 - t0)
     if q.device.type != "cuda":
-        return device_output(predict(payload, K))
-    if staging is None:
+        out = device_output(predict(*pad(payload)))
+    elif staging is None:
         raise ValueError("a CUDA dispatch needs a HostStaging")
-    staged = staging.stage(payload)
-    return device_output(predict(staged, K), staged)
+    else:
+        staged = staging.stage(payload, rows)
+        out = device_output(predict(staged, K), staged)
+    if ledger is not None:
+        ledger.observe("h2d", time.monotonic() - t1)
+    return out
 
 
 class DispatcherClosed(FlinkJpmmlTpuError):
@@ -211,6 +259,7 @@ class OverlappedDispatcher:
         self._dispatches = self.metrics.counter("dispatches")
         self._window_full = self.metrics.counter("window_full_launches")
         self._gauge = self.metrics.gauge("inflight_depth")
+        self._ledger = attr_mod.ledger_for(self.metrics)
 
     def __len__(self) -> int:
         return len(self._window)
@@ -220,7 +269,9 @@ class OverlappedDispatcher:
         without waiting on it) and admit the result to the window; if that
         overflows ``depth``, finish the oldest entry first — the only
         place a healthy steady state blocks. ``window_full_launches``
-        counts the launches whose oldest entry was still running."""
+        counts the launches whose oldest entry was still running. The
+        wait books ``queue_wait``; at depth 0 the host waits on its own
+        just-launched batch, and that is ``readback``."""
         if self._closed:
             raise DispatcherClosed("launch() on a closed dispatcher")
         self._window.append((dispatch_fn(), meta))
@@ -228,11 +279,16 @@ class OverlappedDispatcher:
         if 0 < self._depth < len(self._window) and not self._window[0][0].ready():
             self._window_full.inc()
         while len(self._window) > self._depth:
-            self.finish_oldest()
+            self.finish_oldest(
+                _stage="queue_wait" if self._depth > 0 else "readback"
+            )
         self._gauge.set(len(self._window))
 
-    def finish_oldest(self) -> None:
-        """Wait for the oldest entry and run the complete-callback."""
+    def finish_oldest(self, _stage: str = "readback") -> None:
+        """Wait for the oldest entry and run the complete-callback.
+        ``_stage`` is the ledger stage the wait is booked under; the
+        callback books its own (``sink``), so no interval lands in two
+        stages."""
         if not self._window:
             return
         out, meta = self._window[0]
@@ -243,7 +299,9 @@ class OverlappedDispatcher:
             # stall time counts even when the wait raised; the entry
             # leaves the window either way, so one poisoned batch cannot
             # wedge every later flush
-            self._stall.inc(time.monotonic() - t0)
+            dt = time.monotonic() - t0
+            self._stall.inc(dt)
+            self._ledger.observe(_stage, dt)
             self._window.popleft()
             self._gauge.set(len(self._window))
         if self._complete is not None:

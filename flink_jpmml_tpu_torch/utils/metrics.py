@@ -1,12 +1,16 @@
-"""Metrics registry of the port: counters, gauges and a latency histogram.
+"""Metrics registry of the port: counters, gauges and latency histograms.
 
-A minimal copy of ``flink_jpmml_tpu/utils/metrics.py``: what the block
-pipeline books (``records_in``/``records_out``/``batches``, the dispatch
-window's ``h2d_stall_s``/``dispatches``/``inflight_depth``, the wire's
-``encode_s``/``h2d_bytes`` and the ``batch_latency_s`` histogram). The
-histogram keeps the JAX package's fixed log-spaced buckets, so p50/p99
-read the same estimator in both packages. The fleet merge, sketches,
-reservoirs and the structured snapshot are not ported.
+A partial copy of ``flink_jpmml_tpu/utils/metrics.py``: what the block
+pipeline, the Kafka source, the prefetch sidecar and the obs planes
+(``obs/attr``, ``obs/freshness``, ``obs/pressure``, ``obs/slo``) book.
+The histogram is the JAX package's, with its fixed log-spaced buckets
+(so p50/p99 read the same estimator in both packages), its exemplars
+and its ``state`` form; the registry keeps its scrape hooks and its
+structured snapshot (``struct_snapshot``: counters, gauges with their
+high-water ``max``, histogram states). Not ported: the fleet merge
+(``Histogram.merge``, ``merge_structs``), the series governor
+(``govern_*``), the drift plane's sketches and the reservoirs; no port
+module calls them.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import bisect
 import math
 import threading
 import time
+import weakref
 from dataclasses import dataclass, field as dc_field
 from typing import Dict, List, Optional, Tuple
 
@@ -84,7 +89,10 @@ class Histogram:
     anything below ``lo``); one extra overflow bucket holds v > ``hi``.
     ``quantile`` returns the nearest-rank bucket's upper edge clamped to
     the true observed max — an upper bound with relative error set by
-    the bucket ratio.
+    the bucket ratio (default 4 buckets/decade ⇒ ≤ 78%... in the worst
+    case within a bucket, typically far less). ``state`` /
+    ``from_state`` carry it through :meth:`MetricsRegistry.struct_snapshot`;
+    the fleet merge is not ported.
     """
 
     DEFAULT_LO = 1e-6  # 1 µs
@@ -108,9 +116,28 @@ class Histogram:
         self._sum = 0.0
         self._n = 0
         self._max = 0.0
+        # bucket idx -> (trace_id, value, unix_ts): the exemplar link
+        # from a scrape's tail bucket back to the flight-recorder event
+        # / span file that explains it (obs/attr.py decides WHICH
+        # observations deserve one — the per-observe cost with none
+        # attached is a single None check)
+        self._exemplars: Dict[int, Tuple[str, float, float]] = {}
         self._lock = threading.Lock()
 
-    def observe(self, v: float) -> None:
+    @property
+    def edges(self) -> List[float]:
+        return list(self._edges)
+
+    @property
+    def layout(self) -> Tuple[float, float, int]:
+        return self._layout
+
+    def bucket_index(self, v: float) -> int:
+        """The bucket an observation of ``v`` lands in (edges are
+        immutable, so no lock; the overflow bucket is len(edges))."""
+        return bisect.bisect_left(self._edges, v)
+
+    def observe(self, v: float, exemplar: Optional[str] = None) -> None:
         idx = bisect.bisect_left(self._edges, v)
         with self._lock:
             self._counts[idx] += 1
@@ -118,6 +145,25 @@ class Histogram:
             self._n += 1
             if v > self._max:
                 self._max = v
+            if exemplar is not None:
+                # worst-per-bucket, matching merge(): a later smaller
+                # same-bucket capture must not displace the worst
+                # offender's trace link (>= so an equal fresher one wins)
+                have = self._exemplars.get(idx)
+                if have is None or v >= have[1]:
+                    self._exemplars[idx] = (exemplar, v, time.time())
+
+    def exemplars(self) -> Dict[int, Tuple[str, float, float]]:
+        with self._lock:
+            return dict(self._exemplars)
+
+    def count(self) -> int:
+        with self._lock:
+            return self._n
+
+    def sum(self) -> float:
+        with self._lock:
+            return self._sum
 
     def quantile(self, q: float) -> Optional[float]:
         with self._lock:
@@ -134,9 +180,49 @@ class Histogram:
                     return min(edge, self._max)
             return self._max  # unreachable: counts sum to _n
 
+    # -- wire format (struct_snapshot) ------
+
+    def state(self) -> dict:
+        """Compact JSON-shaped state: sparse non-zero buckets only."""
+        with self._lock:
+            out = {
+                "layout": list(self._layout),
+                "counts": {
+                    str(i): c for i, c in enumerate(self._counts) if c
+                },
+                "sum": self._sum,
+                "n": self._n,
+                "max": self._max,
+            }
+            if self._exemplars:
+                out["exemplars"] = {
+                    str(i): list(ex) for i, ex in self._exemplars.items()
+                }
+            return out
+
+    @classmethod
+    def from_state(cls, state: dict) -> "Histogram":
+        lo, hi, bpd = state["layout"]
+        h = cls(float(lo), float(hi), int(bpd))
+        for i, c in state.get("counts", {}).items():
+            h._counts[int(i)] += int(c)
+        h._sum = float(state.get("sum", 0.0))
+        h._n = int(state.get("n", 0))
+        h._max = float(state.get("max", 0.0))
+        for i, ex in (state.get("exemplars") or {}).items():
+            try:
+                h._exemplars[int(i)] = (
+                    str(ex[0]), float(ex[1]), float(ex[2])
+                )
+            except (IndexError, TypeError, ValueError):
+                continue  # a malformed exemplar never poisons the state
+        return h
+
 
 class MetricsRegistry:
-    """Named counters, gauges and histograms with a flat snapshot."""
+    """Named counters, gauges and histograms with one-call snapshots —
+    flat (``snapshot``) for humans and the chip smoke lines, structured
+    (``struct_snapshot``) for the obs planes' readers."""
 
     def __init__(self) -> None:
         self._counters: Dict[str, Counter] = {}
@@ -144,6 +230,36 @@ class MetricsRegistry:
         self._histograms: Dict[str, Histogram] = {}
         self._lock = threading.Lock()
         self._t0 = time.monotonic()
+        self._scrape_hooks: List[weakref.WeakMethod] = []
+
+    def add_scrape_hook(self, method) -> None:
+        """Register a bound method to run just before every
+        :meth:`struct_snapshot` (held weakly — a dead owner
+        unregisters itself). The freshness plane registers its aging
+        sweeps here so observation-age gauges keep counting up from
+        the OBSERVER side: a wedged consumer (full ring, blocked
+        ingest thread) must not freeze its own staleness detectors."""
+        with self._lock:
+            self._scrape_hooks.append(weakref.WeakMethod(method))
+
+    def _run_scrape_hooks(self) -> None:
+        with self._lock:
+            hooks = list(self._scrape_hooks)
+        dead = False
+        for ref in hooks:
+            fn = ref()
+            if fn is None:
+                dead = True
+                continue
+            try:
+                fn()
+            except Exception:
+                pass  # an aging hook must never kill a scrape
+        if dead:
+            with self._lock:
+                self._scrape_hooks = [
+                    h for h in self._scrape_hooks if h() is not None
+                ]
 
     def counter(self, name: str) -> Counter:
         with self._lock:
@@ -160,13 +276,18 @@ class MetricsRegistry:
                 h = self._histograms[name] = Histogram(**layout)
             return h
 
+    def _views(self):
+        with self._lock:
+            return (
+                dict(self._counters),
+                dict(self._gauges),
+                dict(self._histograms),
+            )
+
     def snapshot(self) -> Dict[str, float]:
         elapsed = max(time.monotonic() - self._t0, 1e-9)
         out: Dict[str, float] = {"uptime_s": elapsed}
-        with self._lock:
-            counters = dict(self._counters)
-            gauges = dict(self._gauges)
-            histograms = dict(self._histograms)
+        counters, gauges, histograms = self._views()
         for name, c in counters.items():
             v = c.get()
             out[name] = v
@@ -180,3 +301,22 @@ class MetricsRegistry:
                 if v is not None:
                     out[f"{name}_{tag}"] = v
         return out
+
+    def struct_snapshot(self, run_hooks: bool = True) -> dict:
+        """Typed, JSON-shaped snapshot: ``counters``, ``gauges`` (each
+        ``{"value", "max"}``), ``histograms`` (each its ``state``), the
+        uptime and the capture wall-clock ``ts``. ``run_hooks=False``
+        is for collectors that are themselves scrape hooks."""
+        if run_hooks:
+            self._run_scrape_hooks()
+        counters, gauges, histograms = self._views()
+        return {
+            "uptime_s": max(time.monotonic() - self._t0, 1e-9),
+            "ts": time.time(),
+            "counters": {n: c.get() for n, c in counters.items()},
+            "gauges": {
+                n: {"value": g.get(), "max": g.max}
+                for n, g in gauges.items()
+            },
+            "histograms": {n: h.state() for n, h in histograms.items()},
+        }

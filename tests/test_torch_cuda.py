@@ -2,12 +2,16 @@
 and vote shares) against its plain version, on the fixtures and on the
 seeded ragged and caterpillar forests of ``chip_smoke.py``, the device
 encode stage against the host encode, and the block pipeline on a CUDA
-device, host-encoded and fused. They skip where there is no card. This file
+device, host-encoded and fused, and fed from a Kafka broker on loopback
+through the prefetch sidecar, and the staging that ships only a
+dispatch's live rows. They skip where there is no card. This file
 imports neither jax nor the JAX package, so it runs on a machine that has
 only torch:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -16,9 +20,13 @@ import torch
 from chip_smoke import caterpillar_forest, ragged_forest, random_codes
 from flink_jpmml_tpu_torch.assets_gen import gen_gbm, gen_vote_forest
 from flink_jpmml_tpu_torch.compile import compile_pmml, qtrees_cuda
+from flink_jpmml_tpu_torch.obs import attr
 from flink_jpmml_tpu_torch.pmml import parse_pmml_file
 from flink_jpmml_tpu_torch.runtime.block import BlockPipeline, FiniteBlockSource
+from flink_jpmml_tpu_torch.runtime.kafka import KafkaBlockSource, MiniKafkaBroker
+from flink_jpmml_tpu_torch.runtime.pipeline import HostStaging
 from flink_jpmml_tpu_torch.utils.config import BatchConfig, RuntimeConfig
+from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry
 
 pytestmark = pytest.mark.cuda
 RTOL, ATOL = 1e-4, 1e-5  # the repo's rank-wire bar
@@ -135,11 +143,73 @@ def test_block_pipeline_placements_on_the_card_match_the_cpu_port(
         np.cumsum([0] + [n for _, n, _ in got])[:-1])
     snap = pipe.metrics.snapshot()
     assert snap[f"encode_{placement}"] == snap["dispatches"]
-    assert snap["h2d_bytes"] >= 5000 * (4 if placement == "fused" else 1) * 32
+    assert snap["h2d_bytes"] == 5000 * (4 if placement == "fused" else 1) * 32
     q_cpu = _gbm(tmp_path, 512, device="cpu", **kw).quantized_scorer()
     ref = q_cpu.predict_wire(q_cpu.wire.encode(X)).numpy()[:5000]
     np.testing.assert_allclose(np.concatenate([v for _, _, v in got]), ref,
                                rtol=RTOL, atol=ATOL)
+
+
+def test_kafka_fed_fused_pipeline_on_the_card_matches_the_cpu_port(
+        card, tmp_path):
+    kw = dict(n_trees=40, depth=6, n_features=32)
+    cm = _gbm(tmp_path, 512, **kw)
+    assert cm.quantized_scorer().encode_placement == "fused"
+    X = _X(np.random.default_rng(5), 20_000, 32)
+    got = {}
+    broker = MiniKafkaBroker(topic="t")
+    src = None
+    try:
+        broker.append_rows(X)
+        reg = MetricsRegistry()  # shared by the source and the pipeline
+        src = KafkaBlockSource(broker.host, broker.port, "t", n_cols=32,
+                               max_wait_ms=5, metrics=reg)
+        pipe = BlockPipeline(
+            src, cm,
+            lambda out, n, off: got.setdefault(off, np.asarray(out)[:n].copy()),
+            RuntimeConfig(batch=BatchConfig(size=512, deadline_us=2000)),
+            metrics=reg,
+        )
+        pipe.start()
+        deadline = time.monotonic() + 120
+        while (pipe.committed_offset < 20_000 and pipe.error is None
+               and time.monotonic() < deadline):
+            time.sleep(0.005)
+        pipe.stop()
+        pipe.join(timeout=30)
+    finally:
+        if src is not None:
+            src.close()
+        broker.close()
+    assert pipe.committed_offset == 20_000
+    assert type(pipe._source).__name__ == "PrefetchedBlockSource"
+    offs = sorted(got)
+    assert offs == list(np.cumsum([0] + [got[o].shape[0] for o in offs])[:-1])
+    snap = pipe.metrics.snapshot()
+    assert snap["encode_fused"] == snap["dispatches"]
+    assert snap["h2d_bytes"] == 20_000 * 128  # live rows only
+    assert {"fetch", "decode", "prefetch_wait", "encode", "h2d",
+            "sink"} <= set(attr.summary(pipe.metrics))
+    q_cpu = _gbm(tmp_path, 512, device="cpu", **kw).quantized_scorer()
+    ref = q_cpu.predict_wire(q_cpu.wire.encode(X)).numpy()[:20_000]
+    np.testing.assert_allclose(np.concatenate([got[o] for o in offs]), ref,
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_staging_ships_live_rows_and_zeroes_the_rest(card):
+    # varying drains through one rotation: each device tensor holds the
+    # payload and then zero rows up to ``rows``, whatever a reused pinned
+    # buffer held before
+    staging = HostStaging(card, slots=2)
+    rng = np.random.default_rng(6)
+    for n, rows in ((700, 1024), (1024, 1024), (5, 512), (900, 1024),
+                    (3, 3)):
+        X = rng.normal(size=(n, 32)).astype(np.float32)
+        dev = staging.stage(X, rows)
+        torch.cuda.synchronize()
+        assert dev.device.type == "cuda" and dev.shape == (rows, 32)
+        np.testing.assert_array_equal(dev[:n].cpu().numpy(), X)
+        assert not dev[n:].any()
 
 
 @pytest.mark.parametrize("kw", [

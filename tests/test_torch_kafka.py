@@ -1,0 +1,288 @@
+"""The port's Kafka ingest (``flink_jpmml_tpu_torch/runtime/kafka.py``)
+against the JAX package's on the CPU: the magic-v2 codec byte for byte,
+the three row decoders and their errors, the wire protocol across the two
+packages' clients and brokers, the block source's ``(first_offset,
+block)`` sequence on 1 and 3 partitions across a seek, the ``kafka_lag``
+gauges, and the reconnect after an injected broker death.
+
+Every broker listens on loopback port 0 and every broker, client and
+source is closed in a ``finally``, so the file runs under xdist.
+"""
+
+import time
+
+import numpy as np
+import pytest
+
+from flink_jpmml_tpu.runtime import faults as jfaults
+from flink_jpmml_tpu.runtime import kafka as jk
+from flink_jpmml_tpu.utils.metrics import MetricsRegistry as JRegistry
+from flink_jpmml_tpu_torch.runtime import faults as tfaults
+from flink_jpmml_tpu_torch.runtime import kafka as tk
+from flink_jpmml_tpu_torch.runtime import native as tnative
+from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry as TRegistry
+
+F = 8  # feature columns of the tabular stream
+
+
+@pytest.fixture(autouse=True)
+def _flight_dir(tmp_path, monkeypatch):
+    monkeypatch.setenv("FJT_FLIGHT_DIR", str(tmp_path / "flight"))
+
+
+def _rows(seed: int, n: int, cols: int = F) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    X = rng.normal(0.0, 1.5, size=(n, cols)).astype(np.float32)
+    X[rng.random(size=X.shape) < 0.2] = np.nan
+    return X
+
+
+def _values(X: np.ndarray) -> list:
+    return [X[i].tobytes() for i in range(X.shape[0])]
+
+
+# -- the codec --------------------------------------------------------------
+
+
+@pytest.mark.parametrize("timestamp_ms", [0, 1_700_000_000_123])
+@pytest.mark.parametrize("n", [1, 37, 600])
+def test_encode_record_batch_is_byte_identical(timestamp_ms, n):
+    vals = _values(_rows(n, n))
+    got = tk.encode_record_batch(5, vals, timestamp_ms=timestamp_ms)
+    assert got == jk.encode_record_batch(5, vals, timestamp_ms=timestamp_ms)
+
+
+@pytest.mark.parametrize("size", [0, 7, 63, 64, 65, 1000, 4099])
+def test_crc32c_and_its_vectorized_engine_agree(size):
+    data = np.random.default_rng(size).integers(
+        0, 256, size=size, dtype=np.uint8).tobytes()
+    want = jk.crc32c(data)
+    assert tk.crc32c(data) == want
+    assert tk.crc32c_vec(data) == want
+    assert jk.crc32c_vec(data) == want
+
+
+def _record_set(name: str) -> bytes:
+    """Record-set bytes of the shapes the decoders branch on."""
+    X = _rows(1, 1500)
+    if name in ("native", "truncated"):
+        raw = X.view(np.uint8).reshape(X.shape[0], -1)
+        buf = b"".join(tnative.kafka_encode_fixed(raw[i:i + 512], i)
+                       for i in range(0, X.shape[0], 512))
+        # a partial trailing batch is dropped by every decoder
+        return buf[:-100] if name == "truncated" else buf
+    if name == "python":
+        return b"".join(
+            tk.encode_record_batch(i, _values(X[i:i + 400]), timestamp_ms=42)
+            for i in range(0, X.shape[0], 400))
+    if name == "headers":
+        # the port produces no headers; the JAX encoder makes a record
+        # that carries one, which every decoder must skip
+        hdrs = [None] * 50
+        hdrs[3] = [("traceparent", b"00-1-2-01")]
+        return jk.encode_record_batch(0, _values(X[:50]), headers=hdrs)
+    return b""
+
+
+@pytest.mark.parametrize(
+    "name", ["native", "python", "headers", "truncated", "empty"])
+def test_row_decoders_agree_across_tiers_and_packages(name):
+    buf = _record_set(name)
+    want_offs, want_rows = jk.decode_record_batches_rows_py(buf, F)
+    for dec in (tk.decode_record_batches_rows, tk.decode_record_batches_rows_vec,
+                tk.decode_record_batches_rows_py, jk.decode_record_batches_rows,
+                jk.decode_record_batches_rows_vec):
+        offs, rows = dec(buf, F)
+        assert offs.dtype == np.int64 and rows.dtype == np.float32
+        assert offs.tobytes() == want_offs.tobytes(), dec
+        assert rows.tobytes() == want_rows.tobytes(), dec
+    assert tk.record_batch_time_range(buf) == jk.record_batch_time_range(buf)
+    assert tk.decode_record_batches(buf) == jk.decode_record_batches(buf)
+
+
+@pytest.mark.parametrize("name", ["crc", "wrong_length"])
+def test_row_decoders_raise_the_same_error(name):
+    X = _rows(2, 100)
+    if name == "crc":
+        buf = bytearray(tk.encode_record_batch(0, _values(X)))
+        buf[-5] ^= 0xFF  # inside the records: the stored CRC no longer holds
+        buf = bytes(buf)
+    else:
+        buf = tk.encode_record_batch(
+            0, _values(X[:10]) + [b"\x00" * (4 * F + 4)])
+    with pytest.raises(ValueError) as want:
+        jk.decode_record_batches_rows_py(buf, F)
+    for dec in (tk.decode_record_batches_rows, tk.decode_record_batches_rows_vec,
+                tk.decode_record_batches_rows_py, jk.decode_record_batches_rows,
+                jk.decode_record_batches_rows_vec):
+        with pytest.raises(ValueError) as got:
+            dec(buf, F)
+        assert str(got.value) == str(want.value), dec
+
+
+# -- the wire protocol across the packages -----------------------------------
+
+
+def _client_view(client_cls, broker, n_rows):
+    c = client_cls(broker.host, broker.port)
+    try:
+        meta = c.metadata(broker.topic)
+        offsets = [(c.list_offset(broker.topic, p, -2),
+                    c.list_offset(broker.topic, p, -1))
+                   for p in range(broker.n_partitions)]
+        rows, pos = [], 0
+        while pos < n_rows:
+            hw, raw = c.fetch_raw(broker.topic, 0, pos, max_wait_ms=10,
+                                  max_bytes=20_000)
+            offs, blk = jk.decode_record_batches_rows_py(bytes(raw), F)
+            keep = offs >= pos
+            rows.append((offs[keep], blk[keep]))
+            pos = int(offs[-1]) + 1
+        return meta, offsets, hw, rows
+    finally:
+        c.close()
+
+
+@pytest.mark.parametrize("broker_pkg", ["jax", "port"])
+def test_clients_and_brokers_interoperate(broker_pkg):
+    X = _rows(3, 3000)
+    broker = (jk if broker_pkg == "jax" else tk).MiniKafkaBroker(
+        topic="t", n_partitions=2)
+    try:
+        broker.append_rows(X)
+        broker.append_rows(X[:10], partition=1)
+        port_view = _client_view(tk.KafkaClient, broker, X.shape[0])
+        jax_view = _client_view(jk.KafkaClient, broker, X.shape[0])
+    finally:
+        broker.close()
+    for view in (port_view, jax_view):
+        (brokers, parts), offsets, hw, rows = view
+        assert parts == {0: 0, 1: 0} and len(brokers) == 1
+        assert offsets == [(0, 3000), (0, 10)] and hw == 3000
+        offs = np.concatenate([o for o, _ in rows])
+        assert offs.tobytes() == np.arange(3000, dtype=np.int64).tobytes()
+        assert np.concatenate([b for _, b in rows]).tobytes() == X.tobytes()
+    assert port_view[0] == jax_view[0]
+    assert port_view[1] == jax_view[1]
+
+
+def test_brokers_serve_the_same_bytes():
+    X = _rows(4, 2000)
+    tb, jb = tk.MiniKafkaBroker(topic="t"), jk.MiniKafkaBroker(topic="t")
+    c1 = tk.KafkaClient(tb.host, tb.port)
+    c2 = tk.KafkaClient(jb.host, jb.port)
+    try:
+        tb.append_rows(X)
+        jb.append_rows(X)
+        for off in (0, 511, 512, 1999):
+            a = c1.fetch_raw("t", 0, off, max_bytes=100_000)
+            b = c2.fetch_raw("t", 0, off, max_bytes=100_000)
+            assert a[0] == b[0] and bytes(a[1]) == bytes(b[1])
+    finally:
+        c1.close()
+        c2.close()
+        tb.close()
+        jb.close()
+
+
+# -- the block source ---------------------------------------------------------
+
+
+def _read(src, want, timeout=30.0):
+    got, pos = [], 0
+    deadline = time.monotonic() + timeout
+    while pos < want and time.monotonic() < deadline:
+        polled = src.poll()
+        if polled is None:
+            continue
+        got.append((polled[0], polled[1].tobytes()))
+        pos += polled[1].shape[0]
+    assert pos == want
+    return got
+
+
+def _source_run(pkg, broker, parts, metrics):
+    """Poll the whole log, seek, poll again → (first_offset, block bytes)
+    sequence and the ``kafka_lag`` gauges."""
+    kw = dict(n_cols=F, max_wait_ms=5, max_bytes=9_000, metrics=metrics)
+    if parts > 1:
+        kw["partitions"] = list(range(parts))
+    src = pkg.KafkaBlockSource(broker.host, broker.port, "t", **kw)
+    try:
+        seq = _read(src, 1800)
+        if parts == 1:
+            src.seek(700)
+            seq += _read(src, 1100)
+        else:
+            # auto interleave: seek back to the snapshot floor; the
+            # per-partition cursors stay, so new rows are what comes next
+            src.seek(0)
+            broker.append_rows_round_robin(_rows(6, 300))
+            seq += _read(src, 300)
+    finally:
+        src.close()
+    snap = metrics.struct_snapshot()["gauges"]
+    lag = {k: v["value"] for k, v in snap.items() if k.startswith("kafka_lag{")}
+    return seq, lag
+
+
+@pytest.mark.parametrize("parts", [1, 3])
+def test_block_source_sequences_match_the_jax_source(parts):
+    X = _rows(5, 1800)
+    seqs, lags = [], []
+    for pkg, reg in ((jk, JRegistry()), (tk, TRegistry())):
+        broker = tk.MiniKafkaBroker(topic="t", n_partitions=parts)
+        try:
+            if parts == 1:
+                broker.append_rows(X)
+            else:
+                broker.append_rows_round_robin(X)
+            seq, lag = _source_run(pkg, broker, parts, reg)
+        finally:
+            broker.close()
+        seqs.append(seq)
+        lags.append(lag)
+    assert len(seqs[0]) > 3  # many small fetches, not one
+    assert seqs[0] == seqs[1]
+    assert lags[0] == lags[1] and len(lags[0]) == parts
+
+
+@pytest.mark.parametrize("pkg,faults_mod", [(jk, jfaults), (tk, tfaults)],
+                         ids=["jax", "port"])
+def test_injected_broker_death_rides_the_reconnect(pkg, faults_mod):
+    X = _rows(7, 900)
+    broker = pkg.MiniKafkaBroker(topic="t")
+    reg = (JRegistry if pkg is jk else TRegistry)()
+    src = pkg.KafkaBlockSource(broker.host, broker.port, "t", n_cols=F,
+                               max_wait_ms=5, metrics=reg,
+                               reconnect_backoff_s=0.001)
+    try:
+        broker.append_rows(X)
+        fault = faults_mod.inject("broker_death", n=3)
+        dead = [src.poll() for _ in range(3)]
+        assert dead == [None, None, None]
+        assert fault.fires == 3 and faults_mod.stats() == {"broker_death": 3}
+        assert reg.gauge("reconnect_backoff_s").get() > 0
+        got = _read(src, 900)
+        assert got[0][0] == 0  # resumed at the cursor
+        assert b"".join(b for _, b in got) == X.tobytes()
+        assert reg.gauge("reconnect_backoff_s").get() == 0
+    finally:
+        faults_mod.clear()
+        src.close()
+        broker.close()
+
+
+def test_chip_smoke_kafka_wire_phase_on_a_small_log():
+    # the card run's wire phase is host code: rehearse it on a short log
+    from chip_smoke import features, kafka_wire
+
+    rows = features(np.random.default_rng(0), 30_000, F)
+    broker, line = kafka_wire(rows)
+    try:
+        assert broker.high_watermark == 30_000
+    finally:
+        broker.close()
+    assert line["read_back_identical"] and line["tiers_identical"]
+    assert line["python_check_rows"] == 20_480 and line["fetches"] >= 1
+    assert line["cpp_decode_ms"] > 0 and line["value_bytes"] == rows.nbytes
