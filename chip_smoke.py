@@ -104,7 +104,22 @@ JAX package, and prints one JSON line per phase:
     in phase 11); for the Kafka paths, whose dispatches hold what the
     ring held, the kernel, the encode stage and the H2D copy are timed at
     each dispatch size the path ran (K compile batches) and weighted by
-    its dispatches and live rows.
+    its dispatches and live rows;
+17. family paths — the dense families on ``BlockPipeline``'s f32 backend
+    (no kernel is on these paths; their products are ``torch.matmul`` with
+    TF32 off, which the phase asserts): ``gen_iris_lr(seed=7)`` (4 fields,
+    3 classes, softmax) at compile batch 16,384 for at least 1,048,576
+    records; ``gen_mlp()`` (784→256→10, rectifier, softmax) at 16,384 for
+    262,144; ``gen_kmeans()`` (k = 5, 4 fields) with ``entityId`` /
+    ``affinity`` outputs at 16,384 for 1,048,576; ``gen_stacked(n_trees=50,
+    depth=4, n_features=10_000, wide_lr=True)`` at 2,048 for 131,072; and
+    a probit GeneralRegressionModel (``glm_probit_xml``) at 16,384 for
+    262,144. Each line: records/s, batch latency p50 / p99, H2D bytes a
+    record, the backend tag (``f32``), the model function's and the H2D
+    copy's CUDA-event ms a dispatch and the idle share they imply, the
+    stage ledger; the first 4,096 records (2,048 for the stacked chain)
+    held to the CPU port at rtol 1e-4 / atol 1e-5 with labels equal, and
+    ``score_records`` on 16 records (outputs decoded) too.
 
 Every main path runs the C++ ring, and its line carries the stage ledger
 of its registry (``attribution``: per stage the count, total ms, p50 /
@@ -966,6 +981,269 @@ def kafka_device_shares(run: dict, q, rng) -> dict:
             "timed_by_batches": timed}
 
 
+# -- the dense families (BASELINE configs 1, 3, 4, 5 and a GLM) -------------
+
+WIDE = 16  # fields past which missing cells are confined to some records
+ENTITY_OUTPUTS = ('<Output><OutputField name="cluster" feature="entityId"/>'
+                  '<OutputField name="dist" feature="affinity"/></Output>')
+
+
+def glm_probit_xml(n_fields: int = 8, seed: int = 29) -> str:
+    """A probit GeneralRegressionModel (generalizedLinear) over ``n_fields``
+    continuous covariates: an intercept, a slope each, x0 squared and the
+    x1·x2 interaction (two PPCells on one parameter), β from the seed."""
+    rng = np.random.default_rng(seed)
+    fields = [f"x{i}" for i in range(n_fields)]
+    params = ["p0"] + [f"p{i + 1}" for i in range(n_fields)] + ["pq", "px"]
+    cells = [(f, f"p{i + 1}", "1") for i, f in enumerate(fields)]
+    cells += [("x0", "pq", "2"), ("x1", "px", "1"), ("x2", "px", "1")]
+    beta = rng.normal(0.0, 0.3, size=len(params))
+    return (
+        '<PMML xmlns="http://www.dmg.org/PMML-4_3" version="4.3"><Header/>'
+        "<DataDictionary>" + "".join(
+            f'<DataField name="{f}" optype="continuous" dataType="double"/>'
+            for f in fields)
+        + '<DataField name="y" optype="continuous" dataType="double"/>'
+        "</DataDictionary>"
+        '<GeneralRegressionModel functionName="regression" '
+        'modelType="generalizedLinear" linkFunction="probit">'
+        '<MiningSchema><MiningField name="y" usageType="target"/>'
+        + "".join(f'<MiningField name="{f}"/>' for f in fields)
+        + "</MiningSchema><ParameterList>"
+        + "".join(f'<Parameter name="{q}"/>' for q in params)
+        + "</ParameterList><CovariateList>"
+        + "".join(f'<Predictor name="{f}"/>' for f in fields)
+        + "</CovariateList><PPMatrix>" + "".join(
+            f'<PPCell value="{v}" predictorName="{f}" parameterName="{q}"/>'
+            for f, q, v in cells)
+        + "</PPMatrix><ParamMatrix>" + "".join(
+            f'<PCell parameterName="{q}" beta="{b!r}"/>'
+            for q, b in zip(params, beta.tolist()))
+        + "</ParamMatrix></GeneralRegressionModel></PMML>"
+    )
+
+
+def family_configs(workdir: str) -> list:
+    """(name, PMML path, compile batch, records to score) of the dense
+    families' configurations, at their published widths."""
+    from flink_jpmml_tpu_torch import assets_gen as ag
+
+    def written(name, xml):
+        path = os.path.join(workdir, name)
+        with open(path, "w") as f:
+            f.write(xml)
+        return path
+
+    with open(ag.gen_kmeans(workdir)) as f:
+        kmeans = f.read().replace("</MiningSchema>",
+                                  "</MiningSchema>" + ENTITY_OUTPUTS, 1)
+    return [
+        ("iris_lr", ag.gen_iris_lr(workdir, seed=7), BATCH, 1_048_576),
+        ("mlp", ag.gen_mlp(workdir), BATCH, 262_144),
+        ("kmeans", written("kmeans_out.pmml", kmeans), BATCH, 1_048_576),
+        ("stacked", ag.gen_stacked(workdir, n_trees=50, depth=4,
+                                   n_features=10_000, wide_lr=True),
+         2048, 131_072),
+        ("glm_probit", written("glm.pmml", glm_probit_xml()), BATCH,
+         262_144),
+    ]
+
+
+def check_outputs(got, ref, label: str) -> dict:
+    """A dense path's (value, valid, probs, label_idx) against the CPU
+    port's: validity equal, values and rows within the bar on valid lanes,
+    labels equal there."""
+    g = [None if t is None else np.asarray(t) for t in got]
+    r = [None if t is None else t.numpy() for t in ref]
+    valid = r[1]
+    if not np.array_equal(g[1], valid):
+        raise RuntimeError(f"{label}: validity differs from the CPU port on "
+                           f"{int((g[1] != valid).sum())} rows")
+    errs = {"rows": int(valid.shape[0]), "valid_rows": int(valid.sum())}
+    for name, i in (("value", 0), ("probs", 2)):
+        if (g[i] is None) != (r[i] is None):
+            raise RuntimeError(f"{label}: {name} present on one side only")
+        if g[i] is None:
+            continue
+        a, b = g[i][valid], r[i][valid]
+        if not (np.isfinite(a).all()
+                and np.allclose(a, b, rtol=RTOL, atol=ATOL)):
+            raise RuntimeError(f"{label}: {name} differs from the CPU port")
+        errs[f"{name}_max_abs_err"] = float(np.abs(a - b).max(initial=0.0))
+    if (g[3] is None) != (r[3] is None):
+        raise RuntimeError(f"{label}: labels present on one side only")
+    if g[3] is not None and not np.array_equal(g[3][valid], r[3][valid]):
+        raise RuntimeError(f"{label}: labels differ from the CPU port")
+    return errs
+
+
+def check_decoded(cm, cm_cpu, X: np.ndarray, label: str) -> dict:
+    """``score_records`` on the card and on the CPU port over records made
+    from ``X`` (NaN → absent): the same empties, labels and outputs, and
+    values within the bar."""
+    fields = cm.field_space.fields
+    records = [{f: float(v) for f, v in zip(fields, row) if not np.isnan(v)}
+               for row in X]
+    outs = 0
+    for g, r in zip(cm.score_records(records), cm_cpu.score_records(records)):
+        same = g.is_empty == r.is_empty and (g.is_empty or (
+            np.isclose(g.score.value, r.score.value, rtol=RTOL, atol=ATOL)
+            and (g.target is None) == (r.target is None)
+            and (g.target is None or g.target.label == r.target.label)
+            and set(g.outputs or {}) == set(r.outputs or {})))
+        for k, v in (r.outputs or {}).items():
+            w = (g.outputs or {}).get(k)
+            if isinstance(v, float):
+                same = same and isinstance(w, float) and bool(
+                    np.isclose(w, v, rtol=RTOL, atol=ATOL))
+            else:
+                same = same and w == v
+            outs += 1
+        if not same:
+            raise RuntimeError(f"{label}: score_records differs from the CPU "
+                               f"port: {g} vs {r}")
+    return {"records": len(records), "outputs_checked": outs}
+
+
+def drive_f32(cm, data: np.ndarray, target: int, sample: int) -> tuple:
+    """BlockPipeline on the f32 backend over a ``CyclingBlockSource`` of
+    ``data`` until ``target`` records reached the sink; dispatches of up
+    to 16 compile batches, fewer where a dispatch would pass 64 MiB of
+    values. The line carries the model function's and the H2D copy's
+    CUDA-event ms at the dispatch shape and, from them, an estimate of the
+    card's idle share (not a trace), and the stage ledger.
+    → (the run's line, the head's outputs)."""
+    import torch
+
+    from flink_jpmml_tpu_torch.obs import attr
+    from flink_jpmml_tpu_torch.runtime.block import (
+        BlockPipeline,
+        CyclingBlockSource,
+    )
+    from flink_jpmml_tpu_torch.utils.config import BatchConfig, RuntimeConfig
+
+    batch, F = cm.batch_size, cm.field_space.arity
+    chunks = max(1, min(DISPATCH // BATCH, 2 ** 26 // (batch * 4 * F)))
+    kept, count = {}, [0]
+
+    def sink(out, n, first_off):
+        if out.value.shape[0] < n:
+            raise RuntimeError(f"sink got {out.value.shape} for {n} records")
+        if first_off == 0:
+            kept["head"] = tuple(None if t is None else t[:sample].clone()
+                                 for t in out)
+        count[0] += n
+
+    pipe = BlockPipeline(
+        CyclingBlockSource(data, block_size=min(len(data), batch * chunks)),
+        cm, sink,
+        RuntimeConfig(batch=BatchConfig(size=batch, deadline_us=5000,
+                                        queue_capacity=4 * batch * chunks)),
+        max_dispatch_chunks=chunks,
+    )
+    if pipe.backend != "f32":
+        raise RuntimeError(f"dense pipeline backend {pipe.backend}")
+    metrics = pipe.metrics
+    t0 = time.perf_counter()
+    pipe.start()
+    try:
+        while (count[0] < target and pipe.error is None
+               and time.perf_counter() < t0 + 300):
+            time.sleep(0.005)
+    finally:
+        pipe.stop()
+        pipe.join(timeout=60)
+    dt = time.perf_counter() - t0
+    if count[0] < target:
+        raise RuntimeError(f"dense path scored {count[0]} < {target} records")
+    snap = metrics.snapshot()
+    dispatches = int(snap["batches"])
+    fill = snap["batch_fill_records"] / dispatches
+    # the card's share: the model function at the dispatch shape, and the
+    # pageable H2D copy of X and M, timed alone (CUDA events)
+    rows = int(round(fill))
+    Xd = torch.zeros((rows, F), dtype=torch.float32, device=cm.device)
+    Md = torch.zeros((rows, F), dtype=torch.bool, device=cm.device)
+    Xh, Mh = np.zeros((rows, F), np.float32), np.zeros((rows, F), bool)
+    with torch.no_grad():
+        model_ms = cuda_ms(lambda: cm._fn(cm.params, Xd, Md), 2, 10)
+    h2d_ms = cuda_ms(lambda: (torch.from_numpy(Xh).to(cm.device),
+                              torch.from_numpy(Mh).to(cm.device)), 2, 10)
+    return {
+        "backend": pipe.backend, "compile_batch": batch, "fields": F,
+        "records": count[0], "seconds": dt, "records_per_s": count[0] / dt,
+        "dispatches": dispatches,
+        "records_per_dispatch": snap["batch_fill_records"] / dispatches,
+        "h2d_bytes_per_record": snap["h2d_bytes"] / snap["batch_fill_records"],
+        "batch_latency_p50_s": snap.get("batch_latency_s_p50"),
+        "batch_latency_p99_s": snap.get("batch_latency_s_p99"),
+        "model_ms_per_dispatch": model_ms, "h2d_ms_per_dispatch": h2d_ms,
+        "device_idle_share_est":
+            1.0 - dispatches * (model_ms + h2d_ms) / (dt * 1e3),
+        "attribution": attr.summary(metrics),
+    }, kept["head"]
+
+
+def family_paths(workdir: str) -> list:
+    """Each dense configuration compiled on the card (the default device)
+    and scored through BlockPipeline's f32 backend, its head held to the
+    CPU port and its ``score_records`` (outputs decoded) too. Records are
+    N(0, 1.5) with 20% missing cells (numpy, seed 6) — past ``WIDE`` fields
+    in 20% of the records only; a configuration's records cycle over one
+    block of at most 64 MiB of values (one compile batch where that is
+    less)."""
+    import torch
+
+    from flink_jpmml_tpu_torch.compile.compiler import compile_pmml
+    from flink_jpmml_tpu_torch.pmml import parse_pmml_file
+
+    lines = []
+    t0 = time.perf_counter()
+    configs = family_configs(workdir)
+    write_s = time.perf_counter() - t0
+    for name, path, batch, target in configs:
+        t0 = time.perf_counter()
+        doc = parse_pmml_file(path)
+        cm = compile_pmml(doc, batch_size=batch)
+        cm_cpu = compile_pmml(doc, batch_size=batch, device="cpu")
+        setup_s = time.perf_counter() - t0
+        F = cm.field_space.arity
+        if cm.quantized_scorer() is not None:
+            raise RuntimeError(f"{name}: a rank wire for a dense family")
+        if (torch.backends.cuda.matmul.allow_tf32
+                or torch.get_float32_matmul_precision() != "highest"):
+            raise RuntimeError("TF32 is on for float32 matmuls")
+        rows = max(batch, min(DISPATCH, 2 ** 26 // (4 * F)) // batch * batch)
+        rng = np.random.default_rng(6)
+        data = rng.standard_normal(size=(rows, F), dtype=np.float32) * 1.5
+        miss = rng.random(size=data.shape, dtype=np.float32) < MISSING
+        if F > WIDE:
+            # a record missing any input of these families scores empty:
+            # at 20% of cells none would survive, so the missing cells
+            # fall in 20% of the records, and the rest are complete
+            miss &= (rng.random(size=(rows, 1)) < MISSING)
+        data[miss] = np.nan
+        sample = min(4096, batch)
+        cm.predict(np.zeros((batch, F), np.float32),
+                   np.zeros((batch, F), bool))  # warm the card's path
+        run, head = drive_f32(cm, data, target, sample)
+        t0 = time.perf_counter()
+        Xh = data[:sample]
+        Mh = np.isnan(Xh)
+        ref = cm_cpu.predict(np.where(Mh, 0.0, Xh).astype(np.float32), Mh)
+        lines.append({
+            "config": name, **run, "parse_compile_s": setup_s,
+            "missing": ("20% of cells in 20% of records" if F > WIDE
+                        else "20% of cells"),
+            "cpu_check": check_outputs(head, ref, name),
+            "score_records_check": check_decoded(cm, cm_cpu, data[:16],
+                                                 name),
+        })
+        lines[-1]["check_s"] = time.perf_counter() - t0
+    lines[0]["documents_written_s"] = write_s
+    return lines
+
+
 def main() -> int:
     import importlib.util
 
@@ -1257,6 +1535,15 @@ def run_phases(workdir: str) -> int:
               krun, q, np.random.default_rng(5)),
           "kafka_main_path_serial": kafka_device_shares(
               ksrun, q, np.random.default_rng(5))})
+
+    # -- the dense families on the f32 backend (no kernel on these paths) ---
+    t0 = time.perf_counter()
+    fam = family_paths(workdir)
+    emit({"phase": "family_paths", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t0,
+          "tf32": torch.backends.cuda.matmul.allow_tf32,
+          "float32_matmul_precision": torch.get_float32_matmul_precision(),
+          "configs": fam})
 
     def kernel_entry(name, replaces, runs, checked, t):
         return {

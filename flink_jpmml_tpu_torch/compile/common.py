@@ -68,9 +68,10 @@ class Lowered:
 class LowerCtx:
     """Compile-time context threaded through the per-family lowerers.
 
-    ``field_index`` maps field name → column in ``X``. ``codecs`` maps a
-    categorical field name to its value→code table (only string-typed
-    categorical fields need one; numeric fields compare raw values).
+    ``field_index`` maps field name → column in ``X``; modelChain extends it
+    with intermediate output fields. ``codecs`` maps a categorical field
+    name to its value→code table (only string-typed categorical fields need
+    one; numeric fields compare raw values).
     """
 
     field_index: Dict[str, int]
@@ -105,6 +106,39 @@ class LowerCtx:
                 f"non-numeric literal {raw!r} for non-categorical field {name!r}"
             ) from None
 
+    def with_extra_fields(
+        self, names: Tuple[str, ...], codecs: Dict[str, Dict[str, float]]
+    ) -> "LowerCtx":
+        """Extend the field space (modelChain intermediate outputs)."""
+        idx = dict(self.field_index)
+        for n in names:
+            if n in idx:
+                raise ModelCompilationException(
+                    f"modelChain output field {n!r} shadows an existing field"
+                )
+            idx[n] = len(idx)
+        merged = dict(self.codecs)
+        merged.update(codecs)
+        return LowerCtx(field_index=idx, codecs=merged, config=self.config)
+
+
+class DeviceConst:
+    """A compile-time numpy constant (column indices, per-field weights)
+    that a lowered function reads on every call: copied to each device
+    once and kept there, so the hot path issues no host→device copy for
+    it. The JAX package closes over the same arrays as jit constants."""
+
+    def __init__(self, a, dtype=None):
+        self.array = np.ascontiguousarray(a, dtype)
+        self._on: Dict[torch.device, torch.Tensor] = {}
+
+    def on(self, device: torch.device) -> torch.Tensor:
+        t = self._on.get(device)
+        if t is None:
+            t = torch.from_numpy(self.array).to(device)
+            self._on[device] = t
+        return t
+
 
 def build_codecs(dd: ir.DataDictionary) -> Dict[str, Dict[str, float]]:
     """value→code tables for string-typed categorical fields: the code of a
@@ -122,7 +156,10 @@ def to_device(tree, device: torch.device):
         return {k: to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
-    return torch.from_numpy(np.ascontiguousarray(tree)).to(device)
+    a = np.asarray(tree)  # a 0-d scalar keeps its shape
+    if not a.flags.c_contiguous:
+        a = np.ascontiguousarray(a)
+    return torch.from_numpy(a).to(device)
 
 
 # ---------------------------------------------------------------------------

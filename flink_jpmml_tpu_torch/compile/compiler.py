@@ -1,27 +1,37 @@
 """Top-level PMML → PyTorch compiler: dispatch, device placement, decode.
 
-The port of ``flink_jpmml_tpu/compile/compiler.py`` for TreeModel and
-MiningModel-of-trees documents. ``compile_pmml`` lowers the document to a
-plain function on tensors and places its parameter tables on the device;
-``CompiledModel.predict(X, M)`` scores one micro-batch and
-``CompiledModel.quantized_scorer()`` builds the rank-wire fast path
-(``qtrees.py``).
+The port of ``flink_jpmml_tpu/compile/compiler.py`` for the families
+ported so far: TreeModel, MiningModel (aggregates, votes, modelChain),
+RegressionModel, NeuralNetwork, ClusteringModel and GeneralRegression.
+``compile_pmml`` lowers the document to a plain function on tensors and
+places its parameter tables on the device; ``CompiledModel.predict(X, M)``
+scores one micro-batch, ``score_records`` / ``score_dense`` wrap it with
+the decode, and ``CompiledModel.quantized_scorer()`` builds the rank-wire
+fast path (``qtrees.py``) for tree ensembles. TransformationDictionary
+derived fields become extra device columns after the missing-value
+replacement of the raw columns; a top-level ``<Output>`` is validated at
+compile time and computed at decode (``pmml/outputs.py``), with the
+clustering entity ranking.
 
-Every other model family, TransformationDictionary derived fields and a
-top-level ``<Output>`` raise :class:`NotPortedError`. Unlike the JAX
-package, a failure while building the rank-wire scorer is never caught and
-turned into a silent fall-back to the f32 path: it propagates.
+Every other family raises :class:`NotPortedError` and names itself. Not
+ported with those families: scorecard reason codes, association rule
+outputs, the selectAll segment map, KNN neighbour ids, ModelVerification
+replay, ``warmup`` and the JAX package's ``mesh=`` sharding. Unlike the
+JAX package, a failure while building the rank-wire scorer is never
+caught and turned into a silent fall-back to the f32 path: it propagates.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from flink_jpmml_tpu_torch.compile import prepare
+from flink_jpmml_tpu_torch.compile.clustering import lower_clustering
 from flink_jpmml_tpu_torch.compile.common import (
     Lowered,
     LowerCtx,
@@ -32,10 +42,18 @@ from flink_jpmml_tpu_torch.compile.common import (
     extract_missing_replacements,
     to_device,
 )
+from flink_jpmml_tpu_torch.compile.exprs import lower_expression
+from flink_jpmml_tpu_torch.compile.glm import lower_general_regression
 from flink_jpmml_tpu_torch.compile.mining import lower_mining
+from flink_jpmml_tpu_torch.compile.neural import lower_neural_network
+from flink_jpmml_tpu_torch.compile.regression import lower_regression
 from flink_jpmml_tpu_torch.compile.trees import lower_tree
 from flink_jpmml_tpu_torch.models.prediction import Prediction, decode_batch
 from flink_jpmml_tpu_torch.pmml import ir
+from flink_jpmml_tpu_torch.pmml.outputs import (
+    compute_outputs,
+    validate_output_fields,
+)
 from flink_jpmml_tpu_torch.utils.config import CompileConfig
 from flink_jpmml_tpu_torch.utils.device import resolve_device
 from flink_jpmml_tpu_torch.utils.exceptions import (
@@ -46,15 +64,27 @@ from flink_jpmml_tpu_torch.utils.exceptions import (
 _UNSET = object()  # sentinel: rank-wire scorer not yet built
 
 
+# the JAX package's dispatch order (compiler.py lower_model); the families
+# after GeneralRegression there are not ported yet
+_LOWERERS = (
+    (ir.TreeModelIR, lower_tree),
+    (ir.RegressionModelIR, lower_regression),
+    (ir.NeuralNetworkIR, lower_neural_network),
+    (ir.ClusteringModelIR, lower_clustering),
+    (ir.GeneralRegressionIR, lower_general_regression),
+    (ir.MiningModelIR, lower_mining),
+)
+
+
 def lower_model(model: ir.ModelIR, ctx: LowerCtx) -> Lowered:
     """Dispatch a parsed model to its family lowerer."""
-    if isinstance(model, ir.TreeModelIR):
-        return lower_tree(model, ctx)
-    if isinstance(model, ir.MiningModelIR):
-        return lower_mining(model, ctx)
+    for cls, lower in _LOWERERS:
+        if isinstance(model, cls):
+            return lower(model, ctx)
     raise NotPortedError(
-        f"model family {type(model).__name__} is not ported yet "
-        "(the port covers TreeModel and MiningModel of trees)"
+        f"model family {type(model).__name__} is not ported yet (the port "
+        "covers TreeModel, MiningModel, RegressionModel, NeuralNetwork, "
+        "ClusteringModel and GeneralRegressionModel)"
     )
 
 
@@ -71,7 +101,9 @@ class CompiledModel:
     """A PMML document compiled to a batch scorer on one device.
 
     ``predict`` is the hot path: arrays in, :class:`ModelOutput` of device
-    tensors out; ``decode`` turns an output into ``Prediction`` lists.
+    tensors out; ``decode`` turns an output into ``Prediction`` lists, and
+    ``score_records`` / ``score_dense`` do both (host-side decode; not for
+    the hot loop).
     """
 
     field_space: prepare.FieldSpace
@@ -84,10 +116,21 @@ class CompiledModel:
     _doc: Optional[ir.PmmlDocument] = None
     _config: Optional[CompileConfig] = None
     _quantized: object = _UNSET
+    output_fields: Tuple[ir.OutputField, ...] = ()  # top-level <Output>
+    # clustering: its probabilities mapping holds per-entity comparison
+    # scores — the entityId/affinity output features read it; the order
+    # ("asc" distances / "desc" similarities) ranks entities for rank-k
+    # entityId
+    _entity_scores: bool = False
+    _entity_order: Optional[str] = None
 
     @property
     def is_classification(self) -> bool:
         return bool(self.labels)
+
+    @property
+    def active_fields(self) -> Tuple[str, ...]:
+        return self.field_space.fields
 
     def predict(self, X, M) -> ModelOutput:
         X = as_tensor(X, torch.float32, self.device)
@@ -116,6 +159,24 @@ class CompiledModel:
             self._config = None
         return self._quantized
 
+    # -- convenience wrappers (host-side decode; not for the hot loop) -----
+
+    def score_dense(
+        self, vectors, replace_nan: Optional[float] = None
+    ) -> List[Prediction]:
+        X, M = prepare.from_dense(self.field_space, vectors, replace_nan)
+        return self._score(X, M, n=X.shape[0])
+
+    def score_records(self, records: Sequence[dict]) -> List[Prediction]:
+        X, M = prepare.from_records(self.field_space, records)
+        return self._score(X, M, n=X.shape[0])
+
+    def _score(self, X, M, n: int) -> List[Prediction]:
+        if self.batch_size is not None:
+            X, M, _ = prepare.pad_batch(X, M, self.batch_size)
+        out = self.predict(X, M)
+        return self.decode(out, n)
+
     def decode(self, out: ModelOutput, n: Optional[int] = None) -> List[Prediction]:
         value = out.value.cpu().numpy()[:n]
         valid = out.valid.cpu().numpy()[:n]
@@ -129,7 +190,49 @@ class CompiledModel:
                 probabilities = [
                     dict(zip(self.labels, row.tolist())) for row in P
                 ]
-        return decode_batch(value.tolist(), valid.tolist(), labels, probabilities)
+        preds = decode_batch(value.tolist(), valid.tolist(), labels, probabilities)
+        if not self.output_fields:
+            return preds
+        # top-level <Output> post-processing (pmml/outputs.py): only
+        # documents that declare it pay this host-side per-record step
+        rankings = self._entity_rankings(out, n)
+        return [
+            p
+            if p.is_empty
+            else dataclasses.replace(
+                p,
+                outputs=compute_outputs(
+                    self.output_fields,
+                    p.score.value,
+                    p.target.label if p.target else None,
+                    p.target.probabilities if p.target else None,
+                    entity_scores=(
+                        (p.target.probabilities or None)
+                        if self._entity_scores and p.target
+                        else None
+                    ),
+                    entity_ranking=(
+                        rankings[i] if rankings is not None else None
+                    ),
+                ),
+            )
+            for i, p in enumerate(preds)
+        ]
+
+    def _entity_rankings(self, out, n):
+        """Per-record best-first entity ids for rank-k entityId decode:
+        clustering sorts its score row."""
+        if not any(of.feature == "entityId" for of in self.output_fields):
+            return None
+        if self._entity_order is not None and out.probs is not None:
+            P = out.probs.cpu().numpy()[:n]
+            sign = 1.0 if self._entity_order == "asc" else -1.0
+            order = np.argsort(sign * P, axis=1, kind="stable")
+            return [
+                tuple(self.labels[j] for j in order[i])
+                for i in range(order.shape[0])
+            ]
+        return None
 
 
 def compile_pmml(
@@ -149,31 +252,46 @@ def compile_pmml(
     fields = doc.active_fields
     if not fields:
         raise ModelCompilationException("model has no active fields")
-    if doc.transformations.derived_fields:
-        raise NotPortedError(
-            "TransformationDictionary derived fields (compile/exprs) are "
-            "not ported yet"
-        )
-    if doc.output_fields:
-        raise NotPortedError(
-            "top-level <Output> post-processing (pmml/outputs) is not "
-            "ported yet"
-        )
     codecs = build_codecs(doc.data_dictionary)
-    ctx = LowerCtx(
+
+    # TransformationDictionary derived fields become extra input columns,
+    # computed on the device from the raw columns before the model body
+    # runs (declaration order; later fields may reference earlier ones).
+    # The user-facing field space stays the raw active fields.
+    field_index = {f: i for i, f in enumerate(fields)}
+    derived_fns = []
+    for df in doc.transformations.derived_fields:
+        dctx = LowerCtx(
+            field_index=dict(field_index), codecs=codecs, config=config
+        )
+        derived_fns.append(lower_expression(df.expression, dctx))
+        if df.name in field_index:
+            raise ModelCompilationException(
+                f"derived field {df.name!r} shadows an existing field"
+            )
+        field_index[df.name] = len(field_index)
+
+    ctx = LowerCtx(field_index=field_index, codecs=codecs, config=config)
+    lowered = lower_model(doc.model, ctx)
+
+    # top-level mining-schema missingValueReplacement (C4), vectorized —
+    # sized to the RAW columns (it runs before derived columns exist,
+    # mirroring the reference's replacement → transformations order)
+    raw_ctx = LowerCtx(
         field_index={f: i for i, f in enumerate(fields)},
         codecs=codecs,
         config=config,
     )
-    lowered = lower_model(doc.model, ctx)
-
-    # top-level mining-schema missingValueReplacement (C4), vectorized
-    repl, has_repl = extract_missing_replacements(doc.model.mining_schema, ctx)
+    repl, has_repl = extract_missing_replacements(
+        doc.model.mining_schema, raw_ctx
+    )
     any_repl = bool(has_repl.any())
     targets = doc.targets
     # DataDictionary validity × invalidValueTreatment (None = nothing can
     # be invalid; the sanitize stage is skipped entirely)
-    ivp = extract_invalid_policy(doc.data_dictionary, doc.model.mining_schema, ctx)
+    ivp = extract_invalid_policy(
+        doc.data_dictionary, doc.model.mining_schema, raw_ctx
+    )
     host_params = {"model": lowered.params, "repl": repl, "has_repl": has_repl}
     if ivp is not None:
         host_params["ivp"] = {k: v for k, v in ivp.items() if v is not None}
@@ -219,12 +337,23 @@ def compile_pmml(
             use = M & params["has_repl"][None, :]
             X = torch.where(use, params["repl"][None, :], X)
             M = M & ~params["has_repl"][None, :]
+        for dfn in derived_fns:  # appends columns in declaration order
+            v, miss = dfn(X, M)
+            X = torch.cat([X, v.to(torch.float32)[:, None]], dim=1)
+            M = torch.cat([M, miss[:, None]], dim=1)
         out = lowered.fn(params["model"], X, M)
         out = apply_targets(out, targets)
         if lane_bad is not None:
             out = out._replace(valid=out.valid & ~lane_bad)
         return out
 
+    validate_output_fields(doc.output_fields)
+    entity_scores = isinstance(doc.model, ir.ClusteringModelIR)
+    entity_order = None
+    if entity_scores:
+        entity_order = (
+            "desc" if doc.model.measure.kind == "similarity" else "asc"
+        )
     return CompiledModel(
         field_space=prepare.FieldSpace(fields=fields, codecs=ctx.codecs),
         labels=lowered.labels,
@@ -235,4 +364,7 @@ def compile_pmml(
         model_name=getattr(doc.model, "model_name", None),
         _doc=doc,
         _config=config,
+        output_fields=doc.output_fields,
+        _entity_scores=entity_scores,
+        _entity_order=entity_order,
     )

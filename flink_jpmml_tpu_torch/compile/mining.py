@@ -1,19 +1,26 @@
-"""MiningModel → PyTorch: segmentation of TreeModel segments.
+"""MiningModel → PyTorch: ensembles and stacking.
 
 The port of ``flink_jpmml_tpu/compile/mining.py``, for the aggregation
-methods sum / average / weightedAverage / max / median (and the vote
-methods of a classification forest):
+methods sum / average / weightedAverage / max / median, the vote methods
+of a classification forest, and ``modelChain``:
 
 1. **Fused tree-ensemble fast path**: every segment is a canonical
    TreeModel with a ``<True/>`` predicate (the GBM shape, BASELINE config
    2) → :func:`~flink_jpmml_tpu_torch.compile.trees.lower_tree_ensemble`
    packs all trees into one padded tensor family.
-2. **Generic aggregation**: segments with predicates (or non-tree
+2. **modelChain** (BASELINE config 5): segments run in sequence, each
+   exporting its ``predictedValue`` / ``probability`` output fields as new
+   columns of the field space; a straight-line composition that extends
+   ``X`` / ``M`` functionally. A missing result from an active segment
+   poisons the chain's result.
+3. **Generic aggregation**: segments with predicates (or non-tree
    segments) lower independently and combine per ``multipleModelMethod``
    with vectorized active-segment masks. A segment whose family is not
    ported raises :class:`NotPortedError` from ``lower_model``.
 
-``modelChain``, ``selectFirst`` and ``selectAll`` are not ported yet.
+``selectFirst`` and ``selectAll`` are not ported yet. The JAX package's
+``mesh=`` sharding of the chain's wide stage is not ported either: a chain
+runs on one card.
 
 Missing semantics match the JAX package: a missing result from any
 *active* segment poisons aggregate results; inactive segments are
@@ -56,7 +63,9 @@ def lower_mining(model: ir.MiningModelIR, ctx: LowerCtx) -> Lowered:
     method = model.segmentation.multiple_model_method
     segments = model.segmentation.segments
 
-    if method in ("modelChain", "selectFirst", "selectAll"):
+    if method == "modelChain":
+        return _lower_chain(segments, ctx)
+    if method in ("selectFirst", "selectAll"):
         raise NotPortedError(
             f"multipleModelMethod {method!r} is not ported yet"
         )
@@ -91,11 +100,91 @@ def lower_mining(model: ir.MiningModelIR, ctx: LowerCtx) -> Lowered:
     return _lower_aggregate(segments, method, ctx)
 
 
+def _nested(ctx: LowerCtx) -> LowerCtx:
+    return ctx if ctx.nested else dataclasses.replace(ctx, nested=True)
+
+
 def _lower_segments(segments, ctx) -> List[Lowered]:
     from flink_jpmml_tpu_torch.compile.compiler import lower_model
 
-    sub = ctx if ctx.nested else dataclasses.replace(ctx, nested=True)
+    sub = _nested(ctx)
     return [lower_model(s.model, sub) for s in segments]
+
+
+def _lower_chain(segments: Tuple[ir.Segment, ...], ctx: LowerCtx) -> Lowered:
+    from flink_jpmml_tpu_torch.compile.compiler import lower_model
+
+    if not isinstance(segments[-1].predicate, ir.TruePredicate):
+        raise ModelCompilationException(
+            "modelChain lowering requires the final segment's predicate to "
+            "be <True/> (per-record final-segment selection is oracle-only)"
+        )
+
+    steps = []  # (pred_fn|None, lowered, [(out_name, feature, prob_col)])
+    cur_ctx = ctx
+    params = {}
+    for i, seg in enumerate(segments):
+        pred_fn = (
+            None
+            if isinstance(seg.predicate, ir.TruePredicate)
+            else lower_predicate(seg.predicate, cur_ctx)
+        )
+        low = lower_model(seg.model, _nested(cur_ctx))
+        params[f"s{i}"] = low.params
+        outs = []
+        new_names: List[str] = []
+        new_codecs = {}
+        for of in seg.output_fields:
+            if of.feature == "predictedValue":
+                outs.append((of.name, "predictedValue", None))
+                if low.is_classification:
+                    # downstream predicates compare against the label code
+                    new_codecs[of.name] = {
+                        lbl: float(j) for j, lbl in enumerate(low.labels)
+                    }
+            elif of.feature == "probability":
+                if not low.is_classification or of.target_value is None:
+                    raise ModelCompilationException(
+                        f"OutputField {of.name!r}: probability feature needs "
+                        "a classification segment and a target value"
+                    )
+                outs.append(
+                    (of.name, "probability", low.labels.index(of.target_value))
+                )
+            else:
+                raise ModelCompilationException(
+                    f"unsupported OutputField feature {of.feature!r}"
+                )
+            new_names.append(of.name)
+        steps.append((pred_fn, low, outs))
+        if new_names:
+            cur_ctx = cur_ctx.with_extra_fields(tuple(new_names), new_codecs)
+
+    final_low = steps[-1][1]
+
+    def fn(p, X, M):
+        all_valid = None
+        out = None
+        for i, (pred_fn, low, outs) in enumerate(steps):
+            active = _active(pred_fn, X, M)
+            out = low.fn(p[f"s{i}"], X, M)
+            ok_i = ~active | out.valid
+            all_valid = ok_i if all_valid is None else (all_valid & ok_i)
+            for name, feature, prob_col in outs:
+                if feature == "predictedValue":
+                    col = (
+                        out.label_idx.to(torch.float32)
+                        if low.is_classification
+                        else out.value
+                    )
+                else:
+                    col = out.probs[:, prob_col]
+                ok = active & out.valid
+                X = torch.cat([X, torch.where(ok, col, 0.0)[:, None]], dim=1)
+                M = torch.cat([M, (~ok)[:, None]], dim=1)
+        return out._replace(valid=out.valid & all_valid)
+
+    return Lowered(fn=fn, params=params, labels=final_low.labels)
 
 
 def _active(pred_fn, X, M):

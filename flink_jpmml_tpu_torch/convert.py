@@ -1,4 +1,15 @@
-"""Carry a rank-wire model's tables across from the JAX package.
+"""Carry a model's parameters across from the JAX package.
+
+``model_params_from_jax`` takes ``np.asarray`` of every leaf of the JAX
+package's ``compile_pmml(doc).params`` — the f32 dense path's parameter
+tree: ``t{i}`` tables of a RegressionModel, ``l{i}`` layers of a
+NeuralNetwork, ``centers`` of a ClusteringModel, ``beta`` (and the Cox
+baseline) of a GeneralRegressionModel, the packed tree tables, and the
+``s{i}`` segments of a MiningModel, nested as deep as the document — and
+returns the same tree of tensors on the requested device: the port's
+``CompiledModel.params["model"]`` for the same document. Keys, shapes and
+dtypes carry over unchanged (a bf16 leaf, which the JAX package keeps only
+on a TPU, widens to f32 exactly).
 
 ``quantized_params_from_jax`` takes the JAX scorer's packed tables as
 numpy arrays — the XLA-backend params ``feat``, ``qthr``, ``dleft``,
@@ -41,6 +52,23 @@ def _bf16(a) -> torch.Tensor:
             np.array(a, copy=True).view(np.int16)
         ).view(torch.bfloat16)
     return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16)
+
+
+def model_params_from_jax(np_params, device=None):
+    """``np.asarray`` of each leaf of JAX ``compile_pmml(doc).params`` →
+    the port's ``params["model"]`` for the same document, on ``device``
+    (default: the CUDA card)."""
+    dev = resolve_device(device)
+
+    def carry(tree):
+        if isinstance(tree, dict):
+            return {k: carry(v) for k, v in tree.items()}
+        a = np.array(tree, copy=True)  # JAX buffers view read-only
+        if a.dtype.name == "bfloat16":
+            a = a.astype(np.float32)
+        return torch.from_numpy(a).to(dev)
+
+    return carry(np_params)
 
 
 def quantized_params_from_jax(

@@ -30,6 +30,10 @@ state, the mesh, device-fault recovery (and with it the freshness hooks
 of its recovery and fallback paths), admission control, the drift
 plane and journey tracing. The score loop marks where each attaches.
 
+The f32 path (``_dispatch_f32``, every family without a rank wire) books
+the bytes it ships in ``h2d_bytes``, as the rank-wire path does; the JAX
+package's f32 dispatch books none.
+
 The sink receives host tensors (the pinned buffer the D2H copy filled)
 once their dispatch has completed; :meth:`BlockPipeline.decode` turns one
 into ``Prediction``s.
@@ -338,13 +342,16 @@ class BlockPipeline:
         return self._dispatch_f32(X, n)
 
     def _dispatch_f32(self, X, n) -> DeviceOutput:
-        """f32 path: NaN cells are the missing convention."""
+        """f32 path: NaN cells are the missing convention. The mask and the
+        zeroed, padded values are made on the host and both cross the bus
+        (``h2d_bytes``: 5 bytes a cell, padding rows included)."""
         model = self._bound.model
         M = np.isnan(X)
         Xb = np.where(M, 0.0, X).astype(np.float32)
         target = max(model.batch_size, n)
         if n < target:
             Xb, M, _ = prepare.pad_batch(Xb, M, target)
+        self.metrics.counter("h2d_bytes").inc(Xb.nbytes + M.nbytes)
         Xs = torch.from_numpy(Xb).to(self.device, non_blocking=True)
         Ms = torch.from_numpy(M).to(self.device, non_blocking=True)
         return device_output(model.predict(Xs, Ms), Xs)

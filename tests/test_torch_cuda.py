@@ -4,7 +4,9 @@ seeded ragged and caterpillar forests of ``chip_smoke.py``, the device
 encode stage against the host encode, and the block pipeline on a CUDA
 device, host-encoded and fused, and fed from a Kafka broker on loopback
 through the prefetch sidecar, and the staging that ships only a
-dispatch's live rows. They skip where there is no card. This file
+dispatch's live rows; and the dense families (regression, MLP, k-means,
+the stacked chain, a probit GLM) on the card against the CPU port, with
+TF32 off. They skip where there is no card. This file
 imports neither jax nor the JAX package, so it runs on a machine that has
 only torch:
 
@@ -362,3 +364,87 @@ def test_ptxas_reports_no_spills(card):
     for kernel in report:
         assert kernel["spill_stores"] == 0 and kernel["spill_loads"] == 0, \
             kernel
+
+
+# -- the dense families on the card (f32 backend, no kernel) -----------------
+
+
+def _family_doc(tmp_path, family):
+    from chip_smoke import ENTITY_OUTPUTS, glm_probit_xml
+    from flink_jpmml_tpu_torch import assets_gen as ag
+    from flink_jpmml_tpu_torch.pmml import parse_pmml
+
+    d = str(tmp_path)
+    if family == "glm_probit":
+        return parse_pmml(glm_probit_xml())
+    if family == "kmeans":
+        with open(ag.gen_kmeans(d)) as f:
+            return parse_pmml(f.read().replace(
+                "</MiningSchema>", "</MiningSchema>" + ENTITY_OUTPUTS, 1))
+    path = {
+        "iris_lr": lambda: ag.gen_iris_lr(d),
+        "mlp": lambda: ag.gen_mlp(d, n_inputs=784, hidden=(256,),
+                                  n_classes=10, name="mlp.pmml"),
+        "stacked": lambda: ag.gen_stacked(d, n_trees=12, depth=4,
+                                          n_features=10_000, wide_lr=True),
+    }[family]()
+    return parse_pmml_file(path)
+
+
+def _assert_outputs_close(got, ref):
+    valid = ref.valid.numpy()
+    np.testing.assert_array_equal(got.valid.cpu().numpy(), valid)
+    for g, r in ((got.value, ref.value), (got.probs, ref.probs)):
+        assert (g is None) == (r is None)
+        if r is not None:
+            np.testing.assert_allclose(g.cpu().numpy()[valid],
+                                       r.numpy()[valid], rtol=RTOL, atol=ATOL)
+    if ref.label_idx is not None:
+        np.testing.assert_array_equal(got.label_idx.cpu().numpy()[valid],
+                                      ref.label_idx.numpy()[valid])
+
+
+@pytest.mark.parametrize("family", ["iris_lr", "mlp", "kmeans", "stacked",
+                                    "glm_probit"])
+def test_dense_family_on_the_card_matches_the_cpu_port(card, tmp_path,
+                                                       family):
+    """Card vs CPU port at the repo's bar, with TF32 off: the 784-wide MLP,
+    the 10,000-wide linear stage and the clustering products are float32
+    matmuls whose operands TF32 would round to a 10-bit mantissa."""
+    doc = _family_doc(tmp_path, family)
+    cm = compile_pmml(doc, batch_size=512)  # default device: the card
+    assert cm.device.type == "cuda"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    cpu = compile_pmml(doc, batch_size=512, device="cpu")
+    F = cm.field_space.arity
+    rng = np.random.default_rng(7)
+    X = rng.normal(0.0, 1.5, size=(1200, F)).astype(np.float32)
+    miss = rng.random(size=X.shape) < 0.2
+    if F > 16:  # a missing input empties the lane: keep most rows whole
+        miss &= rng.random(size=(1200, 1)) < 0.2
+    X[miss] = np.nan
+    M = np.isnan(X)
+    Xz = np.where(M, 0.0, X).astype(np.float32)
+    _assert_outputs_close(cm.predict(Xz, M), cpu.predict(Xz, M))
+    got = []
+    pipe = BlockPipeline(
+        FiniteBlockSource(X, 500), cm,
+        lambda out, n, off: got.append((off, n, out)),
+        RuntimeConfig(batch=BatchConfig(size=512, deadline_us=2000)),
+    )
+    assert pipe.backend == "f32" and cm.quantized_scorer() is None
+    pipe.run_until_exhausted(timeout=120)
+    assert sum(n for _, n, _ in got) == 1200
+    for off, n, out in got:
+        Xs, Ms = Xz[off:off + n], M[off:off + n]
+        ref = cpu.predict(Xs, Ms)
+        _assert_outputs_close(
+            type(out)(*(None if t is None else t[:n] for t in out)), ref)
+    if family == "kmeans":
+        recs = [{f: float(v) for f, v in zip(cm.field_space.fields, row)
+                 if not np.isnan(v)} for row in X[:16]]
+        for g, r in zip(cm.score_records(recs), cpu.score_records(recs)):
+            assert g.is_empty == r.is_empty
+            assert (g.outputs or {}).get("cluster") == (
+                r.outputs or {}).get("cluster")

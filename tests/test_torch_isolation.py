@@ -41,6 +41,12 @@ KAFKA_SLICE = {
     "utils.netio", "utils.retry",
 }
 
+# the dense families (regression, neural, clustering, GLM, the chain)
+DENSE_SLICE = {
+    "compile.regression", "compile.exprs", "compile.neural",
+    "compile.clustering", "compile.glm", "pmml.outputs",
+}
+
 
 def test_every_port_module_imports_without_jax():
     res = subprocess.run(
@@ -49,9 +55,10 @@ def test_every_port_module_imports_without_jax():
     )
     assert res.returncode == 0, res.stderr
     count, names = res.stdout.split(maxsplit=1)
-    assert int(count) >= 36  # every module of slices 1-5
+    assert int(count) >= 42  # every module ported so far
     names = set(names.split())
     assert {f"flink_jpmml_tpu_torch.{m}" for m in KAFKA_SLICE} <= names
+    assert {f"flink_jpmml_tpu_torch.{m}" for m in DENSE_SLICE} <= names
 
 
 @pytest.fixture
@@ -72,6 +79,24 @@ def test_entry_points_default_to_the_card(no_card, gbm_doc):
         compile_pmml(gbm_doc, device="cuda")
     with pytest.raises(DeviceUnavailableError):
         tq.build_quantized_scorer(gbm_doc)
+
+
+def test_dense_families_default_to_the_card(no_card, tmp_path):
+    from flink_jpmml_tpu_torch.assets_gen import gen_iris_lr, gen_kmeans
+    from flink_jpmml_tpu_torch.convert import model_params_from_jax
+
+    for gen in (gen_iris_lr, gen_kmeans):
+        doc = parse_pmml_file(gen(str(tmp_path)))
+        with pytest.raises(DeviceUnavailableError):
+            compile_pmml(doc, batch_size=8)
+        cm = compile_pmml(doc, batch_size=8, device="cpu")
+        assert cm.quantized_scorer() is None
+        pipe = BlockPipeline(
+            FiniteBlockSource(torch.zeros(4, 4).numpy(), 4), cm,
+            lambda out, n, off: None)
+        assert pipe.device.type == "cpu" and pipe.backend == "f32"
+    with pytest.raises(DeviceUnavailableError):
+        model_params_from_jax({"centers": torch.zeros(2, 4).numpy()})
 
 
 def test_cpu_only_on_request(no_card, gbm_doc):

@@ -76,15 +76,19 @@ def test_keeps_order_and_counts_like_the_jax_twin():
         finally:
             src.stop_prefetch()
         snap = reg.struct_snapshot()
-        return got, snap["counters"]["prefetch_batches"], \
-            snap["counters"]["prefetch_records"], \
+        return (got, snap["counters"]["prefetch_batches"],
+                snap["counters"]["prefetch_records"]), \
             snap["gauges"]["prefetch_depth"]["max"]
 
-    jax_run, port_run = _both(run)
+    (jax_run, jax_depth), (port_run, port_depth) = _both(run)
+    # order, bytes and counts are fixed by the source; how full the
+    # handoff queue ever got depends on how the threads were scheduled,
+    # so each twin's high-water mark is held to the queue's bounds alone
     assert port_run == jax_run
-    got, batches, records, depth_max = port_run
+    got, batches, records = port_run
     assert [off for off, _ in got] == list(range(0, 200, 5))
-    assert (batches, records) == (40, 200) and 1 <= depth_max <= 2
+    assert (batches, records) == (40, 200)
+    assert 1 <= port_depth <= 2 and 1 <= jax_depth <= 2
 
 
 def test_seek_pauses_and_discards_prefetched_batches():
@@ -92,7 +96,11 @@ def test_seek_pauses_and_discards_prefetched_batches():
         inner = ScriptedSource()
         src = mod.PrefetchedBlockSource(inner, depth=4, metrics=reg)
         try:
-            first = src.poll() or src.poll()
+            deadline = time.monotonic() + 5
+            first = None
+            while first is None and time.monotonic() < deadline:
+                # a poll waits only briefly for the sidecar's first block
+                first = src.poll()
             deadline = time.monotonic() + 5
             while len(src._q) < 4 and time.monotonic() < deadline:
                 time.sleep(0.001)  # the sidecar ran ahead

@@ -95,10 +95,38 @@ def test_vote_forest_dense_matches(tmp_path):
                                rtol=RTOL, atol=ATOL)
 
 
+SCORECARD = """<PMML version="4.3"><DataDictionary>
+  <DataField name="age" optype="continuous" dataType="double"/>
+  </DataDictionary>
+  <Scorecard functionName="regression" initialScore="100">
+  <MiningSchema><MiningField name="age"/></MiningSchema>
+  <Characteristics><Characteristic name="ageCh">
+    <Attribute partialScore="40">
+      <SimplePredicate field="age" operator="lessThan" value="30"/>
+    </Attribute>
+    <Attribute partialScore="20"><True/></Attribute>
+  </Characteristic></Characteristics></Scorecard></PMML>"""
+
+
 def test_other_families_raise_not_ported(tmp_path):
-    doc = parse_pmml_file(gen_iris_lr(str(tmp_path)))
-    with pytest.raises(NotPortedError, match="RegressionModel"):
-        compile_pmml(doc, device="cpu")
+    # a family still to port (Scorecard), and a segmentation method still
+    # to port (selectFirst) over a family that is ported
+    with pytest.raises(NotPortedError, match="Scorecard"):
+        compile_pmml(tparse_str(SCORECARD), device="cpu")
+    with open(gen_iris_lr(str(tmp_path))) as f:
+        lr = f.read()
+    head, model = lr.split("<RegressionModel", 1)
+    model = model.rsplit("</PMML>", 1)[0]
+    schema = model[model.index("<MiningSchema>"):model.index("</MiningSchema>")]
+    xml = (
+        head + '<MiningModel functionName="classification">'
+        + schema + "</MiningSchema>"
+        + '<Segmentation multipleModelMethod="selectFirst">'
+        + "<Segment><True/><RegressionModel" + model + "</Segment>"
+        + "</Segmentation></MiningModel></PMML>"
+    )
+    with pytest.raises(NotPortedError, match="selectFirst"):
+        compile_pmml(tparse_str(xml), device="cpu")
 
 
 def test_segment_predicates_take_the_generic_aggregate(tmp_path):
