@@ -120,6 +120,26 @@ JAX package, and prints one JSON line per phase:
     stage ledger; the first 4,096 records (2,048 for the stacked chain)
     held to the CPU port at rtol 1e-4 / atol 1e-5 with labels equal, and
     ``score_records`` on 16 records (outputs decoded) too.
+18. tree shapes — the tree shapes and rule families the rank wire
+    declines (``quantized_scorer()`` must be None), on the f32 backend
+    (no kernel; torch gathers, ``torch.where`` and float32 products with
+    TF32 off): ``deep_rf_xml()`` (a RandomForestRegressor export: 100
+    trees of 1,024–2,048 leaves, depth 11–24, 32 fields; the node hop)
+    with ``defaultChild`` and again with ``lastPrediction`` (the halt
+    carry), at 16 compile batches a dispatch for at least 1,048,576
+    records;
+    ``general_forest_xml()`` (rpart-style surrogate splits, a set split in
+    four over 8-valued categorical fields; the general scan) at 8 for
+    262,144 (the other counts are minimums too); ``select_first_xml()`` (4 quartile-gated 100-tree GBMs) at 4
+    for 262,144; ``iforest_xml()`` (an AnomalyDetectionModel over 100
+    isolation trees of depth ≤ 8) at 1 for 262,144; ``scorecard_xml()``
+    (10 × 5, reason codes 1–3) and ``ruleset_xml()`` under each of its
+    three criteria at 16 for 262,144; and the JAX tests' weightedConfidence
+    / aggregateNodes trees and selectAll fixture at 4 for 65,536, the first
+    dispatch held whole. Each line as in 17, plus the card's peak
+    allocated memory; heads held to the CPU port as in 17, and
+    ``score_records`` (reason codes, segment maps) on 4,096 records for
+    the scorecard and rulesets, 16 otherwise, with its own records/s.
 
 Every main path runs the C++ ring, and its line carries the stage ledger
 of its registry (``attribution``: per stage the count, total ms, p50 /
@@ -1077,13 +1097,34 @@ def check_outputs(got, ref, label: str) -> dict:
     return errs
 
 
+def _close_outputs(w, v) -> bool:
+    """Two decoded output values equal: floats within the bar, maps key
+    by key (selectAll's per-segment map), the rest exactly."""
+    if isinstance(v, dict):
+        return (isinstance(w, dict) and w.keys() == v.keys()
+                and all(_close_outputs(w[k], v[k]) for k in v))
+    if isinstance(v, float):
+        return isinstance(w, float) and bool(
+            np.isclose(w, v, rtol=RTOL, atol=ATOL))
+    return w == v
+
+
+def records_of(cm, X: np.ndarray) -> list:
+    """Records from rows of ``X`` (NaN → absent); a string-categorical
+    field's code becomes its category."""
+    fields = cm.field_space.fields
+    names = {f: {c: v for v, c in codec.items()}
+             for f, codec in cm.field_space.codecs.items()}
+    return [{f: (names[f][float(v)] if f in names else float(v))
+             for f, v in zip(fields, row) if not np.isnan(v)} for row in X]
+
+
 def check_decoded(cm, cm_cpu, X: np.ndarray, label: str) -> dict:
     """``score_records`` on the card and on the CPU port over records made
-    from ``X`` (NaN → absent): the same empties, labels and outputs, and
-    values within the bar."""
-    fields = cm.field_space.fields
-    records = [{f: float(v) for f, v in zip(fields, row) if not np.isnan(v)}
-               for row in X]
+    from ``X`` (``records_of``): the same empties, labels and outputs
+    (reason codes and segment maps included), and values within the
+    bar."""
+    records = records_of(cm, X)
     outs = 0
     for g, r in zip(cm.score_records(records), cm_cpu.score_records(records)):
         same = g.is_empty == r.is_empty and (g.is_empty or (
@@ -1092,12 +1133,7 @@ def check_decoded(cm, cm_cpu, X: np.ndarray, label: str) -> dict:
             and (g.target is None or g.target.label == r.target.label)
             and set(g.outputs or {}) == set(r.outputs or {})))
         for k, v in (r.outputs or {}).items():
-            w = (g.outputs or {}).get(k)
-            if isinstance(v, float):
-                same = same and isinstance(w, float) and bool(
-                    np.isclose(w, v, rtol=RTOL, atol=ATOL))
-            else:
-                same = same and w == v
+            same = same and _close_outputs((g.outputs or {}).get(k), v)
             outs += 1
         if not same:
             raise RuntimeError(f"{label}: score_records differs from the CPU "
@@ -1105,13 +1141,16 @@ def check_decoded(cm, cm_cpu, X: np.ndarray, label: str) -> dict:
     return {"records": len(records), "outputs_checked": outs}
 
 
-def drive_f32(cm, data: np.ndarray, target: int, sample: int) -> tuple:
+def drive_f32(cm, data: np.ndarray, target: int, sample: int,
+              chunks=None) -> tuple:
     """BlockPipeline on the f32 backend over a ``CyclingBlockSource`` of
-    ``data`` until ``target`` records reached the sink; dispatches of up
-    to 16 compile batches, fewer where a dispatch would pass 64 MiB of
-    values. The line carries the model function's and the H2D copy's
-    CUDA-event ms at the dispatch shape and, from them, an estimate of the
-    card's idle share (not a trace), and the stage ledger.
+    ``data`` until ``target`` records reached the sink; dispatches of
+    ``chunks`` compile batches, by default up to 16, fewer where a
+    dispatch would pass 64 MiB of values. The line carries the model
+    function's (on the data's first rows) and the H2D copy's CUDA-event ms
+    at the dispatch shape and, from them, an estimate of the card's idle
+    share (not a trace), the card's peak allocated memory over the run
+    and the timing, and the stage ledger.
     → (the run's line, the head's outputs)."""
     import torch
 
@@ -1123,7 +1162,8 @@ def drive_f32(cm, data: np.ndarray, target: int, sample: int) -> tuple:
     from flink_jpmml_tpu_torch.utils.config import BatchConfig, RuntimeConfig
 
     batch, F = cm.batch_size, cm.field_space.arity
-    chunks = max(1, min(DISPATCH // BATCH, 2 ** 26 // (batch * 4 * F)))
+    if chunks is None:
+        chunks = max(1, min(DISPATCH // BATCH, 2 ** 26 // (batch * 4 * F)))
     kept, count = {}, [0]
 
     def sink(out, n, first_off):
@@ -1144,6 +1184,7 @@ def drive_f32(cm, data: np.ndarray, target: int, sample: int) -> tuple:
     if pipe.backend != "f32":
         raise RuntimeError(f"dense pipeline backend {pipe.backend}")
     metrics = pipe.metrics
+    torch.cuda.reset_peak_memory_stats(cm.device)
     t0 = time.perf_counter()
     pipe.start()
     try:
@@ -1159,12 +1200,15 @@ def drive_f32(cm, data: np.ndarray, target: int, sample: int) -> tuple:
     snap = metrics.snapshot()
     dispatches = int(snap["batches"])
     fill = snap["batch_fill_records"] / dispatches
-    # the card's share: the model function at the dispatch shape, and the
+    # the card's share: the model function at the dispatch shape on the
+    # data's first rows (a tree walk's gathers depend on them), and the
     # pageable H2D copy of X and M, timed alone (CUDA events)
     rows = int(round(fill))
-    Xd = torch.zeros((rows, F), dtype=torch.float32, device=cm.device)
-    Md = torch.zeros((rows, F), dtype=torch.bool, device=cm.device)
-    Xh, Mh = np.zeros((rows, F), np.float32), np.zeros((rows, F), bool)
+    Xh = np.resize(data, (rows, F))
+    Mh = np.isnan(Xh)
+    Xh = np.where(Mh, 0.0, Xh).astype(np.float32)
+    Xd = torch.from_numpy(Xh).to(cm.device)
+    Md = torch.from_numpy(Mh).to(cm.device)
     with torch.no_grad():
         model_ms = cuda_ms(lambda: cm._fn(cm.params, Xd, Md), 2, 10)
     h2d_ms = cuda_ms(lambda: (torch.from_numpy(Xh).to(cm.device),
@@ -1180,6 +1224,7 @@ def drive_f32(cm, data: np.ndarray, target: int, sample: int) -> tuple:
         "model_ms_per_dispatch": model_ms, "h2d_ms_per_dispatch": h2d_ms,
         "device_idle_share_est":
             1.0 - dispatches * (model_ms + h2d_ms) / (dt * 1e3),
+        "peak_allocated_bytes": torch.cuda.max_memory_allocated(cm.device),
         "attribution": attr.summary(metrics),
     }, kept["head"]
 
@@ -1238,6 +1283,517 @@ def family_paths(workdir: str) -> list:
             "cpu_check": check_outputs(head, ref, name),
             "score_records_check": check_decoded(cm, cm_cpu, data[:16],
                                                  name),
+        })
+        lines[-1]["check_s"] = time.perf_counter() - t0
+    lines[0]["documents_written_s"] = write_s
+    return lines
+
+
+# -- the tree shapes real exporters write (no kernel on these paths) ---------
+
+_XML_HEAD = '<PMML xmlns="http://www.dmg.org/PMML-4_3" version="4.3"><Header/>'
+
+
+def _data_dictionary(continuous, categorical=(), n_values=0, target=None):
+    """A DataDictionary: continuous double fields, string categorical
+    fields of values v0..v{n-1}, and an optional continuous target."""
+    values = "".join(f'<Value value="v{i}"/>' for i in range(n_values))
+    return ("<DataDictionary>" + "".join(
+        f'<DataField name="{f}" optype="continuous" dataType="double"/>'
+        for f in continuous) + "".join(
+        f'<DataField name="{f}" optype="categorical" dataType="string">'
+        f"{values}</DataField>" for f in categorical)
+        + (f'<DataField name="{target}" optype="continuous" '
+           'dataType="double"/>' if target else "")
+        + "</DataDictionary>")
+
+
+def _schema(fields, target=None) -> str:
+    return ("<MiningSchema>" + (
+        f'<MiningField name="{target}" usageType="target"/>'
+        if target else "") + "".join(
+        f'<MiningField name="{f}"/>' for f in fields) + "</MiningSchema>")
+
+
+def _grow_shape(rng, n_leaves: int, min_depth: int, max_depth: int) -> list:
+    """A random binary tree shape as child pairs (``None`` for a leaf),
+    node 0 the root: a spine of ``min_depth`` splits first, so the tree is
+    at least that deep, then splits of random leaves shallower than
+    ``max_depth`` until it holds ``n_leaves`` leaves."""
+    kids, depth = [None], [0]
+    open_leaves = [0]  # leaves that may still split
+    n = 1
+
+    def split(i):
+        nonlocal n
+        a, b = len(kids), len(kids) + 1
+        kids[i] = (a, b)
+        kids.extend([None, None])
+        depth.extend([depth[i] + 1, depth[i] + 1])
+        n += 1
+        return a, b
+
+    leaf = 0
+    for _ in range(min_depth):
+        a, b = split(leaf)
+        open_leaves.append(b)
+        leaf = a
+    open_leaves.remove(0)
+    open_leaves.append(leaf)
+    while n < n_leaves and open_leaves:
+        j = int(rng.integers(len(open_leaves)))
+        i = open_leaves[j]
+        open_leaves[j] = open_leaves[-1]
+        open_leaves.pop()
+        for c in split(i):
+            if depth[c] < max_depth:
+                open_leaves.append(c)
+    return kids
+
+
+def deep_rf_xml(n_trees: int = 100, n_fields: int = 32,
+                max_leaves: int = 2048, max_depth: int = 24,
+                min_depth: int = 11, seed: int = 41) -> str:
+    """A sklearn-style RandomForestRegressor export: a MiningModel averaging
+    ``n_trees`` regression TreeModels grown ragged (between half of
+    ``max_leaves`` and ``max_leaves`` leaves, depth in [``min_depth``,
+    ``max_depth``]). Each split is ``lessOrEqual`` with a ``<True/>``
+    second child and names a ``defaultChild``; every node carries a score
+    (the mean of its leaves, as a non-compact export writes), so the
+    ``lastPrediction`` variant (``with_strategy``) returns interior scores
+    when it halts."""
+    rng = np.random.default_rng(seed)
+    fields = [f"f{i}" for i in range(n_fields)]
+    segs = []
+    for t in range(n_trees):
+        kids = _grow_shape(rng, int(rng.integers(max_leaves // 2,
+                                                 max_leaves + 1)),
+                           min_depth, max_depth)
+        col = rng.integers(n_fields, size=len(kids))
+        thr = rng.normal(0.0, 1.2, size=len(kids))
+        go_left = rng.random(len(kids)) < 0.5
+        leaf_val = rng.normal(0.0, 1.0, size=len(kids))
+        score = np.zeros(len(kids))
+        for i in range(len(kids) - 1, -1, -1):  # children follow parents
+            score[i] = (leaf_val[i] if kids[i] is None
+                        else 0.5 * (score[kids[i][0]] + score[kids[i][1]]))
+
+        def node(i, pred):
+            if kids[i] is None:
+                return f'<Node id="{i}" score="{score[i]:.6g}">{pred}</Node>'
+            a, b = kids[i]
+            d = a if go_left[i] else b
+            return (f'<Node id="{i}" score="{score[i]:.6g}" '
+                    f'defaultChild="{d}">{pred}' + node(
+                        a, f'<SimplePredicate field="f{col[i]}" '
+                        f'operator="lessOrEqual" value="{thr[i]:.6g}"/>')
+                    + node(b, "<True/>") + "</Node>")
+
+        segs.append(
+            f'<Segment id="{t}"><True/><TreeModel functionName="regression" '
+            'missingValueStrategy="defaultChild">' + _schema(fields)
+            + node(0, "<True/>") + "</TreeModel></Segment>")
+    return (_XML_HEAD + _data_dictionary(fields)
+            + '<MiningModel functionName="regression">' + _schema(fields)
+            + '<Segmentation multipleModelMethod="average">' + "".join(segs)
+            + "</Segmentation></MiningModel></PMML>")
+
+
+def with_strategy(doc, strategy: str):
+    """The parsed document with every segment tree's
+    ``missingValueStrategy`` set to ``strategy`` (no second parse)."""
+    import dataclasses
+
+    mm = doc.model
+    segs = tuple(dataclasses.replace(s, model=dataclasses.replace(
+        s.model, missing_value_strategy=strategy))
+        for s in mm.segmentation.segments)
+    return dataclasses.replace(doc, model=dataclasses.replace(
+        mm, segmentation=dataclasses.replace(mm.segmentation,
+                                             segments=segs)))
+
+
+def general_forest_xml(n_trees: int = 100, n_continuous: int = 32,
+                       n_categorical: int = 4, n_values: int = 8,
+                       max_leaves: int = 256, max_depth: int = 12,
+                       seed: int = 43) -> str:
+    """An rpart-style forest (a MiningModel averaging ``n_trees``
+    regression TreeModels, ``missingValueStrategy="defaultChild"``): each
+    split's two children carry ``surrogate`` CompoundPredicates — the
+    primary split and 2 surrogates on other continuous fields, the right
+    child's the complements of the left's. One primary in four is a
+    SimpleSetPredicate (isIn / isNotIn) over a categorical field of
+    ``n_values`` values; the rest are ``lessThan`` / ``greaterOrEqual``.
+    Only one node in two names a ``defaultChild``: where a record misses
+    all three fields of a split without one, the tree's result is null."""
+    rng = np.random.default_rng(seed)
+    cont = [f"x{i}" for i in range(n_continuous)]
+    cats = [f"c{i}" for i in range(n_categorical)]
+    fields = cont + cats
+
+    def simple(f, op, v):
+        return f'<SimplePredicate field="{f}" operator="{op}" value="{v:.6g}"/>'
+
+    def sset(f, values, op):
+        return (f'<SimpleSetPredicate field="{f}" booleanOperator="{op}">'
+                f'<Array type="string" n="{len(values)}">'
+                + " ".join(values) + "</Array></SimpleSetPredicate>")
+
+    segs = []
+    for t in range(n_trees):
+        kids = _grow_shape(rng, int(rng.integers(max_leaves // 2,
+                                                 max_leaves + 1)),
+                           3, max_depth)
+        leaf_val = rng.normal(0.0, 1.0, size=len(kids))
+
+        def node(i, pred):
+            if kids[i] is None:
+                return (f'<Node id="{i}" score="{leaf_val[i]:.6g}">{pred}'
+                        "</Node>")
+            a, b = kids[i]
+            f3 = rng.choice(n_continuous, size=3, replace=False)
+            thr = rng.normal(0.0, 1.2, size=3)
+            if cats and rng.random() < 0.25:
+                cat = cats[int(rng.integers(n_categorical))]
+                members = [f"v{k}" for k in sorted(rng.choice(
+                    n_values, size=int(rng.integers(1, n_values)),
+                    replace=False))]
+                prim = (sset(cat, members, "isIn"),
+                        sset(cat, members, "isNotIn"))
+            else:
+                prim = (simple(cont[f3[0]], "lessThan", thr[0]),
+                        simple(cont[f3[0]], "greaterOrEqual", thr[0]))
+            sur_l = [simple(cont[f3[k]], "lessThan", thr[k]) for k in (1, 2)]
+            sur_r = [simple(cont[f3[k]], "greaterOrEqual", thr[k])
+                     for k in (1, 2)]
+            comp = '<CompoundPredicate booleanOperator="surrogate">'
+            dflt = (f' defaultChild="{a if rng.random() < 0.5 else b}"'
+                    if rng.random() < 0.5 else "")
+            return (f'<Node id="{i}"{dflt}>{pred}'
+                    + node(a, comp + prim[0] + "".join(sur_l)
+                           + "</CompoundPredicate>")
+                    + node(b, comp + prim[1] + "".join(sur_r)
+                           + "</CompoundPredicate>") + "</Node>")
+
+        segs.append(
+            f'<Segment id="{t}"><True/><TreeModel functionName="regression" '
+            'missingValueStrategy="defaultChild">' + _schema(fields)
+            + node(0, "<True/>") + "</TreeModel></Segment>")
+    return (_XML_HEAD + _data_dictionary(cont, cats, n_values)
+            + '<MiningModel functionName="regression">' + _schema(fields)
+            + '<Segmentation multipleModelMethod="average">' + "".join(segs)
+            + "</Segmentation></MiningModel></PMML>")
+
+
+def select_first_xml(workdir: str, n_trees: int = 100, depth: int = 6,
+                     n_fields: int = 32, seed: int = 11) -> str:
+    """"One model per segment": a MiningModel (``selectFirst``) of 4
+    ``gen_gbm`` GBMs (seeds ``seed`` … ``seed + 3``), gated by f0 against
+    the quartiles of N(0, 1.5) (lessThan q1, q2, q3; greaterOrEqual q3): a
+    record with f0 missing matches no segment and scores empty."""
+    import re
+
+    from flink_jpmml_tpu_torch import assets_gen as ag
+
+    q = 1.5 * 0.6744897501960817  # the upper quartile of N(0, 1.5)
+    gates = [("lessThan", -q), ("lessThan", 0.0), ("lessThan", q),
+             ("greaterOrEqual", q)]
+    fields = [f"f{i}" for i in range(n_fields)]
+    segs = []
+    for k, (op, v) in enumerate(gates):
+        with open(ag.gen_gbm(workdir, n_trees=n_trees, depth=depth,
+                             n_features=n_fields, seed=seed + k,
+                             name=f"select_first_{k}.pmml")) as f:
+            xml = f.read()
+        inner = xml[xml.index("<MiningModel"):
+                    xml.index("</MiningModel>") + len("</MiningModel>")]
+        inner = re.sub(r"<Targets>.*?</Targets>", "", inner, flags=re.S)
+        segs.append(f'<Segment id="q{k}"><SimplePredicate field="f0" '
+                    f'operator="{op}" value="{v!r}"/>{inner}</Segment>')
+    return (_XML_HEAD + _data_dictionary(fields)
+            + '<MiningModel functionName="regression">' + _schema(fields)
+            + '<Segmentation multipleModelMethod="selectFirst">'
+            + "".join(segs) + "</Segmentation></MiningModel></PMML>")
+
+
+def iforest_xml(n_trees: int = 100, n_fields: int = 32, sample: int = 256,
+                max_depth: int = 8, seed: int = 47) -> str:
+    """A sklearn IsolationForest export: an AnomalyDetectionModel
+    (``iforest``, ``sampleDataSize`` = ``sample``) over a MiningModel
+    averaging ``n_trees`` isolation trees, each grown on ``sample`` N(0,
+    1.5) points by random splits (a random field, a threshold uniform in
+    the node's range) to depth ``max_depth``, with ``lessOrEqual`` /
+    ``<True/>`` children; a leaf scores its depth plus c(points left)."""
+    from flink_jpmml_tpu_torch.compile.anomaly import iforest_c
+
+    rng = np.random.default_rng(seed)
+    fields = [f"f{i}" for i in range(n_fields)]
+
+    def leaf(pts, d, ident, pred):
+        c = iforest_c(len(pts)) if len(pts) > 1 else 0.0
+        return f'<Node id="{ident}" score="{d + c:.6g}">{pred}</Node>'
+
+    def node(pts, d, ident, pred):
+        if d >= max_depth or len(pts) <= 1:
+            return leaf(pts, d, ident, pred)
+        j = int(rng.integers(n_fields))
+        lo, hi = pts[:, j].min(), pts[:, j].max()
+        if lo == hi:
+            return leaf(pts, d, ident, pred)
+        thr = float(rng.uniform(lo, hi))
+        left = pts[:, j] <= thr
+        return (f'<Node id="{ident}">{pred}' + node(
+            pts[left], d + 1, ident + "l",
+            f'<SimplePredicate field="f{j}" operator="lessOrEqual" '
+            f'value="{thr!r}"/>')
+            + node(pts[~left], d + 1, ident + "r", "<True/>") + "</Node>")
+
+    segs = []
+    for t in range(n_trees):
+        pts = rng.normal(0.0, 1.5, size=(sample, n_fields))
+        segs.append('<Segment><True/><TreeModel functionName="regression">'
+                    + _schema(fields, "s") + node(pts, 0, "n", "<True/>")
+                    + "</TreeModel></Segment>")
+    return (_XML_HEAD.replace('4_3" version="4.3"', '4_4" version="4.4"')
+            + _data_dictionary(fields, target="s")
+            + '<AnomalyDetectionModel functionName="regression" '
+            f'algorithmType="iforest" sampleDataSize="{sample}">'
+            + _schema(fields, "s") + '<MiningModel functionName="regression">'
+            + _schema(fields, "s")
+            + '<Segmentation multipleModelMethod="average">' + "".join(segs)
+            + "</Segmentation></MiningModel></AnomalyDetectionModel></PMML>")
+
+
+def scorecard_xml(n_chars: int = 10, n_attrs: int = 5, seed: int = 53) -> str:
+    """A credit scorecard: ``n_chars`` characteristics (one continuous
+    field each), each with an isMissing bin, ``n_attrs`` − 2 ``lessThan``
+    bins at rising thresholds and a ``<True/>`` catch-all; a reasonCode on
+    every attribute and a baselineScore on every characteristic
+    (``pointsBelow``), and ``<Output>`` of the score and reason codes 1–3."""
+    rng = np.random.default_rng(seed)
+    fields = [f"f{i}" for i in range(n_chars)]
+    chars = []
+    for c, f in enumerate(fields):
+        thr = np.sort(rng.normal(0.0, 1.5, size=n_attrs - 2))
+        pts = rng.integers(0, 60, size=n_attrs)
+        attrs = [f'<Attribute partialScore="{pts[0]}" reasonCode="RC{c}m">'
+                 f'<SimplePredicate field="{f}" operator="isMissing"/>'
+                 "</Attribute>"]
+        attrs += [f'<Attribute partialScore="{pts[a + 1]}" '
+                  f'reasonCode="RC{c}b{a}"><SimplePredicate field="{f}" '
+                  f'operator="lessThan" value="{v:.6g}"/></Attribute>'
+                  for a, v in enumerate(thr)]
+        attrs.append(f'<Attribute partialScore="{pts[-1]}" '
+                     f'reasonCode="RC{c}t"><True/></Attribute>')
+        chars.append(f'<Characteristic name="ch{c}" '
+                     f'baselineScore="{int(rng.integers(10, 50))}">'
+                     + "".join(attrs) + "</Characteristic>")
+    return (_XML_HEAD + _data_dictionary(fields, target="score")
+            + '<Scorecard functionName="regression" initialScore="100" '
+            'useReasonCodes="true" reasonCodeAlgorithm="pointsBelow">'
+            + _schema(fields, "score")
+            + '<Output><OutputField name="points" feature="predictedValue"/>'
+            + "".join(f'<OutputField name="rc{r}" feature="reasonCode" '
+                      f'rank="{r}"/>' for r in (1, 2, 3))
+            + "</Output><Characteristics>" + "".join(chars)
+            + "</Characteristics></Scorecard></PMML>")
+
+
+def ruleset_xml(criterion: str, n_rules: int = 50, n_fields: int = 32,
+                seed: int = 59) -> str:
+    """A classification RuleSetModel of ``n_rules`` SimpleRules over
+    ``n_fields`` continuous fields, each a SimplePredicate or an ``and`` of
+    two, scoring one of 3 classes with a weight and a confidence, a
+    defaultScore, selected by ``criterion`` (firstHit, weightedSum or
+    weightedMax)."""
+    rng = np.random.default_rng(seed)
+    fields = [f"f{i}" for i in range(n_fields)]
+    ops = ("lessThan", "greaterThan", "lessOrEqual", "greaterOrEqual")
+
+    def simple():
+        return (f'<SimplePredicate field="{fields[int(rng.integers(n_fields))]}" '
+                f'operator="{ops[int(rng.integers(4))]}" '
+                f'value="{rng.normal(0.0, 1.5):.6g}"/>')
+
+    rules = []
+    for r in range(n_rules):
+        pred = (simple() if rng.random() < 0.5 else
+                '<CompoundPredicate booleanOperator="and">' + simple()
+                + simple() + "</CompoundPredicate>")
+        rules.append(f'<SimpleRule id="r{r}" score="c{int(rng.integers(3))}" '
+                     f'weight="{rng.uniform(0.5, 3.0):.4g}" '
+                     f'confidence="{rng.uniform(0.3, 1.0):.4g}">{pred}'
+                     "</SimpleRule>")
+    return (_XML_HEAD + "<DataDictionary>" + "".join(
+        f'<DataField name="{f}" optype="continuous" dataType="double"/>'
+        for f in fields)
+        + '<DataField name="cls" optype="categorical" dataType="string">'
+        '<Value value="c0"/><Value value="c1"/><Value value="c2"/>'
+        "</DataField></DataDictionary>"
+        '<RuleSetModel functionName="classification">'
+        + _schema(fields, "cls")
+        + '<RuleSet defaultScore="c0" defaultConfidence="0.1">'
+        f'<RuleSelectionMethod criterion="{criterion}"/>' + "".join(rules)
+        + "</RuleSet></RuleSetModel></PMML>")
+
+
+# the fixtures of the JAX package's tests (tests/test_tree_halt.py
+# WEIGHTED_CONF / AGG_NODES, tests/test_trees_extended.py SELECT_ALL),
+# copied: the card holds them without importing the JAX package's tests
+WEIGHTED_CONF = """<PMML version="4.3"><DataDictionary>
+  <DataField name="x" optype="continuous" dataType="double"/>
+  <DataField name="cls" optype="categorical" dataType="string">
+    <Value value="a"/><Value value="b"/></DataField>
+  </DataDictionary>
+  <TreeModel functionName="classification"
+      missingValueStrategy="weightedConfidence">
+  <MiningSchema><MiningField name="cls" usageType="target"/>
+    <MiningField name="x"/></MiningSchema>
+  <Node id="0" recordCount="100"><True/>
+    <Node id="L" recordCount="60" score="a">
+      <SimplePredicate field="x" operator="lessThan" value="0"/>
+      <ScoreDistribution value="a" recordCount="45"/>
+      <ScoreDistribution value="b" recordCount="15"/>
+    </Node>
+    <Node id="R" recordCount="40" score="b">
+      <SimplePredicate field="x" operator="greaterOrEqual" value="0"/>
+      <ScoreDistribution value="a" recordCount="8"/>
+      <ScoreDistribution value="b" recordCount="32"/>
+    </Node>
+  </Node></TreeModel></PMML>"""
+
+AGG_NODES = """<PMML version="4.3"><DataDictionary>
+  <DataField name="x" optype="continuous" dataType="double"/>
+  <DataField name="y" optype="continuous" dataType="double"/>
+  </DataDictionary>
+  <TreeModel functionName="regression"
+      missingValueStrategy="aggregateNodes">
+  <MiningSchema><MiningField name="y" usageType="target"/>
+    <MiningField name="x"/></MiningSchema>
+  <Node id="0" recordCount="10"><True/>
+    <Node id="L" recordCount="7" score="2.0">
+      <SimplePredicate field="x" operator="lessThan" value="1"/></Node>
+    <Node id="R" recordCount="3" score="10.0">
+      <SimplePredicate field="x" operator="greaterOrEqual" value="1"/></Node>
+  </Node></TreeModel></PMML>"""
+
+SELECT_ALL = """<PMML version="4.3"><DataDictionary>
+  <DataField name="x" optype="continuous" dataType="double"/>
+  <DataField name="y" optype="continuous" dataType="double"/>
+  </DataDictionary>
+  <MiningModel functionName="regression">
+  <MiningSchema><MiningField name="y" usageType="target"/>
+    <MiningField name="x"/></MiningSchema>
+  <Segmentation multipleModelMethod="selectAll">
+    <Segment id="lo"><SimplePredicate field="x" operator="lessThan"
+        value="5"/>
+      <TreeModel functionName="regression">
+        <MiningSchema><MiningField name="y" usageType="target"/>
+          <MiningField name="x"/></MiningSchema>
+        <Node id="0" score="1.5"><True/></Node></TreeModel></Segment>
+    <Segment id="hi"><SimplePredicate field="x" operator="greaterOrEqual"
+        value="2"/>
+      <TreeModel functionName="regression">
+        <MiningSchema><MiningField name="y" usageType="target"/>
+          <MiningField name="x"/></MiningSchema>
+        <Node id="0" score="7.25"><True/></Node></TreeModel></Segment>
+  </Segmentation></MiningModel></PMML>"""
+
+
+def tree_shape_configs(workdir: str) -> list:
+    """The ``tree_shapes`` phase's configurations: (name, parsed port
+    document, compile batch, compile batches a dispatch, records to
+    score, records held to the CPU port through ``predict``, records held
+    through ``score_records``, the columns that hold categorical codes)."""
+    from flink_jpmml_tpu_torch.pmml import parse_pmml
+
+    deep = parse_pmml(deep_rf_xml())
+    K = 4 * DISPATCH
+    configs = [
+        ("deep_rf_default_child", deep, BATCH, 16, K, 4096, 16, 0),
+        ("deep_rf_last_prediction", with_strategy(deep, "lastPrediction"),
+         BATCH, 16, K, 4096, 16, 0),
+        # the [B, T, K, KS] set-membership cube: 131,072 records a
+        # dispatch; a 2,048-record head (the CPU takes 2.5 s a 4,096)
+        ("general_forest", parse_pmml(general_forest_xml()), BATCH, 8,
+         2 * 131_072, 2048, 16, 4),
+        # four dense 100-tree path matrices: [B, T, S] per segment
+        ("select_first", parse_pmml(select_first_xml(workdir)), BATCH, 4,
+         DISPATCH, 2048, 16, 0),
+        # the dense path over up to 255 splits a tree: one compile batch
+        ("iforest", parse_pmml(iforest_xml()), BATCH, 1, DISPATCH, 4096, 16,
+         0),
+        ("scorecard", parse_pmml(scorecard_xml()), BATCH, 16, DISPATCH, 4096,
+         4096, 0),
+    ]
+    configs += [(f"ruleset_{c}", parse_pmml(ruleset_xml(c)), BATCH, 16,
+                 DISPATCH, 4096, 4096, 0)
+                for c in ("firstHit", "weightedSum", "weightedMax")]
+    configs += [(name, parse_pmml(xml), BATCH, 4, 65_536, 65_536, 16, 0)
+                for name, xml in (("wtrees_weighted_confidence",
+                                   WEIGHTED_CONF),
+                                  ("wtrees_aggregate_nodes", AGG_NODES),
+                                  ("select_all", SELECT_ALL))]
+    return configs
+
+
+def tree_shapes(workdir: str) -> list:
+    """Each tree-shape configuration compiled on the card (the default
+    device) and scored through BlockPipeline's f32 backend: the rank wire
+    must decline every one of them (``quantized_scorer()`` is None). Records
+    are N(0, 1.5) with 20% missing cells (numpy, seed 8); a categorical
+    column holds codes 0–7 instead. The head is held to the CPU port
+    through ``predict`` (rtol 1e-4 / atol 1e-5, labels equal), records
+    through ``score_records`` (reason codes and segment maps equal), and
+    ``score_records``' own records/s on the card is printed beside the
+    pipeline's."""
+    import torch
+
+    from flink_jpmml_tpu_torch.compile.compiler import compile_pmml
+
+    lines = []
+    t0 = time.perf_counter()
+    configs = tree_shape_configs(workdir)
+    write_s = time.perf_counter() - t0
+    for name, doc, batch, chunks, target, sample, n_rec, n_cat in configs:
+        t0 = time.perf_counter()
+        cm = compile_pmml(doc, batch_size=batch)
+        # no compile batch: its score_records scores the records alone, not
+        # padded to 16,384 rows
+        cm_cpu = compile_pmml(doc, device="cpu")
+        setup_s = time.perf_counter() - t0
+        if cm.quantized_scorer() is not None:
+            raise RuntimeError(f"{name}: the rank wire took a tree shape it "
+                               "declines")
+        if (torch.backends.cuda.matmul.allow_tf32
+                or torch.get_float32_matmul_precision() != "highest"):
+            raise RuntimeError("TF32 is on for float32 matmuls")
+        F = cm.field_space.arity
+        rows = max(target // 4, min(target, DISPATCH))
+        rng = np.random.default_rng(8)
+        data = rng.standard_normal(size=(rows, F), dtype=np.float32) * 1.5
+        if n_cat:
+            data[:, F - n_cat:] = rng.integers(0, 8, size=(rows, n_cat))
+        data[rng.random(size=data.shape, dtype=np.float32) < MISSING] = np.nan
+        cm.predict(np.zeros((batch, F), np.float32),
+                   np.zeros((batch, F), bool))  # warm the card's path
+        run, head = drive_f32(cm, data, target, sample, chunks=chunks)
+        t0 = time.perf_counter()
+        Xh = data[:head[0].shape[0]]  # the first dispatch may hold fewer
+        Mh = np.isnan(Xh)
+        ref = cm_cpu.predict(np.where(Mh, 0.0, Xh).astype(np.float32), Mh)
+        cpu_check = check_outputs(head, ref, name)
+        recs = records_of(cm, data[:n_rec])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cm.score_records(recs)
+        sr_s = time.perf_counter() - t1
+        lines.append({
+            "config": name, **run, "parse_compile_s": setup_s,
+            "cpu_check": cpu_check,
+            "score_records_check": check_decoded(cm, cm_cpu, data[:n_rec],
+                                                 name),
+            "score_records_per_s": n_rec / sr_s,
         })
         lines[-1]["check_s"] = time.perf_counter() - t0
     lines[0]["documents_written_s"] = write_s
@@ -1544,6 +2100,14 @@ def run_phases(workdir: str) -> int:
           "tf32": torch.backends.cuda.matmul.allow_tf32,
           "float32_matmul_precision": torch.get_float32_matmul_precision(),
           "configs": fam})
+
+    # -- every tree shape real exporters write (no kernel on these paths) --
+    t0 = time.perf_counter()
+    shapes = tree_shapes(workdir)
+    emit({"phase": "tree_shapes", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t0,
+          "tf32": torch.backends.cuda.matmul.allow_tf32,
+          "configs": shapes})
 
     def kernel_entry(name, replaces, runs, checked, t):
         return {

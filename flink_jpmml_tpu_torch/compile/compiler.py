@@ -1,8 +1,10 @@
 """Top-level PMML → PyTorch compiler: dispatch, device placement, decode.
 
 The port of ``flink_jpmml_tpu/compile/compiler.py`` for the families
-ported so far: TreeModel, MiningModel (aggregates, votes, modelChain),
-RegressionModel, NeuralNetwork, ClusteringModel and GeneralRegression.
+ported so far: TreeModel (every tree shape: dense, node-hop, general scan,
+weighted-path walk), MiningModel (aggregates, votes, modelChain,
+selectFirst, selectAll), RegressionModel, NeuralNetwork, ClusteringModel,
+Scorecard, RuleSetModel, GeneralRegression and AnomalyDetectionModel.
 ``compile_pmml`` lowers the document to a plain function on tensors and
 places its parameter tables on the device; ``CompiledModel.predict(X, M)``
 scores one micro-batch, ``score_records`` / ``score_dense`` wrap it with
@@ -11,14 +13,15 @@ fast path (``qtrees.py``) for tree ensembles. TransformationDictionary
 derived fields become extra device columns after the missing-value
 replacement of the raw columns; a top-level ``<Output>`` is validated at
 compile time and computed at decode (``pmml/outputs.py``), with the
-clustering entity ranking.
+clustering entity ranking, the scorecard's reason codes and the selectAll
+per-segment map.
 
 Every other family raises :class:`NotPortedError` and names itself. Not
-ported with those families: scorecard reason codes, association rule
-outputs, the selectAll segment map, KNN neighbour ids, ModelVerification
-replay, ``warmup`` and the JAX package's ``mesh=`` sharding. Unlike the
-JAX package, a failure while building the rank-wire scorer is never
-caught and turned into a silent fall-back to the f32 path: it propagates.
+ported with those families: association rule outputs, KNN neighbour ids,
+ModelVerification replay, ``warmup`` and the JAX package's ``mesh=``
+sharding. Unlike the JAX package, a failure while building the rank-wire
+scorer is never caught and turned into a silent fall-back to the f32
+path: it propagates.
 """
 
 from __future__ import annotations
@@ -47,6 +50,11 @@ from flink_jpmml_tpu_torch.compile.glm import lower_general_regression
 from flink_jpmml_tpu_torch.compile.mining import lower_mining
 from flink_jpmml_tpu_torch.compile.neural import lower_neural_network
 from flink_jpmml_tpu_torch.compile.regression import lower_regression
+from flink_jpmml_tpu_torch.compile.ruleset import lower_ruleset
+from flink_jpmml_tpu_torch.compile.scorecard import (
+    ReasonCodeMeta,
+    lower_scorecard,
+)
 from flink_jpmml_tpu_torch.compile.trees import lower_tree
 from flink_jpmml_tpu_torch.models.prediction import Prediction, decode_batch
 from flink_jpmml_tpu_torch.pmml import ir
@@ -64,14 +72,25 @@ from flink_jpmml_tpu_torch.utils.exceptions import (
 _UNSET = object()  # sentinel: rank-wire scorer not yet built
 
 
-# the JAX package's dispatch order (compiler.py lower_model); the families
-# after GeneralRegression there are not ported yet
+def _lower_anomaly(model: ir.AnomalyDetectionIR, ctx: LowerCtx) -> Lowered:
+    # imported when used, as in the JAX package (anomaly imports this
+    # module's lower_model for its inner model)
+    from flink_jpmml_tpu_torch.compile.anomaly import lower_anomaly
+
+    return lower_anomaly(model, ctx)
+
+
+# the JAX package's dispatch order (compiler.py lower_model), less the
+# families not ported yet; MiningModel stays last
 _LOWERERS = (
     (ir.TreeModelIR, lower_tree),
     (ir.RegressionModelIR, lower_regression),
     (ir.NeuralNetworkIR, lower_neural_network),
     (ir.ClusteringModelIR, lower_clustering),
+    (ir.ScorecardIR, lower_scorecard),
+    (ir.RuleSetIR, lower_ruleset),
     (ir.GeneralRegressionIR, lower_general_regression),
+    (ir.AnomalyDetectionIR, _lower_anomaly),
     (ir.MiningModelIR, lower_mining),
 )
 
@@ -82,9 +101,9 @@ def lower_model(model: ir.ModelIR, ctx: LowerCtx) -> Lowered:
         if isinstance(model, cls):
             return lower(model, ctx)
     raise NotPortedError(
-        f"model family {type(model).__name__} is not ported yet (the port "
-        "covers TreeModel, MiningModel, RegressionModel, NeuralNetwork, "
-        "ClusteringModel and GeneralRegressionModel)"
+        f"model family {type(model).__name__} is not ported yet (still to "
+        "port: NaiveBayes, SVM, KNN, GaussianProcess, Baseline, Association, "
+        "TimeSeries, BayesianNetwork and TextModel)"
     )
 
 
@@ -117,6 +136,12 @@ class CompiledModel:
     _config: Optional[CompileConfig] = None
     _quantized: object = _UNSET
     output_fields: Tuple[ir.OutputField, ...] = ()  # top-level <Output>
+    # scorecard reason codes: (ReasonCodeMeta, n_characteristics) when the
+    # document declares useReasonCodes and the metadata is complete
+    _reason: Optional[tuple] = None
+    # selectAll: segment ids, decoding probs = [values ∥ active] into
+    # the per-segment outputs mapping
+    _segment_ids: Optional[Tuple[str, ...]] = None
     # clustering: its probabilities mapping holds per-entity comparison
     # scores — the entityId/affinity output features read it; the order
     # ("asc" distances / "desc" similarities) ranks entities for rank-k
@@ -191,10 +216,33 @@ class CompiledModel:
                     dict(zip(self.labels, row.tolist())) for row in P
                 ]
         preds = decode_batch(value.tolist(), valid.tolist(), labels, probabilities)
+        if self._segment_ids is not None and not self.output_fields:
+            # selectAll: probs = [values ∥ active mask]; surface every
+            # active segment's value (None where inactive), oracle parity
+            S = len(self._segment_ids)
+            P = out.probs.cpu().numpy()[:n]
+            preds = [
+                p if p.is_empty
+                else dataclasses.replace(p, outputs={"segments": {
+                    sid: (float(P[i, j]) if P[i, S + j] > 0.5 else None)
+                    for j, sid in enumerate(self._segment_ids)
+                }})
+                for i, p in enumerate(preds)
+            ]
         if not self.output_fields:
             return preds
         # top-level <Output> post-processing (pmml/outputs.py): only
         # documents that declare it pay this host-side per-record step
+        rc_rows = None
+        if self._reason is not None and any(
+            of.feature == "reasonCode" for of in self.output_fields
+        ):
+            meta, C = self._reason
+            P = out.probs.cpu().numpy()[:n]  # [B, 2C]: partials ∥ attr
+            rc_rows = [
+                meta.rank(P[i, :C], P[i, C:].astype(np.int32))
+                for i in range(P.shape[0])
+            ]
         rankings = self._entity_rankings(out, n)
         return [
             p
@@ -206,6 +254,9 @@ class CompiledModel:
                     p.score.value,
                     p.target.label if p.target else None,
                     p.target.probabilities if p.target else None,
+                    reason_codes=(
+                        rc_rows[i] if rc_rows is not None else None
+                    ),
                     entity_scores=(
                         (p.target.probabilities or None)
                         if self._entity_scores and p.target
@@ -348,6 +399,29 @@ def compile_pmml(
         return out
 
     validate_output_fields(doc.output_fields)
+    reason = None
+    if isinstance(doc.model, ir.ScorecardIR) and doc.model.use_reason_codes:
+        wants_rc = any(
+            of.feature == "reasonCode" for of in doc.output_fields
+        )
+        try:
+            reason = (
+                ReasonCodeMeta(doc.model),
+                len(doc.model.characteristics),
+            )
+        except ModelCompilationException:
+            if wants_rc:
+                raise  # requested but the metadata is incomplete
+            reason = None
+    segment_ids = None
+    if (
+        isinstance(doc.model, ir.MiningModelIR)
+        and doc.model.segmentation.multiple_model_method == "selectAll"
+    ):
+        segment_ids = tuple(
+            s.segment_id or str(i)
+            for i, s in enumerate(doc.model.segmentation.segments)
+        )
     entity_scores = isinstance(doc.model, ir.ClusteringModelIR)
     entity_order = None
     if entity_scores:
@@ -365,6 +439,8 @@ def compile_pmml(
         _doc=doc,
         _config=config,
         output_fields=doc.output_fields,
+        _reason=reason,
+        _segment_ids=segment_ids,
         _entity_scores=entity_scores,
         _entity_order=entity_order,
     )

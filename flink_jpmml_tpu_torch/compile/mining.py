@@ -1,8 +1,8 @@
 """MiningModel → PyTorch: ensembles and stacking.
 
-The port of ``flink_jpmml_tpu/compile/mining.py``, for the aggregation
-methods sum / average / weightedAverage / max / median, the vote methods
-of a classification forest, and ``modelChain``:
+The port of ``flink_jpmml_tpu/compile/mining.py``: the aggregation
+methods sum / average / weightedAverage / max / median, the vote methods,
+``modelChain``, ``selectFirst`` and ``selectAll``:
 
 1. **Fused tree-ensemble fast path**: every segment is a canonical
    TreeModel with a ``<True/>`` predicate (the GBM shape, BASELINE config
@@ -17,10 +17,14 @@ of a classification forest, and ``modelChain``:
    segments) lower independently and combine per ``multipleModelMethod``
    with vectorized active-segment masks. A segment whose family is not
    ported raises :class:`NotPortedError` from ``lower_model``.
+4. **selectFirst / selectAll**: every segment runs on every record; the
+   first active segment's result is kept (selectFirst), or every active
+   segment's value is carried in ``probs`` as ``[values ∥ active]``,
+   which ``CompiledModel.decode`` turns into the per-segment map
+   (selectAll).
 
-``selectFirst`` and ``selectAll`` are not ported yet. The JAX package's
-``mesh=`` sharding of the chain's wide stage is not ported either: a chain
-runs on one card.
+The JAX package's ``mesh=`` sharding of the chain's wide stage is not
+ported: a chain runs on one card.
 
 Missing semantics match the JAX package: a missing result from any
 *active* segment poisons aggregate results; inactive segments are
@@ -43,10 +47,7 @@ from flink_jpmml_tpu_torch.compile.common import (
 )
 from flink_jpmml_tpu_torch.compile.trees import lower_tree_ensemble
 from flink_jpmml_tpu_torch.pmml import ir
-from flink_jpmml_tpu_torch.utils.exceptions import (
-    ModelCompilationException,
-    NotPortedError,
-)
+from flink_jpmml_tpu_torch.utils.exceptions import ModelCompilationException
 
 _AGG_METHODS = (
     "sum",
@@ -65,10 +66,10 @@ def lower_mining(model: ir.MiningModelIR, ctx: LowerCtx) -> Lowered:
 
     if method == "modelChain":
         return _lower_chain(segments, ctx)
-    if method in ("selectFirst", "selectAll"):
-        raise NotPortedError(
-            f"multipleModelMethod {method!r} is not ported yet"
-        )
+    if method == "selectFirst":
+        return _lower_select_first(segments, ctx)
+    if method == "selectAll":
+        return _lower_select_all(segments, ctx)
     if method not in _AGG_METHODS:
         raise ModelCompilationException(
             f"unsupported multipleModelMethod {method!r}"
@@ -191,6 +192,96 @@ def _active(pred_fn, X, M):
     if pred_fn is None:
         return torch.ones((X.shape[0],), dtype=torch.bool, device=X.device)
     return pred_fn(X, M).is_true
+
+
+def _lower_select_first(
+    segments: Tuple[ir.Segment, ...], ctx: LowerCtx
+) -> Lowered:
+    lows = _lower_segments(segments, ctx)
+    pred_fns = [lower_predicate(s.predicate, ctx) for s in segments]
+    labels = lows[0].labels
+    if any(l.labels != labels for l in lows):
+        raise ModelCompilationException(
+            "selectFirst lowering requires all segments to share one label "
+            "space (or all be regression)"
+        )
+    params = {f"s{i}": l.params for i, l in enumerate(lows)}
+
+    def fn(p, X, M):
+        B = X.shape[0]
+        outs = [l.fn(p[f"s{i}"], X, M) for i, l in enumerate(lows)]
+        actives = [pf(X, M).is_true for pf in pred_fns]
+        chosen = torch.full((B,), -1, dtype=torch.int64, device=X.device)
+        for i in range(len(outs) - 1, -1, -1):
+            chosen = torch.where(actives[i], i, chosen)
+        value = torch.zeros((B,), dtype=torch.float32, device=X.device)
+        valid = torch.zeros((B,), dtype=torch.bool, device=X.device)
+        probs = None if not labels else torch.zeros_like(outs[0].probs)
+        label_idx = (
+            None if not labels
+            else torch.zeros((B,), dtype=torch.int64, device=X.device)
+        )
+        for i, o in enumerate(outs):
+            sel = chosen == i
+            value = torch.where(sel, o.value, value)
+            valid = torch.where(sel, o.valid, valid)
+            if labels:
+                probs = torch.where(sel[:, None], o.probs, probs)
+                label_idx = torch.where(sel, o.label_idx, label_idx)
+        return ModelOutput(
+            value=value, valid=valid & (chosen >= 0), probs=probs,
+            label_idx=label_idx,
+        )
+
+    return Lowered(fn=fn, params=params, labels=labels)
+
+
+def _lower_select_all(
+    segments: Tuple[ir.Segment, ...], ctx: LowerCtx
+) -> Lowered:
+    """Every active segment's value is surfaced: ``probs`` carries
+    [values ∥ active-mask] as ``[B, 2S]``; the decode side
+    (``CompiledModel._segment_ids``) turns it into the per-segment outputs
+    mapping. Scalar ``value`` = first active segment's (oracle parity).
+    Regression segments only — a multi-label collection doesn't fit one
+    Prediction."""
+    for s in segments:
+        if s.model.function_name != "regression":
+            raise ModelCompilationException(
+                "selectAll supports regression segments only"
+            )
+    lows = _lower_segments(segments, ctx)
+    if any(l.labels for l in lows):
+        raise ModelCompilationException(
+            "selectAll supports regression segments only"
+        )
+    pred_fns = [
+        None
+        if isinstance(s.predicate, ir.TruePredicate)
+        else lower_predicate(s.predicate, ctx)
+        for s in segments
+    ]
+    params = {f"s{i}": l.params for i, l in enumerate(lows)}
+
+    def fn(p, X, M):
+        values = []
+        active = []
+        for i, l in enumerate(lows):
+            o = l.fn(p[f"s{i}"], X, M)
+            a = o.valid & _active(pred_fns[i], X, M)
+            values.append(torch.where(a, o.value, 0.0))
+            active.append(a)
+        V = torch.stack(values, dim=1)  # [B, S]
+        A = torch.stack(active, dim=1)  # [B, S]
+        # argmax over bools is refused: over uint8 it is the first True
+        first = torch.argmax(A.to(torch.uint8), dim=1)
+        value = torch.gather(V, 1, first[:, None])[:, 0]
+        probs = torch.cat([V, A.to(torch.float32)], dim=1)  # [B, 2S]
+        return ModelOutput(
+            value=value, valid=A.any(dim=1), probs=probs, label_idx=None
+        )
+
+    return Lowered(fn=fn, params=params, labels=())
 
 
 def _lower_aggregate(

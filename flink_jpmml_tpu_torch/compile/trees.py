@@ -1,9 +1,10 @@
-"""TreeModel / tree ensembles → PyTorch via the path-matrix lowering.
+"""TreeModel / tree ensembles → PyTorch: the path-matrix and node-hop
+lowerings.
 
 The port of ``flink_jpmml_tpu/compile/trees.py``. Canonicalization and
-packing (``_canonicalize_forest``, ``pack_ensemble``, ``_canon_has_halt``)
-are the JAX package's numpy code, copied. Evaluation is three dense
-contractions, as there:
+packing (``_canonicalize_forest``, ``pack_ensemble``, ``pack_nodes``,
+``_canon_has_halt``) are the JAX package's numpy code, copied. The dense
+backend is three contractions, as there:
 
 1. **Split indicators**: gather each split's feature into ``x[B,T,S]``,
    compare against thresholds → ``go_left[B,T,S]`` (missing values follow
@@ -17,11 +18,18 @@ contractions, as there:
 
 All three run in float32 with TF32 off (``utils/device.py``): the operands
 of 1–2 are small integers, exact in float32, and 3 keeps float32 leaf
-values exact. Trees the dense form cannot take — deeper than
-``CompileConfig.max_dense_depth``, halting missing-value strategies
-(lastPrediction / returnLastPrediction), non-canonical shapes — need the
-JAX package's iterative and general backends, which are not ported yet:
-they raise :class:`NotPortedError`.
+values exact.
+
+Trees deeper than ``CompileConfig.max_dense_depth`` and trees with a
+halting missing-value strategy (lastPrediction / returnLastPrediction) take
+the iterative node-hop backend (``make_iterative_eval``): a fixed ``depth``
+count of hops, each gathering the current node's attributes per (record,
+tree) lane, as the JAX package's ``lax.fori_loop``. Its node tables keep
+the JAX dtypes (``col``/``left``/``right`` int32); the hop widens the
+gathered indices to int64, which torch's ``take``/``gather`` require.
+Non-canonical forests take the general scan backend (``gtrees.py``) and
+the fractional-membership strategies the weighted-path walk
+(``wtrees.py``).
 """
 
 from __future__ import annotations
@@ -34,10 +42,7 @@ import torch
 
 from flink_jpmml_tpu_torch.compile.common import Lowered, LowerCtx, ModelOutput
 from flink_jpmml_tpu_torch.pmml import ir
-from flink_jpmml_tpu_torch.utils.exceptions import (
-    ModelCompilationException,
-    NotPortedError,
-)
+from flink_jpmml_tpu_torch.utils.exceptions import ModelCompilationException
 
 # opcodes for canonical splits (static per model)
 _OPS = {"lessThan": 0, "lessOrEqual": 1, "greaterThan": 2, "greaterOrEqual": 3,
@@ -85,9 +90,8 @@ _CanonNode = object  # _CanonSplit | _CanonLeaf
 class NonCanonicalTreeError(ModelCompilationException):
     """The forest's *shape* doesn't fit the canonical binary-split form
     (compound predicates, n-ary nodes, non-complementary children,
-    non-True roots). The JAX package routes it to its general scan
-    backend (gtrees.py); the port raises NotPortedError until that is
-    ported. Genuine model errors stay plain ModelCompilationExceptions."""
+    non-True roots): it routes to the general scan backend (gtrees.py).
+    Genuine model errors stay plain ModelCompilationExceptions."""
 
 
 def _canonicalize(
@@ -560,8 +564,282 @@ def make_ensemble_eval(packed: PackedEnsemble):
     return fn
 
 
+# ---------------------------------------------------------------------------
+# Iterative node-hop evaluation (deep and halting trees: O(depth) gathers
+# instead of an O(S·L) path matrix)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class PackedNodes:
+    """Node-table form: every tree's canonical nodes in one padded [T, N]
+    family; leaves self-loop so a fixed ``depth`` iteration count converges."""
+
+    n_trees: int
+    n_nodes: int  # N (max, padded)
+    depth: int
+    uniform_op: Optional[int]
+    has_sets: bool
+    labels: Tuple[str, ...]
+    params: Dict[str, np.ndarray]
+    # params: col i32[T,N], op f32[T,N], thresh f32[T,N], dleft f32[T,N],
+    #         mnull f32[T,N], left i32[T,N], right i32[T,N], is_leaf f32[T,N],
+    #         halt f32[T,N], scored f32[T,N],
+    #         value + valnull f32[T,N] | (probs f32[T,N,C] + label f32[T,N]),
+    #         set_codes f32[T,N,K] (when set splits exist)
+
+
+def _node_flatten(canon: _CanonNode, rows: List[dict]) -> int:
+    """Pre-order flatten; returns this node's index."""
+    idx = len(rows)
+    rows.append({})  # reserve
+    if isinstance(canon, _CanonLeaf):
+        rows[idx] = {
+            "leaf": True,
+            "score": canon.score,
+            "dist": canon.distribution,
+            "left": idx,
+            "right": idx,
+        }
+        return idx
+    s: _CanonSplit = canon
+    left = _node_flatten(s.left, rows)
+    right = _node_flatten(s.right, rows)
+    rows[idx] = {
+        "leaf": False,
+        "col": s.col,
+        "op": s.op,
+        "thresh": s.value,
+        "dleft": s.default_left,
+        "mnull": s.missing_null,
+        "sets": s.set_values,
+        "left": left,
+        "right": right,
+        "halt": s.halt,
+        "score": s.node_score,
+        "dist": s.node_dist,
+    }
+    return idx
+
+
+def pack_nodes(
+    canons: Sequence[_CanonNode], classification: bool, depth: int
+) -> PackedNodes:
+    per_tree_rows: List[List[dict]] = []
+    for canon in canons:
+        rows: List[dict] = []
+        _node_flatten(canon, rows)
+        per_tree_rows.append(rows)
+
+    T = len(per_tree_rows)
+    N = max(len(r) for r in per_tree_rows)
+    K = max(
+        (len(row.get("sets", ())) for rows in per_tree_rows for row in rows),
+        default=0,
+    )
+
+    col = np.zeros((T, N), np.int32)
+    op = np.zeros((T, N), np.float32)
+    thresh = np.zeros((T, N), np.float32)
+    dleft = np.zeros((T, N), np.float32)
+    mnull = np.zeros((T, N), np.float32)
+    halt = np.zeros((T, N), np.float32)
+    scored = np.zeros((T, N), np.float32)  # node carries a payload
+    # padding rows are self-looping leaves; real rows are overwritten below
+    left = np.broadcast_to(np.arange(N, dtype=np.int32), (T, N)).copy()
+    right = left.copy()
+    is_leaf = np.ones((T, N), np.float32)
+    set_codes = np.full((T, N, K), np.nan, np.float32) if K else None
+
+    labels: Tuple[str, ...] = ()
+    if classification:
+        labels = _collect_labels(
+            (row["score"], row["dist"])
+            for rows in per_tree_rows
+            for row in rows
+            if row["leaf"] or row["score"] is not None or row["dist"]
+        )
+        C = len(labels)
+        probs = np.zeros((T, N, C), np.float32)
+        label = np.zeros((T, N), np.float32)
+    else:
+        value = np.zeros((T, N), np.float32)
+        # dist-only regression interiors count as "scored" for halt
+        # tracking (oracle last_scored) but their value is null
+        valnull = np.zeros((T, N), np.float32)
+
+    ops_seen = set()
+    for ti, rows in enumerate(per_tree_rows):
+        for ni, row in enumerate(rows):
+            left[ti, ni] = row["left"]
+            right[ti, ni] = row["right"]
+            has_payload = (
+                row["leaf"]
+                or row["score"] is not None
+                or bool(row["dist"])
+            )
+            if has_payload:
+                scored[ti, ni] = 1.0
+                where = f"{ni} in tree {ti}"
+                if classification:
+                    lab_idx, prow = _leaf_class_row(
+                        row["score"], row["dist"], labels, where
+                    )
+                    label[ti, ni] = lab_idx
+                    probs[ti, ni] = prow
+                elif row["score"] is None and not row["leaf"]:
+                    valnull[ti, ni] = 1.0  # dist-only interior node
+                else:
+                    value[ti, ni] = _leaf_value(row["score"], where)
+            if not row["leaf"]:
+                is_leaf[ti, ni] = 0.0
+                col[ti, ni] = row["col"]
+                op[ti, ni] = row["op"]
+                thresh[ti, ni] = row["thresh"]
+                dleft[ti, ni] = float(row["dleft"])
+                mnull[ti, ni] = float(row["mnull"])
+                if row["halt"]:
+                    halt[ti, ni] = 1.0
+                ops_seen.add(row["op"])
+                if set_codes is not None and row["sets"]:
+                    set_codes[ti, ni, : len(row["sets"])] = row["sets"]
+
+    uniform_op = ops_seen.pop() if len(ops_seen) == 1 else None
+    params: Dict[str, np.ndarray] = {
+        "col": col,
+        "op": op,
+        "thresh": thresh,
+        "dleft": dleft,
+        "mnull": mnull,
+        "left": left,
+        "right": right,
+        "is_leaf": is_leaf,
+        "halt": halt,
+        "scored": scored,
+    }
+    if set_codes is not None:
+        params["set_codes"] = set_codes
+    if classification:
+        params["probs"] = probs
+        params["label"] = label
+    else:
+        params["value"] = value
+        params["valnull"] = valnull
+    return PackedNodes(
+        n_trees=T,
+        n_nodes=N,
+        depth=depth,
+        uniform_op=uniform_op,
+        has_sets=set_codes is not None,
+        labels=labels,
+        params=params,
+    )
+
+
+def tree_offsets(T: int, N: int, device: torch.device) -> torch.Tensor:
+    """i64[1, T]: the flat index of each tree's row 0 in a [T*N] table."""
+    return (torch.arange(T, dtype=torch.int64, device=device) * N)[None, :]
+
+
+def make_iterative_eval(packed: PackedNodes):
+    """→ tree_eval(params, X, M) -> (final_idx i64[B,T], null bool[B,T]).
+
+    A fixed ``depth`` count of hops (no data-dependent exit: a host test
+    of "every lane settled" would wait on the card each hop); every hop
+    gathers the current node's attributes per (record, tree) and moves
+    left or right. Leaves and padding rows self-loop, so every index fed
+    to a gather stays inside the tree's rows.
+
+    Halting strategies (lastPrediction / noTrueChildStrategy
+    returnLastPrediction) latch a ``stopped`` mask and track the node index
+    of the last *scored* ancestor (``last``, −1 until one is seen, never
+    used as an index); a stopped lane's final index is that ancestor (or
+    null when no ancestor ever carried a score) — the oracle's
+    ``last_scored`` bookkeeping in interp._eval_tree.
+    """
+    T, N, depth = packed.n_trees, packed.n_nodes, packed.depth
+    uniform_op = packed.uniform_op
+    has_sets = packed.has_sets
+    any_halt = bool(packed.params["halt"].any())
+
+    def fn(p: dict, X: torch.Tensor, M: torch.Tensor):
+        B = X.shape[0]
+        offs = tree_offsets(T, N, X.device)
+        colf = p["col"].reshape(-1).long()
+        opf = p["op"].reshape(-1)
+        threshf = p["thresh"].reshape(-1)
+        dleftf = p["dleft"].reshape(-1) > 0.5
+        mnullf = p["mnull"].reshape(-1) > 0.5
+        leftf = p["left"].reshape(-1).long()
+        rightf = p["right"].reshape(-1).long()
+        leaff = p["is_leaf"].reshape(-1) > 0.5
+        haltf = p["halt"].reshape(-1) > 0.5
+        scoredf = p["scored"].reshape(-1) > 0.5
+        setf = p["set_codes"].reshape(T * N, -1) if has_sets else None
+
+        idx = torch.zeros((B, T), dtype=torch.int64, device=X.device)
+        null = torch.zeros((B, T), dtype=torch.bool, device=X.device)
+        stopped = torch.zeros_like(null)
+        last = torch.full((B, T), -1, dtype=torch.int64, device=X.device)
+        for _ in range(depth):
+            g = offs + idx  # [B, T] flat node ids
+            # the current node's own payload counts as "last scored" for
+            # a halt at its split (oracle updates last_scored on arrival)
+            if any_halt:
+                last = torch.where(~stopped & scoredf[g], idx, last)
+            cols = colf[g]
+            x = torch.gather(X, 1, cols)
+            m = torch.gather(M, 1, cols)
+            member = (
+                (x[..., None] == setf[g]).any(dim=-1) if has_sets else None
+            )
+            # one opcode for the whole forest: no per-lane opcode gather
+            opg = opf[g] if uniform_op is None else None
+            cmp = _compare(x, threshf[g], opg, uniform_op, member)
+            go = torch.where(m, dleftf[g], cmp)
+            leaf = leaff[g]
+            null = null | (m & mnullf[g] & ~leaf)
+            settled = leaf
+            if any_halt:
+                stopped = stopped | (m & haltf[g] & ~leaf)
+                settled = leaf | stopped
+            nxt = torch.where(go, leftf[g], rightf[g])
+            idx = torch.where(settled, idx, nxt)
+        if any_halt:
+            null = null | (stopped & (last < 0))
+            idx = torch.where(stopped & (last >= 0), last, idx)
+            if "valnull" in p:
+                null = null | (p["valnull"].reshape(-1)[offs + idx] > 0.5)
+        return idx, null
+
+    return fn
+
+
+def node_payload_fns(ev, T: int, N: int, classification: bool):
+    """Final payload gather shared by every node-table backend (the
+    canonical iterative hop and the general scan in gtrees.py): map the
+    per-lane final node index to its value / (probs, label)."""
+    if not classification:
+        def vals(p, X, M):
+            idx, null = ev(p, X, M)
+            g = tree_offsets(T, N, X.device) + idx
+            return p["value"].reshape(-1)[g], null
+        return vals
+
+    def cls(p, X, M):
+        idx, null = ev(p, X, M)
+        g = tree_offsets(T, N, X.device) + idx
+        C = p["probs"].shape[-1]
+        probs = p["probs"].reshape(T * N, C)[g]
+        lab = torch.round(p["label"].reshape(-1)[g]).long()
+        return probs, lab, null
+    return cls
+
+
 def _tree_eval_fns(trees, ctx):
-    """The dense (path-matrix einsum) backend's uniform per-tree interface:
+    """Choose the dense (path-matrix einsum), iterative (node-hop) or
+    general (first-match scan) backend and return a uniform per-tree
+    interface:
 
     regression:      vals(p, X, M)  -> (values f32[B,T], null bool[B,T])
     classification:  cls(p, X, M)   -> (probs f32[B,T,C], label i64[B,T],
@@ -569,23 +847,22 @@ def _tree_eval_fns(trees, ctx):
     plus (params, labels)."""
     try:
         canons, classification, depth = _canonicalize_forest(trees, ctx)
-    except NonCanonicalTreeError as e:
-        raise NotPortedError(
-            f"non-canonical forest needs the general scan backend "
-            f"(gtrees), not ported yet: {e}"
-        ) from e
-    if depth > ctx.config.max_dense_depth:
-        raise NotPortedError(
-            f"tree depth {depth} > max_dense_depth "
-            f"{ctx.config.max_dense_depth} needs the iterative node-hop "
-            "backend (make_iterative_eval), not ported yet"
+    except NonCanonicalTreeError:
+        # compound predicates, n-ary nodes, non-complementary children,
+        # non-True roots, isMissing operators: the general scan
+        from flink_jpmml_tpu_torch.compile.gtrees import general_tree_eval_fns
+
+        return general_tree_eval_fns(trees, ctx)
+    dense = depth <= ctx.config.max_dense_depth and not any(
+        _canon_has_halt(c) for c in canons
+    )
+    if not dense:
+        packed = pack_nodes(canons, classification, depth)
+        ev = make_iterative_eval(packed)
+        fn = node_payload_fns(
+            ev, packed.n_trees, packed.n_nodes, classification
         )
-    if any(_canon_has_halt(c) for c in canons):
-        raise NotPortedError(
-            "halting missing-value semantics (lastPrediction / "
-            "returnLastPrediction) need the iterative node-hop backend "
-            "(make_iterative_eval), not ported yet"
-        )
+        return fn, packed.params, packed.labels
 
     packed = pack_ensemble(canons, classification)
     ev = make_ensemble_eval(packed)
@@ -618,11 +895,11 @@ def lower_tree_ensemble(
     method: str,
     ctx: LowerCtx,
 ) -> Lowered:
-    """Fused lowering for an ensemble of canonical trees under one
-    segmentation method (the 500-tree GBM). ``method`` ∈
-    {sum, average, weightedAverage, max, median} for regression,
-    {majorityVote, weightedMajorityVote} for classification — or 'single'
-    for a lone TreeModel."""
+    """Fused lowering for an ensemble of trees under one segmentation
+    method (the 500-tree GBM). ``method`` ∈ {sum, average, weightedAverage,
+    max, median} for regression, {majorityVote, weightedMajorityVote} for
+    classification — or 'single' for a lone TreeModel. Deep, halting and
+    non-canonical forests take the node-hop and general backends."""
     w = np.asarray(weights, np.float32)
     w_sum = float(np.float32(w.sum()))
     classification = trees[0].function_name == "classification"
@@ -692,13 +969,12 @@ def lower_tree_ensemble(
 
 def lower_tree(model: ir.TreeModelIR, ctx: LowerCtx) -> Lowered:
     """A standalone TreeModel is an ensemble of one — except the
-    fractional-membership strategies, whose weighted-path walk (wtrees)
-    is not ported yet."""
+    fractional-membership strategies, whose weighted-path walk lives in
+    wtrees.py (boolean path matrices cannot express them)."""
     if model.missing_value_strategy in (
         "weightedConfidence", "aggregateNodes"
     ):
-        raise NotPortedError(
-            f"missingValueStrategy {model.missing_value_strategy!r} needs "
-            "the weighted-path walk (wtrees), not ported yet"
-        )
+        from flink_jpmml_tpu_torch.compile.wtrees import lower_weighted_tree
+
+        return lower_weighted_tree(model, ctx)
     return lower_tree_ensemble([model], [1.0], "single", ctx)

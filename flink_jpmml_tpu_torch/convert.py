@@ -4,12 +4,17 @@
 package's ``compile_pmml(doc).params`` — the f32 dense path's parameter
 tree: ``t{i}`` tables of a RegressionModel, ``l{i}`` layers of a
 NeuralNetwork, ``centers`` of a ClusteringModel, ``beta`` (and the Cox
-baseline) of a GeneralRegressionModel, the packed tree tables, and the
-``s{i}`` segments of a MiningModel, nested as deep as the document — and
-returns the same tree of tensors on the requested device: the port's
-``CompiledModel.params["model"]`` for the same document. Keys, shapes and
-dtypes carry over unchanged (a bf16 leaf, which the JAX package keeps only
-on a TPU, widens to f32 exactly).
+baseline) of a GeneralRegressionModel, the packed tree tables (path
+matrices; the node-hop tables, whose ``col`` / ``left`` / ``right`` are
+int32; the general scan's ``[T, N, C, K(, KS)]`` and root tables), the
+weighted walk's ``payload`` / ``leaf_label``, the scorecard's and the
+ruleset's predicate tables, and the ``s{i}`` segments of a MiningModel
+(selectFirst, selectAll and AnomalyDetection's inner model included),
+nested as deep as the document — and returns the same tree of tensors on
+the requested device: the port's ``CompiledModel.params["model"]`` for the
+same document. Keys, shapes and dtypes carry over unchanged (a bf16 leaf,
+which the JAX package keeps only on a TPU, widens to f32 exactly); the
+port widens int32 indices to int64 where it gathers, not in the tree.
 
 ``quantized_params_from_jax`` takes the JAX scorer's packed tables as
 numpy arrays — the XLA-backend params ``feat``, ``qthr``, ``dleft``,

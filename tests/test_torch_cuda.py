@@ -5,8 +5,10 @@ encode stage against the host encode, and the block pipeline on a CUDA
 device, host-encoded and fused, and fed from a Kafka broker on loopback
 through the prefetch sidecar, and the staging that ships only a
 dispatch's live rows; and the dense families (regression, MLP, k-means,
-the stacked chain, a probit GLM) on the card against the CPU port, with
-TF32 off. They skip where there is no card. This file
+the stacked chain, a probit GLM) and every tree shape (node hop, halts,
+the general scan, the weighted walk, scorecard, ruleset, iforest,
+selectFirst / selectAll) on the card against the CPU port, with TF32 off.
+They skip where there is no card. This file
 imports neither jax nor the JAX package, so it runs on a machine that has
 only torch:
 
@@ -448,3 +450,63 @@ def test_dense_family_on_the_card_matches_the_cpu_port(card, tmp_path,
             assert g.is_empty == r.is_empty
             assert (g.outputs or {}).get("cluster") == (
                 r.outputs or {}).get("cluster")
+
+
+# -- every tree shape on the card (f32 backend, no kernel) -------------------
+
+
+def _shape_doc(tmp_path, shape):
+    import chip_smoke as cs
+    from flink_jpmml_tpu_torch.pmml import parse_pmml
+
+    deep = dict(n_trees=6, n_fields=8, max_leaves=60, max_depth=16)
+    xml = {
+        "node_hop": lambda: cs.deep_rf_xml(**deep),
+        "node_hop_halt": lambda: cs.deep_rf_xml(**deep).replace(
+            'missingValueStrategy="defaultChild"',
+            'missingValueStrategy="lastPrediction"'),
+        "gtrees": lambda: cs.general_forest_xml(
+            n_trees=6, n_continuous=8, n_categorical=2, max_leaves=30,
+            max_depth=8),
+        "wtrees_weighted_confidence": lambda: cs.WEIGHTED_CONF,
+        "wtrees_aggregate_nodes": lambda: cs.AGG_NODES,
+        "scorecard": cs.scorecard_xml,
+        "ruleset_firstHit": lambda: cs.ruleset_xml("firstHit"),
+        "ruleset_weightedSum": lambda: cs.ruleset_xml("weightedSum"),
+        "ruleset_weightedMax": lambda: cs.ruleset_xml("weightedMax"),
+        "iforest": lambda: cs.iforest_xml(n_trees=10, n_fields=8),
+        "select_first": lambda: cs.select_first_xml(
+            str(tmp_path), n_trees=10, depth=4, n_fields=8),
+        "select_all": lambda: cs.SELECT_ALL,
+    }[shape]()
+    return parse_pmml(xml)
+
+
+@pytest.mark.parametrize("shape", [
+    "node_hop", "node_hop_halt", "gtrees", "wtrees_weighted_confidence",
+    "wtrees_aggregate_nodes", "scorecard", "ruleset_firstHit",
+    "ruleset_weightedSum", "ruleset_weightedMax", "iforest", "select_first",
+    "select_all"])
+def test_tree_shape_on_the_card_matches_the_cpu_port(card, tmp_path, shape):
+    """Card vs CPU port at the repo's bar on each new backend: the node-hop
+    and general-scan gathers (an out-of-range index would trip a device
+    assert), the weighted walk's and the ruleset's float32 products (TF32
+    off), reason codes and the selectAll map through ``score_records``."""
+    from chip_smoke import check_decoded
+
+    doc = _shape_doc(tmp_path, shape)
+    cm = compile_pmml(doc, batch_size=1024)  # default device: the card
+    assert cm.device.type == "cuda" and cm.quantized_scorer() is None
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cpu = compile_pmml(doc, batch_size=1024, device="cpu")
+    F = cm.field_space.arity
+    rng = np.random.default_rng(11)
+    X = rng.normal(0.0, 1.5, size=(1024, F)).astype(np.float32)
+    if shape == "gtrees":  # categorical columns hold declared codes
+        X[:, -2:] = rng.integers(0, 8, size=(1024, 2))
+    X[rng.random(size=X.shape) < 0.2] = np.nan
+    M = np.isnan(X)
+    Xz = np.where(M, 0.0, X).astype(np.float32)
+    _assert_outputs_close(cm.predict(Xz, M), cpu.predict(Xz, M))
+    torch.cuda.synchronize()  # a device assert surfaces here, not later
+    check_decoded(cm, cpu, X[:64], shape)

@@ -47,6 +47,12 @@ DENSE_SLICE = {
     "compile.clustering", "compile.glm", "pmml.outputs",
 }
 
+# the tree shapes and rule families (node hop in compile.trees)
+TREE_SHAPES_SLICE = {
+    "compile.gtrees", "compile.wtrees", "compile.scorecard",
+    "compile.ruleset", "compile.anomaly",
+}
+
 
 def test_every_port_module_imports_without_jax():
     res = subprocess.run(
@@ -55,9 +61,10 @@ def test_every_port_module_imports_without_jax():
     )
     assert res.returncode == 0, res.stderr
     count, names = res.stdout.split(maxsplit=1)
-    assert int(count) >= 42  # every module ported so far
+    assert int(count) >= 47  # every module ported so far
     names = set(names.split())
-    assert {f"flink_jpmml_tpu_torch.{m}" for m in KAFKA_SLICE} <= names
+    for slice_ in (KAFKA_SLICE, DENSE_SLICE, TREE_SHAPES_SLICE):
+        assert {f"flink_jpmml_tpu_torch.{m}" for m in slice_} <= names
     assert {f"flink_jpmml_tpu_torch.{m}" for m in DENSE_SLICE} <= names
 
 
@@ -97,6 +104,21 @@ def test_dense_families_default_to_the_card(no_card, tmp_path):
         assert pipe.device.type == "cpu" and pipe.backend == "f32"
     with pytest.raises(DeviceUnavailableError):
         model_params_from_jax({"centers": torch.zeros(2, 4).numpy()})
+
+
+def test_tree_shapes_default_to_the_card(no_card):
+    import chip_smoke as cs
+    from flink_jpmml_tpu_torch.pmml import parse_pmml
+
+    for xml in (cs.deep_rf_xml(n_trees=2, n_fields=3, max_leaves=16),
+                cs.scorecard_xml(n_chars=2, n_attrs=3),
+                cs.ruleset_xml("firstHit", n_rules=4, n_fields=3),
+                cs.WEIGHTED_CONF, cs.SELECT_ALL,
+                cs.iforest_xml(n_trees=2, n_fields=3, sample=8)):
+        doc = parse_pmml(xml)
+        with pytest.raises(DeviceUnavailableError):
+            compile_pmml(doc)
+        assert compile_pmml(doc, device="cpu").device.type == "cpu"
 
 
 def test_cpu_only_on_request(no_card, gbm_doc):

@@ -95,24 +95,25 @@ def test_vote_forest_dense_matches(tmp_path):
                                rtol=RTOL, atol=ATOL)
 
 
-SCORECARD = """<PMML version="4.3"><DataDictionary>
-  <DataField name="age" optype="continuous" dataType="double"/>
-  </DataDictionary>
-  <Scorecard functionName="regression" initialScore="100">
-  <MiningSchema><MiningField name="age"/></MiningSchema>
-  <Characteristics><Characteristic name="ageCh">
-    <Attribute partialScore="40">
-      <SimplePredicate field="age" operator="lessThan" value="30"/>
-    </Attribute>
-    <Attribute partialScore="20"><True/></Attribute>
-  </Characteristic></Characteristics></Scorecard></PMML>"""
-
-
 def test_other_families_raise_not_ported(tmp_path):
-    # a family still to port (Scorecard), and a segmentation method still
-    # to port (selectFirst) over a family that is ported
-    with pytest.raises(NotPortedError, match="Scorecard"):
-        compile_pmml(tparse_str(SCORECARD), device="cpu")
+    # a family still to port (NaiveBayes), alone and as a segment of a
+    # selectFirst MiningModel; selectFirst itself over a ported family
+    # (a RegressionModel) now compiles and matches the JAX package
+    from test_torch_rules import NAIVE_BAYES
+
+    with pytest.raises(NotPortedError, match="NaiveBayes"):
+        compile_pmml(tparse_str(NAIVE_BAYES), device="cpu")
+    head, nb = NAIVE_BAYES.split("<NaiveBayesModel", 1)
+    nb = nb.rsplit("</PMML>", 1)[0]
+    nb_schema = nb[nb.index("<MiningSchema>"):nb.index("</MiningSchema>")]
+    nested = (
+        head + '<MiningModel functionName="classification">' + nb_schema
+        + '</MiningSchema><Segmentation multipleModelMethod="selectFirst">'
+        + "<Segment><True/><NaiveBayesModel" + nb + "</Segment>"
+        + "</Segmentation></MiningModel></PMML>"
+    )
+    with pytest.raises(NotPortedError, match="NaiveBayes"):
+        compile_pmml(tparse_str(nested), device="cpu")
     with open(gen_iris_lr(str(tmp_path))) as f:
         lr = f.read()
     head, model = lr.split("<RegressionModel", 1)
@@ -125,8 +126,16 @@ def test_other_families_raise_not_ported(tmp_path):
         + "<Segment><True/><RegressionModel" + model + "</Segment>"
         + "</Segmentation></MiningModel></PMML>"
     )
-    with pytest.raises(NotPortedError, match="selectFirst"):
-        compile_pmml(tparse_str(xml), device="cpu")
+    X = np.random.default_rng(4).normal(5.0, 1.5, size=(40, 4)).astype(
+        np.float32)
+    X[::6, 2] = np.nan
+    _, _, to, jo = _predict_both(xml, X)
+    np.testing.assert_array_equal(to.valid.numpy(), np.asarray(jo.valid))
+    ok = np.asarray(jo.valid)
+    np.testing.assert_array_equal(to.label_idx.numpy()[ok],
+                                  np.asarray(jo.label_idx)[ok])
+    np.testing.assert_allclose(to.probs.numpy()[ok], np.asarray(jo.probs)[ok],
+                               rtol=RTOL, atol=ATOL)
 
 
 def test_segment_predicates_take_the_generic_aggregate(tmp_path):
