@@ -140,6 +140,35 @@ JAX package, and prints one JSON line per phase:
     allocated memory; heads held to the CPU port as in 17, and
     ``score_records`` (reason codes, segment maps) on 4,096 records for
     the scorecard and rulesets, 16 otherwise, with its own records/s.
+19. more families — the last nine families on the f32 backend (no kernel
+    either: ``torch.matmul`` with TF32 off, ``torch.sort(stable=True)``
+    for the neighbours), each compiled on the card and warmed with
+    ``warmup()``, at the widths their exporters write:
+    ``naive_bayes_xml()`` (GaussianNB with categorical inputs: 3 classes,
+    24 continuous and 8 ten-valued fields) at 16 compile batches a
+    dispatch for 1,048,576 records; ``svm_xml()`` (an SVC(kernel="rbf")
+    export: OneAgainstOne, 4 classes, 2,000 support vectors × 32 fields)
+    and ``svm_xml("poly", n_vectors=1000)`` (an SVR, degree 3) at 4 for
+    262,144; ``knn_xml()`` (a KNeighborsClassifier: 10,000 instances × 16
+    fields, 5% duplicated rows, k = 5, ``entityId`` outputs at ranks 1–5)
+    and its median twin (k = 4) at 4,096 records a dispatch for 65,536;
+    ``gp_xml()`` (ARD squared exponential, 2,000 rows × 8 fields) at 4 for
+    262,144 and ``gp_xml("absexp", n_rows=1000)`` at 1; ``bayesnet_xml()``
+    (a 4-state target, 10 observed children of 3–5 states, 3 with a
+    second parent) and ``baseline_xml()`` at 16 for 1,048,576;
+    ``assoc_xml()`` (arules Apriori: 200 items, 1,000 rules,
+    recommendation, ``ruleValue`` outputs; baskets at 5% density) at 4
+    for 262,144; ``text_xml()`` (1,000 terms × 2,000 documents, tf·idf,
+    cosine) at 1 for 131,072; ``arima_xml()`` (ARIMA(2,1,1), 200 points)
+    and ``holt_winters_xml()`` (damped additive trend, multiplicative
+    seasonality of 12) at 16 for 1,048,576 over horizons 1–48. Records
+    are N(0, 1.5) (numpy, seed 10), with 20% missing cells only where the
+    family routes them (NaiveBayes, baskets, term counts). Each line as in
+    18; heads held to the CPU port (KNN neighbour ids and the fired-rule
+    mask exactly) and ``score_records`` on 4,096 records, outputs
+    decoded. Last, ``verify()`` on the card over the JAX tests'
+    ModelVerification documents returns ``[]``, and a copy of each with
+    one expected value altered reports the CPU port's mismatch.
 
 Every main path runs the C++ ring, and its line carries the stage ledger
 of its registry (``attribution``: per stage the count, total ms, p50 /
@@ -1800,6 +1829,639 @@ def tree_shapes(workdir: str) -> list:
     return lines
 
 
+# -- the last nine families: what exporters write (no kernel on these paths) -
+
+def _fields_dd(continuous, categorical=(), target=None, classes=None) -> str:
+    """A DataDictionary of continuous double fields, string categorical
+    fields (``(name, values)`` pairs) and a target: categorical over
+    ``classes``, continuous without them."""
+    def cat(name, values):
+        return (f'<DataField name="{name}" optype="categorical" '
+                'dataType="string">' + "".join(
+                    f'<Value value="{v}"/>' for v in values) + "</DataField>")
+
+    return ("<DataDictionary>" + "".join(
+        f'<DataField name="{f}" optype="continuous" dataType="double"/>'
+        for f in continuous) + "".join(cat(n, v) for n, v in categorical)
+        + ((cat(target, classes) if classes else
+            f'<DataField name="{target}" optype="continuous" '
+            'dataType="double"/>') if target else "")
+        + "</DataDictionary>")
+
+
+def _reals(a) -> str:
+    return " ".join(f"{v:.7g}" for v in np.ravel(a))
+
+
+def naive_bayes_xml(n_classes: int = 3, n_continuous: int = 24,
+                    n_categorical: int = 8, n_values: int = 10,
+                    seed: int = 61) -> str:
+    """A NaiveBayesModel as JPMML-SkLearn writes a GaussianNB with
+    categorical inputs: TargetValueStats (a Gaussian per class) on each
+    continuous field, PairCounts on each categorical field (some counts
+    zero, so the threshold applies), and the class counts."""
+    rng = np.random.default_rng(seed)
+    classes = [f"k{i}" for i in range(n_classes)]
+    cont = [f"x{i}" for i in range(n_continuous)]
+    values = [f"v{i}" for i in range(n_values)]
+    cat = [(f"c{i}", values) for i in range(n_categorical)]
+    inputs = []
+    for f in cont:
+        stats = "".join(
+            f'<TargetValueStat value="{k}"><GaussianDistribution '
+            f'mean="{m:.7g}" variance="{v:.7g}"/></TargetValueStat>'
+            for k, m, v in zip(classes, rng.normal(0.0, 1.0, n_classes),
+                               rng.uniform(0.5, 4.0, n_classes)))
+        inputs.append(f'<BayesInput fieldName="{f}"><TargetValueStats>'
+                      f"{stats}</TargetValueStats></BayesInput>")
+    for f, _ in cat:
+        pairs = "".join(
+            f'<PairCounts value="{v}"><TargetValueCounts>' + "".join(
+                f'<TargetValueCount value="{k}" count="{int(c)}"/>'
+                for k, c in zip(classes, rng.integers(0, 200, n_classes)))
+            + "</TargetValueCounts></PairCounts>" for v in values)
+        inputs.append(f'<BayesInput fieldName="{f}">{pairs}</BayesInput>')
+    out = "".join(f'<TargetValueCount value="{k}" count="{int(c)}"/>'
+                  for k, c in zip(classes,
+                                  rng.integers(500, 5000, n_classes)))
+    return (_XML_HEAD + _fields_dd(cont, cat, "y", classes)
+            + '<NaiveBayesModel functionName="classification" '
+            'threshold="0.001">' + _schema(cont + [f for f, _ in cat], "y")
+            + "<BayesInputs>" + "".join(inputs) + "</BayesInputs>"
+            f'<BayesOutput fieldName="y"><TargetValueCounts>{out}'
+            "</TargetValueCounts></BayesOutput></NaiveBayesModel></PMML>")
+
+
+def svm_xml(kernel: str = "rbf", n_classes: int = 4, n_vectors: int = 2000,
+            n_fields: int = 32, seed: int = 67) -> str:
+    """A SupportVectorMachineModel as JPMML-SkLearn writes an sklearn
+    ``SVC(kernel="rbf")`` (``kernel="rbf"``: OneAgainstOne, one machine a
+    class pair over the two classes' support vectors, γ = 1/fields) or an
+    ``SVR(kernel="poly", degree=3)`` (``kernel="poly"``: one regression
+    machine over every vector, γ = 1/fields, coef0 = 1)."""
+    rng = np.random.default_rng(seed)
+    fields = [f"x{i}" for i in range(n_fields)]
+    vecs = rng.normal(0.0, 1.5, size=(n_vectors, n_fields))
+    vd = (f'<VectorDictionary numberOfVectors="{n_vectors}">'
+          f'<VectorFields numberOfFields="{n_fields}">' + "".join(
+              f'<FieldRef field="{f}"/>' for f in fields) + "</VectorFields>"
+          + "".join(f'<VectorInstance id="{i}"><Array n="{n_fields}" '
+                    f'type="real">{_reals(v)}</Array></VectorInstance>'
+                    for i, v in enumerate(vecs)) + "</VectorDictionary>")
+
+    def machine(ids, attrs=""):
+        return (f"<SupportVectorMachine{attrs}><SupportVectors "
+                f'numberOfSupportVectors="{len(ids)}">' + "".join(
+                    f'<SupportVector vectorId="{i}"/>' for i in ids)
+                + "</SupportVectors><Coefficients "
+                f'absoluteValue="{rng.normal(0.0, 0.5):.7g}">' + "".join(
+                    f'<Coefficient value="{a:.7g}"/>'
+                    for a in rng.uniform(-1.0, 1.0, len(ids)))
+                + "</Coefficients></SupportVectorMachine>")
+
+    gamma = 1.0 / n_fields
+    if kernel == "poly":
+        return (_XML_HEAD + _fields_dd(fields, target="y")
+                + '<SupportVectorMachineModel functionName="regression">'
+                + _schema(fields, "y")
+                + f'<PolynomialKernelType gamma="{gamma:.7g}" coef0="1" '
+                'degree="3"/>' + vd + machine(range(n_vectors))
+                + "</SupportVectorMachineModel></PMML>")
+    classes = [f"k{i}" for i in range(n_classes)]
+    owner = np.arange(n_vectors) % n_classes  # each vector's class
+    machines = "".join(
+        machine(np.flatnonzero((owner == a) | (owner == b)).tolist(),
+                f' targetCategory="{classes[a]}" '
+                f'alternateTargetCategory="{classes[b]}"')
+        for a in range(n_classes) for b in range(a + 1, n_classes))
+    return (_XML_HEAD + _fields_dd(fields, target="y", classes=classes)
+            + '<SupportVectorMachineModel functionName="classification" '
+            'classificationMethod="OneAgainstOne">' + _schema(fields, "y")
+            + f'<RadialBasisKernelType gamma="{gamma:.7g}"/>' + vd + machines
+            + "</SupportVectorMachineModel></PMML>")
+
+
+def knn_xml(n_instances: int = 10_000, n_fields: int = 16, k: int = 5,
+            n_classes: int = 3, duplicated: float = 0.05,
+            scoring: str = "majorityVote", seed: int = 71) -> str:
+    """A NearestNeighborModel as JPMML-SkLearn writes a
+    ``KNeighborsClassifier`` (euclidean, ``scoring`` majorityVote) or, with
+    ``scoring="median"``, a ``KNeighborsRegressor``-style median over the
+    same table: an InlineTable of the training set with instance ids
+    (``instanceIdVariable``), a ``duplicated`` share of its rows copies of
+    earlier rows (exact distance ties, each copy with a label of its own),
+    and ``entityId`` outputs at ranks 1..k."""
+    rng = np.random.default_rng(seed)
+    fields = [f"x{i}" for i in range(n_fields)]
+    X = rng.normal(0.0, 1.5, size=(n_instances, n_fields)).astype(np.float32)
+    for r in np.sort(rng.choice(np.arange(1, n_instances),
+                                int(duplicated * n_instances),
+                                replace=False)):
+        X[r] = X[rng.integers(0, r)]
+    classification = scoring != "median"
+    classes = [f"k{i}" for i in range(n_classes)]
+    targets = ([classes[i] for i in rng.integers(0, n_classes, n_instances)]
+               if classification else
+               [f"{v:.7g}" for v in rng.normal(0.0, 2.0, n_instances)])
+    rows = "".join(
+        "<row>" + "".join(f"<{f}>{v:.7g}</{f}>" for f, v in zip(fields, x))
+        + f"<y>{t}</y><rid>i{r}</rid></row>"
+        for r, (x, t) in enumerate(zip(X.tolist(), targets)))
+    method = ("categoricalScoringMethod" if classification
+              else "continuousScoringMethod")
+    return (_XML_HEAD + _fields_dd(fields, target="y",
+                                   classes=classes if classification else None)
+            + '<NearestNeighborModel functionName="'
+            + ("classification" if classification else "regression")
+            + f'" numberOfNeighbors="{k}" {method}="{scoring}" '
+            'instanceIdVariable="rid">' + _schema(fields, "y")
+            + "<Output>" + "".join(
+                f'<OutputField name="nb{r}" feature="entityId" rank="{r}"/>'
+                for r in range(1, k + 1))
+            + '</Output><ComparisonMeasure kind="distance"><euclidean/>'
+            "</ComparisonMeasure><KNNInputs>" + "".join(
+                f'<KNNInput field="{f}"/>' for f in fields)
+            + "</KNNInputs><TrainingInstances><InstanceFields>"
+            '<InstanceField field="rid" column="rid"/>' + "".join(
+                f'<InstanceField field="{f}" column="{f}"/>'
+                for f in fields + ["y"])
+            + f"</InstanceFields><InlineTable>{rows}</InlineTable>"
+            "</TrainingInstances></NearestNeighborModel></PMML>")
+
+
+def gp_xml(kernel: str = "ard", n_rows: int = 2000, n_fields: int = 8,
+           seed: int = 73) -> str:
+    """A GaussianProcessModel as JPMML-SkLearn writes a
+    ``GaussianProcessRegressor``: an ARDSquaredExponentialKernel
+    (``kernel="ard"``) or an AbsoluteExponentialKernel (``"absexp"``) with
+    a length scale a field (1–2.5), noise 0.1, and the training rows
+    inline."""
+    rng = np.random.default_rng(seed)
+    fields = [f"x{i}" for i in range(n_fields)]
+    X = rng.normal(0.0, 1.5, size=(n_rows, n_fields))
+    y = np.sin(X[:, 0]) + 0.5 * X[:, 1] + rng.normal(0.0, 0.1, n_rows)
+    tag = ("ARDSquaredExponentialKernel" if kernel == "ard"
+           else "AbsoluteExponentialKernel")
+    rows = "".join("<row>" + "".join(
+        f"<{f}>{v:.7g}</{f}>" for f, v in zip(fields, x))
+        + f"<y>{t:.7g}</y></row>" for x, t in zip(X.tolist(), y.tolist()))
+    return (_XML_HEAD + _fields_dd(fields, target="y")
+            + '<GaussianProcessModel functionName="regression">'
+            + _schema(fields, "y")
+            + f'<{tag} gamma="1.0" noiseVariance="0.1"><Lambda>'
+            f'<Array n="{n_fields}" type="real">'
+            f"{_reals(rng.uniform(1.0, 2.5, n_fields))}"
+            f"</Array></Lambda></{tag}>"
+            f'<TrainingInstances recordCount="{n_rows}"><InstanceFields>'
+            + "".join(f'<InstanceField field="{f}" column="{f}"/>'
+                      for f in fields + ["y"])
+            + f"</InstanceFields><InlineTable>{rows}</InlineTable>"
+            "</TrainingInstances></GaussianProcessModel></PMML>")
+
+
+def bayesnet_xml(n_states: int = 4, n_nodes: int = 10, n_coparents: int = 3,
+                 seed: int = 79) -> str:
+    """A discrete BayesianNetworkModel: a target of ``n_states`` states
+    with a prior, and ``n_nodes`` observed nodes of 3–5 states, each a
+    child of the target; the last ``n_coparents`` of them have a second,
+    observed parent (one of the first nodes). CPT rows are Dirichlet
+    draws."""
+    rng = np.random.default_rng(seed)
+    states = [f"s{i}" for i in range(n_states)]
+    nodes = [(f"o{j}", [f"o{j}v{v}" for v in range(int(rng.integers(3, 6)))])
+             for j in range(n_nodes)]
+
+    def probs(values, parents):
+        return ("<DiscreteConditionalProbability>" + "".join(
+            f'<ParentValue parent="{p}" value="{v}"/>' for p, v in parents)
+            + "".join(f'<ValueProbability value="{v}" probability="{q:.7g}"/>'
+                      for v, q in zip(values,
+                                      rng.dirichlet(np.ones(len(values)))))
+            + "</DiscreteConditionalProbability>")
+
+    body = ['<DiscreteNode name="t">' + "".join(
+        f'<ValueProbability value="{v}" probability="{q:.7g}"/>'
+        for v, q in zip(states, rng.dirichlet(np.ones(n_states) * 4)))
+        + "</DiscreteNode>"]
+    for j, (name, values) in enumerate(nodes):
+        co = nodes[j - (n_nodes - n_coparents)] if (
+            j >= n_nodes - n_coparents) else None
+        rows = [probs(values, [("t", s)] + ([(co[0], cv)] if co else []))
+                for s in states for cv in (co[1] if co else [None])]
+        body.append(f'<DiscreteNode name="{name}">' + "".join(rows)
+                    + "</DiscreteNode>")
+    return (_XML_HEAD + _fields_dd((), nodes, "t", states)
+            + '<BayesianNetworkModel functionName="classification">'
+            + _schema([n for n, _ in nodes], "t")
+            + "<BayesianNetworkNodes>" + "".join(body)
+            + "</BayesianNetworkNodes></BayesianNetworkModel></PMML>")
+
+
+def baseline_xml(mean: float = 0.25, variance: float = 2.25) -> str:
+    """A BaselineModel: the zValue of one field against a Gaussian
+    baseline."""
+    return (_XML_HEAD + _fields_dd(["x"])
+            + '<BaselineModel functionName="regression">'
+            '<MiningSchema><MiningField name="x"/></MiningSchema>'
+            '<TestDistributions field="x" testStatistic="zValue"><Baseline>'
+            f'<GaussianDistribution mean="{mean}" variance="{variance}"/>'
+            "</Baseline></TestDistributions></BaselineModel></PMML>")
+
+
+def assoc_xml(n_items: int = 200, n_rules: int = 1000, seed: int = 83) -> str:
+    """An AssociationModel as R ``arules`` → ``pmml`` writes Apriori rules:
+    ``n_items`` items (one basket field each), ``n_rules`` rules of 1–3
+    antecedent items and one consequent item, support, confidence and
+    lift, the ``recommendation`` criterion and ``ruleValue`` outputs
+    (rule id, consequent and confidence at ranks 1–3)."""
+    rng = np.random.default_rng(seed)
+    items = [f"i{j}" for j in range(n_items)]
+    sets, rules = [], []
+    for r in range(n_rules):
+        pick = rng.choice(n_items, int(rng.integers(1, 4)) + 1, replace=False)
+        sets.append(f'<Itemset id="a{r}">' + "".join(
+            f'<ItemRef itemRef="{j + 1}"/>' for j in pick[:-1]) + "</Itemset>"
+            f'<Itemset id="c{r}"><ItemRef itemRef="{pick[-1] + 1}"/>'
+            "</Itemset>")
+        rules.append(f'<AssociationRule id="r{r}" '
+                     f'support="{rng.uniform(0.01, 0.2):.4g}" '
+                     f'confidence="{rng.uniform(0.1, 1.0):.4g}" '
+                     f'lift="{rng.uniform(0.8, 3.0):.4g}" '
+                     f'antecedent="a{r}" consequent="c{r}"/>')
+    outputs = "".join(
+        f'<OutputField name="{f}{k}" feature="ruleValue" '
+        f'ruleFeature="{rf}" rank="{k}" algorithm="recommendation"/>'
+        for k in (1, 2, 3)
+        for f, rf in (("id", "ruleId"), ("rec", "consequent"),
+                      ("conf", "confidence")))
+    return (_XML_HEAD + _fields_dd(items)
+            + '<AssociationModel functionName="associationRules" '
+            f'numberOfTransactions="100000" numberOfItems="{n_items}" '
+            'minimumSupport="0.01" minimumConfidence="0.1" '
+            f'numberOfItemsets="{2 * n_rules}" numberOfRules="{n_rules}">'
+            + _schema(items) + f"<Output>{outputs}</Output>" + "".join(
+                f'<Item id="{j + 1}" value="{v}"/>'
+                for j, v in enumerate(items))
+            + "".join(sets) + "".join(rules) + "</AssociationModel></PMML>")
+
+
+def text_xml(n_terms: int = 1000, n_docs: int = 2000, seed: int = 89) -> str:
+    """A TextModel: ``n_terms`` terms (one count field each), ``n_docs``
+    documents whose term counts are Poisson(2) at 5% density,
+    termFrequency × inverseDocumentFrequency weights, cosine
+    similarity."""
+    rng = np.random.default_rng(seed)
+    terms = [f"t{j}" for j in range(n_terms)]
+    dtm = rng.poisson(2.0, size=(n_docs, n_terms)) * (
+        rng.random((n_docs, n_terms)) < 0.05)
+    return (_XML_HEAD + _fields_dd(terms)
+            + '<TextModel functionName="classification" '
+            f'numberOfTerms="{n_terms}" numberOfDocuments="{n_docs}">'
+            + _schema(terms) + f'<TextDictionary><Array n="{n_terms}" '
+            f'type="string">{" ".join(terms)}</Array></TextDictionary>'
+            "<TextCorpus>" + "".join(f'<TextDocument id="d{i}"/>'
+                                     for i in range(n_docs))
+            + "</TextCorpus><DocumentTermMatrix><Matrix>" + "".join(
+                f'<Array n="{n_terms}" type="real">'
+                + " ".join(map(str, row)) + "</Array>" for row in dtm.tolist())
+            + "</Matrix></DocumentTermMatrix>"
+            '<TextModelNormalization localTermWeights="termFrequency" '
+            'globalTermWeights="inverseDocumentFrequency" '
+            'documentNormalization="none"/>'
+            '<TextModelSimilarity similarityType="cosine"/></TextModel></PMML>')
+
+
+def _ts_doc(body: str, version: str = "4.4") -> str:
+    return (f'<PMML xmlns="http://www.dmg.org/PMML-{version.replace(".", "_")}"'
+            f' version="{version}"><Header/><DataDictionary>'
+            '<DataField name="h" optype="continuous" dataType="integer"/>'
+            '<DataField name="y" optype="continuous" dataType="double"/>'
+            "</DataDictionary>" + body + "</PMML>")
+
+
+def arima_xml(n_history: int = 200, seed: int = 97) -> str:
+    """A TimeSeriesModel holding ARIMA(2,1,1) (conditional least squares,
+    a constant) over an ``n_history``-point history with its residuals."""
+    rng = np.random.default_rng(seed)
+    hist = 100.0 + np.cumsum(rng.normal(0.2, 1.0, n_history))
+    tv = "".join(f'<TimeValue index="{i + 1}" value="{v:.7g}"/>'
+                 for i, v in enumerate(hist))
+    return _ts_doc(
+        '<TimeSeriesModel functionName="timeSeries" bestFit="ARIMA">'
+        '<MiningSchema><MiningField name="y" usageType="target"/>'
+        '<MiningField name="h"/></MiningSchema>'
+        f'<TimeSeries usage="original">{tv}</TimeSeries>'
+        '<ARIMA constantTerm="0.05" transformation="none" '
+        'predictionMethod="conditionalLeastSquares">'
+        '<NonseasonalComponent p="2" d="1" q="1">'
+        '<AR><Array type="real" n="2">0.45 -0.2</Array></AR>'
+        '<MA><MACoefficients><Array type="real" n="1">0.3</Array>'
+        '</MACoefficients><Residuals><Array type="real" n="4">'
+        f"{_reals(rng.normal(0.0, 0.5, 4))}</Array></Residuals></MA>"
+        "</NonseasonalComponent></ARIMA></TimeSeriesModel>")
+
+
+def holt_winters_xml(period: int = 12, seed: int = 101) -> str:
+    """A TimeSeriesModel holding Holt-Winters exponential smoothing: a
+    damped additive trend (φ = 0.9) and multiplicative seasonality of
+    ``period``."""
+    rng = np.random.default_rng(seed)
+    return _ts_doc(
+        '<TimeSeriesModel functionName="timeSeries" '
+        'bestFit="ExponentialSmoothing"><MiningSchema>'
+        '<MiningField name="y" usageType="target"/><MiningField name="h"/>'
+        "</MiningSchema><ExponentialSmoothing>"
+        '<Level alpha="0.3" smoothedValue="120.5"/>'
+        '<Trend_ExpoSmooth trend="damped_additive" gamma="0.1" '
+        'smoothedValue="2.5" phi="0.9"/>'
+        f'<Seasonality_ExpoSmooth type="multiplicative" period="{period}" '
+        f'gamma="0.2"><Array n="{period}" type="real">'
+        f"{_reals(rng.uniform(0.8, 1.2, period))}</Array>"
+        "</Seasonality_ExpoSmooth></ExponentialSmoothing></TimeSeriesModel>",
+    )
+
+
+def more_family_rows(cm, rng, n: int, kind: str = "normal",
+                     missing: float = 0.0) -> np.ndarray:
+    """``n`` records for ``cm``'s field space, NaN where missing: N(0, 1.5)
+    cells (``kind="normal"``), 0/1 baskets at 5% density (``"basket"``)
+    or integer horizons 1–48 (``"horizon"``); a string-categorical column
+    holds its declared codes. ``missing`` cells are NaN."""
+    F = cm.field_space.arity
+    if kind == "basket":
+        data = (rng.random(size=(n, F), dtype=np.float32) < 0.05).astype(
+            np.float32)
+    elif kind == "horizon":
+        data = rng.integers(1, 49, size=(n, F)).astype(np.float32)
+    else:
+        data = rng.standard_normal(size=(n, F), dtype=np.float32) * 1.5
+    for j, f in enumerate(cm.field_space.fields):
+        codec = cm.field_space.codecs.get(f)
+        if codec:
+            data[:, j] = rng.integers(0, len(codec), size=n)
+    data[rng.random(size=data.shape, dtype=np.float32) < missing] = np.nan
+    return data
+
+
+def more_family_configs() -> list:
+    """The ``more_families`` phase's configurations at full width: (name,
+    parsed port document, compile batch, compile batches a dispatch,
+    records to score, rows kind, missing share). Only families with
+    missing-value routing (NaiveBayes drops the term, a basket or term
+    count reads 0) get missing cells; the others empty such a record.
+    Widths are the exporters'; the record count is the one cut (no family
+    here has a depth), and ``CUTS`` says so on each line."""
+    from flink_jpmml_tpu_torch.pmml import parse_pmml
+
+    K = 4 * DISPATCH
+    return [
+        ("naive_bayes", parse_pmml(naive_bayes_xml()), BATCH, 16, K,
+         "normal", MISSING),
+        # a [65,536, 2,000] kernel block is 0.5 GB
+        ("svm_rbf", parse_pmml(svm_xml()), BATCH, 4, DISPATCH, "normal", 0.0),
+        ("svr_poly", parse_pmml(svm_xml("poly", n_vectors=1000)), BATCH, 4,
+         DISPATCH, "normal", 0.0),
+        # one [4,096, 10,000, 16] f32 cube would be 2.6 GB: chunked inside
+        ("knn", parse_pmml(knn_xml()), 4096, 1, 65_536, "normal", 0.0),
+        ("knn_median", parse_pmml(knn_xml(k=4, scoring="median")), 4096, 1,
+         65_536, "normal", 0.0),
+        ("gp_ard", parse_pmml(gp_xml()), BATCH, 4, DISPATCH, "normal", 0.0),
+        ("gp_absexp", parse_pmml(gp_xml("absexp", n_rows=1000)), BATCH, 1,
+         DISPATCH, "normal", 0.0),
+        ("bayesnet", parse_pmml(bayesnet_xml()), BATCH, 16, K, "normal", 0.0),
+        ("baseline", parse_pmml(baseline_xml()), BATCH, 16, K, "normal", 0.0),
+        ("assoc", parse_pmml(assoc_xml()), BATCH, 4, DISPATCH, "basket",
+         MISSING),
+        # 82 MB of X and M a dispatch
+        ("textmodel", parse_pmml(text_xml()), BATCH, 1, 131_072, "normal",
+         MISSING),
+        ("arima", parse_pmml(arima_xml()), BATCH, 16, K, "horizon", 0.0),
+        ("holt_winters", parse_pmml(holt_winters_xml()), BATCH, 16, K,
+         "horizon", 0.0),
+    ]
+
+
+CUTS = ("widths as exported, no depth to cut; the stream cut to the "
+        "records scored")
+
+
+def exact_columns(cm) -> int:
+    """Where a head's ``probs`` stop being shares: KNN neighbour indices
+    after the labels, an association's fired-rule mask from column 0;
+    -1 where every column is a share."""
+    if cm._neighbor_meta is not None:
+        return len(cm.labels)
+    return 0 if cm._rule_meta is not None else -1
+
+
+def more_families(workdir: str) -> list:
+    """Each of the last nine families compiled on the card (the default
+    device, ``warmup()`` first) and scored through BlockPipeline's f32
+    backend at its published widths; the head is held to the CPU port
+    through ``predict`` (rtol 1e-4 / atol 1e-5, labels equal, KNN
+    neighbour ids and the fired-rule mask exactly equal) and 4,096
+    records through ``score_records`` (rank-k ``entityId`` and
+    ``ruleValue`` outputs equal). Records are made with numpy, seed 10.
+    Then the ModelVerification documents of the JAX tests replay on the
+    card: ``verify()`` returns ``[]``, and a copy with one expected value
+    altered reports the same mismatch as the CPU port."""
+    import torch
+
+    from flink_jpmml_tpu_torch.compile.compiler import compile_pmml
+
+    lines = []
+    t0 = time.perf_counter()
+    configs = more_family_configs()
+    write_s = time.perf_counter() - t0
+    for name, doc, batch, chunks, target, kind, missing in configs:
+        t0 = time.perf_counter()
+        cm = compile_pmml(doc, batch_size=batch).warmup()
+        cm_cpu = compile_pmml(doc, device="cpu")
+        setup_s = time.perf_counter() - t0
+        if cm.quantized_scorer() is not None:
+            raise RuntimeError(f"{name}: a rank wire for a dense family")
+        if (torch.backends.cuda.matmul.allow_tf32
+                or torch.get_float32_matmul_precision() != "highest"):
+            raise RuntimeError("TF32 is on for float32 matmuls")
+        rng = np.random.default_rng(10)
+        rows = max(target // 4, min(target, batch * chunks))
+        data = more_family_rows(cm, rng, rows, kind, missing)
+        run, head = drive_f32(cm, data, target, min(4096, batch),
+                              chunks=chunks)
+        t0 = time.perf_counter()
+        Xh = data[:head[0].shape[0]]
+        Mh = np.isnan(Xh)
+        ref = cm_cpu.predict(np.where(Mh, 0.0, Xh).astype(np.float32), Mh)
+        cpu_check = check_outputs(head, ref, name)
+        ex = exact_columns(cm)
+        if ex >= 0:
+            valid = ref.valid.numpy()
+            got = np.asarray(head[2])[valid, ex:]
+            if not np.array_equal(got, ref.probs.numpy()[valid, ex:]):
+                raise RuntimeError(f"{name}: neighbour ids / fired rules "
+                                   "differ from the CPU port")
+            cpu_check["exact_columns_checked"] = int(got.size)
+        n_rec = min(4096, batch)
+        recs = records_of(cm, data[:n_rec])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cm.score_records(recs)
+        sr_s = time.perf_counter() - t1
+        lines.append({
+            "config": name, **run, "parse_compile_s": setup_s,
+            "cuts": CUTS, "missing": missing, "rows": kind,
+            "cpu_check": cpu_check,
+            "score_records_check": check_decoded(cm, cm_cpu, data[:n_rec],
+                                                 name),
+            "score_records_per_s": len(recs) / sr_s,
+        })
+        lines[-1]["check_s"] = time.perf_counter() - t0
+    lines[0]["documents_written_s"] = write_s
+    lines.append(check_verification())
+    return lines
+
+
+# the ModelVerification documents of the JAX package's tests
+# (tests/test_verification.py REG, CLS, CAT and NUMLABEL), copied: the
+# card replays them without importing the JAX package's tests
+VERIFY_REG = """<PMML version="4.3" xmlns:data="http://example.com/data">
+  <DataDictionary>
+  <DataField name="x1" optype="continuous" dataType="double"/>
+  <DataField name="x2" optype="continuous" dataType="double"/>
+  <DataField name="y" optype="continuous" dataType="double"/>
+  </DataDictionary>
+  <RegressionModel functionName="regression">
+  <MiningSchema><MiningField name="y" usageType="target"/>
+    <MiningField name="x1"/><MiningField name="x2"/></MiningSchema>
+  <RegressionTable intercept="0.5">
+    <NumericPredictor name="x1" coefficient="2.0"/>
+    <NumericPredictor name="x2" coefficient="-3.0"/>
+  </RegressionTable>
+  <ModelVerification recordCount="2" fieldCount="3">
+    <VerificationFields>
+      <VerificationField field="x1" column="data:x1"/>
+      <VerificationField field="x2" column="data:x2"/>
+      <VerificationField field="y" column="data:y" precision="1E-5"/>
+    </VerificationFields>
+    <InlineTable>
+      <row><data:x1>1.0</data:x1><data:x2>2.0</data:x2>
+        <data:y>{y1}</data:y></row>
+      <row><data:x1>-0.5</data:x1><data:x2>0.25</data:x2>
+        <data:y>{y2}</data:y></row>
+    </InlineTable>
+  </ModelVerification>
+  </RegressionModel></PMML>"""
+
+VERIFY_CLS = """<PMML version="4.3"><DataDictionary>
+  <DataField name="x" optype="continuous" dataType="double"/>
+  <DataField name="cls" optype="categorical" dataType="string">
+    <Value value="pos"/><Value value="neg"/></DataField>
+  </DataDictionary>
+  <RegressionModel functionName="classification"
+      normalizationMethod="softmax">
+  <MiningSchema><MiningField name="cls" usageType="target"/>
+    <MiningField name="x"/></MiningSchema>
+  <RegressionTable intercept="0.0" targetCategory="pos">
+    <NumericPredictor name="x" coefficient="1.0"/>
+  </RegressionTable>
+  <RegressionTable intercept="0.0" targetCategory="neg"/>
+  <ModelVerification recordCount="1" fieldCount="3">
+    <VerificationFields>
+      <VerificationField field="x" column="x"/>
+      <VerificationField field="cls" column="cls"/>
+      <VerificationField field="probability(pos)" column="p_pos"
+          precision="1E-4"/>
+    </VerificationFields>
+    <InlineTable>
+      <row><x>2.0</x><cls>{label}</cls><p_pos>{p}</p_pos></row>
+    </InlineTable>
+  </ModelVerification>
+  </RegressionModel></PMML>"""
+
+VERIFY_CAT = """<PMML version="4.3"><DataDictionary>
+  <DataField name="grade" optype="categorical" dataType="string">
+    <Value value="2"/><Value value="4"/></DataField>
+  <DataField name="y" optype="continuous" dataType="double"/>
+  </DataDictionary>
+  <RegressionModel functionName="regression">
+  <MiningSchema><MiningField name="y" usageType="target"/>
+    <MiningField name="grade"/></MiningSchema>
+  <RegressionTable intercept="1.0">
+    <CategoricalPredictor name="grade" value="4" coefficient="10.0"/>
+  </RegressionTable>
+  <ModelVerification recordCount="2" fieldCount="2">
+    <VerificationFields>
+      <VerificationField field="grade" column="grade"/>
+      <VerificationField field="y" column="y"/>
+    </VerificationFields>
+    <InlineTable>
+      <row><grade>4</grade><y>{y}</y></row>
+      <row><grade>2</grade><y>1.0</y></row>
+    </InlineTable>
+  </ModelVerification>
+  </RegressionModel></PMML>"""
+
+VERIFY_NUMLABEL = """<PMML version="4.3"><DataDictionary>
+  <DataField name="x" optype="continuous" dataType="double"/>
+  <DataField name="cls" optype="categorical" dataType="string">
+    <Value value="0"/><Value value="1"/></DataField>
+  </DataDictionary>
+  <RegressionModel functionName="classification"
+      normalizationMethod="softmax">
+  <MiningSchema><MiningField name="cls" usageType="target"/>
+    <MiningField name="x"/></MiningSchema>
+  <RegressionTable intercept="0.0" targetCategory="1">
+    <NumericPredictor name="x" coefficient="1.0"/>
+  </RegressionTable>
+  <RegressionTable intercept="0.0" targetCategory="0"/>
+  <ModelVerification recordCount="1" fieldCount="2">
+    <VerificationFields>
+      <VerificationField field="x" column="x"/>
+      <VerificationField field="cls" column="cls"/>
+    </VerificationFields>
+    <InlineTable><row><x>3.0</x><cls>{label}</cls></row></InlineTable>
+  </ModelVerification>
+  </RegressionModel></PMML>"""
+
+_P_POS = "0.880797"  # 1 / (1 + e^-2), six places
+
+
+def verify_docs() -> dict:
+    """name → (the document as embedded, a copy with one expected value
+    altered)."""
+    return {
+        "regression": (VERIFY_REG.format(y1="-3.5", y2="-1.25"),
+                       VERIFY_REG.format(y1="-3.5", y2="7.0")),
+        "classification": (VERIFY_CLS.format(label="pos", p=_P_POS),
+                            VERIFY_CLS.format(label="neg", p=_P_POS)),
+        "numeric_looking_category": (VERIFY_CAT.format(y="11.0"),
+                                     VERIFY_CAT.format(y="12.0")),
+        "numeric_class_label": (VERIFY_NUMLABEL.format(label="1"),
+                                VERIFY_NUMLABEL.format(label="0")),
+    }
+
+
+def check_verification() -> dict:
+    """``verify()`` on the card over each document: ``[]`` as embedded;
+    on the altered copy, one mismatch, the CPU port's message exactly."""
+    from flink_jpmml_tpu_torch.compile.compiler import compile_pmml
+    from flink_jpmml_tpu_torch.pmml import parse_pmml
+
+    out = {}
+    for name, (good, bad) in verify_docs().items():
+        cm = compile_pmml(parse_pmml(good))
+        if cm.device.type != "cuda" or not cm.has_verification:
+            raise RuntimeError(f"verify {name}: not on the card")
+        if cm.verify() != []:
+            raise RuntimeError(f"verify {name}: {cm.verify()}")
+        got = compile_pmml(parse_pmml(bad)).verify()
+        want = compile_pmml(parse_pmml(bad), device="cpu").verify()
+        if len(got) != 1 or got != want:
+            raise RuntimeError(f"verify {name} (altered): {got} vs {want}")
+        out[name] = got[0]
+    return {"config": "verify", "documents": len(out), "mismatches": out}
+
+
 def main() -> int:
     import importlib.util
 
@@ -2108,6 +2770,14 @@ def run_phases(workdir: str) -> int:
           "seconds": time.perf_counter() - t0,
           "tf32": torch.backends.cuda.matmul.allow_tf32,
           "configs": shapes})
+
+    # -- the last nine families, the oracle's replay (no kernel either) -----
+    t0 = time.perf_counter()
+    more = more_families(workdir)
+    emit({"phase": "more_families", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t0,
+          "tf32": torch.backends.cuda.matmul.allow_tf32,
+          "configs": more})
 
     def kernel_entry(name, replaces, runs, checked, t):
         return {

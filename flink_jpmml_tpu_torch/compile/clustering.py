@@ -70,12 +70,16 @@ def make_distance(
     gauss_s: np.ndarray,
     weights: np.ndarray,
     mv_q=None,
+    ordered: bool = False,
 ):
     """→ f(xs [B,D], centers [K,D][, miss [B,D]]) -> distances [B,K]
     under the spec aggregation (the field weight multiplies the powered
     comparison). With ``mv_q`` (MissingValueWeights) and a ``miss`` mask,
     missing fields' terms drop out and sum-based metrics rescale by
-    Σq / Σ_nonmissing q (chebychev is a max, not a sum — no rescale)."""
+    Σq / Σ_nonmissing q (chebychev is a max, not a sum — no rescale).
+    ``ordered`` sums the fields' terms left to right, one elementwise add
+    each, so every device rounds alike (a reduction kernel's order is its
+    own): the nearest-neighbour ranking then agrees across devices."""
     metric = measure.metric
     mink_p = float(measure.minkowski_p)
     if metric == "minkowski" and mink_p <= 0:
@@ -121,16 +125,24 @@ def make_distance(
         def scaled(s):
             return s if adjust is None else s * adjust
 
+        def total(t):
+            if not ordered:
+                return t.sum(dim=-1)
+            acc = t[..., 0]
+            for j in range(1, t.shape[-1]):
+                acc = acc + t[..., j]
+            return acc
+
         if metric == "squaredEuclidean":
-            return scaled((w * c * c).sum(dim=-1))
+            return scaled(total(w * c * c))
         if metric == "euclidean":
-            return torch.sqrt(scaled((w * c * c).sum(dim=-1)))
+            return torch.sqrt(scaled(total(w * c * c)))
         if metric == "cityBlock":
-            return scaled((w * c).sum(dim=-1))
+            return scaled(total(w * c))
         if metric == "chebychev":
             return (w * c).max(dim=-1).values
         return torch.pow(  # minkowski
-            scaled((w * torch.pow(torch.abs(c), mink_p)).sum(dim=-1)),
+            scaled(total(w * torch.pow(torch.abs(c), mink_p))),
             1.0 / mink_p,
         )
 

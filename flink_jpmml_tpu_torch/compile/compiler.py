@@ -1,27 +1,31 @@
 """Top-level PMML → PyTorch compiler: dispatch, device placement, decode.
 
-The port of ``flink_jpmml_tpu/compile/compiler.py`` for the families
-ported so far: TreeModel (every tree shape: dense, node-hop, general scan,
-weighted-path walk), MiningModel (aggregates, votes, modelChain,
-selectFirst, selectAll), RegressionModel, NeuralNetwork, ClusteringModel,
-Scorecard, RuleSetModel, GeneralRegression and AnomalyDetectionModel.
-``compile_pmml`` lowers the document to a plain function on tensors and
-places its parameter tables on the device; ``CompiledModel.predict(X, M)``
-scores one micro-batch, ``score_records`` / ``score_dense`` wrap it with
-the decode, and ``CompiledModel.quantized_scorer()`` builds the rank-wire
-fast path (``qtrees.py``) for tree ensembles. TransformationDictionary
-derived fields become extra device columns after the missing-value
-replacement of the raw columns; a top-level ``<Output>`` is validated at
-compile time and computed at decode (``pmml/outputs.py``), with the
-clustering entity ranking, the scorecard's reason codes and the selectAll
+The port of ``flink_jpmml_tpu/compile/compiler.py`` for every model
+family of the JAX package: TreeModel (every tree shape: dense, node-hop,
+general scan, weighted-path walk), MiningModel (aggregates, votes,
+modelChain, selectFirst, selectAll), RegressionModel, NeuralNetwork,
+ClusteringModel, Scorecard, RuleSetModel, GeneralRegression,
+NaiveBayes, SupportVectorMachine, NearestNeighbor, AnomalyDetection,
+GaussianProcess, Baseline, Association, TimeSeries, BayesianNetwork and
+TextModel. ``compile_pmml`` lowers the document to a plain function on
+tensors and places its parameter tables on the device;
+``CompiledModel.predict(X, M)`` scores one micro-batch, ``score_records``
+/ ``score_dense`` wrap it with the decode, ``verify()`` replays the
+document's ModelVerification records (``compile/verify.py``),
+``warmup()`` runs one batch ahead of the hot path, and
+``CompiledModel.quantized_scorer()`` builds the rank-wire fast path
+(``qtrees.py``) for tree ensembles. TransformationDictionary derived
+fields become extra device columns after the missing-value replacement
+of the raw columns; a top-level ``<Output>`` is validated at compile time
+and computed at decode (``pmml/outputs.py``), with the clustering and
+KNN entity rankings (rank-k ``entityId``), the scorecard's reason codes,
+the association rules' ``ruleValue`` ranking and the selectAll
 per-segment map.
 
-Every other family raises :class:`NotPortedError` and names itself. Not
-ported with those families: association rule outputs, KNN neighbour ids,
-ModelVerification replay, ``warmup`` and the JAX package's ``mesh=``
-sharding. Unlike the JAX package, a failure while building the rank-wire
-scorer is never caught and turned into a silent fall-back to the f32
-path: it propagates.
+An IR class without a lowering raises :class:`NotPortedError` and names
+itself. Not ported: the JAX package's ``mesh=`` sharding. Unlike the JAX
+package, a failure while building the rank-wire scorer is never caught
+and turned into a silent fall-back to the f32 path: it propagates.
 """
 
 from __future__ import annotations
@@ -34,6 +38,10 @@ import numpy as np
 import torch
 
 from flink_jpmml_tpu_torch.compile import prepare
+from flink_jpmml_tpu_torch.compile.assoc import lower_association, rule_order
+from flink_jpmml_tpu_torch.compile.baseline import lower_baseline
+from flink_jpmml_tpu_torch.compile.bayes import lower_naive_bayes
+from flink_jpmml_tpu_torch.compile.bayesnet import lower_bayesian_network
 from flink_jpmml_tpu_torch.compile.clustering import lower_clustering
 from flink_jpmml_tpu_torch.compile.common import (
     Lowered,
@@ -47,6 +55,8 @@ from flink_jpmml_tpu_torch.compile.common import (
 )
 from flink_jpmml_tpu_torch.compile.exprs import lower_expression
 from flink_jpmml_tpu_torch.compile.glm import lower_general_regression
+from flink_jpmml_tpu_torch.compile.gp import lower_gp
+from flink_jpmml_tpu_torch.compile.knn import lower_knn
 from flink_jpmml_tpu_torch.compile.mining import lower_mining
 from flink_jpmml_tpu_torch.compile.neural import lower_neural_network
 from flink_jpmml_tpu_torch.compile.regression import lower_regression
@@ -55,9 +65,13 @@ from flink_jpmml_tpu_torch.compile.scorecard import (
     ReasonCodeMeta,
     lower_scorecard,
 )
+from flink_jpmml_tpu_torch.compile.svm import lower_svm
+from flink_jpmml_tpu_torch.compile.textmodel import lower_text_model
+from flink_jpmml_tpu_torch.compile.timeseries import lower_time_series
 from flink_jpmml_tpu_torch.compile.trees import lower_tree
 from flink_jpmml_tpu_torch.models.prediction import Prediction, decode_batch
 from flink_jpmml_tpu_torch.pmml import ir
+from flink_jpmml_tpu_torch.pmml.interp import rule_meta_dict
 from flink_jpmml_tpu_torch.pmml.outputs import (
     compute_outputs,
     validate_output_fields,
@@ -80,8 +94,8 @@ def _lower_anomaly(model: ir.AnomalyDetectionIR, ctx: LowerCtx) -> Lowered:
     return lower_anomaly(model, ctx)
 
 
-# the JAX package's dispatch order (compiler.py lower_model), less the
-# families not ported yet; MiningModel stays last
+# the JAX package's dispatch order (compiler.py lower_model); MiningModel
+# stays last
 _LOWERERS = (
     (ir.TreeModelIR, lower_tree),
     (ir.RegressionModelIR, lower_regression),
@@ -90,7 +104,16 @@ _LOWERERS = (
     (ir.ScorecardIR, lower_scorecard),
     (ir.RuleSetIR, lower_ruleset),
     (ir.GeneralRegressionIR, lower_general_regression),
+    (ir.NaiveBayesIR, lower_naive_bayes),
+    (ir.SvmModelIR, lower_svm),
+    (ir.NearestNeighborIR, lower_knn),
     (ir.AnomalyDetectionIR, _lower_anomaly),
+    (ir.GaussianProcessIR, lower_gp),
+    (ir.BaselineIR, lower_baseline),
+    (ir.AssociationIR, lower_association),
+    (ir.TimeSeriesIR, lower_time_series),
+    (ir.BayesianNetworkIR, lower_bayesian_network),
+    (ir.TextModelIR, lower_text_model),
     (ir.MiningModelIR, lower_mining),
 )
 
@@ -101,9 +124,7 @@ def lower_model(model: ir.ModelIR, ctx: LowerCtx) -> Lowered:
         if isinstance(model, cls):
             return lower(model, ctx)
     raise NotPortedError(
-        f"model family {type(model).__name__} is not ported yet (still to "
-        "port: NaiveBayes, SVM, KNN, GaussianProcess, Baseline, Association, "
-        "TimeSeries, BayesianNetwork and TextModel)"
+        f"model family {type(model).__name__} has no lowering in the port"
     )
 
 
@@ -139,6 +160,15 @@ class CompiledModel:
     # scorecard reason codes: (ReasonCodeMeta, n_characteristics) when the
     # document declares useReasonCodes and the metadata is complete
     _reason: Optional[tuple] = None
+    # association: per-rule metadata (ruleFeature-keyed dicts, document
+    # order) + the static confidence/support ranking, feeding
+    # <Output feature="ruleValue"> fields at decode
+    _rule_meta: Optional[Tuple[dict, ...]] = None
+    _rule_order: Optional[Tuple[int, ...]] = None
+    # embedded <ModelVerification> vectors + the target name they may
+    # reference (verify() replays them)
+    _verification: Optional[ir.ModelVerification] = None
+    _target_field: Optional[str] = None
     # selectAll: segment ids, decoding probs = [values ∥ active] into
     # the per-segment outputs mapping
     _segment_ids: Optional[Tuple[str, ...]] = None
@@ -148,6 +178,9 @@ class CompiledModel:
     # entityId
     _entity_scores: bool = False
     _entity_order: Optional[str] = None
+    # KNN instanceIdVariable: (instance ids, k, n_label_columns) — the
+    # last k probs columns are ranked neighbour indices
+    _neighbor_meta: Optional[tuple] = None
 
     @property
     def is_classification(self) -> bool:
@@ -184,6 +217,31 @@ class CompiledModel:
             self._config = None
         return self._quantized
 
+    @property
+    def has_verification(self) -> bool:
+        return self._verification is not None
+
+    def verify(self) -> List[str]:
+        """Replay the document's embedded ModelVerification records on
+        this model's device → mismatch descriptions; empty = verified (or
+        nothing embedded)."""
+        from flink_jpmml_tpu_torch.compile.verify import run_verification
+
+        return run_verification(self, self._target_field)
+
+    def warmup(self) -> "CompiledModel":
+        """Score one zero batch ahead of the hot path: the parameter
+        tables are on the device already, so this runs the lowered
+        function once (the card's lazy initialisation, the kernels'
+        first launch) and waits for the card."""
+        b = self.batch_size or 1
+        X = np.zeros((b, self.field_space.arity), np.float32)
+        M = np.zeros((b, self.field_space.arity), bool)
+        self.predict(X, M)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
     # -- convenience wrappers (host-side decode; not for the hot loop) -----
 
     def score_dense(
@@ -210,12 +268,25 @@ class CompiledModel:
         if self.is_classification and out.label_idx is not None:
             idx = out.label_idx.cpu().numpy()[:n]
             labels = [self.labels[i] for i in idx]
-            if out.probs is not None:
+            # association: probs is the fired-rule mask, not class
+            # probabilities — consumed below for ruleValue ranking.
+            # KNN-with-ids: only the first L columns are vote shares
+            # (the rest are ranked neighbour indices; zip stops at L)
+            if out.probs is not None and self._rule_meta is None:
                 P = out.probs.cpu().numpy()[:n]
                 probabilities = [
                     dict(zip(self.labels, row.tolist())) for row in P
                 ]
         preds = decode_batch(value.tolist(), valid.tolist(), labels, probabilities)
+        if self._rule_meta is not None and not self.output_fields:
+            # oracle parity: with no <Output> declared, the association
+            # winner's metadata is still surfaced
+            idx = out.label_idx.cpu().numpy()[:n]
+            preds = [
+                p if p.is_empty
+                else dataclasses.replace(p, outputs=self._rule_meta[idx[i]])
+                for i, p in enumerate(preds)
+            ]
         if self._segment_ids is not None and not self.output_fields:
             # selectAll: probs = [values ∥ active mask]; surface every
             # active segment's value (None where inactive), oracle parity
@@ -244,6 +315,18 @@ class CompiledModel:
                 for i in range(P.shape[0])
             ]
         rankings = self._entity_rankings(out, n)
+        rank_rows = None
+        if self._rule_meta is not None and out.probs is not None and any(
+            of.feature == "ruleValue" for of in self.output_fields
+        ):
+            # fired mask (document order) → ranked fired-rule metadata
+            # via the static confidence/support order
+            fired = out.probs.cpu().numpy()[:n] > 0.5
+            rank_rows = [
+                tuple(self._rule_meta[j] for j in self._rule_order
+                      if fired[i, j])
+                for i in range(fired.shape[0])
+            ]
         return [
             p
             if p.is_empty
@@ -256,6 +339,9 @@ class CompiledModel:
                     p.target.probabilities if p.target else None,
                     reason_codes=(
                         rc_rows[i] if rc_rows is not None else None
+                    ),
+                    rule_ranking=(
+                        rank_rows[i] if rank_rows is not None else None
                     ),
                     entity_scores=(
                         (p.target.probabilities or None)
@@ -272,9 +358,16 @@ class CompiledModel:
 
     def _entity_rankings(self, out, n):
         """Per-record best-first entity ids for rank-k entityId decode:
-        clustering sorts its score row."""
+        clustering sorts its score row; KNN-with-ids reads the ranked
+        neighbour-index columns the lowered function appended."""
         if not any(of.feature == "entityId" for of in self.output_fields):
             return None
+        if self._neighbor_meta is not None and out.probs is not None:
+            ids, k, L = self._neighbor_meta
+            idx = out.probs.cpu().numpy()[:n, L:].astype(np.int64)
+            return [
+                tuple(ids[j] for j in idx[i]) for i in range(idx.shape[0])
+            ]
         if self._entity_order is not None and out.probs is not None:
             P = out.probs.cpu().numpy()[:n]
             sign = 1.0 if self._entity_order == "asc" else -1.0
@@ -413,6 +506,10 @@ def compile_pmml(
             if wants_rc:
                 raise  # requested but the metadata is incomplete
             reason = None
+    rule_meta = rule_rank = None
+    if isinstance(doc.model, ir.AssociationIR):
+        rule_meta = tuple(rule_meta_dict(r) for r in doc.model.rules)
+        rule_rank = tuple(rule_order(doc.model.rules))
     segment_ids = None
     if (
         isinstance(doc.model, ir.MiningModelIR)
@@ -428,6 +525,16 @@ def compile_pmml(
         entity_order = (
             "desc" if doc.model.measure.kind == "similarity" else "asc"
         )
+    neighbor_meta = None
+    if (
+        isinstance(doc.model, ir.NearestNeighborIR)
+        and doc.model.instance_ids
+    ):
+        neighbor_meta = (
+            doc.model.instance_ids,
+            doc.model.n_neighbors,
+            len(lowered.labels),
+        )
     return CompiledModel(
         field_space=prepare.FieldSpace(fields=fields, codecs=ctx.codecs),
         labels=lowered.labels,
@@ -440,7 +547,12 @@ def compile_pmml(
         _config=config,
         output_fields=doc.output_fields,
         _reason=reason,
+        _rule_meta=rule_meta,
+        _rule_order=rule_rank,
+        _verification=doc.verification,
+        _target_field=doc.target_field,
         _segment_ids=segment_ids,
         _entity_scores=entity_scores,
         _entity_order=entity_order,
+        _neighbor_meta=neighbor_meta,
     )

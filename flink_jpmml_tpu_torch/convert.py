@@ -8,9 +8,16 @@ baseline) of a GeneralRegressionModel, the packed tree tables (path
 matrices; the node-hop tables, whose ``col`` / ``left`` / ``right`` are
 int32; the general scan's ``[T, N, C, K(, KS)]`` and root tables), the
 weighted walk's ``payload`` / ``leaf_label``, the scorecard's and the
-ruleset's predicate tables, and the ``s{i}`` segments of a MiningModel
-(selectFirst, selectAll and AnomalyDetection's inner model included),
-nested as deep as the document — and returns the same tree of tensors on
+ruleset's predicate tables, the tables of the last nine families
+(NaiveBayes ``prior`` / ``cat{i}_*`` / ``g{i}_*``; SVM ``S`` / ``A`` /
+``b``; KNN ``S`` with ``lab`` (f32 label indices) or ``y``; the
+BayesianNetwork's CPT match tables; GaussianProcess ``alpha`` (the host
+float64 solve, cast to f32) with ``Zs`` / ``Zs_sq`` or ``Ztr``; Baseline
+``mean`` / ``inv_sd``; Association ``A`` / ``Cq`` / ``conf`` and the int32
+``order``; TextModel ``W`` / ``Wsq`` / ``Wnorm`` / ``idf``; TimeSeries
+``path`` or the smoothing state), and the ``s{i}`` segments of a
+MiningModel (selectFirst, selectAll and AnomalyDetection's inner model
+included), nested as deep as the document — and returns the same tree of tensors on
 the requested device: the port's ``CompiledModel.params["model"]`` for the
 same document. Keys, shapes and dtypes carry over unchanged (a bf16 leaf,
 which the JAX package keeps only on a TPU, widens to f32 exactly); the

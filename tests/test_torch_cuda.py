@@ -7,7 +7,10 @@ through the prefetch sidecar, and the staging that ships only a
 dispatch's live rows; and the dense families (regression, MLP, k-means,
 the stacked chain, a probit GLM) and every tree shape (node hop, halts,
 the general scan, the weighted walk, scorecard, ruleset, iforest,
-selectFirst / selectAll) on the card against the CPU port, with TF32 off.
+selectFirst / selectAll) and the last nine families (NaiveBayes, SVM,
+KNN with its exact ties, BayesianNetwork, GaussianProcess, Baseline,
+Association, TextModel, TimeSeries) on the card against the CPU port,
+with TF32 off.
 They skip where there is no card. This file
 imports neither jax nor the JAX package, so it runs on a machine that has
 only torch:
@@ -510,3 +513,125 @@ def test_tree_shape_on_the_card_matches_the_cpu_port(card, tmp_path, shape):
     _assert_outputs_close(cm.predict(Xz, M), cpu.predict(Xz, M))
     torch.cuda.synchronize()  # a device assert surfaces here, not later
     check_decoded(cm, cpu, X[:64], shape)
+
+
+# -- the last nine families on the card (f32 backend, no kernel) ------------
+
+
+def _more_doc(family):
+    import chip_smoke as cs
+    from flink_jpmml_tpu_torch.pmml import parse_pmml
+
+    xml = {
+        "naive_bayes": lambda: cs.naive_bayes_xml(n_continuous=12,
+                                                  n_categorical=4),
+        "svm": lambda: cs.svm_xml(n_vectors=400, n_fields=16),
+        "knn": lambda: cs.knn_xml(n_instances=2000, n_fields=8),
+        "bayesnet": cs.bayesnet_xml,
+        "gp": lambda: cs.gp_xml("absexp", n_rows=300, n_fields=6),
+        "baseline": cs.baseline_xml,
+        "assoc": lambda: cs.assoc_xml(n_items=60, n_rules=200),
+        "textmodel": lambda: cs.text_xml(n_terms=200, n_docs=300),
+        "timeseries": cs.holt_winters_xml,
+    }[family]()
+    return parse_pmml(xml)
+
+
+@pytest.mark.parametrize("family", [
+    "naive_bayes", "svm", "knn", "bayesnet", "gp", "baseline", "assoc",
+    "textmodel", "timeseries"])
+def test_more_family_on_the_card_matches_the_cpu_port(card, family):
+    """Card vs CPU port at the repo's bar, with TF32 off (the SVM, GP,
+    BayesianNetwork, association and text products are float32 matmuls),
+    the KNN neighbour ids and the fired-rule mask exactly, and the decoded
+    outputs (rank-k entityId, ruleValue) through ``score_records``."""
+    from chip_smoke import check_decoded, exact_columns, more_family_rows
+
+    doc = _more_doc(family)
+    cm = compile_pmml(doc, batch_size=1024).warmup()  # default: the card
+    assert cm.device.type == "cuda" and cm.quantized_scorer() is None
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cpu = compile_pmml(doc, batch_size=1024, device="cpu")
+    kind = {"assoc": "basket", "timeseries": "horizon"}.get(family, "normal")
+    missing = 0.2 if family in ("naive_bayes", "assoc", "textmodel") else 0.0
+    X = more_family_rows(cm, np.random.default_rng(12), 1024, kind, missing)
+    M = np.isnan(X)
+    Xz = np.where(M, 0.0, X).astype(np.float32)
+    got, ref = cm.predict(Xz, M), cpu.predict(Xz, M)
+    torch.cuda.synchronize()  # a device assert surfaces here, not later
+    _assert_outputs_close(got, ref)
+    ex = exact_columns(cm)
+    if ex >= 0:
+        valid = ref.valid.numpy()
+        np.testing.assert_array_equal(got.probs.cpu().numpy()[valid, ex:],
+                                      ref.probs.numpy()[valid, ex:])
+    check_decoded(cm, cpu, X[:256], family)
+
+
+def test_knn_exact_ties_on_the_card_take_the_lower_row(card):
+    """Half the training rows are copies of earlier rows, each under a
+    label of its own, and the queries sit on training rows: distances tie
+    exactly. ``lax.top_k``'s rule (the JAX package's) keeps the lower row
+    among equals; ``torch.topk`` promises no order on CUDA, so the port's
+    stable sort must give the same ranking as the rule from float64
+    distances, where only copies tie."""
+    import chip_smoke as cs
+    from flink_jpmml_tpu_torch.pmml import parse_pmml
+
+    xml = cs.knn_xml(n_instances=3000, n_fields=4, k=5, duplicated=0.5)
+    doc = parse_pmml(xml)
+    cm = compile_pmml(doc, batch_size=512)
+    cpu = compile_pmml(doc, batch_size=512, device="cpu")
+    S = np.asarray(doc.model.instances, np.float32)
+    rng = np.random.default_rng(13)
+    X = np.concatenate([S[rng.integers(0, len(S), 256)],
+                        rng.normal(0.0, 1.5, size=(256, 4))]).astype(
+        np.float32)
+    M = np.zeros_like(X, bool)
+    got, ref = cm.predict(X, M), cpu.predict(X, M)
+    ids = got.probs.cpu().numpy()[:, 3:].astype(np.int64)
+    np.testing.assert_array_equal(ids, ref.probs.numpy()[:, 3:])
+    np.testing.assert_array_equal(got.label_idx.cpu().numpy(),
+                                  ref.label_idx.numpy())
+    d = ((X.astype(np.float64)[:, None, :] - S[None].astype(np.float64))
+         ** 2).sum(-1)
+    want = np.argsort(d, axis=1, kind="stable")[:, :5]
+    np.testing.assert_array_equal(ids, want)
+    assert (d[np.arange(len(X)), want[:, 0]] == 0).sum() >= 256
+    assert (np.diff(d[np.arange(len(X))[:, None], want], axis=1)
+            == 0).any(axis=1).sum() > 100  # exact ties inside the top 5
+
+
+def test_svm_rbf_on_the_card_needs_tf32_off(card):
+    """An RBF regression SVM over 32 fields, queried near its support
+    vectors: the kernel's cross term ⟨x, s⟩ is a float32 matmul whose
+    operands TF32 would round to a 10-bit mantissa, moving ‖x − s‖² by
+    ~1e-2 and exp(−γ‖x − s‖²) (γ = 0.25) by ~0.3%, thirty times the bar.
+    With the port's precision the card matches a float64 reference; with
+    TF32 switched on the same call does not."""
+    import chip_smoke as cs
+    from flink_jpmml_tpu_torch.pmml import parse_pmml
+
+    xml = cs.svm_xml("poly", n_vectors=500, n_fields=32).replace(
+        '<PolynomialKernelType gamma="0.03125" coef0="1" degree="3"/>',
+        '<RadialBasisKernelType gamma="0.25"/>')
+    assert "RadialBasisKernelType" in xml
+    doc = parse_pmml(xml)
+    cm = compile_pmml(doc, batch_size=2048)
+    S = np.asarray([v for _, v in doc.model.vectors], np.float64)
+    rng = np.random.default_rng(14)
+    X = (S[rng.integers(0, len(S), 2048)]
+         + rng.normal(0.0, 0.1, size=(2048, 32))).astype(np.float32)
+    M = np.zeros_like(X, bool)
+    (m,) = doc.model.machines
+    alpha = np.asarray(m.coefficients, np.float64)
+    d2 = ((X.astype(np.float64)[:, None, :] - S[None]) ** 2).sum(-1)
+    want = np.exp(-0.25 * d2) @ alpha + m.intercept
+    got = cm.predict(X, M).value.cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = cm.predict(X, M).value.cpu().numpy()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert not np.allclose(tf32, want, rtol=RTOL, atol=ATOL)

@@ -53,6 +53,13 @@ TREE_SHAPES_SLICE = {
     "compile.ruleset", "compile.anomaly",
 }
 
+# the last nine families, the oracle and ModelVerification replay
+MORE_FAMILIES_SLICE = {
+    "compile.bayes", "compile.svm", "compile.knn", "compile.bayesnet",
+    "compile.gp", "compile.baseline", "compile.assoc", "compile.textmodel",
+    "compile.timeseries", "compile.verify", "pmml.interp",
+}
+
 
 def test_every_port_module_imports_without_jax():
     res = subprocess.run(
@@ -61,9 +68,10 @@ def test_every_port_module_imports_without_jax():
     )
     assert res.returncode == 0, res.stderr
     count, names = res.stdout.split(maxsplit=1)
-    assert int(count) >= 47  # every module ported so far
+    assert int(count) >= 58  # every module ported so far
     names = set(names.split())
-    for slice_ in (KAFKA_SLICE, DENSE_SLICE, TREE_SHAPES_SLICE):
+    for slice_ in (KAFKA_SLICE, DENSE_SLICE, TREE_SHAPES_SLICE,
+                   MORE_FAMILIES_SLICE):
         assert {f"flink_jpmml_tpu_torch.{m}" for m in slice_} <= names
     assert {f"flink_jpmml_tpu_torch.{m}" for m in DENSE_SLICE} <= names
 
@@ -115,6 +123,25 @@ def test_tree_shapes_default_to_the_card(no_card):
                 cs.ruleset_xml("firstHit", n_rules=4, n_fields=3),
                 cs.WEIGHTED_CONF, cs.SELECT_ALL,
                 cs.iforest_xml(n_trees=2, n_fields=3, sample=8)):
+        doc = parse_pmml(xml)
+        with pytest.raises(DeviceUnavailableError):
+            compile_pmml(doc)
+        assert compile_pmml(doc, device="cpu").device.type == "cpu"
+
+
+def test_more_families_default_to_the_card(no_card):
+    import chip_smoke as cs
+    from flink_jpmml_tpu_torch.pmml import parse_pmml
+
+    for xml in (cs.naive_bayes_xml(n_continuous=2, n_categorical=1,
+                                   n_values=2),
+                cs.svm_xml(n_vectors=8, n_fields=3),
+                cs.knn_xml(n_instances=20, n_fields=3),
+                cs.bayesnet_xml(n_nodes=3, n_coparents=1),
+                cs.gp_xml(n_rows=10, n_fields=2), cs.baseline_xml(),
+                cs.assoc_xml(n_items=6, n_rules=5),
+                cs.text_xml(n_terms=8, n_docs=5), cs.arima_xml(),
+                cs.holt_winters_xml()):
         doc = parse_pmml(xml)
         with pytest.raises(DeviceUnavailableError):
             compile_pmml(doc)

@@ -12,7 +12,6 @@ from flink_jpmml_tpu_torch.assets_gen import gen_gbm
 from flink_jpmml_tpu_torch.compile import compile_pmml
 from flink_jpmml_tpu_torch.pmml import parse_pmml as tparse_str
 from flink_jpmml_tpu_torch.pmml import parse_pmml_file
-from flink_jpmml_tpu_torch.utils.exceptions import NotPortedError
 
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -96,13 +95,12 @@ def test_vote_forest_dense_matches(tmp_path):
 
 
 def test_other_families_raise_not_ported(tmp_path):
-    # a family still to port (NaiveBayes), alone and as a segment of a
-    # selectFirst MiningModel; selectFirst itself over a ported family
-    # (a RegressionModel) now compiles and matches the JAX package
+    # (the name predates the last families' port: every family the JAX
+    # package lowers now compiles, so this holds them to it) NaiveBayes,
+    # alone and as a segment of a selectFirst MiningModel, and selectFirst
+    # over a RegressionModel match the JAX package
     from test_torch_rules import NAIVE_BAYES
 
-    with pytest.raises(NotPortedError, match="NaiveBayes"):
-        compile_pmml(tparse_str(NAIVE_BAYES), device="cpu")
     head, nb = NAIVE_BAYES.split("<NaiveBayesModel", 1)
     nb = nb.rsplit("</PMML>", 1)[0]
     nb_schema = nb[nb.index("<MiningSchema>"):nb.index("</MiningSchema>")]
@@ -112,8 +110,15 @@ def test_other_families_raise_not_ported(tmp_path):
         + "<Segment><True/><NaiveBayesModel" + nb + "</Segment>"
         + "</Segmentation></MiningModel></PMML>"
     )
-    with pytest.raises(NotPortedError, match="NaiveBayes"):
-        compile_pmml(tparse_str(nested), device="cpu")
+    codes = np.asarray([[0.0], [1.0], [np.nan], [0.0]], np.float32)
+    for doc in (NAIVE_BAYES, nested):
+        _, _, to, jo = _predict_both(doc, codes)
+        np.testing.assert_array_equal(to.valid.numpy(), np.asarray(jo.valid))
+        np.testing.assert_array_equal(to.label_idx.numpy(),
+                                      np.asarray(jo.label_idx))
+        np.testing.assert_allclose(to.probs.numpy(), np.asarray(jo.probs),
+                                   rtol=RTOL, atol=ATOL)
+        assert to.label_idx.tolist() == [0, 1, 0, 0]
     with open(gen_iris_lr(str(tmp_path))) as f:
         lr = f.read()
     head, model = lr.split("<RegressionModel", 1)
