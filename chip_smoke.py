@@ -169,6 +169,35 @@ JAX package, and prints one JSON line per phase:
     decoded. Last, ``verify()`` on the card over the JAX tests'
     ModelVerification documents returns ``[]``, and a copy of each with
     one expected value altered reports the CPU port's mismatch.
+20. record api — the record engine and dynamic serving on the card, with
+    the main path's GBM (compile batch 16,384) and 3-class vote forest,
+    over N(0, 1.5) vectors with 20% missing cells (seed 0): ``static``,
+    ``StreamEnvironment().from_collection(vectors).evaluate(
+    ModelReader(gbm))`` over 262,144 dense vectors; ``quick``, the same
+    through ``quick_evaluate`` ((prediction, vector) pairs in order);
+    ``dicts``, 65,536 dict records through ``evaluate``; ``dynamic``,
+    ``with_control_stream(ctrl).evaluate(ModelReader(gbm))`` over 262,144
+    events (45% gbm, 45% votes, 10% an unserved name): Add gbm v1 and
+    votes v1 before the run, Add gbm v2 (``gen_gbm(seed=12)``, the same
+    width) once the first quarter is submitted, Del gbm v1 once the first
+    half is submitted and v2 is warm, and after it a quarter of the gbm
+    events pinned to v1; ``kafka``, a port ``MiniKafkaBroker`` holding
+    65,536 JSON records of the GBM's 32 fields →
+    ``from_source(KafkaRecordSource(...))`` → ``evaluate``, through the
+    prefetch sidecar; and ``verify``, ``ModelReader(path).load()`` on the
+    card over the ModelVerification documents (an altered copy raises the
+    CPU port's ``ModelVerificationException``). Each run's first 4,096
+    outputs are held to the CPU port at rtol 1e-4 / atol 1e-5 (vote
+    labels equal); the dynamic run's empty lanes must be exactly the
+    unserved and the v1-pinned-after-Del events, each vote event and each
+    unpinned gbm event is held to the card's direct run of its model (v1
+    before the swap, v2 after, and v2 after the Del), each micro-batch
+    makes one dispatch a served model present, and the kernel's launches
+    equal the rank-wire dispatches (plus, in the dynamic run, v2's warm).
+    Each part prints records/s, ``record_latency_s`` (and
+    ``score_latency_s``) p50 / p99, the ``StageTimer`` stages, the stage
+    ledger, the launches; the dynamic part ``cold_start_s`` and the warm
+    pool's hits and misses; the Kafka part the sidecar's counters.
 
 Every main path runs the C++ ring, and its line carries the stage ledger
 of its registry (``attribution``: per stage the count, total ms, p50 /
@@ -2462,6 +2491,439 @@ def check_verification() -> dict:
     return {"config": "verify", "documents": len(out), "mismatches": out}
 
 
+# -- the record API and dynamic serving -------------------------------------
+
+RECORD_VECTORS = DISPATCH  # dense vectors through evaluate / quick_evaluate
+RECORD_DICTS = 65536  # dict records through evaluate
+RECORD_EVENTS = DISPATCH  # events through the dynamic scorer
+RECORD_KAFKA = 65536  # JSON records from the broker
+
+
+def dict_rows(X: np.ndarray, fields) -> list:
+    """Dict records of ``X`` over ``fields``, NaN cells left out."""
+    return [{f: v for f, v in zip(fields, row) if v == v}
+            for row in X.tolist()]
+
+
+def record_stats(metrics, seconds: float, n: int) -> dict:
+    """One record-engine run's line: rate, latencies, the StageTimer
+    stages and the stage ledger of its registry."""
+    from flink_jpmml_tpu_torch.obs import attr
+
+    snap = metrics.snapshot()
+    batches = int(snap.get("batches", 0))
+    return {
+        "records": n, "seconds": seconds, "records_per_s": n / seconds,
+        "batches": batches,
+        "records_per_batch": snap.get("batch_fill_records", 0) / max(batches, 1),
+        "record_latency_p50_s": snap.get("record_latency_s_p50"),
+        "record_latency_p99_s": snap.get("record_latency_s_p99"),
+        "stages_s": {s: snap.get(f"stage_{s}_s")
+                     for s in ("featurize_dispatch", "readback", "sink")},
+        "attribution": attr.summary(metrics),
+    }
+
+
+def check_values(got, ref: np.ndarray, label: str) -> float:
+    """Regression predictions against reference values at the rank-wire
+    bar → the largest difference."""
+    vals = np.array([np.nan if p.is_empty else p.score.value for p in got])
+    if (vals.shape != ref.shape or not np.isfinite(vals).all()
+            or not np.allclose(vals, ref, rtol=RTOL, atol=ATOL)):
+        raise RuntimeError(f"{label}: {vals.shape} values differ from the "
+                           f"reference (or are not finite)")
+    return float(np.abs(vals - ref).max())
+
+
+def check_vote_preds(got, ref, labels, label: str) -> float:
+    """Vote-forest predictions against (value, shares, label index) rows of
+    the same kernel path: values and shares at the bar, labels equal."""
+    rv, rp, rl = (np.asarray(a) for a in ref)
+    gv = np.array([p.score.value for p in got])
+    gp = np.array([[p.target.probabilities[c] for c in labels] for p in got])
+    gl = [p.target.label for p in got]
+    if not (np.allclose(gv, rv, rtol=RTOL, atol=ATOL)
+            and np.allclose(gp, rp, rtol=RTOL, atol=ATOL)):
+        raise RuntimeError(f"{label}: vote values or shares differ")
+    if gl != [labels[i] for i in rl]:
+        raise RuntimeError(f"{label}: vote labels differ")
+    return float(np.abs(gp - rp).max())
+
+
+def wire_rows(q, X: np.ndarray):
+    """The rank-wire scorer's output on ``X`` (encoded on the host), as
+    host arrays."""
+    out = q.predict_padded(*q.pad_wire(q.wire.encode(X)))
+    if isinstance(out, tuple):
+        return tuple(o.cpu().numpy()[: X.shape[0]] for o in out)
+    return out.cpu().numpy()[: X.shape[0]]
+
+
+class ScriptedEvents:
+    """A finite record source whose ``marks`` — ``(offset, action)`` in
+    offset order — run on the ingest thread before the records from that
+    offset on are handed out: control messages land exactly between two
+    stretches of the stream."""
+
+    event_time_fn = None
+
+    def __init__(self, events: list, marks: list):
+        self._events = events
+        self._marks = list(marks)
+        self._pos = 0
+
+    def poll(self, max_n: int):
+        if self._marks and self._pos == self._marks[0][0]:
+            self._marks.pop(0)[1]()
+        end = min(self._pos + max_n, len(self._events))
+        if self._marks:
+            end = min(end, self._marks[0][0])
+        out = [(i + 1, self._events[i]) for i in range(self._pos, end)]
+        self._pos = end
+        return out
+
+    def seek(self, offset: int) -> None:
+        self._pos = offset
+
+    @property
+    def exhausted(self) -> bool:
+        return self._pos >= len(self._events) and not self._marks
+
+    def close(self) -> None:
+        pass
+
+
+def wait_for(pred, what: str, timeout: float = 300.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def record_static(reader, records, ref: np.ndarray, counter, quick=False,
+                  sample: int = 4096) -> dict:
+    """``StreamEnvironment().from_collection(records).evaluate(reader)``
+    (or ``quick_evaluate``) on the card; the launches of its run against
+    its dispatches; its head against ``ref``."""
+    from flink_jpmml_tpu_torch.api import StreamEnvironment
+    from flink_jpmml_tpu_torch.utils.config import BatchConfig, RuntimeConfig
+
+    env = StreamEnvironment(RuntimeConfig(batch=BatchConfig(
+        size=BATCH, deadline_us=5000)))
+    if env.device.type != "cuda":
+        raise RuntimeError(f"StreamEnvironment() chose {env.device}")
+    stream = env.from_collection(records)
+    sink = (stream.quick_evaluate if quick else stream.evaluate)(
+        reader).collect()
+    counter.launches = 0
+    t0 = time.perf_counter()
+    env.execute(timeout=900.0)
+    dt = time.perf_counter() - t0
+    launches = counter.launches
+    items = sink.items
+    if len(items) != len(records):
+        raise RuntimeError(f"{len(items)} of {len(records)} records sunk")
+    preds = [p for p, _ in items] if quick else items
+    if quick and any(r is not rec for (_, r), rec in zip(items, records)):
+        raise RuntimeError("quick_evaluate pairs out of order")
+    run = record_stats(env.metrics, dt, len(records))
+    snap = env.metrics.snapshot()
+    if snap.get("scorer_backend_rank_wire_cuda") != 1:
+        raise RuntimeError("the static scorer is not on the kernel")
+    if launches != run["batches"]:
+        raise RuntimeError(f"{launches} launches for {run['batches']} "
+                           "rank-wire dispatches")
+    run.update(launches=launches, check_rows=sample,
+               max_abs_err=check_values(preds[:sample], ref[:sample],
+                                        "record_api head"))
+    return run
+
+
+def record_dynamic(gbm: str, gbm2: str, votes: str, X: np.ndarray, counter,
+                   refs: dict, sample: int = 4096) -> dict:
+    """``with_control_stream(ctrl).evaluate(ModelReader(gbm))`` on the card
+    over events for ``gbm``, ``votes`` and an unserved name: Add gbm v1 and
+    votes v1 before the run; Add gbm v2 at a quarter of the stream; once
+    v2 is warm, Del gbm v1 at half, with a quarter of the later gbm events
+    pinned to v1."""
+    from flink_jpmml_tpu_torch.api import ModelReader, StreamEnvironment
+    from flink_jpmml_tpu_torch.models.control import AddMessage, DelMessage
+    from flink_jpmml_tpu_torch.models.core import ModelId
+    from flink_jpmml_tpu_torch.runtime.sources import ControlSource
+    from flink_jpmml_tpu_torch.utils.config import BatchConfig, RuntimeConfig
+
+    n = X.shape[0]
+    k1, k2 = n // 4, n // 2
+    rng = np.random.default_rng(7)
+    kind = rng.choice(3, p=[0.45, 0.45, 0.10], size=n)  # gbm, votes, ghost
+    pinned = (np.arange(n) >= k2) & (kind == 0) & (rng.random(n) < 0.25)
+    names = ("gbm", "votes", "ghost")
+    events = [{"_model": "gbm", "_version": 1, "row": i} if pinned[i]
+              else (names[kind[i]], X[i]) for i in range(n)]
+    env = StreamEnvironment(RuntimeConfig(batch=BatchConfig(
+        size=BATCH, deadline_us=5000)))
+    ctrl = ControlSource()
+    fill = env.metrics.counter("batch_fill_records")
+    holder = {"wait_s": 0.0}
+
+    def add_v2():
+        t = time.perf_counter()
+        wait_for(lambda: fill.get() >= k1, "the first quarter's submit")
+        holder["wait_s"] += time.perf_counter() - t
+        ctrl.push(AddMessage("gbm", 2, gbm2, 2.0))
+
+    def del_v1():
+        reg = holder["scorer"].registry
+        t = time.perf_counter()
+        wait_for(lambda: fill.get() >= k2
+                 and reg.model_if_warm(ModelId("gbm", 2)) is not None,
+                 "gbm v2's warm")
+        holder["wait_s"] += time.perf_counter() - t
+        ctrl.push(DelMessage("gbm", 1, 3.0))
+
+    ev = env.from_source(ScriptedEvents(events, [(k1, add_v2), (k2, del_v1)])
+                         ).with_control_stream(ctrl).evaluate(ModelReader(gbm))
+    scorer = holder["scorer"] = ev.scorer
+    sink = ev.collect()
+    # Add v1 of both before the run; an empty batch drains them, and the
+    # run starts once both are warm
+    ctrl.push(AddMessage("gbm", 1, gbm, 1.0))
+    ctrl.push(AddMessage("votes", 1, votes, 1.5))
+    scorer.finish(scorer.submit([]))
+    for name in ("gbm", "votes"):
+        if scorer.registry.model(ModelId(name, 1)).device.type != "cuda":
+            raise RuntimeError(f"{name} v1 not on the card")
+    # each batch's groups: one dispatch a served model present
+    groups = []
+    submit = scorer.submit
+
+    def logged_submit(records):
+        ticket = submit(records)
+        present = {e[0] for e in records
+                   if isinstance(e, tuple) and e[0] != "ghost"}
+        groups.append((len(ticket[2]), "gbm" in present, "votes" in present))
+        return ticket
+
+    scorer.submit = logged_submit
+    cold = env.metrics.histogram("cold_start_s")
+    warms0 = cold.count()
+    counter.launches = 0
+    t0 = time.perf_counter()
+    env.execute(timeout=900.0)
+    dt = time.perf_counter() - t0
+    launches = counter.launches
+    warms = cold.count() - warms0
+    snap = env.metrics.snapshot()
+    dispatches = int(snap["dispatches"])
+    items = sink.items
+    if len(items) != n or any(e is not ev_ for (_, e), ev_ in zip(items, events)):
+        raise RuntimeError("dynamic stream lost or reordered events")
+    if any(g != h + v for g, h, v in groups) or sum(
+            g for g, _, _ in groups) != dispatches:
+        raise RuntimeError(f"groups {groups[:8]}... against {dispatches} "
+                           "dispatches")
+    if launches != dispatches + warms:
+        raise RuntimeError(f"{launches} launches for {dispatches} dispatches "
+                           f"and {warms} warms")
+    preds = [p for p, _ in items]
+    empty = np.array([p.is_empty for p in preds])
+    if not np.array_equal(empty, (kind == 2) | pinned):
+        raise RuntimeError("empty lanes are not exactly the unserved and the "
+                           "deleted version's")
+    # the head: every event before v2's Add, held to the CPU port
+    head = np.arange(sample)
+    g_idx, v_idx = head[kind[:sample] == 0], head[kind[:sample] == 1]
+    err = check_values([preds[i] for i in g_idx], refs["gbm_cpu"][g_idx],
+                       "dynamic head, gbm")
+    verr = check_vote_preds([preds[i] for i in v_idx],
+                            [a[v_idx] for a in refs["votes_cpu"]],
+                            refs["labels"], "dynamic head, votes")
+    # the rest against the card's direct runs: every vote event; each
+    # unpinned gbm event is v1's until the swap, v2's after, and v2's
+    # after the Del
+    cards = {k: ModelReader(p).load(batch_size=BATCH).quantized_scorer()
+             for k, p in (("v1", gbm), ("v2", gbm2), ("votes", votes))}
+    vi = np.flatnonzero(kind == 1)
+    check_vote_preds([preds[i] for i in vi], wire_rows(cards["votes"], X[vi]),
+                     refs["labels"], "dynamic votes")
+    gi = np.flatnonzero((kind == 0) & ~pinned)
+    vals = np.array([preds[i].score.value for i in gi])
+    is1 = np.isclose(vals, wire_rows(cards["v1"], X[gi]), rtol=RTOL, atol=ATOL)
+    is2 = np.isclose(vals, wire_rows(cards["v2"], X[gi]), rtol=RTOL, atol=ATOL)
+    if not (is1 | is2).all():
+        raise RuntimeError("a gbm event matches neither version")
+    only2 = is2 & ~is1
+    swap = int(np.argmax(only2)) if only2.any() else len(gi)
+    if not (is1[:swap].all() and is2[swap:].all()
+            and (swap == len(gi) or gi[swap] >= k1)
+            and swap <= np.searchsorted(gi, k2)):
+        raise RuntimeError(f"the latest-wins swap (gbm event {swap}) breaks "
+                           "the v1 → v2 order")
+    scorer.submit = submit
+    run = record_stats(env.metrics, dt, n)
+    run.update(
+        # the ingest thread's waits at the two marks (the second one for
+        # v2's warm) are in the wall; the rate without them beside it
+        mark_wait_s=holder["wait_s"],
+        records_per_s_without_mark_waits=n / (dt - holder["wait_s"]),
+        launches=launches, dispatches=dispatches, warm_launches=warms,
+        launches_gbm=sum(h for _, h, _ in groups) + warms,
+        launches_votes=sum(v for _, _, v in groups),
+        score_latency_p50_s=snap.get("score_latency_s_p50"),
+        score_latency_p99_s=snap.get("score_latency_s_p99"),
+        cold_start_s=cold.sum(), cold_starts=cold.count(),
+        warm_pool_hits=snap.get("warm_pool_hits"),
+        warm_pool_misses=snap.get("warm_pool_misses"),
+        empty_lanes=int(empty.sum()),
+        swap_event=int(gi[swap]) if swap < len(gi) else None,
+        add_v2_event=k1, del_v1_event=k2,
+        h2d_bytes_per_record=snap.get("h2d_bytes", 0) / max(n - int(empty.sum()), 1),
+        check_rows=sample, max_abs_err=max(err, verr))
+    return run
+
+
+def record_kafka(gbm: str, X: np.ndarray, fields, counter, ref: np.ndarray,
+                 sample: int = 4096) -> dict:
+    """A port ``MiniKafkaBroker`` holding one JSON record of the GBM's
+    fields a message → ``from_source(KafkaRecordSource(...))`` →
+    ``evaluate`` on the card, through the prefetch sidecar."""
+    from flink_jpmml_tpu_torch.api import ModelReader, StreamEnvironment
+    from flink_jpmml_tpu_torch.runtime.kafka import (
+        KafkaRecordSource,
+        MiniKafkaBroker,
+    )
+    from flink_jpmml_tpu_torch.utils.config import BatchConfig, RuntimeConfig
+
+    n = X.shape[0]
+    vals = [json.dumps(r).encode() for r in dict_rows(X, fields)]
+    broker = MiniKafkaBroker(topic="records")
+    src = None
+    try:
+        for i in range(0, n, 1024):
+            broker.append(*vals[i:i + 1024])
+        env = StreamEnvironment(RuntimeConfig(batch=BatchConfig(
+            size=BATCH, deadline_us=5000)))
+        src = KafkaRecordSource(broker.host, broker.port, "records",
+                                max_wait_ms=20, metrics=env.metrics)
+        sink = env.from_source(src).evaluate(ModelReader(gbm)).collect()
+        pipe = env._pipelines[0]
+        fill = env.metrics.counter("batch_fill_records")
+        counter.launches = 0
+        t0 = time.perf_counter()
+        env.start()
+        try:
+            # every record submitted; stop() then finishes the window
+            wait_for(lambda: fill.get() >= n or pipe._error is not None,
+                     "the Kafka records", timeout=600.0)
+        finally:
+            env.stop()
+        dt = time.perf_counter() - t0
+        launches = counter.launches
+    finally:
+        if src is not None:
+            src.close()
+        broker.close()
+    items = sink.items
+    if len(items) != n:
+        raise RuntimeError(f"{len(items)} of {n} Kafka records sunk")
+    run = record_stats(env.metrics, dt, n)
+    if launches != run["batches"]:
+        raise RuntimeError(f"{launches} launches for {run['batches']} "
+                           "rank-wire dispatches")
+    s = env.metrics.struct_snapshot()
+    cs, gs = s["counters"], s["gauges"]
+    snap = env.metrics.snapshot()
+    run.update(
+        launches=launches, source=type(pipe._source).__name__,
+        message_bytes=sum(map(len, vals)) / n,
+        kafka_fetch_p50_s=snap.get("kafka_fetch_s_p50"),
+        kafka_fetch_p99_s=snap.get("kafka_fetch_s_p99"),
+        prefetch={
+            "batches": int(cs.get("prefetch_batches", 0)),
+            "records": int(cs.get("prefetch_records", 0)),
+            "depth_max": gs.get("prefetch_depth", {}).get("max", 0.0),
+            "stall_ms": 1000 * cs.get("prefetch_stall_s", 0.0),
+            "block_ms": 1000 * cs.get("prefetch_block_s", 0.0),
+        },
+        check_rows=sample,
+        max_abs_err=check_values(items[:sample], ref[:sample],
+                                 "Kafka record head"))
+    if run["source"] != "PrefetchedRecordSource":
+        raise RuntimeError(f"the Kafka source ran as {run['source']}")
+    return run
+
+
+def record_verify(workdir: str) -> dict:
+    """``ModelReader(path).load()`` on the card over the ModelVerification
+    documents: each loads as embedded; each altered copy raises the CPU
+    port's ``ModelVerificationException``."""
+    from flink_jpmml_tpu_torch.api import ModelReader
+    from flink_jpmml_tpu_torch.utils.exceptions import (
+        ModelVerificationException,
+    )
+
+    out = {}
+    for name, (good, bad) in verify_docs().items():
+        paths = []
+        for tag, xml in (("good", good), ("bad", bad)):
+            paths.append(os.path.join(workdir, f"verify_{name}_{tag}.pmml"))
+            with open(paths[-1], "w") as f:
+                f.write(xml)
+        cm = ModelReader(paths[0]).load()
+        if cm.device.type != "cuda" or not cm.has_verification:
+            raise RuntimeError(f"verify {name}: not loaded on the card")
+        msgs = []
+        for device in (None, "cpu"):
+            try:
+                ModelReader(paths[1]).load(device=device)
+            except ModelVerificationException as e:
+                msgs.append(str(e))
+        if len(msgs) != 2 or msgs[0] != msgs[1]:
+            raise RuntimeError(f"verify {name} (altered): {msgs}")
+        out[name] = msgs[0].split(": ", 1)[1]
+    return {"documents": len(out), "refused": out}
+
+
+def record_api(workdir: str, counter, q_cpu, vq_cpu, sizes=None) -> dict:
+    """The phase: the GBM through ``evaluate``, ``quick_evaluate`` and dict
+    records; the dynamic join; the Kafka record stream; the verify gate.
+    ``sizes`` (vectors, dicts, events, kafka) cuts the record counts."""
+    from flink_jpmml_tpu_torch.api import ModelReader
+    from flink_jpmml_tpu_torch.assets_gen import gen_gbm
+
+    n_vec, n_dict, n_ev, n_kafka = sizes or (
+        RECORD_VECTORS, RECORD_DICTS, RECORD_EVENTS, RECORD_KAFKA)
+    t_phase = time.perf_counter()
+    gbm = os.path.join(workdir, "gbm_500.pmml")
+    votes = os.path.join(workdir, "votes_500.pmml")
+    gbm2 = gen_gbm(workdir, n_trees=500, seed=12, name="gbm_v2_500.pmml")
+    F = len(q_cpu.wire.fields)
+    X = features(np.random.default_rng(0), max(n_vec, n_ev, n_dict, n_kafka),
+                 F)
+    sample = min(4096, n_dict, n_kafka)
+    ref = wire_rows(q_cpu, X[:sample])
+    refs = {"gbm_cpu": ref, "votes_cpu": wire_rows(vq_cpu, X[:sample]),
+            "labels": vq_cpu.labels}
+    reader = ModelReader(gbm)
+    out = {
+        "static": record_static(reader, list(X[:n_vec]), ref, counter,
+                                sample=sample),
+        "quick": record_static(reader, list(X[:n_vec]), ref, counter,
+                               quick=True, sample=sample),
+        "dicts": record_static(
+            reader, dict_rows(X[:n_dict], q_cpu.wire.fields), ref, counter,
+            sample=sample),
+        "dynamic": record_dynamic(gbm, gbm2, votes, X[:n_ev], counter, refs,
+                                  sample=sample),
+        "kafka": record_kafka(gbm, X[:n_kafka], q_cpu.wire.fields, counter,
+                              ref, sample=sample),
+        "verify": record_verify(workdir),
+    }
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import importlib.util
 
@@ -2779,6 +3241,10 @@ def run_phases(workdir: str) -> int:
           "tf32": torch.backends.cuda.matmul.allow_tf32,
           "configs": more})
 
+    # -- the record API and dynamic serving (the kernel on both scorers) ----
+    rec = record_api(workdir, qtrees_cuda.leaf_rows, q_cpu, vq_cpu)
+    emit({"phase": "record_api", "nvidia_smi": smi, **rec})
+
     def kernel_entry(name, replaces, runs, checked, t):
         return {
             "name": name, "route": "cuda",
@@ -2798,11 +3264,19 @@ def run_phases(workdir: str) -> int:
                      "flink_jpmml_tpu/compile/qtrees_pallas.py:170 and :218",
                      {"main_path": run, "fused_main_path": frun,
                       "kafka_main_path": krun,
-                      "kafka_main_path_serial": ksrun},
+                      "kafka_main_path_serial": ksrun,
+                      "record_static": rec["static"],
+                      "record_quick": rec["quick"],
+                      "record_dicts": rec["dicts"],
+                      "record_dynamic": {
+                          "launches": rec["dynamic"]["launches_gbm"]},
+                      "record_kafka": rec["kafka"]},
                      rows + [r for r in wrows if r["classes"] == 1], timing),
         kernel_entry("qtrees_leaf_rows (vote shares)",
                      "flink_jpmml_tpu/compile/qtrees_pallas.py:187 and :238",
-                     {"vote_main_path": vrun, "vote_fused_main_path": vfrun},
+                     {"vote_main_path": vrun, "vote_fused_main_path": vfrun,
+                      "record_dynamic": {
+                          "launches": rec["dynamic"]["launches_votes"]}},
                      vrows + [r for r in wrows if r["classes"] > 1], vtiming),
     ]})
     print(smi, flush=True)

@@ -1,2 +1,3 @@
 """Streaming runtime of the port: the overlapped CUDA dispatch window
-(``pipeline.py``) and the block pipeline (``block.py``)."""
+(``pipeline.py``), the block pipeline (``block.py``) and the record engine
+(``engine.py``) with its queue, sources and sinks."""

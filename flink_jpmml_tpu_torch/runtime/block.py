@@ -48,7 +48,6 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from flink_jpmml_tpu_torch.compile import prepare
 from flink_jpmml_tpu_torch.compile.compiler import CompiledModel
 from flink_jpmml_tpu_torch.obs import attr as attr_mod
 from flink_jpmml_tpu_torch.obs import freshness as fresh_mod
@@ -59,7 +58,7 @@ from flink_jpmml_tpu_torch.runtime.pipeline import (
     DeviceOutput,
     HostStaging,
     OverlappedDispatcher,
-    device_output,
+    dispatch_f32,
     dispatch_quantized,
 )
 from flink_jpmml_tpu_torch.utils.config import RuntimeConfig
@@ -328,7 +327,7 @@ class BlockPipeline:
             return parts[0], off_parts[0], bs
         return np.concatenate(parts, axis=0), np.concatenate(off_parts), total
 
-    def _dispatch(self, X, n) -> DeviceOutput:
+    def _dispatch(self, X) -> DeviceOutput:
         """Async dispatch of one drained batch: the rank wire when the
         model is eligible (host-encoded or fused, as the scorer's
         ``encode_placement`` says), the f32 path otherwise. ``X`` may be a view
@@ -339,22 +338,15 @@ class BlockPipeline:
             return dispatch_quantized(
                 q, X, metrics=self.metrics, staging=self._staging
             )
-        return self._dispatch_f32(X, n)
+        return self._dispatch_f32(X)
 
-    def _dispatch_f32(self, X, n) -> DeviceOutput:
+    def _dispatch_f32(self, X) -> DeviceOutput:
         """f32 path: NaN cells are the missing convention. The mask and the
         zeroed, padded values are made on the host and both cross the bus
         (``h2d_bytes``: 5 bytes a cell, padding rows included)."""
-        model = self._bound.model
         M = np.isnan(X)
         Xb = np.where(M, 0.0, X).astype(np.float32)
-        target = max(model.batch_size, n)
-        if n < target:
-            Xb, M, _ = prepare.pad_batch(Xb, M, target)
-        self.metrics.counter("h2d_bytes").inc(Xb.nbytes + M.nbytes)
-        Xs = torch.from_numpy(Xb).to(self.device, non_blocking=True)
-        Ms = torch.from_numpy(M).to(self.device, non_blocking=True)
-        return device_output(model.predict(Xs, Ms), Xs)
+        return dispatch_f32(self._bound.model, Xb, M, metrics=self.metrics)
 
     def _score(self) -> None:
         batch_cfg = self._config.batch
@@ -431,7 +423,7 @@ class BlockPipeline:
                     # batch's own ingest-stamp event times
                     freshness.propagate_low_watermark("dispatch", first_off, n)
                     disp.launch(
-                        lambda X=X, n=n: self._dispatch(X, n),
+                        lambda X=X: self._dispatch(X),
                         meta=(n, first_off, time.monotonic()),
                     )
                     batches.inc()

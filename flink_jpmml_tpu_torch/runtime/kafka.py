@@ -2,10 +2,10 @@
 
 The port's copy of ``flink_jpmml_tpu/runtime/kafka.py``, with the import
 lines renamed and its notes on the project's history cut. Where it
-differs: ``KafkaRecordSource`` (and the record-path helpers only it
-called: ``_fetch``, ``_pump``, ``_fetch_part``) waits for the record
-engine (``runtime/engine.py``, ``runtime/sources.py``), and
-``chip_block_sources`` for the mesh. The C++ tiers go through the port's
+differs: ``chip_block_sources`` waits for the mesh. ``KafkaRecordSource``
+(and the record-path helpers only it calls: ``_fetch``, ``_pump``,
+``_fetch_part``) feeds the record engine (``runtime/engine.py``) without
+the journey ingest hop of its decode. The C++ tiers go through the port's
 ``runtime/native.py``, which has no fall-back: a failed g++ build raises
 ``NativeBuildError`` out of ``KafkaBlockSource.poll`` and
 ``MiniKafkaBroker.append_rows``. ``kafka_decode_fixed`` returning None
@@ -77,6 +77,7 @@ from flink_jpmml_tpu_torch.obs import recorder as flight
 from flink_jpmml_tpu_torch.obs.trace import context_for
 from flink_jpmml_tpu_torch.runtime import faults
 from flink_jpmml_tpu_torch.runtime.block import BlockSource
+from flink_jpmml_tpu_torch.runtime.sources import Polled, Source
 from flink_jpmml_tpu_torch.utils.retry import Backoff
 
 API_FETCH = 1
@@ -1088,6 +1089,37 @@ class _KafkaSourceBase:
             # honest while this one fetches
             self._forecaster.observe(part, hw, offset)
 
+    def _fetch_part(
+        self, part: int, offset: int, max_wait_ms: Optional[int] = None
+    ) -> List[Tuple[int, bytes]]:
+        t0 = time.monotonic()
+        try:
+            # fault hooks INSIDE the try: an injected broker death rides
+            # the same except → reconnect/backoff path a real one does,
+            # and an injected slow fetch lands in the fetch histogram
+            faults.fire("kafka_fetch")
+            hw, record_set = self._client.fetch_raw(
+                self._topic, part, offset,
+                max_wait_ms=(
+                    self._max_wait_ms if max_wait_ms is None else max_wait_ms
+                ),
+                max_bytes=self._max_bytes,
+            )
+        except KafkaPartitionError:
+            raise  # misconfiguration: fail fast, don't reconnect-loop
+        except (OSError, ConnectionError, KafkaProtocolError):
+            self._reconnect()
+            self._sweep_lag_age()
+            return []
+        self._backoff.reset()  # a successful fetch closes the streak
+        self._note_event_times(part, record_set)
+        self._observe_fetch(part, offset, hw, t0)
+        return [
+            rec
+            for rec in decode_record_batches(record_set)
+            if rec[0] >= offset
+        ]
+
     def _fetch_raw_part(
         self, part: int, offset: int, max_wait_ms: Optional[int] = None
     ) -> bytes:
@@ -1185,6 +1217,42 @@ class _KafkaSourceBase:
             trange = self._last_trange
         if self._freshness is not None and trange is not None:
             self._freshness.stamp_ingest(first_off, n, trange[0], trange[1])
+
+    def _fetch(self) -> List[Tuple[int, bytes]]:
+        """Single-partition fetch from the legacy Kafka-offset cursor."""
+        recs = self._fetch_part(self._partition, self._next)
+        if recs:
+            self._next = recs[-1][0] + 1
+        return recs
+
+    def _pump(self, want: int) -> List[Tuple[int, bytes]]:
+        """→ up to ``want`` (global_index, value) pairs in strict
+        round-robin order across the configured partitions. Stops early
+        when the next-in-turn partition has nothing fetchable yet (the
+        interleave never skips ahead — that would break the bijection)."""
+        P = len(self._parts)
+        out: List[Tuple[int, bytes]] = []
+        while len(out) < want:
+            part = self._parts[self._g % P]
+            po = self._g // P
+            buf = self._bufs[part]
+            while buf and buf[0][0] < po:
+                buf.popleft()
+            if not buf:
+                recs = self._fetch_part(part, po)
+                if not recs:
+                    break
+                buf.extend(recs)
+                continue
+            off, value = buf.popleft()
+            if off != po:
+                raise KafkaProtocolError(
+                    f"partition {part} offset gap ({po} -> {off}) breaks "
+                    "the round-robin interleave contract"
+                )
+            out.append((self._g, value))
+            self._g += 1
+        return out
 
     @property
     def _multi(self) -> bool:
@@ -1308,6 +1376,113 @@ class _KafkaSourceBase:
     @property
     def exhausted(self) -> bool:
         return self._eos
+
+
+class KafkaRecordSource(_KafkaSourceBase, Source):
+    """Record-object source: each Kafka message value is one JSON record
+    (or raw bytes via ``decoder``)."""
+
+    # network source with real fetch latency: the pipelines wrap it in
+    # a prefetch sidecar (runtime/prefetch.py) unless disabled
+    prefetchable = True
+
+    def __init__(self, *args, decoder=None, **kw):
+        super().__init__(*args, **kw)
+        import json
+
+        self._decode = decoder or (lambda v: json.loads(v))
+        self._pending: List[Tuple[int, bytes]] = []
+        # vector mode: globally-indexed records buffered between polls
+        self._pending_global: "collections.deque" = collections.deque()
+
+    def _pump_auto(self, want: int) -> List[Tuple[int, bytes]]:
+        """Vector-mode pump: runs from whichever partition has data
+        (round-robin preference); cursors track observed offsets, gaps
+        included; one snapshot per fetched run. Dry partitions are
+        probed with ``max_wait_ms=0``; one long-poll only when the
+        whole sweep is dry (cf. ``_poll_multi_auto``)."""
+        out: List[Tuple[int, bytes]] = []
+        P = len(self._parts)
+        while len(out) < want:
+            if self._pending_global:
+                out.append(self._pending_global.popleft())
+                continue
+            fetched = False
+            for attempt in (0, 1):
+                for i in range(P):
+                    idx = (self._rr + i) % P
+                    part = self._parts[idx]
+                    cur = self._cursors[part]
+                    recs = [
+                        (o, v)
+                        for o, v in self._fetch_part(
+                            part, cur,
+                            max_wait_ms=0 if attempt == 0 else None,
+                        )
+                        if o >= cur
+                    ]
+                    if not recs:
+                        if attempt:
+                            break  # one long-poll per dry sweep
+                        continue
+                    g0 = self._g
+                    self._pending_global.extend(
+                        (g0 + j, v) for j, (_, v) in enumerate(recs)
+                    )
+                    self._g = g0 + len(recs)
+                    self._cursors[part] = recs[-1][0] + 1
+                    self._rr = (idx + 1) % P
+                    self._snap()
+                    fetched = True
+                    break
+                if fetched:
+                    break
+            if not fetched:
+                break
+        return out
+
+    def _decode_polled(self, pairs, part) -> Polled:
+        """(offset, value) pairs → (offset+1, record), quarantining +
+        skipping values the decoder rejects (counted per partition,
+        raw bytes to the DLQ when installed). With neither metrics nor
+        a DLQ the historical raise stands — an invisible skip would be
+        silent data loss."""
+        out = []
+        for off, value in pairs:
+            try:
+                rec = self._decode(value)
+            except Exception as e:
+                if self._dlq is None and self._metrics is None:
+                    raise
+                self._note_decode_error(part, off, value, e)
+                continue
+            out.append((off + 1, rec))
+        return out
+
+    def poll(self, max_n: int) -> Polled:
+        if self._vector_mode:
+            return self._decode_polled(self._pump_auto(max_n), None)
+        if self._multi:
+            return self._decode_polled(self._pump(max_n), None)
+        # a fetch may return more than max_n records; the surplus stays
+        # buffered so nothing fetched is ever dropped (the fetch cursor
+        # has already moved past it)
+        if len(self._pending) < max_n:
+            self._pending.extend(self._fetch())
+        take, self._pending = (
+            self._pending[:max_n],
+            self._pending[max_n:],
+        )
+        return self._decode_polled(take, self._partition)
+
+    def _clear_buffers(self) -> None:
+        self._pending.clear()
+        self._pending_global.clear()
+        super()._clear_buffers()
+
+    def seek(self, offset: int) -> None:
+        self._pending.clear()
+        super().seek(offset)
 
 
 class KafkaBlockSource(_KafkaSourceBase, BlockSource):

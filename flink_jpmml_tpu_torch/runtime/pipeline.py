@@ -19,8 +19,15 @@ flush). Where the JAX package relies on async dispatch,
 
 Semantics kept from the JAX package: completions happen strictly in launch
 order (FIFO, for in-order sink delivery and contiguous offset commits);
-at most ``depth`` dispatches stay in flight after ``launch`` returns;
-errors surface where the host blocks; ``close()`` flushes.
+at most ``depth`` dispatches stay in flight after ``launch`` returns
+(``depth=None``: unbounded); errors surface where the host blocks;
+``close()`` flushes (``close(drain=False)`` abandons). The handle API
+the dynamic scorer needs is the JAX package's too: ``launch`` returns an
+:class:`InFlight` handle, ``wait(handle)`` finishes entries in FIFO order
+up to it, ``abandon()`` drops the window. The JAX dispatcher's sampled
+device profiler, its ``on_error`` hook, its fault-injection sites and
+its ``accounted=False`` launches (the admission controller's) are not
+ported.
 
 Metrics: ``h2d_stall_s`` (host time blocked on device work),
 ``dispatches``, ``window_full_launches``, the ``inflight_depth`` gauge,
@@ -57,7 +64,9 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from flink_jpmml_tpu_torch.compile import prepare
 from flink_jpmml_tpu_torch.obs import attr as attr_mod
+from flink_jpmml_tpu_torch.obs import recorder as flight
 from flink_jpmml_tpu_torch.utils.exceptions import FlinkJpmmlTpuError
 from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry
 
@@ -230,28 +239,70 @@ def dispatch_quantized(
     return out
 
 
+def dispatch_f32(model, X, M, *, metrics: Optional[MetricsRegistry] = None
+                 ) -> DeviceOutput:
+    """The f32 path's dispatch of one ``(X, M)`` batch through a
+    :class:`~flink_jpmml_tpu_torch.compile.compiler.CompiledModel`: pad
+    it to the compile batch when shorter, copy X and M to the model's
+    device and queue the model there; on the card a D2H copy of the
+    result is queued behind it on the current stream. ``metrics`` books
+    the bytes shipped (``h2d_bytes``: X and M, padding rows included)."""
+    bs = model.batch_size
+    if bs is not None and X.shape[0] < bs:
+        X, M, _ = prepare.pad_batch(X, M, bs)
+    if metrics is not None:
+        metrics.counter("h2d_bytes").inc(X.nbytes + M.nbytes)
+    Xs = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(
+        model.device, non_blocking=True)
+    Ms = torch.from_numpy(np.ascontiguousarray(M)).to(
+        model.device, non_blocking=True)
+    return device_output(model.predict(Xs, Ms), Xs)
+
+
 class DispatcherClosed(FlinkJpmmlTpuError):
     """launch() after close(): the window is shut down."""
+
+
+class InFlight:
+    """One launched dispatch: its result (a :class:`DeviceOutput`) and the
+    caller's metadata. ``done`` means the entry left the window; ``error``
+    carries the wait's failure when it left poisoned, so a later
+    :meth:`OverlappedDispatcher.wait` re-raises it instead of handing back
+    a result that never completed."""
+
+    __slots__ = ("out", "meta", "t_launch", "done", "error")
+
+    def __init__(self, out: Any, meta: Any, t_launch: float):
+        self.out = out
+        self.meta = meta
+        self.t_launch = t_launch
+        self.done = False
+        self.error: Optional[BaseException] = None
 
 
 class OverlappedDispatcher:
     """Bounded FIFO window of in-flight device dispatches.
 
-    Each entry is a ``(result, meta)`` pair; a result is anything with
-    ``ready()`` and ``synchronize()`` (a :class:`DeviceOutput`).
-    ``complete(result, meta)`` (optional) runs on the launching thread for
-    every finished entry, in launch order — the block pipeline hangs sink
-    delivery and offset commit on it. ``depth`` = dispatches allowed to
-    remain in flight after ``launch`` returns (0 = synchronous)."""
+    A result is anything with ``ready()`` and ``synchronize()`` (a
+    :class:`DeviceOutput`). ``complete(result, meta)`` (optional) runs on
+    the launching thread for every finished entry, in launch order — the
+    block pipeline hangs sink delivery and offset commit on it.
+    ``launch`` returns the entry's :class:`InFlight` handle, and
+    ``finish_oldest`` / ``wait`` also return finished results, for callers
+    (the dynamic scorer) that prefer pull-style completion. ``depth`` =
+    dispatches allowed to remain in flight after ``launch`` returns (0 =
+    synchronous; None = unbounded: ``launch`` never blocks, for callers
+    whose own contract forbids blocking in ``submit`` — they bound the
+    window themselves through ``wait``)."""
 
     def __init__(
         self,
-        depth: int = 2,
+        depth: Optional[int] = 2,
         metrics: Optional[MetricsRegistry] = None,
         complete: Optional[Callable[[Any, Any], None]] = None,
     ):
-        self._depth = max(0, int(depth))
-        self._window: "deque[tuple]" = deque()
+        self._depth = None if depth is None else max(0, int(depth))
+        self._window: "deque[InFlight]" = deque()
         self._complete = complete
         self._closed = False
         self.metrics = metrics or MetricsRegistry()
@@ -264,37 +315,53 @@ class OverlappedDispatcher:
     def __len__(self) -> int:
         return len(self._window)
 
-    def launch(self, dispatch_fn: Callable[[], Any], meta: Any = None) -> None:
+    @property
+    def depth(self) -> Optional[int]:
+        return self._depth
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    def launch(self, dispatch_fn: Callable[[], Any], meta: Any = None) -> InFlight:
         """Dispatch (``dispatch_fn()`` must queue device work and return
         without waiting on it) and admit the result to the window; if that
         overflows ``depth``, finish the oldest entry first — the only
         place a healthy steady state blocks. ``window_full_launches``
         counts the launches whose oldest entry was still running. The
         wait books ``queue_wait``; at depth 0 the host waits on its own
-        just-launched batch, and that is ``readback``."""
+        just-launched batch, and that is ``readback``. → the entry's
+        handle."""
         if self._closed:
             raise DispatcherClosed("launch() on a closed dispatcher")
-        self._window.append((dispatch_fn(), meta))
+        handle = InFlight(dispatch_fn(), meta, time.monotonic())
+        self._window.append(handle)
         self._dispatches.inc()
-        if 0 < self._depth < len(self._window) and not self._window[0][0].ready():
-            self._window_full.inc()
-        while len(self._window) > self._depth:
-            self.finish_oldest(
-                _stage="queue_wait" if self._depth > 0 else "readback"
-            )
+        depth = self._depth
+        if depth is not None:
+            if 0 < depth < len(self._window) and not self._window[0].out.ready():
+                self._window_full.inc()
+            while len(self._window) > depth:
+                self.finish_oldest(
+                    _stage="queue_wait" if depth > 0 else "readback"
+                )
         self._gauge.set(len(self._window))
+        return handle
 
-    def finish_oldest(self, _stage: str = "readback") -> None:
-        """Wait for the oldest entry and run the complete-callback.
-        ``_stage`` is the ledger stage the wait is booked under; the
-        callback books its own (``sink``), so no interval lands in two
-        stages."""
+    def finish_oldest(self, _stage: str = "readback"):
+        """Wait for the oldest entry and run the complete-callback →
+        ``(result, meta)``, or None when the window is empty. ``_stage``
+        is the ledger stage the wait is booked under; the callback books
+        its own (``sink``), so no interval lands in two stages."""
         if not self._window:
-            return
-        out, meta = self._window[0]
+            return None
+        handle = self._window[0]
         t0 = time.monotonic()
         try:
-            out.synchronize()
+            handle.out.synchronize()
+        except BaseException as e:
+            handle.error = e
+            raise
         finally:
             # stall time counts even when the wait raised; the entry
             # leaves the window either way, so one poisoned batch cannot
@@ -303,16 +370,56 @@ class OverlappedDispatcher:
             self._stall.inc(dt)
             self._ledger.observe(_stage, dt)
             self._window.popleft()
+            handle.done = True
             self._gauge.set(len(self._window))
         if self._complete is not None:
-            self._complete(out, meta)
+            self._complete(handle.out, handle.meta)
+        return handle.out, handle.meta
+
+    def wait(self, handle: InFlight) -> Any:
+        """Finish entries in FIFO order until ``handle`` is done → its
+        result, completed. A handle whose wait failed re-raises its error
+        on every wait; one the window no longer holds (dropped by
+        :meth:`abandon`) is waited on directly, never handed back
+        unfinished."""
+        while not handle.done and self._window:
+            self.finish_oldest()
+        if not handle.done:
+            t0 = time.monotonic()
+            try:
+                handle.out.synchronize()
+            except BaseException as e:
+                handle.error = e
+                raise
+            finally:
+                dt = time.monotonic() - t0
+                self._stall.inc(dt)
+                self._ledger.observe("readback", dt)
+                handle.done = True
+        if handle.error is not None:
+            raise handle.error
+        return handle.out
 
     def flush(self) -> None:
         """Finish everything in flight."""
         while self._window:
             self.finish_oldest()
 
-    def close(self) -> None:
-        """Flush, then refuse further launches."""
-        self.flush()
+    def abandon(self) -> int:
+        """Drop every in-flight entry without waiting on it → the count
+        dropped. A dropped handle stays waitable (:meth:`wait`)."""
+        n = len(self._window)
+        self._window.clear()
+        self._gauge.set(0)
+        if n:
+            flight.record("dispatch_abandon", dropped=n)
+        return n
+
+    def close(self, drain: bool = True) -> None:
+        """Flush (default) or abandon, then refuse further launches.
+        Idempotent."""
+        if drain:
+            self.flush()
+        else:
+            self.abandon()
         self._closed = True

@@ -1,11 +1,11 @@
 """Pipelined ingest: the prefetch/decode sidecar feeding the ring.
 
-The port's copy of the block half of
-``flink_jpmml_tpu/runtime/prefetch.py``, with the import lines renamed:
-``_PrefetchedSourceBase``, ``PrefetchedBlockSource``,
-``maybe_wrap_block``, ``env_depth`` and ``env_disabled``, with the same
-knobs. ``PrefetchedRecordSource`` and ``maybe_wrap_records`` wait for
-the record engine (``runtime/engine.py``), ``maybe_wrap_chips`` for the
+The port's copy of ``flink_jpmml_tpu/runtime/prefetch.py``, with the
+import lines renamed: ``_PrefetchedSourceBase``, the block half
+(``PrefetchedBlockSource``, ``maybe_wrap_block``) and the record half
+(``PrefetchedRecordSource``, ``maybe_wrap_records``, which the record
+engine ``runtime/engine.py`` wraps its source with), ``env_depth`` and
+``env_disabled``, with the same knobs. ``maybe_wrap_chips`` waits for the
 mesh.
 
 Without it the pipelines' ingest thread runs fetch RPC and wire decode
@@ -353,6 +353,57 @@ class PrefetchedBlockSource(_PrefetchedSourceBase):
         return item
 
 
+class PrefetchedRecordSource(_PrefetchedSourceBase):
+    """Record ``Source`` wrapper (engine.Pipeline's shape): the sidecar
+    polls fixed-size chunks; the consumer re-chunks to its ``max_n``
+    through a consumer-thread-only pending deque."""
+
+    _THREAD_NAME = "fjt-prefetch-rec"
+
+    def __init__(self, inner, depth=None, metrics=None, chunk: int = 1024):
+        super().__init__(inner, depth=depth, metrics=metrics)
+        self._chunk = max(1, int(chunk))
+        self._pending: "collections.deque" = collections.deque()
+
+    @property
+    def event_time_fn(self):
+        return getattr(self._inner, "event_time_fn", None)
+
+    def _poll_inner(self):
+        polled = self._inner.poll(self._chunk)
+        return polled if polled else None
+
+    def _item_records(self, item) -> int:
+        return len(item)
+
+    def poll(self, max_n: int):
+        out = list(self._pending)
+        if out:
+            self._pending.clear()
+        waited = 0.0
+        while len(out) < max_n:
+            item, w = self._take()
+            waited += w
+            if item is None:
+                break
+            out.extend(item)
+        self._account_wait(waited)
+        if len(out) > max_n:
+            self._pending.extend(out[max_n:])
+            del out[max_n:]
+        return out
+
+    def seek(self, offset: int) -> None:
+        self._pending.clear()
+        super().seek(offset)
+
+    @property
+    def exhausted(self) -> bool:
+        if self._pending:
+            return False
+        return super().exhausted
+
+
 def _resolve(source, enable: Optional[bool]) -> bool:
     if env_disabled():
         return False  # the operational kill switch wins over everything
@@ -374,3 +425,16 @@ def maybe_wrap_block(
     ):
         return source
     return PrefetchedBlockSource(source, depth=depth, metrics=metrics)
+
+
+def maybe_wrap_records(
+    source, metrics=None, enable: Optional[bool] = None,
+    depth: Optional[int] = None,
+):
+    """Record-source twin of :func:`maybe_wrap_block` (engine.Pipeline's
+    consumption site)."""
+    if getattr(source, "prefetch_wrapped", False) or not _resolve(
+        source, enable
+    ):
+        return source
+    return PrefetchedRecordSource(source, depth=depth, metrics=metrics)

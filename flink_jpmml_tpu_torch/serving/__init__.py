@@ -1,0 +1,5 @@
+"""Dynamic model serving of the port (capability C6): the registry, the
+managers and the event ⋈ control join (``DynamicScorer``)."""
+
+from flink_jpmml_tpu_torch.serving.registry import ModelRegistry  # noqa: F401
+from flink_jpmml_tpu_torch.serving.scorer import DynamicScorer, default_route  # noqa: F401

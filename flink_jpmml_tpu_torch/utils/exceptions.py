@@ -3,7 +3,8 @@
 A copy of ``flink_jpmml_tpu/utils/exceptions.py`` (the port imports nothing
 of the JAX package), plus the errors the port adds:
 :class:`DeviceUnavailableError`, :class:`NotPortedError` and
-:class:`NativeBuildError`.
+:class:`NativeBuildError`, and :func:`refuse`, which raises
+``NotPortedError`` for an option of the JAX API the port does not carry.
 
 Reference parity: the reference's ``…/exceptions/`` package defines
 ``ModelLoadingException``, ``InputValidationException``,
@@ -79,3 +80,11 @@ class NativeBuildError(FlinkJpmmlTpuError):
     the rank-wire bucketizer) could not be built or loaded. The message
     carries g++'s stderr. The port raises it where the JAX package would
     drop to the Python ring or the numpy encode."""
+
+
+def refuse(**options) -> None:
+    """Raise :class:`NotPortedError` naming the first option given a value
+    other than None (an option of the JAX API the port does not carry)."""
+    for name, value in options.items():
+        if value is not None:
+            raise NotPortedError(f"{name}= is not ported")

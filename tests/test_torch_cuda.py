@@ -10,7 +10,9 @@ the general scan, the weighted walk, scorecard, ruleset, iforest,
 selectFirst / selectAll) and the last nine families (NaiveBayes, SVM,
 KNN with its exact ties, BayesianNetwork, GaussianProcess, Baseline,
 Association, TextModel, TimeSeries) on the card against the CPU port,
-with TF32 off.
+with TF32 off; and the record API (``StreamEnvironment.evaluate`` over
+the record engine) and the dynamic scorer on the card against the CPU
+port, with the kernel launched once a dispatch.
 They skip where there is no card. This file
 imports neither jax nor the JAX package, so it runs on a machine that has
 only torch:
@@ -25,6 +27,7 @@ import pytest
 import torch
 
 from chip_smoke import caterpillar_forest, ragged_forest, random_codes
+from flink_jpmml_tpu_torch.api import ModelReader, StreamEnvironment
 from flink_jpmml_tpu_torch.assets_gen import gen_gbm, gen_vote_forest
 from flink_jpmml_tpu_torch.compile import compile_pmml, qtrees_cuda
 from flink_jpmml_tpu_torch.obs import attr
@@ -635,3 +638,70 @@ def test_svm_rbf_on_the_card_needs_tf32_off(card):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     assert not np.allclose(tf32, want, rtol=RTOL, atol=ATOL)
+
+
+def _preds(items):
+    return (np.array([np.nan if p.is_empty else p.score.value
+                      for p in items]),
+            [p.target.label if p.target is not None else None
+             for p in items])
+
+
+def test_record_api_on_the_card_matches_the_cpu_port(card, tmp_path):
+    path = gen_gbm(str(tmp_path), n_trees=19, depth=6, n_features=32)
+    X = _X(np.random.default_rng(0), 1000, 32)
+    cfg = RuntimeConfig(batch=BatchConfig(size=256, deadline_us=2000))
+    out = {}
+    for dev in (None, "cpu"):
+        env = StreamEnvironment(cfg, device=dev)
+        sink = env.from_collection(list(X)).evaluate(
+            ModelReader(path)).collect()
+        before = qtrees_cuda.leaf_rows.launches
+        env.execute(timeout=120.0)
+        out[dev] = _preds(sink.items)
+        launches = qtrees_cuda.leaf_rows.launches - before
+        snap = env.metrics.snapshot()
+        # one launch a dispatch on the card, none on the CPU
+        assert launches == (snap["batches"] if dev is None else 0)
+        assert snap["scorer_backend_rank_wire_" + (
+            "cuda" if dev is None else "cuda_plain")] == 1
+    np.testing.assert_allclose(out[None][0], out["cpu"][0], rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_dynamic_scorer_on_the_card_matches_the_cpu_port(card, tmp_path):
+    from flink_jpmml_tpu_torch.models.control import AddMessage, DelMessage
+    from flink_jpmml_tpu_torch.models.core import ModelId
+    from flink_jpmml_tpu_torch.runtime.sources import ControlSource
+    from flink_jpmml_tpu_torch.serving import DynamicScorer
+
+    d = str(tmp_path)
+    gbm = gen_gbm(d, n_trees=19, depth=6, n_features=32)
+    votes = gen_vote_forest(d, n_trees=19, depth=6, n_features=32)
+    X = _X(np.random.default_rng(1), 600, 32)
+    names = np.random.default_rng(2).integers(3, size=600)
+    events = [(("gbm", "votes", "ghost")[k], x) for k, x in zip(names, X)]
+    out = {}
+    for dev in (None, "cpu"):
+        ctrl = ControlSource()
+        scorer = DynamicScorer(ctrl, batch_size=256, device=dev)
+        ctrl.push(AddMessage("gbm", 1, gbm, 1.0))
+        ctrl.push(AddMessage("votes", 1, votes, 1.5))
+        scorer._drain_control()
+        for name in ("gbm", "votes"):
+            assert scorer.registry.model(ModelId(name, 1)) is not None
+        before = qtrees_cuda.leaf_rows.launches
+        d0 = scorer.metrics.counter("dispatches").get()
+        got = scorer.finish(scorer.submit(events))
+        dispatches = scorer.metrics.counter("dispatches").get() - d0
+        assert dispatches == 2  # one a served model
+        assert qtrees_cuda.leaf_rows.launches - before == (
+            dispatches if dev is None else 0)
+        ctrl.push(DelMessage("gbm", 1, 2.0))
+        gone = scorer.finish(scorer.submit(events[:50]))
+        assert all(p.is_empty for p, e in gone if e[0] != "votes")
+        out[dev] = _preds([p for p, _ in got])
+    (cv, cl), (pv, pl) = out[None], out["cpu"]
+    np.testing.assert_array_equal(np.isnan(cv), names == 2)
+    np.testing.assert_allclose(cv, pv, rtol=RTOL, atol=ATOL)
+    assert cl == pl

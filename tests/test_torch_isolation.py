@@ -60,6 +60,14 @@ MORE_FAMILIES_SLICE = {
     "compile.timeseries", "compile.verify", "pmml.interp",
 }
 
+# the record API and dynamic serving
+API_SLICE = {
+    "api", "api.reader", "api.stream", "serving", "serving.managers",
+    "serving.registry", "serving.scorer", "models.core", "models.control",
+    "rollout.state", "runtime.engine", "runtime.sources", "runtime.sinks",
+    "runtime.queues", "utils.profiling",
+}
+
 
 def test_every_port_module_imports_without_jax():
     res = subprocess.run(
@@ -68,10 +76,10 @@ def test_every_port_module_imports_without_jax():
     )
     assert res.returncode == 0, res.stderr
     count, names = res.stdout.split(maxsplit=1)
-    assert int(count) >= 58  # every module ported so far
+    assert int(count) >= 73  # every module ported so far
     names = set(names.split())
     for slice_ in (KAFKA_SLICE, DENSE_SLICE, TREE_SHAPES_SLICE,
-                   MORE_FAMILIES_SLICE):
+                   MORE_FAMILIES_SLICE, API_SLICE):
         assert {f"flink_jpmml_tpu_torch.{m}" for m in slice_} <= names
     assert {f"flink_jpmml_tpu_torch.{m}" for m in DENSE_SLICE} <= names
 
@@ -180,3 +188,35 @@ def test_rank_wire_build_failure_is_not_swallowed(gbm_doc, monkeypatch):
     cm = compile_pmml(gbm_doc, device="cpu")
     with pytest.raises(RuntimeError, match="kernel tables refused"):
         cm.quantized_scorer()
+
+
+def test_record_api_defaults_to_the_card(no_card, tmp_path):
+    from flink_jpmml_tpu_torch.api import ModelReader, StreamEnvironment
+    from flink_jpmml_tpu_torch.models.control import AddMessage
+    from flink_jpmml_tpu_torch.runtime.sources import ControlSource
+    from flink_jpmml_tpu_torch.serving import DynamicScorer, ModelRegistry
+
+    path = gen_gbm(str(tmp_path), n_trees=3, depth=2, n_features=4)
+    with pytest.raises(DeviceUnavailableError):
+        StreamEnvironment().from_collection([[0.0] * 4]).evaluate(
+            ModelReader(path))
+    with pytest.raises(DeviceUnavailableError):
+        ModelReader(path).load()
+    with pytest.raises(DeviceUnavailableError):
+        ModelRegistry().apply(AddMessage("m", 1, path, 1.0))
+    with pytest.raises(DeviceUnavailableError):
+        DynamicScorer(ControlSource(), batch_size=8)
+    # the CPU only on request, for every entry point
+    env = StreamEnvironment(device="cpu")
+    sink = env.from_collection([[0.0] * 4]).evaluate(
+        ModelReader(path)).collect()
+    env.execute(timeout=30.0)
+    assert len(sink.items) == 1 and not sink.items[0].is_empty
+    assert ModelReader(path).load(device="cpu").device.type == "cpu"
+    reg = ModelRegistry(device="cpu")
+    reg.apply(AddMessage("m", 1, path, 1.0))
+    from flink_jpmml_tpu_torch.models.core import ModelId
+
+    assert reg.model(ModelId("m", 1)).device.type == "cpu"
+    scorer = DynamicScorer(ControlSource(), batch_size=8, device="cpu")
+    assert scorer.device.type == "cpu"
