@@ -2709,10 +2709,16 @@ def record_dynamic(gbm: str, gbm2: str, votes: str, X: np.ndarray, counter,
     cold = env.metrics.histogram("cold_start_s")
     warms0 = cold.count()
     counter.launches = 0
+    counter.launches_by_classes = {}
     t0 = time.perf_counter()
     env.execute(timeout=900.0)
     dt = time.perf_counter() - t0
     launches = counter.launches
+    # the kernel's own count by class count: C = 1 is the GBM, C > 1 the
+    # vote forest
+    by_c = dict(counter.launches_by_classes)
+    launches_gbm = by_c.get(1, 0)
+    launches_votes = sum(k for c, k in by_c.items() if c > 1)
     warms = cold.count() - warms0
     snap = env.metrics.snapshot()
     dispatches = int(snap["dispatches"])
@@ -2723,9 +2729,15 @@ def record_dynamic(gbm: str, gbm2: str, votes: str, X: np.ndarray, counter,
             g for g, _, _ in groups) != dispatches:
         raise RuntimeError(f"groups {groups[:8]}... against {dispatches} "
                            "dispatches")
-    if launches != dispatches + warms:
-        raise RuntimeError(f"{launches} launches for {dispatches} dispatches "
-                           f"and {warms} warms")
+    if (launches != dispatches + warms
+            or launches_gbm + launches_votes != launches):
+        raise RuntimeError(f"{launches} launches ({by_c} by class count) for "
+                           f"{dispatches} dispatches and {warms} warms")
+    # cross-check: the models present in each batch, v2's warm a GBM's
+    if (launches_gbm != sum(h for _, h, _ in groups) + warms
+            or launches_votes != sum(v for _, _, v in groups)):
+        raise RuntimeError(f"launches by class count {by_c} against the "
+                           f"groups {groups[:8]}... and {warms} warms")
     preds = [p for p, _ in items]
     empty = np.array([p.is_empty for p in preds])
     if not np.array_equal(empty, (kind == 2) | pinned):
@@ -2768,8 +2780,7 @@ def record_dynamic(gbm: str, gbm2: str, votes: str, X: np.ndarray, counter,
         mark_wait_s=holder["wait_s"],
         records_per_s_without_mark_waits=n / (dt - holder["wait_s"]),
         launches=launches, dispatches=dispatches, warm_launches=warms,
-        launches_gbm=sum(h for _, h, _ in groups) + warms,
-        launches_votes=sum(v for _, _, v in groups),
+        launches_gbm=launches_gbm, launches_votes=launches_votes,
         score_latency_p50_s=snap.get("score_latency_s_p50"),
         score_latency_p99_s=snap.get("score_latency_s_p99"),
         cold_start_s=cold.sum(), cold_starts=cold.count(),
@@ -2885,14 +2896,13 @@ def record_verify(workdir: str) -> dict:
     return {"documents": len(out), "refused": out}
 
 
-def record_api(workdir: str, counter, q_cpu, vq_cpu, sizes=None) -> dict:
+def record_api(workdir: str, counter, q_cpu, vq_cpu) -> dict:
     """The phase: the GBM through ``evaluate``, ``quick_evaluate`` and dict
-    records; the dynamic join; the Kafka record stream; the verify gate.
-    ``sizes`` (vectors, dicts, events, kafka) cuts the record counts."""
+    records; the dynamic join; the Kafka record stream; the verify gate."""
     from flink_jpmml_tpu_torch.api import ModelReader
     from flink_jpmml_tpu_torch.assets_gen import gen_gbm
 
-    n_vec, n_dict, n_ev, n_kafka = sizes or (
+    n_vec, n_dict, n_ev, n_kafka = (
         RECORD_VECTORS, RECORD_DICTS, RECORD_EVENTS, RECORD_KAFKA)
     t_phase = time.perf_counter()
     gbm = os.path.join(workdir, "gbm_500.pmml")

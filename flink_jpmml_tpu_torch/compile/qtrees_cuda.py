@@ -356,6 +356,9 @@ def leaf_rows_reference(codes: torch.Tensor, tables: Dict[str, torch.Tensor]):
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
+# the launch counts are bumped from the scoring thread and the registry's
+# warm threads at once
+_COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -493,7 +496,8 @@ def leaf_rows(codes: torch.Tensor, tables: Dict[str, torch.Tensor],
     (:func:`pack_tables`); codes of another width raise, since the kernel
     gathers ``code[feat]`` from a row of exactly that width. On a CUDA
     tensor: launch the kernel on the current stream (counted in
-    ``leaf_rows.launches``) or raise — on codes of another width, more than
+    ``leaf_rows.launches`` and, by class count C, in
+    ``leaf_rows.launches_by_classes``) or raise — on codes of another width, more than
     ``MAX_CLASSES`` classes, or a ``walk`` table that is not on the card
     (the other tables lend only their shapes). On a CPU tensor: the plain
     version, with all five tables on the CPU."""
@@ -512,8 +516,12 @@ def leaf_rows(codes: torch.Tensor, tables: Dict[str, torch.Tensor],
     if rc != 0:
         raise KernelLaunchError(f"qtrees_leaf_rows launch failed: "
                                 f"cudaError {rc}")
-    leaf_rows.launches += 1
+    with _COUNT_LOCK:
+        leaf_rows.launches += 1
+        by_c = leaf_rows.launches_by_classes
+        by_c[C] = by_c.get(C, 0) + 1
     return out
 
 
 leaf_rows.launches = 0
+leaf_rows.launches_by_classes = {}

@@ -270,12 +270,11 @@ class InFlight:
     :meth:`OverlappedDispatcher.wait` re-raises it instead of handing back
     a result that never completed."""
 
-    __slots__ = ("out", "meta", "t_launch", "done", "error")
+    __slots__ = ("out", "meta", "done", "error")
 
-    def __init__(self, out: Any, meta: Any, t_launch: float):
+    def __init__(self, out: Any, meta: Any):
         self.out = out
         self.meta = meta
-        self.t_launch = t_launch
         self.done = False
         self.error: Optional[BaseException] = None
 
@@ -315,14 +314,6 @@ class OverlappedDispatcher:
     def __len__(self) -> int:
         return len(self._window)
 
-    @property
-    def depth(self) -> Optional[int]:
-        return self._depth
-
-    @property
-    def closed(self) -> bool:
-        return self._closed
-
     def launch(self, dispatch_fn: Callable[[], Any], meta: Any = None) -> InFlight:
         """Dispatch (``dispatch_fn()`` must queue device work and return
         without waiting on it) and admit the result to the window; if that
@@ -334,7 +325,7 @@ class OverlappedDispatcher:
         handle."""
         if self._closed:
             raise DispatcherClosed("launch() on a closed dispatcher")
-        handle = InFlight(dispatch_fn(), meta, time.monotonic())
+        handle = InFlight(dispatch_fn(), meta)
         self._window.append(handle)
         self._dispatches.inc()
         depth = self._depth

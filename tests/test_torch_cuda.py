@@ -691,12 +691,18 @@ def test_dynamic_scorer_on_the_card_matches_the_cpu_port(card, tmp_path):
         for name in ("gbm", "votes"):
             assert scorer.registry.model(ModelId(name, 1)) is not None
         before = qtrees_cuda.leaf_rows.launches
+        by_c = dict(qtrees_cuda.leaf_rows.launches_by_classes)
         d0 = scorer.metrics.counter("dispatches").get()
         got = scorer.finish(scorer.submit(events))
         dispatches = scorer.metrics.counter("dispatches").get() - d0
         assert dispatches == 2  # one a served model
         assert qtrees_cuda.leaf_rows.launches - before == (
             dispatches if dev is None else 0)
+        # one launch at C = 1 (the GBM) and one at C = 3 (the votes)
+        grew = {c: k - by_c.get(c, 0) for c, k in
+                qtrees_cuda.leaf_rows.launches_by_classes.items()}
+        assert {c: k for c, k in grew.items() if k} == (
+            {1: 1, 3: 1} if dev is None else {})
         ctrl.push(DelMessage("gbm", 1, 2.0))
         gone = scorer.finish(scorer.submit(events[:50]))
         assert all(p.is_empty for p, e in gone if e[0] != "votes")
