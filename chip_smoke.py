@@ -198,6 +198,43 @@ JAX package, and prints one JSON line per phase:
     ``score_latency_s``) p50 / p99, the ``StageTimer`` stages, the stage
     ledger, the launches; the dynamic part ``cold_start_s`` and the warm
     pool's hits and misses; the Kafka part the sidecar's counters.
+21. recovery — checkpoints, the DLQ, the device-fault ladder and
+    ``DynamicBlockPipeline`` on the card, with the main path's GBM and
+    the 3-class vote forest over 1,048,576 N(0, 1.5) vectors (20% missing
+    cells, seed 13); every delivery is held to the card's direct run of
+    the same records (host encode, ``predict_padded``) at rtol 1e-4 /
+    atol 1e-5, vote labels equal, and every part holds the kernel's
+    launches to the window's ``dispatches`` plus the ``redispatches``
+    the ladder and the suspect scan made plus the registry's warms.
+    ``checkpoint``: a ``BlockPipeline`` (dispatches of 65,536, a snapshot
+    after every one) stopped after two snapshots committed, later ones
+    skipped as if the worker died, then a fresh pipeline ``restore()``s
+    and runs to the end: every offset sunk, each duplicate at or after
+    the restored offset. ``poison``: poison at offsets 12,345, 400,000
+    and 1,000,000 through the ``score_batch`` site, the DLQ beside the
+    checkpoints: the DLQ holds exactly those, every other record is sunk
+    once, and the suspect scan's bisection launches on the card.
+    ``device_fault``: over 2,097,152 records, ``InjectedDeviceError`` on
+    two dispatches and ``InjectedDeviceOOM`` on one (at its dispatch and
+    its first full redispatch), armed from the sink: five redispatches,
+    one OOM shrink, ``fallback_records`` 0. ``real_errors``: a real
+    ``torch.cuda.OutOfMemoryError`` classifies as ``device_oom`` and the
+    card scores after it; a child process (``CHILD_STICKY``, the 19-tree
+    GBM) scores one block, trips a device-side assert with an
+    out-of-range index, and its pipeline must classify the next dispatch's
+    error as ``chip_loss`` and escalate with a raise and no redispatch.
+    ``dynamic``: ``DynamicBlockPipeline`` serving the GBM (Add v1, Add v2
+    at a quarter, Del v1 once v2 is warm, checkpointed; a fresh pipeline
+    restores and serves v2 on 65,536 more records), a second one serving
+    the vote forest over 262,144 records, a default ``DynamicScorer``
+    with one injected device error on a group's readback over 65,536
+    events, and the record engine's
+    ``evaluate(...).with_checkpointing(dir)`` with
+    ``execute(restore=True)`` twice (32,768 events, then a fresh
+    environment resuming over 16,384 more). ``cost``: the fused GBM's
+    ``BlockPipeline`` records/s over 16 dispatches of 262,144 plain and
+    with checkpoints (every second) plus the DLQ armed, twice in the
+    order plain, armed, armed, plain.
 
 Every main path runs the C++ ring, and its line carries the stage ledger
 of its registry (``attribution``: per stage the count, total ms, p50 /
@@ -770,26 +807,29 @@ def device_shares(run: dict, kernel_ms: float, stage_ms: float = 0.0,
 
 
 def drive(cm, source, sink, count: list, counter, *, metrics=None,
-          prefetch=None, target: int = MIN_DISPATCHES * DISPATCH) -> dict:
+          prefetch=None, target: int = MIN_DISPATCHES * DISPATCH,
+          checkpoint_dir=None) -> dict:
     """BlockPipeline over ``source`` until ``target`` records reached the
     sink, in dispatches of up to DISPATCH records; ``counter`` (a kernel
     wrapper) is reset just before and read just after. The line carries
     the pipeline's stage ledger (``attribution``: ``obs.attr.summary`` of
-    its registry)."""
+    its registry). ``checkpoint_dir`` arms checkpoints every second there,
+    and with them the DLQ beside them and the device-fault ladder (each
+    batch retained past its dispatch)."""
     from flink_jpmml_tpu_torch.obs import attr
     from flink_jpmml_tpu_torch.runtime.block import BlockPipeline
-    from flink_jpmml_tpu_torch.utils.config import BatchConfig, RuntimeConfig
+    from flink_jpmml_tpu_torch.runtime.checkpoint import CheckpointManager
 
     pipe = BlockPipeline(
         source,
         cm,
         sink,
-        RuntimeConfig(batch=BatchConfig(
-            size=BATCH, deadline_us=5000, queue_capacity=4 * DISPATCH,
-        )),
+        recovery_config(1.0),
         metrics=metrics,
         max_dispatch_chunks=DISPATCH // BATCH,
         prefetch=prefetch,
+        checkpoint=(CheckpointManager(checkpoint_dir)
+                    if checkpoint_dir else None),
     )
     if pipe.backend != "rank_wire_cuda":
         raise RuntimeError(f"pipeline backend {pipe.backend}")
@@ -827,6 +867,7 @@ def drive(cm, source, sink, count: list, counter, *, metrics=None,
     encode_s = snap.get("encode_s", 0.0)
     return {
         "backend": pipe.backend, "encode_mode": placement,
+        "checkpointed": checkpoint_dir is not None,
         "source": type(pipe._source).__name__,
         "host_cpus": os.cpu_count(),
         "records": count[0], "seconds": dt, "records_per_s": count[0] / dt,
@@ -2934,6 +2975,720 @@ def record_api(workdir: str, counter, q_cpu, vq_cpu) -> dict:
     return out
 
 
+# -- recovery (phase 21) -------------------------------------------------------
+
+RECOVERY_RECORDS = 4 * DISPATCH  # the checkpoint, poison and dynamic parts
+POISON_OFFSETS = (12_345, 400_000, 1_000_000)
+SCORER_EVENTS = 4 * BATCH  # events through the DynamicScorer
+ENGINE_EVENTS = (2 * BATCH, BATCH)  # the checkpointed run, then the restore
+
+# the sticky-error child: a BlockPipeline (checkpoints armed, so the ladder
+# is too) scores one block, then a device-side assert (an out-of-range
+# index on the card) kills the CUDA context; the next dispatch must
+# classify as chip_loss and escalate with a raise, making no retry
+CHILD_STICKY = r"""
+import json, os, sys, tempfile
+import numpy as np
+import torch
+from flink_jpmml_tpu_torch.api import ModelReader
+from flink_jpmml_tpu_torch.compile import qtrees_cuda
+from flink_jpmml_tpu_torch.runtime import devfault
+from flink_jpmml_tpu_torch.runtime.block import BlockPipeline, FiniteBlockSource
+from flink_jpmml_tpu_torch.runtime.checkpoint import CheckpointManager
+from flink_jpmml_tpu_torch.utils.config import BatchConfig, RuntimeConfig
+
+path, batch = sys.argv[1], int(sys.argv[2])
+cm = ModelReader(path).load(batch_size=batch)
+F = cm.field_space.arity
+X = np.random.default_rng(0).normal(0, 1.5, (4 * batch, F)).astype(np.float32)
+state = {}
+holder = {}
+
+class Tripping(FiniteBlockSource):
+    def poll(self):
+        if self._pos == batch and "trip" not in state:
+            t0 = __import__("time").monotonic()
+            while holder["pipe"].committed_offset < batch:
+                if __import__("time").monotonic() - t0 > 60:
+                    break
+                __import__("time").sleep(0.001)
+            state["committed_before"] = holder["pipe"].committed_offset
+            try:
+                t = torch.zeros(2, device="cuda")
+                t[torch.tensor([7], device="cuda")]
+                torch.cuda.synchronize()
+                state["trip"] = None
+            except Exception as e:
+                state["trip"] = devfault.classify(e)
+                state["trip_error"] = repr(e)[:200]
+        return super().poll()
+
+pipe = holder["pipe"] = BlockPipeline(
+    Tripping(X, batch), cm, lambda out, n, off: None,
+    RuntimeConfig(batch=BatchConfig(size=batch, deadline_us=5000)),
+    checkpoint=CheckpointManager(tempfile.mkdtemp()))
+qtrees_cuda.leaf_rows.launches = 0
+err = None
+try:
+    pipe.run_until_exhausted(timeout=120)
+except BaseException as e:
+    err = e
+snap = pipe.metrics.snapshot()
+print(json.dumps({
+    "trip_kind": state.get("trip"), "trip_error": state.get("trip_error"),
+    "committed_before_trip": state.get("committed_before"),
+    "escalated": err is not None,
+    "error_kind": None if err is None else devfault.classify(err),
+    "error": None if err is None else repr(err)[:200],
+    "committed_offset": pipe.committed_offset,
+    "launches": qtrees_cuda.leaf_rows.launches,
+    "dispatches": snap.get("dispatches", 0),
+    "redispatches": snap.get("redispatches", 0),
+    "redispatch_records": snap.get("redispatch_records", 0),
+    "chip_loss_faults": snap.get('device_fault_total{kind="chip_loss"}', 0),
+}), flush=True)
+os._exit(0)
+"""
+
+
+def recovery_config(interval_s: float = 30.0):
+    from flink_jpmml_tpu_torch.utils.config import BatchConfig, RuntimeConfig
+
+    return RuntimeConfig(
+        batch=BatchConfig(size=BATCH, deadline_us=5000,
+                          queue_capacity=4 * DISPATCH),
+        checkpoint_interval_s=interval_s,
+    )
+
+
+class HeldSink:
+    """A block sink that holds each delivery to the card's direct run of
+    the same records (``refs``: model key → f32[N], or the vote forest's
+    (value, shares, label) arrays) at the bar, labels equal, and counts
+    how often each offset arrived; a mismatch raises on the score thread,
+    so the pipeline fails."""
+
+    def __init__(self, refs: dict, n: int, label: str, key: str = "static"):
+        self.refs = refs
+        self.seen = np.zeros(n, np.int32)
+        self.key = key
+        self.label = label
+        self.calls = []  # (first offset, n, model key) per delivery
+        self.max_abs_err = 0.0
+        self.hooks = {}  # delivery index → callable run after it
+
+    def __call__(self, out, n, first, decode=None):
+        key = getattr(decode, "model_key", self.key)
+        ref = self.refs[key]
+        sl = slice(first, first + n)
+        if isinstance(ref, tuple):
+            v, p, lab = (np.asarray(o)[:n] for o in out)
+            ok = (np.allclose(v, ref[0][sl], rtol=RTOL, atol=ATOL)
+                  and np.allclose(p, ref[1][sl], rtol=RTOL, atol=ATOL)
+                  and np.array_equal(lab, ref[2][sl]))
+            err = float(np.abs(p - ref[1][sl]).max())
+        else:
+            v = np.asarray(out)[:n]
+            ok = np.allclose(v, ref[sl], rtol=RTOL, atol=ATOL)
+            err = float(np.abs(v - ref[sl]).max())
+        if not ok or v.shape[0] != n:
+            raise RuntimeError(f"{self.label}: records {first}..{first + n} "
+                               f"of {key} differ from the card's direct run")
+        self.max_abs_err = max(self.max_abs_err, err)
+        self.seen[sl] += 1
+        self.calls.append((first, n, key))
+        hook = self.hooks.pop(len(self.calls), None)
+        if hook is not None:
+            hook()
+
+
+def direct_rows(q, X: np.ndarray):
+    """The card's direct run of ``X`` through ``q`` (host encode, one
+    launch per DISPATCH records) as host arrays."""
+    parts = [wire_rows(q, X[i:i + DISPATCH])
+             for i in range(0, X.shape[0], DISPATCH)]
+    if isinstance(parts[0], tuple):
+        return tuple(np.concatenate([p[j] for p in parts])
+                     for j in range(len(parts[0])))
+    return np.concatenate(parts)
+
+
+def held_launches(counter, snap: dict, label: str, warms: int = 0,
+                  windowed: bool = False) -> dict:
+    """The kernel's count against what the pipeline counted: the window's
+    dispatches, the ladder's and the suspect scan's redispatches, and the
+    registry's warms (one launch each). ``windowed``: the redispatches
+    went through the window, so ``dispatches`` holds them already (the
+    dynamic scorer's)."""
+    launches = counter.launches
+    dispatches = int(snap.get("dispatches", 0))
+    redispatches = int(snap.get("redispatches", 0))
+    if launches != dispatches + (0 if windowed else redispatches) + warms:
+        raise RuntimeError(f"{label}: {launches} launches for {dispatches} "
+                           f"dispatches + {redispatches} redispatches + "
+                           f"{warms} warms")
+    return {"launches": launches, "dispatches": dispatches,
+            "redispatches": redispatches, "warm_launches": warms,
+            "launches_by_classes": dict(counter.launches_by_classes)}
+
+
+def reset(counter) -> None:
+    counter.launches = 0
+    counter.launches_by_classes = {}
+
+
+def ladder_counts(snap: dict) -> dict:
+    return {
+        "device_fault_total": {
+            k: snap.get(f'device_fault_total{{kind="{k}"}}', 0)
+            for k in ("device_error", "device_oom", "chip_loss")},
+        "redispatch_records": snap.get("redispatch_records", 0),
+        "oom_shrinks": snap.get("oom_shrinks", 0),
+        "fallback_records": snap.get("fallback_records", 0),
+    }
+
+
+def recovery_checkpoint(cm, X, direct, counter, workdir) -> dict:
+    """A checkpointed BlockPipeline stopped after two committed snapshots
+    (later snapshots skipped, as if the worker died there), then a fresh
+    pipeline that ``restore()``s and runs to the end."""
+    from flink_jpmml_tpu_torch.runtime.block import (
+        BlockPipeline,
+        FiniteBlockSource,
+    )
+    from flink_jpmml_tpu_torch.runtime.checkpoint import CheckpointManager
+
+    n = X.shape[0]
+    ck = tempfile.mkdtemp(dir=workdir)
+    mgr = CheckpointManager(ck)
+    real_save = mgr.save
+    saves = []
+    holder = {}
+
+    def save(state, probe=False):
+        if len(saves) >= 2:
+            return None  # the worker "died" after its second snapshot
+        path = real_save(state, probe)
+        saves.append(int(state["source_offset"]))
+        if len(saves) == 2:
+            holder["pipe"].stop()
+        return path
+
+    mgr.save = save
+    sink = HeldSink({"static": direct}, n, "recovery checkpoint")
+    # dispatches of 65,536 records, so the run spans 16 of them
+    kw = dict(max_dispatch_chunks=4)
+    reset(counter)
+    t0 = time.perf_counter()
+    pipe = holder["pipe"] = BlockPipeline(
+        FiniteBlockSource(X, BATCH), cm, sink, recovery_config(0.0),
+        checkpoint=mgr, **kw)
+    pipe.start()
+    try:
+        wait_for(lambda: len(saves) >= 2 or pipe.error is not None,
+                 "two checkpoints")
+    finally:
+        pipe.stop()
+        pipe.join(timeout=60)
+    first = held_launches(counter, pipe.metrics.snapshot(), "first run")
+    sunk_before = int(sink.seen.sum())
+    if len(saves) != 2:
+        raise RuntimeError(f"{len(saves)} checkpoints committed, not 2")
+    reset(counter)
+    pipe2 = BlockPipeline(FiniteBlockSource(X, BATCH), cm, sink,
+                          recovery_config(0.0),
+                          checkpoint=CheckpointManager(ck), **kw)
+    if not pipe2.restore() or pipe2.committed_offset != saves[1]:
+        raise RuntimeError(f"restore resumed at {pipe2.committed_offset}, "
+                           f"the second checkpoint holds {saves[1]}")
+    pipe2.run_until_exhausted(timeout=300)
+    dt = time.perf_counter() - t0
+    second = held_launches(counter, pipe2.metrics.snapshot(), "restored run")
+    dup = np.flatnonzero(sink.seen > 1)
+    if (sink.seen < 1).any() or (sink.seen > 2).any():
+        raise RuntimeError("an offset never reached the sink (or thrice)")
+    if dup.size and dup.min() < saves[1]:
+        raise RuntimeError(f"duplicate at {dup.min()} before the committed "
+                           f"offset {saves[1]}")
+    if pipe2.committed_offset != n:
+        raise RuntimeError(f"restored run committed {pipe2.committed_offset}")
+    return {"records": n, "seconds": dt, "checkpoints": saves,
+            "sunk_before_stop": sunk_before, "duplicates": int(dup.size),
+            "first_run": first, "restored_run": second,
+            "launches": first["launches"] + second["launches"],
+            "max_abs_err": sink.max_abs_err}
+
+
+def recovery_poison(cm, X, direct, counter, workdir) -> dict:
+    """Poison at three offsets through the ``score_batch`` site, with the
+    checkpoints' DLQ beside them: the suspect scan bisects on the card."""
+    from flink_jpmml_tpu_torch.runtime import faults
+    from flink_jpmml_tpu_torch.runtime.block import (
+        BlockPipeline,
+        FiniteBlockSource,
+    )
+    from flink_jpmml_tpu_torch.runtime.checkpoint import CheckpointManager
+
+    n = X.shape[0]
+    sink = HeldSink({"static": direct}, n, "recovery poison")
+    pipe = BlockPipeline(
+        FiniteBlockSource(X, BATCH), cm, sink, recovery_config(1.0),
+        checkpoint=CheckpointManager(tempfile.mkdtemp(dir=workdir)),
+        max_dispatch_chunks=DISPATCH // BATCH)
+    for off in POISON_OFFSETS:
+        faults.inject("poison_record", offset=off)
+    reset(counter)
+    t0 = time.perf_counter()
+    try:
+        pipe.run_until_exhausted(timeout=300)
+    finally:
+        faults.clear()
+    dt = time.perf_counter() - t0
+    snap = pipe.metrics.snapshot()
+    run = held_launches(counter, snap, "poison")
+    dlq = sorted(int(e["offset"]) for e in pipe._dlq.scan())
+    want = np.ones(n, np.int32)
+    want[list(POISON_OFFSETS)] = 0
+    if dlq != sorted(POISON_OFFSETS):
+        raise RuntimeError(f"the DLQ holds {dlq}, not {POISON_OFFSETS}")
+    if not np.array_equal(sink.seen, want):
+        raise RuntimeError("poison part: a clean record missed the sink, or "
+                           "a poisoned one reached it")
+    if run["redispatches"] == 0:
+        raise RuntimeError("the suspect scan launched nothing on the card")
+    return {"records": n, "seconds": dt, "dlq_offsets": dlq,
+            "quarantined": len(dlq), **run, **ladder_counts(snap),
+            "max_abs_err": sink.max_abs_err}
+
+
+def recovery_device_fault(cm, X, direct, counter, workdir) -> dict:
+    """``InjectedDeviceError`` on two dispatches and ``InjectedDeviceOOM``
+    on one (twice: the dispatch and its first full redispatch, so the
+    ladder halves), each armed from the sink between dispatches."""
+    from flink_jpmml_tpu_torch.runtime import faults
+    from flink_jpmml_tpu_torch.runtime.block import (
+        BlockPipeline,
+        FiniteBlockSource,
+    )
+    from flink_jpmml_tpu_torch.runtime.checkpoint import CheckpointManager
+
+    n = X.shape[0]
+    sink = HeldSink({"static": direct}, n, "recovery device_fault")
+    sink.hooks = {
+        1: lambda: faults.inject("device_error", n=1),
+        3: lambda: faults.inject("device_error", n=1),
+        5: lambda: faults.inject("device_oom", n=2),
+    }
+    pipe = BlockPipeline(
+        FiniteBlockSource(X, BATCH), cm, sink, recovery_config(1.0),
+        checkpoint=CheckpointManager(tempfile.mkdtemp(dir=workdir)),
+        max_dispatch_chunks=DISPATCH // BATCH)
+    reset(counter)
+    t0 = time.perf_counter()
+    try:
+        pipe.run_until_exhausted(timeout=300)
+        fired = faults.stats()
+    finally:
+        faults.clear()
+    dt = time.perf_counter() - t0
+    snap = pipe.metrics.snapshot()
+    run = held_launches(counter, snap, "device_fault")
+    lad = ladder_counts(snap)
+    if fired != {"device_error": 2, "device_oom": 2}:
+        raise RuntimeError(f"faults fired {fired}")
+    if (lad["device_fault_total"] != {"device_error": 2, "device_oom": 2,
+                                      "chip_loss": 0}
+            or lad["oom_shrinks"] != 1 or lad["fallback_records"] != 0
+            or run["redispatches"] != 5):
+        raise RuntimeError(f"the ladder ran {lad}, {run}")
+    if not (sink.seen == 1).all() or list(pipe._dlq.scan()):
+        raise RuntimeError("device faults lost, repeated or quarantined "
+                           "records")
+    return {"records": n, "seconds": dt, **run, **lad,
+            "max_abs_err": sink.max_abs_err}
+
+
+def recovery_real_oom(q, X, direct) -> dict:
+    """A real ``torch.cuda.OutOfMemoryError``: asking for more than the
+    card holds classifies as ``device_oom``, and the card scores after."""
+    import torch
+
+    from flink_jpmml_tpu_torch.runtime import devfault
+
+    try:
+        torch.empty((1 << 46,), dtype=torch.uint8, device="cuda")
+    except torch.cuda.OutOfMemoryError as e:
+        kind = devfault.classify(e)
+    else:
+        raise RuntimeError("a 64 TiB allocation succeeded")
+    if kind != devfault.KIND_OOM:
+        raise RuntimeError(f"a real OOM classified as {kind}")
+    torch.cuda.empty_cache()
+    after = wire_rows(q, X[:BATCH])
+    if not np.allclose(after, direct[:BATCH], rtol=RTOL, atol=ATOL):
+        raise RuntimeError("the card scores differently after the OOM")
+    return {"kind": kind, "scores_after": True,
+            "max_abs_err": float(np.abs(after - direct[:BATCH]).max())}
+
+
+def sticky_child(path: str):
+    """Start the sticky-error child (``CHILD_STICKY``) on ``path``."""
+    return subprocess.Popen(
+        [sys.executable, "-c", CHILD_STICKY, path, str(BATCH)],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+
+
+def sticky_result(proc) -> dict:
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    if not lines:
+        raise RuntimeError(f"the sticky-error child printed no result "
+                           f"(rc {proc.returncode}): {err[-2000:]}")
+    res = json.loads(lines[-1])
+    if (res["trip_kind"] != "chip_loss" or res["error_kind"] != "chip_loss"
+            or not res["escalated"] or res["redispatches"]
+            or res["redispatch_records"] or res["chip_loss_faults"] != 1
+            or res["launches"] != res["dispatches"]
+            or res["committed_before_trip"] != BATCH):
+        raise RuntimeError(f"the sticky-error child: {res}")
+    return res
+
+
+class MarkedBlocks:
+    """A finite block source whose ``marks`` — ``(offset, action)`` in
+    offset order — run on the ingest thread before the block from that
+    offset on is handed out."""
+
+    def __init__(self, data: np.ndarray, block: int, marks: list):
+        from flink_jpmml_tpu_torch.runtime.block import FiniteBlockSource
+
+        self._src = FiniteBlockSource(data, block)
+        self._marks = list(marks)
+
+    def poll(self):
+        if self._marks and self._src._pos >= self._marks[0][0]:
+            self._marks.pop(0)[1]()
+        return self._src.poll()
+
+    def seek(self, offset: int) -> None:
+        self._src.seek(offset)
+
+    @property
+    def exhausted(self) -> bool:
+        return self._src.exhausted and not self._marks
+
+
+def recovery_dynamic_block(gbm, gbm2, X, refs, counter, workdir) -> dict:
+    """``DynamicBlockPipeline`` serving the GBM: Add v1, Add v2 once a
+    quarter of the records is in, Del v1 once v2 is warm; checkpointed,
+    then a fresh pipeline restores and serves v2 on more records."""
+    from flink_jpmml_tpu_torch.models.control import AddMessage, DelMessage
+    from flink_jpmml_tpu_torch.models.core import ModelId
+    from flink_jpmml_tpu_torch.runtime.block import FiniteBlockSource
+    from flink_jpmml_tpu_torch.runtime.checkpoint import CheckpointManager
+    from flink_jpmml_tpu_torch.runtime.sources import ControlSource
+    from flink_jpmml_tpu_torch.serving.block import DynamicBlockPipeline
+
+    n = X.shape[0]
+    extra = features(np.random.default_rng(17), DISPATCH // 4, X.shape[1])
+    ext = np.concatenate([X, extra])
+    refs = dict(refs)
+    refs["gbm_2"] = np.concatenate([refs["gbm_2"], refs["gbm_2_extra"]])
+    ck = tempfile.mkdtemp(dir=workdir)
+    ctrl = ControlSource()
+    holder = {}
+
+    # each mark waits for the records before it to be sunk, so the
+    # messages land between two stretches of the scored stream
+    def add_v2():
+        wait_for(lambda: holder["pipe"].committed_offset >= n // 4,
+                 "the first quarter")
+        ctrl.push(AddMessage("gbm", 2, gbm2, 2.0))
+
+    def del_v1():
+        wait_for(lambda: holder["pipe"].committed_offset >= n // 2
+                 and holder["pipe"].registry.model_if_warm(
+                     ModelId("gbm", 2)) is not None, "gbm v2's warm")
+        ctrl.push(DelMessage("gbm", 1, 3.0))
+
+    marks = [(n // 4, add_v2), (n // 2, del_v1)]
+    sink = HeldSink(refs, ext.shape[0], "dynamic block gbm")
+    ctrl.push(AddMessage("gbm", 1, gbm, 1.0))
+    pipe = holder["pipe"] = DynamicBlockPipeline(
+        MarkedBlocks(X, BATCH, marks), ctrl, sink, "gbm", X.shape[1], BATCH,
+        recovery_config(1.0), checkpoint=CheckpointManager(ck),
+        max_dispatch_chunks=DISPATCH // BATCH)
+    cold = pipe.metrics.histogram("cold_start_s")
+    reset(counter)
+    t0 = time.perf_counter()
+    pipe.run_until_exhausted(timeout=300)
+    run = held_launches(counter, pipe.metrics.snapshot(), "dynamic gbm",
+                        warms=cold.count())
+    keys = [k for _, _, k in sink.calls]
+    swap = keys.index("gbm_2") if "gbm_2" in keys else len(keys)
+    if (set(keys[:swap]) != {"gbm_1"} or set(keys[swap:]) != {"gbm_2"}
+            or sink.calls[swap][0] < n // 4):
+        raise RuntimeError(f"the v1 → v2 swap broke: {keys}")
+    if not (sink.seen[:n] == 1).all() or pipe.serving_key != "gbm_2":
+        raise RuntimeError("dynamic gbm: records lost or repeated, or v2 "
+                           "not serving")
+    # a fresh pipeline, no control messages: the checkpoint serves v2
+    reset(counter)
+    pipe2 = DynamicBlockPipeline(
+        FiniteBlockSource(ext, BATCH), ControlSource(), sink, "gbm",
+        X.shape[1], BATCH, recovery_config(1.0),
+        checkpoint=CheckpointManager(ck),
+        max_dispatch_chunks=DISPATCH // BATCH)
+    cold2 = pipe2.metrics.histogram("cold_start_s")
+    if not pipe2.restore() or pipe2.committed_offset != n:
+        raise RuntimeError(f"dynamic restore resumed at "
+                           f"{pipe2.committed_offset}, not {n}")
+    if set(pipe2.registry.state()["served"]) != {"gbm_2"}:
+        raise RuntimeError(f"restored registry {pipe2.registry.state()}")
+    pipe2.run_until_exhausted(timeout=300)
+    dt = time.perf_counter() - t0
+    restored = held_launches(counter, pipe2.metrics.snapshot(),
+                             "dynamic restore", warms=cold2.count())
+    if not (sink.seen == 1).all() or pipe2.serving_key != "gbm_2":
+        raise RuntimeError("the restored pipeline did not serve v2 on the "
+                           "rest")
+    return {"records": int(ext.shape[0]), "seconds": dt,
+            "swap_offset": sink.calls[swap][0], "add_v2_offset": n // 4,
+            "del_v1_offset": n // 2, "run": run, "restored_run": restored,
+            "restored_serving_key": pipe2.serving_key,
+            "launches": run["launches"] + restored["launches"],
+            "max_abs_err": sink.max_abs_err}
+
+
+def recovery_dynamic_votes(votes, X, vref, counter) -> dict:
+    """A second ``DynamicBlockPipeline``, serving the 3-class vote
+    forest."""
+    from flink_jpmml_tpu_torch.models.control import AddMessage
+    from flink_jpmml_tpu_torch.runtime.block import FiniteBlockSource
+    from flink_jpmml_tpu_torch.runtime.sources import ControlSource
+    from flink_jpmml_tpu_torch.serving.block import DynamicBlockPipeline
+
+    n = X.shape[0]
+    ctrl = ControlSource()
+    ctrl.push(AddMessage("votes", 1, votes, 1.0))
+    sink = HeldSink({"votes_1": vref}, n, "dynamic block votes")
+    pipe = DynamicBlockPipeline(
+        FiniteBlockSource(X, BATCH), ctrl, sink, "votes", X.shape[1], BATCH,
+        recovery_config(), max_dispatch_chunks=DISPATCH // BATCH)
+    cold = pipe.metrics.histogram("cold_start_s")
+    reset(counter)
+    t0 = time.perf_counter()
+    pipe.run_until_exhausted(timeout=300)
+    dt = time.perf_counter() - t0
+    run = held_launches(counter, pipe.metrics.snapshot(), "dynamic votes",
+                        warms=cold.count())
+    if not (sink.seen == 1).all() or pipe.backend != "rank_wire_cuda":
+        raise RuntimeError(f"dynamic votes: records lost or repeated "
+                           f"({pipe.backend})")
+    if set(run["launches_by_classes"]) != {3}:
+        raise RuntimeError(f"vote launches {run['launches_by_classes']}")
+    return {"records": n, "seconds": dt, **run,
+            "max_abs_err": sink.max_abs_err}
+
+
+def recovery_scorer(gbm, X, direct, counter) -> dict:
+    """A ``DynamicScorer`` with default arguments (``device_retry`` unset)
+    and one injected device error on a group's readback: the group is
+    re-dispatched and every event scored."""
+    from flink_jpmml_tpu_torch.models.control import AddMessage
+    from flink_jpmml_tpu_torch.models.core import ModelId
+    from flink_jpmml_tpu_torch.runtime import faults
+    from flink_jpmml_tpu_torch.runtime.sources import ControlSource
+    from flink_jpmml_tpu_torch.serving.scorer import DynamicScorer
+
+    n = X.shape[0]
+    ctrl = ControlSource()
+    sc = DynamicScorer(control=ctrl, batch_size=BATCH)
+    ctrl.push(AddMessage("gbm", 1, gbm, 1.0))
+    sc.finish(sc.submit([]))  # applies the Add; its warm runs on the pool
+    wait_for(lambda: sc.registry.model_if_warm(ModelId("gbm", 1))
+             is not None, "gbm v1's warm")
+    cold = sc.metrics.histogram("cold_start_s")
+    cold0 = cold.count()
+    reset(counter)
+    preds = []
+    t0 = time.perf_counter()
+    try:
+        for i in range(0, n, BATCH):
+            if i == BATCH:
+                faults.inject("device_error", n=1)
+            preds += sc.finish(sc.submit(
+                [("gbm", X[j]) for j in range(i, min(i + BATCH, n))]))
+        fired = faults.stats()
+    finally:
+        faults.clear()
+    dt = time.perf_counter() - t0
+    snap = sc.metrics.snapshot()
+    run = held_launches(counter, snap, "dynamic scorer",
+                        warms=cold.count() - cold0, windowed=True)
+    err = check_values([p for p, _ in preds], direct, "dynamic scorer")
+    if (fired != {"device_error": 1} or run["redispatches"] != 1
+            or snap.get("redispatch_records") != BATCH):
+        raise RuntimeError(f"the scorer's group redispatch: {fired}, {run}, "
+                           f"{ladder_counts(snap)}")
+    return {"events": n, "seconds": dt, **run, **ladder_counts(snap),
+            "max_abs_err": err}
+
+
+def recovery_engine(gbm, X, direct, counter, workdir) -> dict:
+    """The record engine: ``evaluate(...).with_checkpointing(dir)`` over a
+    control stream, run with ``execute(restore=True)`` (nothing to resume
+    yet); then a fresh environment over the same events and more,
+    ``execute(restore=True)`` again — it resumes at the checkpoint with
+    the checkpointed registry and scores only the rest."""
+    from flink_jpmml_tpu_torch.api import ModelReader, StreamEnvironment
+    from flink_jpmml_tpu_torch.models.control import AddMessage
+    from flink_jpmml_tpu_torch.runtime.sources import ControlSource
+
+    n1, n2 = ENGINE_EVENTS
+    events = [("gbm", X[i]) for i in range(n1 + n2)]
+    ck = tempfile.mkdtemp(dir=workdir)
+    out = {}
+    t0 = time.perf_counter()
+    for label, evs, want in (("first", events[:n1], range(n1)),
+                             ("restored", events, range(n1, n1 + n2))):
+        env = StreamEnvironment(recovery_config())
+        ctrl = ControlSource()
+        if label == "first":
+            ctrl.push(AddMessage("gbm", 1, gbm, 1.0))
+        sink = (env.from_collection(evs).with_control_stream(ctrl)
+                .evaluate(ModelReader(gbm)).with_checkpointing(ck)
+                .collect())
+        cold = env.metrics.histogram("cold_start_s")
+        reset(counter)
+        env.execute(timeout=300.0, restore=True)
+        run = held_launches(counter, env.metrics.snapshot(),
+                            f"engine {label}", warms=cold.count())
+        items = sink.items
+        if len(items) != len(want) or any(
+                r is not events[i] for (_, r), i in zip(items, want)):
+            raise RuntimeError(f"engine {label}: {len(items)} events sunk, "
+                               f"expected {len(want)} from {want.start}")
+        idx = np.asarray(want)
+        err = check_values([p for p, _ in items], direct[idx],
+                           f"engine {label}")
+        out[label] = {"events": len(items), **run, "max_abs_err": err}
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = out["first"]["launches"] + out["restored"]["launches"]
+    out["max_abs_err"] = max(out["first"]["max_abs_err"],
+                             out["restored"]["max_abs_err"])
+    return out
+
+
+def recovery_cost(cm, X, counter, workdir) -> list:
+    """The fused GBM's BlockPipeline over the same 16 dispatches of
+    262,144 with and without checkpoints + DLQ armed (armed: a copy of
+    each batch retained past its dispatch, a snapshot every second),
+    twice in the order plain, armed, armed, plain."""
+    from flink_jpmml_tpu_torch.runtime.block import CyclingBlockSource
+
+    runs = []
+    for armed in (False, True, True, False) * 2:
+        count = [0]
+
+        def sink(out, n, first_off, count=count):
+            count[0] += n
+
+        r = drive(cm, CyclingBlockSource(X, block_size=DISPATCH), sink,
+                  count, counter,
+                  checkpoint_dir=(tempfile.mkdtemp(dir=workdir)
+                                  if armed else None))
+        runs.append({k: r[k] for k in (
+            "checkpointed", "records", "seconds", "records_per_s",
+            "dispatches", "launches", "encode_mode",
+            "batch_latency_p50_s", "batch_latency_p99_s")})
+    return runs
+
+
+def recovery(workdir: str, counter, q, vq, cm, smi: str) -> dict:
+    """The phase: checkpoint, poison, device_fault, real_errors, dynamic
+    and cost, at the main path's width (the 500-tree GBM, the 3-class
+    vote forest), each part's outputs held to the card's direct run."""
+    from flink_jpmml_tpu_torch.api import ModelReader
+    from flink_jpmml_tpu_torch.assets_gen import gen_gbm
+
+    t_phase = time.perf_counter()
+    gbm = os.path.join(workdir, "gbm_500.pmml")
+    votes = os.path.join(workdir, "votes_500.pmml")
+    gbm2 = os.path.join(workdir, "gbm_v2_500.pmml")
+    if not os.path.exists(gbm2):
+        gen_gbm(workdir, n_trees=500, seed=12, name="gbm_v2_500.pmml")
+    # the child runs beside the untimed parts and is joined before the
+    # timed one
+    child = sticky_child(os.path.join(workdir, "gbm_19.pmml"))
+    try:
+        F = len(q.wire.fields)
+        X = features(np.random.default_rng(13), RECOVERY_RECORDS, F)
+        q2 = ModelReader(gbm2).load(batch_size=BATCH).quantized_scorer()
+        direct = direct_rows(q, X)
+        extra = features(np.random.default_rng(17), DISPATCH // 4, F)
+        refs = {"gbm_1": direct, "gbm_2": direct_rows(q2, X),
+                "gbm_2_extra": direct_rows(q2, extra)}
+        vX = X[:DISPATCH]
+        vref = direct_rows(vq, vX)
+        parts = {
+            "checkpoint": recovery_checkpoint(cm, X, direct, counter,
+                                              workdir),
+            "poison": recovery_poison(cm, X, direct, counter, workdir),
+            "device_fault": recovery_device_fault(
+                cm, np.concatenate([X, X]), np.concatenate([direct, direct]),
+                counter, workdir),
+            "real_errors": {"oom": recovery_real_oom(q, X, direct)},
+            "dynamic": {
+                "block_gbm": recovery_dynamic_block(gbm, gbm2, X, refs,
+                                                    counter, workdir),
+                "block_votes": recovery_dynamic_votes(votes, vX, vref,
+                                                      counter),
+                "scorer": recovery_scorer(gbm, X[:SCORER_EVENTS],
+                                          direct[:SCORER_EVENTS], counter),
+                "engine": recovery_engine(gbm, X, direct, counter, workdir),
+            },
+        }
+        parts["real_errors"]["sticky_child"] = sticky_result(child)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+    parts["cost"] = recovery_cost(cm, X, counter, workdir)
+    plain = [r["records_per_s"] for r in parts["cost"] if not r["checkpointed"]]
+    armed = [r["records_per_s"] for r in parts["cost"] if r["checkpointed"]]
+    parts["cost_summary"] = {
+        "plain_records_per_s": plain, "armed_records_per_s": armed,
+        "fraction_lost": 1.0 - statistics.mean(armed) / statistics.mean(plain),
+    }
+    c1 = sum(p["launches"] for p in (
+        parts["checkpoint"], parts["poison"], parts["device_fault"],
+        parts["dynamic"]["block_gbm"], parts["dynamic"]["scorer"],
+        parts["dynamic"]["engine"])) + sum(
+        r["launches"] for r in parts["cost"])
+    return {"nvidia_smi": smi, "seconds": time.perf_counter() - t_phase,
+            "parts": parts, "launches_c1": c1,
+            "launches_c3": parts["dynamic"]["block_votes"]["launches"],
+            "recovery_launches": (
+                parts["poison"]["redispatches"]
+                + parts["device_fault"]["redispatches"]
+                + parts["dynamic"]["scorer"]["redispatches"]),
+            "max_abs_err": max(
+                parts["checkpoint"]["max_abs_err"],
+                parts["poison"]["max_abs_err"],
+                parts["device_fault"]["max_abs_err"],
+                parts["dynamic"]["block_gbm"]["max_abs_err"],
+                parts["dynamic"]["scorer"]["max_abs_err"],
+                parts["dynamic"]["engine"]["max_abs_err"])}
+
+
 def main() -> int:
     import importlib.util
 
@@ -3255,6 +4010,10 @@ def run_phases(workdir: str) -> int:
     rec = record_api(workdir, qtrees_cuda.leaf_rows, q_cpu, vq_cpu)
     emit({"phase": "record_api", "nvidia_smi": smi, **rec})
 
+    # -- recovery on both hot paths (the kernel in every part) --------------
+    rcv = recovery(workdir, qtrees_cuda.leaf_rows, q, vq, cm, smi)
+    emit({"phase": "recovery", **rcv})
+
     def kernel_entry(name, replaces, runs, checked, t):
         return {
             "name": name, "route": "cuda",
@@ -3280,13 +4039,15 @@ def run_phases(workdir: str) -> int:
                       "record_dicts": rec["dicts"],
                       "record_dynamic": {
                           "launches": rec["dynamic"]["launches_gbm"]},
-                      "record_kafka": rec["kafka"]},
+                      "record_kafka": rec["kafka"],
+                      "recovery": {"launches": rcv["launches_c1"]}},
                      rows + [r for r in wrows if r["classes"] == 1], timing),
         kernel_entry("qtrees_leaf_rows (vote shares)",
                      "flink_jpmml_tpu/compile/qtrees_pallas.py:187 and :238",
                      {"vote_main_path": vrun, "vote_fused_main_path": vfrun,
                       "record_dynamic": {
-                          "launches": rec["dynamic"]["launches_votes"]}},
+                          "launches": rec["dynamic"]["launches_votes"]},
+                      "recovery": {"launches": rcv["launches_c3"]}},
                      vrows + [r for r in wrows if r["classes"] > 1], vtiming),
     ]})
     print(smi, flush=True)

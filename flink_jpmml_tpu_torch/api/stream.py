@@ -21,10 +21,12 @@ see :mod:`flink_jpmml_tpu_torch.serving`.
 Where it differs: ``StreamEnvironment(config=None, device=None)`` resolves
 its device once (``utils/device.resolve_device``: the card by default,
 ``device="cpu"`` on request) and passes it to every load. Checkpoints are
-not ported: ``with_checkpointing``, ``execute(restore=True)``,
-``start(restore=True)`` and a ``RuntimeConfig.checkpoint_dir`` raise
-:class:`NotPortedError`, as do ``evaluate``'s rollout options
-(``guardrails=``, ``key_fn=``).
+the JAX package's: ``with_checkpointing(dir)`` or
+``RuntimeConfig.checkpoint_dir`` gives a pipeline a ``CheckpointManager``
+(and with it the DLQ beside the snapshots and the device-fault ladder),
+and ``execute(restore=True)`` / ``start(restore=True)`` resume each
+pipeline from its newest snapshot. ``evaluate``'s rollout options
+(``guardrails=``, ``key_fn=``) raise :class:`NotPortedError`.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from typing import Any, List, Optional, Sequence, Union
 import torch
 
 from flink_jpmml_tpu_torch.api.reader import ModelReader
+from flink_jpmml_tpu_torch.runtime.checkpoint import CheckpointManager
 from flink_jpmml_tpu_torch.runtime.engine import (
     EmitFn,
     ExtractFn,
@@ -51,13 +54,8 @@ from flink_jpmml_tpu_torch.runtime.sources import (
 )
 from flink_jpmml_tpu_torch.utils.config import RuntimeConfig
 from flink_jpmml_tpu_torch.utils.device import resolve_device
-from flink_jpmml_tpu_torch.utils.exceptions import NotPortedError, refuse
+from flink_jpmml_tpu_torch.utils.exceptions import refuse
 from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry
-
-
-def _refuse_restore(restore: bool) -> None:
-    if restore:
-        raise NotPortedError("restore=True (checkpoints) is not ported")
 
 
 class StreamEnvironment:
@@ -91,7 +89,9 @@ class StreamEnvironment:
         Pipeline failures (ingest or scoring) re-raise here — a dead stream
         is loud, only dirty *records* are silent (C5).
         """
-        _refuse_restore(restore)
+        for p in self._pipelines:
+            if restore:
+                p.restore()
         errors: List[BaseException] = []
 
         def _run(p: Pipeline) -> None:
@@ -111,8 +111,9 @@ class StreamEnvironment:
             raise errors[0]
 
     def start(self, restore: bool = False) -> None:
-        _refuse_restore(restore)
         for p in self._pipelines:
+            if restore:
+                p.restore()
             p.start()
 
     def stop(self) -> None:
@@ -204,22 +205,23 @@ class Stream:
 class EvaluatedStream:
     stream: Stream
     scorer: Scorer
+    _checkpoint_dir: Optional[str] = None
 
     def with_checkpointing(self, directory: str) -> "EvaluatedStream":
-        raise NotPortedError("with_checkpointing (checkpoints) is not ported")
+        self._checkpoint_dir = directory
+        return self
 
     def to_sink(self, sink: Sink) -> Pipeline:
         env = self.stream.env
-        if env.config.checkpoint_dir:
-            raise NotPortedError(
-                "RuntimeConfig.checkpoint_dir (checkpoints) is not ported"
-            )
+        ckpt_dir = self._checkpoint_dir or env.config.checkpoint_dir
+        ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
         pipeline = Pipeline(
             source=self.stream.source,
             scorer=self.scorer,
             sink=sink,
             config=env.config,
             metrics=env.metrics,
+            checkpoint=ckpt,
         )
         return env.register(pipeline)
 

@@ -72,7 +72,7 @@ import pathlib
 import re
 import shutil
 import threading
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -104,7 +104,13 @@ class KernelBuildError(FlinkJpmmlTpuError):
 
 
 class KernelLaunchError(FlinkJpmmlTpuError):
-    """The CUDA runtime reported an error for a kernel launch."""
+    """The CUDA runtime reported an error for a kernel launch.
+    ``cuda_error`` is its ``cudaError_t`` code (``runtime/devfault.py``
+    reads the fault's kind from it)."""
+
+    def __init__(self, message: str, cuda_error: Optional[int] = None):
+        super().__init__(message)
+        self.cuda_error = cuda_error
 
 
 # ---------------------------------------------------------------------------
@@ -515,7 +521,7 @@ def leaf_rows(codes: torch.Tensor, tables: Dict[str, torch.Tensor],
     )
     if rc != 0:
         raise KernelLaunchError(f"qtrees_leaf_rows launch failed: "
-                                f"cudaError {rc}")
+                                f"cudaError {rc}", cuda_error=rc)
     with _COUNT_LOCK:
         leaf_rows.launches += 1
         by_c = leaf_rows.launches_by_classes

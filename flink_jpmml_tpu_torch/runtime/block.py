@@ -12,27 +12,55 @@ float32 blocks end to end:
       → staged H2D copy → kernel (CUDA stream)
       → in-flight window (runtime/pipeline.py) → sink(outputs, n, offset)
 
-Ported: the sources, ``BoundScorer``, and ``BlockPipeline`` over the C++
-ring with ``start`` / ``stop`` / ``join`` / ``run_for`` /
-``run_until_exhausted``; the prefetch sidecar (``runtime/prefetch.py``:
-a source that marks itself ``prefetchable``, as ``KafkaBlockSource``
-does, is polled on a sidecar thread; ``prefetch=False`` turns it off,
-and ``stop()`` parks it before the ring closes); the stage ledger
-(``obs/attr.py``: ``encode``, ``h2d``, ``queue_wait`` and ``readback``
-from ``runtime/pipeline.py``, ``sink`` here, and ``fetch``, ``decode``
-and ``prefetch_wait`` from the Kafka source and the sidecar, all in the
-pipeline's registry); and the freshness and pressure planes, ticked
-from the score loop. The JAX package's Python ring (its fall-back when
-the C++ library cannot be built) is not ported: the ring raises
-``NativeBuildError`` instead. Not ported yet (the JAX package's hooks at
-block.py:31-51): checkpoints, the DLQ and poison isolation, keyed
-state, the mesh, device-fault recovery (and with it the freshness hooks
-of its recovery and fallback paths), admission control, the drift
-plane and journey tracing. The score loop marks where each attaches.
+:class:`BlockPipelineBase` holds the machinery the static
+:class:`BlockPipeline` and the dynamic
+``serving/block.DynamicBlockPipeline`` share: ingest→ring, the lifecycle
+(``start`` / ``stop`` / ``join`` / ``run_for`` / ``run_until_exhausted``),
+the score loop, and recovery:
 
-The f32 path (``_dispatch_f32``, every family without a rank wire) books
-the bytes it ships in ``h2d_bytes``, as the rank-wire path does; the JAX
-package's f32 dispatch books none.
+- **checkpoints** (``checkpoint=``, a ``runtime/checkpoint``
+  ``CheckpointManager``): the committed offset, the in-flight high-water
+  mark and the source's cursor state ride each snapshot; ``restore()``
+  seeks the source back to the committed offset (at-least-once replay);
+- **poison isolation** (``dlq=``, or the default DLQ beside the
+  checkpoints, ``runtime/dlq.py``): a scoring error bisects the failed
+  batch by synchronous re-dispatches on the card until single failing
+  records remain; those go to the DLQ, clean runs to the sink, and the
+  whole range commits. A crash-loop fingerprint at restore turns the
+  replay region into suspect mode (markers persisted per sub-dispatch);
+- **the device-fault ladder** (``runtime/devfault.py`` +
+  ``serving/failover.py``): a device error re-dispatches the
+  host-retained batch under full-jitter backoff, an OOM bisects the
+  batch size, and a lost context (``chip_loss``) escalates with a raise.
+  The ladder arms where a DLQ is wired, with ``failover=<plane>``, or
+  with ``FJT_FAILOVER=1``. Every redispatch and bisection probe launches
+  ``qtrees_leaf_rows`` on the card: the rank wire has no host tier, so
+  when retries run out the ladder re-raises, and an open circuit keeps
+  dispatching the rank wire to the card. Only an f32 model whose caller
+  asked (``failover=`` or ``FJT_FAILOVER=1``) serves on the host tier.
+
+Batches are retained past the async dispatch (one private copy each)
+only when a DLQ or a failover plane is wired, as in the JAX package.
+
+The prefetch sidecar (``runtime/prefetch.py``) wraps a source that marks
+itself ``prefetchable``, as ``KafkaBlockSource`` does; ``prefetch=False``
+turns it off, and ``stop()`` parks it before the ring closes. The stage
+ledger (``obs/attr.py``: ``encode``, ``h2d``, ``queue_wait`` and
+``readback`` from ``runtime/pipeline.py``, ``sink`` here) and the
+freshness and pressure planes tick from the score loop. The fault sites
+``score_loop`` and ``score_batch`` (with the dispatched offsets) fire
+where the JAX package fires them.
+
+Where it differs: the JAX package's Python ring (its fall-back when the
+C++ library cannot be built) is not ported — the ring raises
+``NativeBuildError`` instead. The f32 path (``_dispatch_f32``) books the
+bytes it ships in ``h2d_bytes``, as the rank-wire path does. Not ported
+(each raises :class:`NotPortedError` and names itself): ``slo=``,
+``batcher=``, ``admission=`` / ``shed_lane=``, ``state=``, ``mesh=``,
+``tenant=`` and ``donate=``; with them go the ladder's mesh rebuild
+(a ``chip_loss`` always escalates — one card, no mesh), the OOM cap fed
+to an adaptive batcher, admission shedding, keyed state and journey
+tracing.
 
 The sink receives host tensors (the pinned buffer the D2H copy filled)
 once their dispatch has completed; :meth:`BlockPipeline.decode` turns one
@@ -41,6 +69,7 @@ into ``Prediction``s.
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from typing import Callable, List, Optional, Tuple
@@ -52,7 +81,20 @@ from flink_jpmml_tpu_torch.compile.compiler import CompiledModel
 from flink_jpmml_tpu_torch.obs import attr as attr_mod
 from flink_jpmml_tpu_torch.obs import freshness as fresh_mod
 from flink_jpmml_tpu_torch.obs import pressure as pressure_mod
+from flink_jpmml_tpu_torch.obs import recorder as flight
+from flink_jpmml_tpu_torch.obs import trace as trace_mod
+from flink_jpmml_tpu_torch.runtime import devfault
+from flink_jpmml_tpu_torch.runtime import faults
 from flink_jpmml_tpu_torch.runtime import prefetch as prefetch_mod
+from flink_jpmml_tpu_torch.runtime.checkpoint import CheckpointPolicy
+from flink_jpmml_tpu_torch.runtime.dlq import (
+    REASON_CRASH_LOOP,
+    REASON_SCORE,
+    CrashFingerprint,
+    PoisonIsolationOverflow,
+    dlq_for_checkpoint,
+    env_count,
+)
 from flink_jpmml_tpu_torch.runtime.native import NativeRing
 from flink_jpmml_tpu_torch.runtime.pipeline import (
     DeviceOutput,
@@ -62,7 +104,10 @@ from flink_jpmml_tpu_torch.runtime.pipeline import (
     dispatch_quantized,
 )
 from flink_jpmml_tpu_torch.utils.config import RuntimeConfig
-from flink_jpmml_tpu_torch.utils.exceptions import InputValidationException
+from flink_jpmml_tpu_torch.utils.exceptions import (
+    InputValidationException,
+    refuse,
+)
 from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry
 
 
@@ -71,6 +116,12 @@ class BlockSource:
 
     def poll(self) -> Optional[Tuple[int, np.ndarray]]:
         raise NotImplementedError
+
+    def seek(self, offset: int) -> None:
+        """Resume hook: next poll starts at this record offset."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support offset seek/resume"
+        )
 
     @property
     def exhausted(self) -> bool:
@@ -100,6 +151,10 @@ class CyclingBlockSource(BlockSource):
         self._offset += blk.shape[0]
         return off, blk
 
+    def seek(self, offset: int) -> None:
+        self._offset = offset
+        self._pos = offset % self._data.shape[0]
+
 
 class FiniteBlockSource(BlockSource):
     def __init__(self, data: np.ndarray, block_size: int):
@@ -115,66 +170,96 @@ class FiniteBlockSource(BlockSource):
         self._pos += blk.shape[0]
         return off, blk
 
+    def seek(self, offset: int) -> None:
+        self._pos = offset
+
     @property
     def exhausted(self) -> bool:
         return self._pos >= self._data.shape[0]
 
 
 class BoundScorer:
-    """One compiled model bound for block scoring: its (maybe) rank-wire
-    scorer, the ``rank_wire_*``/``f32`` backend tag, and its decode."""
+    """One servable compiled model bound for block scoring: its (maybe)
+    rank-wire scorer, the ``rank_wire_*``/``f32`` backend tag, and the
+    decode callable (carrying ``model_key``) handed to dynamic sinks.
+    Shared by the static and dynamic pipelines."""
 
-    def __init__(self, model: CompiledModel, use_quantized: bool):
+    def __init__(self, key: str, model: CompiledModel, use_quantized: bool):
+        self.key = key
         self.model = model
         self.q = model.quantized_scorer() if use_quantized else None
         self.backend = (
             f"rank_wire_{self.q.backend}" if self.q is not None else "f32"
         )
 
-    def decode(self, out, n: int):
-        if self.q is not None:
-            return self.q.decode(out, n)
-        return self.model.decode(out, n)
+        def decode(out, n):
+            if self.q is not None:
+                return self.q.decode(out, n)
+            return self.model.decode(out, n)
+
+        decode.model_key = key
+        self.decode = decode
 
 
-class BlockPipeline:
-    """source → ring → batches → rank-wire (or f32) scoring → sink.
+class _Dispatched:
+    """One dispatch in the window: its :class:`DeviceOutput` and the
+    decode bound to the model that scored it (None on the static path).
+    Readiness and the wait are the output's."""
 
-    ``sink(out, n: int, first_offset: int)`` receives one completed
-    dispatch's host output (a tensor, or the f32 path's
-    :class:`ModelOutput` of host tensors) in offset order. ``backend``
-    says which scoring path engaged (``rank_wire_cuda`` for the GBM) and
-    is also counted in metrics as ``scorer_backend_*``. The model's device
-    is the pipeline's device: the card unless it was compiled with
-    ``device="cpu"``. Records travel the C++ ring, which raises
-    ``NativeBuildError`` when its library cannot be built. The rank-wire
-    scorer's ``encode_placement`` says where each batch is encoded
-    (``dispatch_quantized``). ``prefetch`` (None = auto: the source's
-    own ``prefetchable`` mark) wraps the source in the prefetch sidecar;
-    ``FJT_PREFETCH_DISABLE`` turns it off either way.
+    __slots__ = ("res", "decode")
+
+    def __init__(self, res: DeviceOutput, decode):
+        self.res = res
+        self.decode = decode
+
+    def ready(self) -> bool:
+        return self.res.ready()
+
+    def synchronize(self) -> None:
+        self.res.synchronize()
+
+
+class BlockPipelineBase:
+    """Shared machinery of the static and dynamic block pipelines:
+    ingest→ring, lifecycle, the ``_drain_all`` stop protocol, the score
+    loop, checkpoints, poison isolation and the device-fault ladder.
+    Subclass hooks:
+
+    - ``_acquire(finish_one)`` → per-batch scoring handle (or None to
+      abandon the loop — the dynamic pipeline's bounded give-up); called
+      with a drained batch pending, between batches.
+    - ``_dispatch(handle, X, n)`` → ``(DeviceOutput, decode_or_None)``,
+      the async device dispatch.
+    - ``_emit(out, n, first_off, decode)`` → deliver to the sink.
+    - ``_on_idle()`` — called when the ring drain returns empty on an
+      open ring; reachable only when ``_IDLE_WAIT_US >= 0`` bounds the
+      drain's wait for a first record.
     """
+
+    _THREAD_TAG = "blk"
+    _IDLE_WAIT_US = -1  # block indefinitely for the first record
 
     def __init__(
         self,
         source: BlockSource,
-        model: CompiledModel,
         sink: Callable,
-        config: Optional[RuntimeConfig] = None,
-        metrics: Optional[MetricsRegistry] = None,
-        in_flight: int = 2,
-        use_quantized: bool = True,
+        arity: int,
+        batch_size: int,
+        device: torch.device,
+        config: Optional[RuntimeConfig],
+        metrics: Optional[MetricsRegistry],
+        in_flight: int,
+        checkpoint,
         max_dispatch_chunks: int = 8,
+        dlq=None,
         prefetch: Optional[bool] = None,
+        failover=None,
     ):
-        if model.batch_size is None:
-            raise InputValidationException(
-                "BlockPipeline needs a fixed-batch compiled model "
-                "(compile_pmml(batch_size=...))"
-            )
         self._source = source
         self._sink = sink
-        self._arity = model.field_space.arity
-        self._batch_size = model.batch_size
+        self._arity = arity
+        self._batch_size = batch_size
+        self.device = device
         # >1 enables opportunistic multi-chunk dispatch on a backed-up
         # ring (see _aggregate_full_batches); 1 = one batch per dispatch
         self._max_dispatch_chunks = max(1, max_dispatch_chunks)
@@ -182,14 +267,18 @@ class BlockPipeline:
         self.metrics = metrics or MetricsRegistry()
         # pipelined ingest: a prefetchable source (the Kafka source:
         # network fetch + wire decode) is polled on a sidecar thread, so
-        # the ingest thread only moves decoded blocks into the ring
+        # the ingest thread only moves decoded blocks into the ring; the
+        # wrapper proxies seek and the checkpoint hooks
         self._source = prefetch_mod.maybe_wrap_block(
             self._source, metrics=self.metrics, enable=prefetch
         )
         self._ring = NativeRing(
-            self._config.batch.queue_capacity, self._arity, self._batch_size
+            self._config.batch.queue_capacity, arity, batch_size
         )
         self._in_flight_max = max(1, in_flight)
+        # drained-but-undispatched batches carried across loop
+        # iterations (aggregation stops at an offset discontinuity, and
+        # the poison plane splits mid-batch gaps)
         self._carry_drain: "List[Tuple[np.ndarray, np.ndarray]]" = []
         # True only for run_until_exhausted's full drain; plain stop()
         # discards the uncommitted ring backlog
@@ -198,10 +287,59 @@ class BlockPipeline:
         self._threads: List[threading.Thread] = []
         self._error: Optional[BaseException] = None
         self.committed_offset = 0
-        self.device = model.device
-        self._bound = BoundScorer(model, use_quantized)
-        self.backend = self._bound.backend
-        self.metrics.counter(f"scorer_backend_{self.backend}").inc()
+        self._ckpt = CheckpointPolicy(
+            checkpoint, self._config.checkpoint_interval_s,
+            metrics=self.metrics,
+        )
+        # -- delivery-correctness plane (runtime/dlq.py) ------------------
+        # the DLQ defaults to living BESIDE the checkpoints; dlq=None with
+        # no checkpoint keeps fail-fast (a scoring error stops the worker)
+        self._dlq = dlq if dlq is not None else dlq_for_checkpoint(
+            checkpoint, metrics=self.metrics
+        )
+        ckpt_dir = getattr(checkpoint, "directory", None)
+        self._ckpt_dir = ckpt_dir
+        self._fingerprint = (
+            CrashFingerprint(ckpt_dir)
+            if (ckpt_dir is not None and self._dlq is not None) else None
+        )
+        # -- device-fault resilience (runtime/devfault.py +
+        #    serving/failover.py) -------------------------------------------
+        # the ladder arms where the staging batches are already retained
+        # (a DLQ is wired), or explicitly via failover=<plane> /
+        # FJT_FAILOVER=1; only the explicit forms let the host tier serve
+        # (an f32 model; the rank wire never). failover=False disables.
+        asked = bool(os.environ.get("FJT_FAILOVER"))
+        if failover is False:
+            self._failover = None
+        elif failover is not None:
+            self._failover = failover
+        elif self._dlq is not None or asked:
+            from flink_jpmml_tpu_torch.serving import failover as failover_mod
+
+            self._failover = failover_mod.plane_for(
+                self.metrics, serve=asked
+            )
+        else:
+            self._failover = None
+        # retain the drained batch (private copy) past the async
+        # dispatch: poison isolation AND device-fault recovery both
+        # re-dispatch from this host-retained copy
+        self._retain_batches = (
+            self._dlq is not None or self._failover is not None
+        )
+        # highest offset ever handed to a dispatch (+n): checkpointed as
+        # inflight_hi so a restart knows the at-least-once replay region
+        self._dispatched_hi = 0
+        # replay accounting + crash-loop suspect mode, armed by restore()
+        self._replay_until = 0
+        self._suspect_until: Optional[int] = None
+        self._death_marker: Optional[dict] = None
+        self._suspect_gauge = self.metrics.gauge("poison_suspect_mode")
+        # synchronous card dispatches the ladder and the suspect scan
+        # made beside the window's ``dispatches`` (the port adds it: on
+        # the rank wire each is one kernel launch)
+        self._redispatches = self.metrics.counter("redispatches")
         # the dispatch stream and pinned staging, created on the score
         # thread's first batch
         self._stream = None
@@ -213,18 +351,96 @@ class BlockPipeline:
         it), or None."""
         return self._error
 
-    def decode(self, out, n: int):
-        """Sink-received host output → ``Prediction`` list."""
-        return self._bound.decode(out, n)
+    # -- checkpoint / restore -------------------------------------------------
 
-    # -- lifecycle -----------------------------------------------------------
+    def _ckpt_state(self) -> dict:
+        state = {
+            "source_offset": self.committed_offset,
+            # [source_offset, inflight_hi) is the at-least-once replay
+            # region on restore
+            "inflight_hi": max(self._dispatched_hi, self.committed_offset),
+        }
+        # sources whose resume needs more than the scalar offset (the
+        # multi-partition Kafka cursor vector) embed it
+        snap = getattr(self._source, "checkpoint_state", None)
+        if snap is not None:
+            extra = snap(self.committed_offset)
+            if extra is not None:
+                state["source_state"] = extra
+        return state
+
+    def restore(self) -> bool:
+        """Resume from the latest checkpoint: seek the source to the last
+        committed record offset (commit happens after sink). A
+        source-state payload takes precedence. → False when no snapshot
+        exists (the crash-loop fingerprint still counts the restore)."""
+        state = self._ckpt.restore_latest()
+        if state is None:
+            self._init_poison_state({})
+            return False
+        off = int(state.get("source_offset", 0))
+        sstate = state.get("source_state")
+        rst = getattr(self._source, "restore_state", None)
+        if sstate is not None and rst is not None:
+            off = int(rst(sstate))
+        else:
+            self._source.seek(off)
+        self.committed_offset = off
+        self._init_poison_state(state)
+        self._restore_extra(state)
+        return True
+
+    def _init_poison_state(self, state: dict) -> None:
+        """Crash-loop fingerprinting at restore: count consecutive
+        restores stuck at the same committed offset (``crashes.json``
+        beside the checkpoints) and read ``FJT_RESTART_STREAK`` — either
+        crossing ``FJT_POISON_RESTARTS`` flips the checkpoint's in-flight
+        range into suspect mode."""
+        self._replay_until = max(
+            int(state.get("inflight_hi", 0)), self.committed_offset
+        )
+        if self._fingerprint is None:
+            return
+        committed = self.committed_offset
+        count = self._fingerprint.note_restore(committed)
+        streak = env_count("FJT_RESTART_STREAK", 0)
+        self._death_marker = self._fingerprint.read_marker()
+        if (
+            self._death_marker is not None
+            and self._death_marker["hi"] <= committed
+        ):
+            # marker from a range that later committed: stale
+            self._death_marker = None
+            self._fingerprint.clear_marker()
+        threshold = env_count("FJT_POISON_RESTARTS", 3)
+        if max(count - 1, streak) >= threshold:
+            hi = self._replay_until
+            if hi <= committed:
+                hi = committed + self._batch_size
+            self._suspect_until = hi
+            self._suspect_gauge.set(1.0)
+            flight.record(
+                "poison_suspect_mode", lo=committed, hi=hi,
+                restarts=max(count - 1, streak),
+                marker=self._death_marker,
+            )
+
+    def _restore_extra(self, state: dict) -> None:
+        """Subclass hook: restore what the subclass's ``_ckpt_state``
+        added (keyed state is not ported, so the base has nothing)."""
+
+    # -- lifecycle -------------------------------------------------------------
 
     def start(self):
         t1 = threading.Thread(
-            target=self._ingest, name="fjt-blk-ingest", daemon=True
+            target=self._ingest,
+            name=f"fjt-{self._THREAD_TAG}-ingest",
+            daemon=True,
         )
         t2 = threading.Thread(
-            target=self._score, name="fjt-blk-score", daemon=True
+            target=self._score,
+            name=f"fjt-{self._THREAD_TAG}-score",
+            daemon=True,
         )
         self._threads = [t1, t2]
         t1.start()
@@ -269,28 +485,21 @@ class BlockPipeline:
         self.stop()
         self.join(timeout=max(30.0, deadline - time.monotonic()))
 
-    # -- threads -------------------------------------------------------------
+    # -- subclass hooks --------------------------------------------------------
 
-    def _ingest(self) -> None:
-        records_in = self.metrics.counter("records_in")
-        try:
-            while not self._stop.is_set():
-                polled = self._source.poll()
-                if polled is None:
-                    if self._source.exhausted:
-                        return
-                    time.sleep(0.0005)
-                    continue
-                off, block = polled
-                pushed = 0
-                while pushed < block.shape[0] and not self._stop.is_set():
-                    pushed += self._ring.push_block(
-                        block[pushed:], off + pushed, timeout_us=100_000
-                    )
-                records_in.inc(block.shape[0])
-        except BaseException as e:
-            self._error = e
-            self._stop.set()
+    def _acquire(self, finish_one):
+        raise NotImplementedError
+
+    def _dispatch(self, handle, X, n):
+        raise NotImplementedError
+
+    def _emit(self, out, n, first_off, decode) -> None:
+        self._sink(out, n, first_off)
+
+    def _on_idle(self) -> None:
+        pass
+
+    # -- dispatch --------------------------------------------------------------
 
     def _aggregate_full_batches(self, X, offsets, bs: int):
         """Opportunistic multi-chunk dispatch: when the first drain came
@@ -327,26 +536,438 @@ class BlockPipeline:
             return parts[0], off_parts[0], bs
         return np.concatenate(parts, axis=0), np.concatenate(off_parts), total
 
-    def _dispatch(self, X) -> DeviceOutput:
-        """Async dispatch of one drained batch: the rank wire when the
-        model is eligible (host-encoded or fused, as the scorer's
-        ``encode_placement`` says), the f32 path otherwise. ``X`` may be a view
-        of the ring's reused drain buffer: both paths are done with it
-        when this returns."""
-        q = self._bound.q
-        if q is not None:
+    def _dispatch_bound(self, bound: BoundScorer, X, n) -> DeviceOutput:
+        """Async dispatch of one drained batch through a
+        :class:`BoundScorer`: the rank wire when the model is eligible
+        (host-encoded or fused, as the scorer's ``encode_placement``
+        says), the f32 path otherwise. ``X`` may be a view of the ring's
+        reused drain buffer: both paths are done with it when this
+        returns."""
+        if bound.q is not None:
             return dispatch_quantized(
-                q, X, metrics=self.metrics, staging=self._staging
+                bound.q, X, metrics=self.metrics, staging=self._staging
             )
-        return self._dispatch_f32(X)
+        return self._dispatch_f32(bound.model, X)
 
-    def _dispatch_f32(self, X) -> DeviceOutput:
+    def _dispatch_f32(self, model, X) -> DeviceOutput:
         """f32 path: NaN cells are the missing convention. The mask and the
         zeroed, padded values are made on the host and both cross the bus
         (``h2d_bytes``: 5 bytes a cell, padding rows included)."""
         M = np.isnan(X)
         Xb = np.where(M, 0.0, X).astype(np.float32)
-        return dispatch_f32(self._bound.model, Xb, M, metrics=self.metrics)
+        return dispatch_f32(model, Xb, M, metrics=self.metrics)
+
+    def _dispatch_checked(self, handle, X, n, offsets) -> _Dispatched:
+        """The one dispatch entry carrying the batch's offsets past the
+        fault harness: ``poison_record`` faults match against exactly the
+        range being scored, so bisection isolates an injected poison the
+        same way it isolates a real one."""
+        faults.fire("score_batch", offsets=offsets)
+        res, decode = self._dispatch(handle, X, n)
+        return _Dispatched(res, decode)
+
+    # -- poison isolation and the device-fault ladder --------------------------
+
+    def _on_dispatch_error(self, out, meta, error) -> bool:
+        """Dispatcher error hook, with device-fault triage FIRST: a sick
+        card runs the recovery ladder and record poison the suspect scan.
+        → False (re-raise) when the entry carries no retained batch or the
+        matching plane is not wired."""
+        n, first_off, t_start, handle, X, offsets = meta
+        if X is None or offsets is None:
+            return False
+        kind = devfault.classify(error)
+        if kind is not None:
+            if self._failover is None:
+                return False  # fail fast: die, restart
+            self._device_recover(handle, X, offsets, error, kind)
+            return True
+        if self._dlq is None:
+            return False
+        self._suspect_scan(handle, X, offsets, error=error)
+        return True
+
+    def _redispatch_sync(self, handle, X, n, offsets) -> _Dispatched:
+        """One synchronous re-dispatch of a host-retained batch through
+        the real dispatch path (fault sites included, so an injected
+        persistent fault keeps failing here exactly like a real one) →
+        the completed dispatch."""
+        faults.fire("device_dispatch")
+        d = self._dispatch_checked(handle, X, n, offsets)
+        self._redispatches.inc()
+        faults.fire("device_readback")
+        d.synchronize()
+        return d
+
+    def _emit_recovered(self, d: _Dispatched, offsets, lo, hi,
+                        t0=None) -> None:
+        """Deliver + commit one recovered run (redispatch, OOM sub-batch
+        or host-tier score): sink in offset order, freshness stamps
+        consumed, offsets committed — the failed dispatch never reached
+        the completion callback, so nothing is delivered twice."""
+        n_run = hi - lo
+        first = int(offsets[lo])
+        self._emit(d.res.result(), n_run, first, d.decode)
+        self.metrics.counter("records_out").inc(n_run)
+        fresh_mod.freshness_for(self.metrics).observe_sink(first, n_run)
+        if t0 is not None:
+            # host-tier batches are real deliveries: their latency
+            # belongs in the histogram
+            self.metrics.histogram("batch_latency_s").observe(
+                time.monotonic() - t0
+            )
+        self.committed_offset = int(offsets[hi - 1]) + 1
+        self._ckpt.maybe_save(self._ckpt_state)
+
+    def _device_recover(self, handle, X, offsets, error, kind) -> None:
+        """The recovery ladder for one device-classified dispatch
+        failure: (1) transient errors re-dispatch the retained batch
+        under the shared full-jitter backoff; (2) OOM bisects the BATCH
+        SIZE (never the records); (3) exhausted retries fall through to
+        the host tier where it serves, else re-raise; (4) a lost context
+        escalates with a raise."""
+        from flink_jpmml_tpu_torch.utils.retry import Backoff
+
+        plane = self._failover
+        n = int(X.shape[0])
+        first = int(offsets[0])
+        key = getattr(handle, "key", None) or "default"
+        plane.note_fault(kind, key, first_off=first, n=n, error=error)
+        if kind == devfault.KIND_LOST:
+            self._lost_recover(handle, X, offsets, error)
+            return
+        breaker = plane.breaker_for(key)
+        breaker.record_failure(kind)
+        if kind == devfault.KIND_OOM:
+            self._oom_recover(handle, X, offsets, error)
+            return
+        bo = Backoff(
+            "device", base_s=0.02, cap_s=0.5,
+            max_attempts=plane.retries,
+        )
+        while not bo.exhausted:
+            bo.sleep()
+            try:
+                d = self._redispatch_sync(handle, X, n, offsets)
+            except Exception as e2:
+                k2 = devfault.classify(e2)
+                if k2 is None:
+                    # the device fault cleared and a RECORD error
+                    # surfaced underneath: poison's jurisdiction
+                    if self._dlq is not None:
+                        self._suspect_scan(handle, X, offsets, error=e2)
+                        return
+                    raise
+                plane.note_fault(k2, key, first_off=first, n=n, error=e2)
+                if k2 == devfault.KIND_LOST:
+                    self._lost_recover(handle, X, offsets, e2)
+                    return
+                breaker.record_failure(k2)
+                if k2 == devfault.KIND_OOM:
+                    self._oom_recover(handle, X, offsets, e2)
+                    return
+                error = e2
+                continue
+            breaker.record_success()
+            plane.redispatch_records.inc(n)
+            flight.record(
+                "device_redispatch", model=key, first=first, n=n,
+                attempts=bo.attempts,
+            )
+            self._emit_recovered(d, offsets, 0, n)
+            return
+        # retries exhausted: the host tier serves where it may (an f32
+        # model whose caller asked); the rank wire escalates
+        if plane.tier.supports(handle):
+            self._serve_fallback(handle, X, offsets)
+            return
+        raise error
+
+    def _lost_recover(self, handle, X, offsets, error) -> None:
+        """The ``chip_loss`` rung: one card and no mesh, so escalate to
+        the supervisor with the raise (the JAX package's single-chip
+        contract). A sticky CUDA error leaves the context unusable, so an
+        in-process retry could not succeed anyway."""
+        flight.record(
+            "device_lost_escalate",
+            model=getattr(handle, "key", None) or "default",
+            first=int(offsets[0]), n=int(X.shape[0]), error=repr(error),
+        )
+        raise error
+
+    def _oom_recover(self, handle, X, offsets, error) -> None:
+        """Device-OOM ladder step: bisect the BATCH SIZE until runs fit
+        and deliver each run in offset order. Records are never
+        quarantined — an allocator refusal says nothing about the
+        data."""
+        plane = self._failover
+        n = int(X.shape[0])
+        key = getattr(handle, "key", None) or "default"
+        state = {"max_ok": 0}
+
+        def attempt(lo: int, hi: int) -> None:
+            size = hi - lo
+            try:
+                d = self._redispatch_sync(
+                    handle, X[lo:hi], size, offsets[lo:hi]
+                )
+            except Exception as e2:
+                k2 = devfault.classify(e2)
+                if k2 is None:
+                    if self._dlq is not None:
+                        self._suspect_scan(
+                            handle, X[lo:hi], offsets[lo:hi], error=e2
+                        )
+                        return
+                    raise
+                plane.note_fault(
+                    k2, key, first_off=int(offsets[lo]), n=size,
+                    error=e2,
+                )
+                if k2 == devfault.KIND_LOST:
+                    self._lost_recover(
+                        handle, X[lo:hi], offsets[lo:hi], e2
+                    )
+                    return
+                plane.breaker_for(key).record_failure(k2)
+                if size == 1:
+                    # one record alone exceeds the card: the host tier
+                    # serves it where it may, or the worker escalates —
+                    # a sick card never quarantines a clean record
+                    if plane.tier.supports(handle):
+                        self._serve_fallback(
+                            handle, X[lo:hi], offsets[lo:hi]
+                        )
+                        return
+                    raise e2
+                mid = (lo + hi) // 2
+                attempt(lo, mid)
+                attempt(mid, hi)
+                return
+            state["max_ok"] = max(state["max_ok"], size)
+            plane.redispatch_records.inc(size)
+            self._emit_recovered(d, offsets, lo, hi)
+
+        attempt(0, n)
+        plane.oom_shrinks.inc()
+        flight.record(
+            "oom_batch_shrink", model=key, from_records=n,
+            to_records=state["max_ok"] or None,
+        )
+        plane.record_success(key)
+
+    def _fallback_dispatch(self, handle, X, n) -> _Dispatched:
+        """Host-tier scoring hook → the completed dispatch in the
+        subclass's sink shape (the static path's sink takes no decode)."""
+        return _Dispatched(
+            DeviceOutput(self._failover.tier.score_bound(handle, X)), None
+        )
+
+    def _fallback_checked(self, handle, X, n, offsets) -> _Dispatched:
+        """The host tier's ``_dispatch_checked`` twin: still a real
+        scoring site, so record-targeted faults strike it too."""
+        faults.fire("score_batch", offsets=offsets)
+        return self._fallback_dispatch(handle, X, n)
+
+    def _serve_fallback(self, handle, X, offsets) -> None:
+        """Score one batch on the host tier (an f32 model whose caller
+        asked for it) — degraded, not down. Record poison that surfaces
+        here isolates on the host tier, never by re-dispatching to the
+        sick card."""
+        plane = self._failover
+        n = int(X.shape[0])
+        first = int(offsets[0])
+        key = getattr(handle, "key", None) or "default"
+        # the host tier IS the dispatch stage while degraded
+        fresh_mod.freshness_for(self.metrics).propagate_low_watermark(
+            "dispatch", first, n
+        )
+        t0 = time.monotonic()
+        try:
+            d = self._fallback_checked(handle, X, n, offsets)
+        except Exception as e:
+            if devfault.classify(e) is not None or self._dlq is None:
+                raise
+            self._suspect_scan(
+                handle, X, offsets, error=e,
+                dispatch=self._fallback_checked,
+            )
+            return
+        plane.note_fallback(n, key)
+        self._emit_recovered(d, offsets, 0, n, t0=t0)
+
+    def _suspect_scan(
+        self, handle, X, offsets, error, persist: bool = False,
+        dispatch=None,
+    ) -> None:
+        """Bisection ("suspect mode") over one failed batch: dispatch
+        halves synchronously until the offending record(s) are single —
+        those go to the DLQ (never the sink); every clean run proceeds to
+        the sink in offset order. The whole range then commits, so a
+        restart never replays the quarantined record back to life.
+
+        ``persist=True`` (crash-loop fingerprint mode) writes the suspect
+        MARKER before every sub-dispatch: a record that kills the process
+        narrows the marker by one bisection level per incarnation, and a
+        single-record marker is quarantined without being dispatched.
+
+        More than ``FJT_DLQ_MAX_PER_BATCH`` quarantines in one batch
+        aborts isolation (:class:`PoisonIsolationOverflow`).
+
+        ``dispatch`` overrides the sub-dispatch primitive (default: the
+        card's ``_dispatch_checked``; the host tier passes its twin)."""
+        on_card = dispatch is None
+        dispatch = dispatch if dispatch is not None else (
+            self._dispatch_checked
+        )
+        n = int(X.shape[0])
+        if n == 0:
+            return
+        freshness = fresh_mod.freshness_for(self.metrics)
+        records_out = self.metrics.counter("records_out")
+        cap = env_count("FJT_DLQ_MAX_PER_BATCH", 32)
+        state = {"q": 0}
+        flight.record(
+            "poison_isolation",
+            first=int(offsets[0]), n=n, persist=persist,
+            error=None if error is None else repr(error),
+        )
+        self._suspect_gauge.set(1.0)
+
+        def quarantine(i: int, exc, reason=REASON_SCORE, attempts=1):
+            if state["q"] >= cap:
+                raise PoisonIsolationOverflow(
+                    state["q"], exc if exc is not None else error
+                )
+            state["q"] += 1
+            off = int(offsets[i])
+            rctx = trace_mod.context_for(off)
+            self._dlq.quarantine(
+                X[i].tobytes(), offset=off, reason=reason, error=exc,
+                attempts=attempts, model=getattr(handle, "key", None),
+                trace_id=rctx.trace_id, span_id=rctx.span_id,
+            )
+            # a quarantined record was DROPPED, not delivered: its
+            # ingest stamp must not advance the sink watermark
+            freshness.discard_stamps(off, 1)
+
+        def emit_run(d: _Dispatched, lo: int, hi: int):
+            n_run = hi - lo
+            first = int(offsets[lo])
+            self._emit(d.res.result(), n_run, first, d.decode)
+            records_out.inc(n_run)
+            freshness.observe_sink(first, n_run)
+
+        def scan(lo: int, hi: int):
+            if hi <= lo:
+                return
+            n_sub = hi - lo
+            off_lo, off_hi = int(offsets[lo]), int(offsets[hi - 1]) + 1
+            dm = self._death_marker if persist else None
+            if dm is not None and off_lo <= dm["lo"] and dm["hi"] <= off_hi:
+                # a previous incarnation DIED dispatching dm's range
+                if dm["hi"] - dm["lo"] == 1:
+                    hit = np.nonzero(
+                        offsets[lo:hi] == np.uint64(dm["lo"])
+                    )[0]
+                    if hit.size:
+                        i = lo + int(hit[0])
+                        scan(lo, i)
+                        quarantine(
+                            i, None, reason=REASON_CRASH_LOOP,
+                            attempts=dm.get("attempts", 1),
+                        )
+                        self._death_marker = None
+                        self._fingerprint.clear_marker()
+                        scan(i + 1, hi)
+                        return
+                elif n_sub > 1:
+                    # never re-dispatch a span that already killed a
+                    # process whole: split first
+                    mid = (lo + hi) // 2
+                    scan(lo, mid)
+                    scan(mid, hi)
+                    return
+            if persist and self._fingerprint is not None:
+                attempts = 1
+                if (
+                    dm is not None
+                    and dm["lo"] == off_lo and dm["hi"] == off_hi
+                ):
+                    attempts = dm.get("attempts", 1) + 1
+                self._fingerprint.write_marker(off_lo, off_hi, attempts)
+            try:
+                d = dispatch(handle, X[lo:hi], n_sub, offsets[lo:hi])
+                if on_card:
+                    self._redispatches.inc()
+                d.synchronize()
+            except PoisonIsolationOverflow:
+                raise
+            except Exception as e:
+                if devfault.classify(e) is not None:
+                    # a SICK CARD mid-bisection is not record poison:
+                    # quarantining clean records for it is the one thing
+                    # this scan must never do — escalate
+                    raise
+                if n_sub == 1:
+                    quarantine(lo, e)
+                    return
+                mid = (lo + hi) // 2
+                scan(lo, mid)
+                scan(mid, hi)
+                return
+            emit_run(d, lo, hi)
+
+        try:
+            scan(0, n)
+        finally:
+            self._suspect_gauge.set(
+                1.0 if self._suspect_until is not None else 0.0
+            )
+        if persist and self._fingerprint is not None:
+            self._fingerprint.clear_marker()
+            self._death_marker = None
+        # the WHOLE range commits — quarantined offsets included
+        self.committed_offset = int(offsets[-1]) + 1
+        if state["q"]:
+            flight.record(
+                "poison_isolated", quarantined=state["q"],
+                first=int(offsets[0]), n=n,
+            )
+        self._ckpt.maybe_save(self._ckpt_state)
+
+    def _exit_suspect_mode(self) -> None:
+        flight.record(
+            "poison_suspect_exit", committed=self.committed_offset
+        )
+        self._suspect_until = None
+        self._death_marker = None
+        if self._fingerprint is not None:
+            self._fingerprint.clear_marker()
+        self._suspect_gauge.set(0.0)
+
+    # -- threads ---------------------------------------------------------------
+
+    def _ingest(self) -> None:
+        records_in = self.metrics.counter("records_in")
+        try:
+            while not self._stop.is_set():
+                polled = self._source.poll()
+                if polled is None:
+                    if self._source.exhausted:
+                        return
+                    time.sleep(0.0005)
+                    continue
+                off, block = polled
+                pushed = 0
+                while pushed < block.shape[0] and not self._stop.is_set():
+                    pushed += self._ring.push_block(
+                        block[pushed:], off + pushed, timeout_us=100_000
+                    )
+                records_in.inc(block.shape[0])
+        except BaseException as e:
+            self._error = e
+            self._stop.set()
 
     def _score(self) -> None:
         batch_cfg = self._config.batch
@@ -354,6 +975,7 @@ class BlockPipeline:
         batches = self.metrics.counter("batches")
         fill = self.metrics.counter("batch_fill_records")
         lat = self.metrics.histogram("batch_latency_s")
+        replayed = self.metrics.counter("records_replayed")
         ledger = attr_mod.ledger_for(self.metrics)
         # per-registry singletons shared with the source, which stamps
         # event times at fetch; ticked from this loop, no thread of their
@@ -363,27 +985,40 @@ class BlockPipeline:
         ring_occ = self.metrics.gauge("ring_occupancy")
         ring_cap = float(max(self._config.batch.queue_capacity, 1))
 
-        def _complete(res: DeviceOutput, meta):
+        def _complete(d: _Dispatched, meta):
             """FIFO completion: sink, then commit — offsets only advance
             past records that reached the sink."""
-            n, first_off, t_start = meta
-            out = res.result()  # the event wait is booked by the window
+            n, first_off, t_start, handle = meta[:4]
+            if first_off < self._replay_until:
+                # at-least-once replay accounting: records below the
+                # previous incarnation's in-flight high-water mark
+                replayed.inc(min(n, self._replay_until - first_off))
+            out = d.res.result()  # the event wait is booked by the window
             t_sink = time.monotonic()
-            self._sink(out, n, first_off)
+            self._emit(out, n, first_off, d.decode)
             t_done = time.monotonic()
             ledger.observe("sink", t_done - t_sink)
             lat.observe(t_done - t_start)
             records_out.inc(n)
+            if self._failover is not None:
+                # green completion: clears strike streaks / counts a
+                # half-open probe
+                self._failover.record_success(getattr(handle, "key", None))
             self.committed_offset = first_off + n
             # consume the source's ingest stamps for this offset range
             # (record_staleness_s, the sink watermark)
             freshness.observe_sink(first_off, n)
+            self._ckpt.maybe_save(self._ckpt_state)
             monitor.maybe_tick()
 
         disp = OverlappedDispatcher(
             depth=self._in_flight_max if self._in_flight_max > 1 else 0,
             metrics=self.metrics,
             complete=_complete,
+            # a failed completion runs the device-fault ladder or the
+            # suspect scan instead of killing the worker (only when the
+            # matching plane is wired)
+            on_error=self._on_dispatch_error,
         )
         try:
             if self.device.type == "cuda":
@@ -395,7 +1030,14 @@ class BlockPipeline:
                 while True:
                     if self._stop.is_set() and not self._drain_all:
                         break  # stop(): skip the uncommitted backlog
-                    idle_us = min(batch_cfg.deadline_us, 20_000) if len(disp) else -1
+                    # worker-wedge injection point: one global load +
+                    # None check when no faults are configured
+                    faults.fire("score_loop")
+                    idle_us = (
+                        min(batch_cfg.deadline_us, 20_000)
+                        if len(disp) and self._IDLE_WAIT_US < 0
+                        else self._IDLE_WAIT_US
+                    )
                     # pre-drain occupancy peak-hold for the pressure score
                     monitor.note_ring(min(len(self._ring) / ring_cap, 1.0))
                     if self._carry_drain:
@@ -414,21 +1056,188 @@ class BlockPipeline:
                         if self._ring.closed:
                             break
                         disp.flush()
+                        self._on_idle()
                         continue
-                    # (JAX package hooks not ported here: admission shed,
-                    # suspect-mode poison isolation and the DLQ, device-
-                    # fault failover, keyed state, journey tracing)
+                    if self._dlq is not None and n > 1:
+                        # a decode-quarantined record leaves an offset GAP
+                        # the ring can stitch into one drained batch:
+                        # split at the first break and carry the rest
+                        brk = np.nonzero(
+                            np.diff(offsets.astype(np.int64)) != 1
+                        )[0]
+                        if brk.size:
+                            cut = int(brk[0]) + 1
+                            self._carry_drain.insert(0, (
+                                np.array(X[cut:], copy=True),
+                                np.array(offsets[cut:], copy=True),
+                            ))
+                            X, offsets = X[:cut], offsets[:cut]
+                            n = cut
+                    handle = self._acquire(disp.finish_oldest)
+                    if handle is None:
+                        # abandoned (dynamic give-up): drop un-fetched
+                        # work; records replay from the committed offset
+                        disp.close(drain=False)
+                        return
+                    if self._retain_batches:
+                        # isolation AND device-fault recovery re-dispatch
+                        # the RAW batch past the async dispatch (drained
+                        # views alias the ring's reuse buffer): one
+                        # private copy, paid only when a plane is wired
+                        X = np.array(X, copy=True)
+                        offsets = np.array(offsets, copy=True)
                     first_off = int(offsets[0])
+                    self._dispatched_hi = max(
+                        self._dispatched_hi, first_off + n
+                    )
+                    if (
+                        self._suspect_until is not None
+                        and first_off < self._suspect_until
+                    ):
+                        # crash-loop fingerprint: score this range
+                        # synchronously under persisted suspect markers
+                        # (nothing else in flight)
+                        disp.flush()
+                        self._suspect_scan(
+                            handle, X, offsets, error=None, persist=True
+                        )
+                        if self.committed_offset >= self._suspect_until:
+                            self._exit_suspect_mode()
+                        batches.inc()
+                        fill.inc(n)
+                        continue
+                    if (
+                        self._failover is not None
+                        and self._failover.should_fallback(
+                            getattr(handle, "key", None), handle
+                        )
+                    ):
+                        # circuit OPEN for a model the host tier serves:
+                        # drain the window first (FIFO commit order),
+                        # then serve this batch there
+                        disp.flush()
+                        self._serve_fallback(handle, X, offsets)
+                        batches.inc()
+                        fill.inc(n)
+                        continue
                     # the dispatch-stage watermark advances with this
                     # batch's own ingest-stamp event times
                     freshness.propagate_low_watermark("dispatch", first_off, n)
-                    disp.launch(
-                        lambda X=X: self._dispatch(X),
-                        meta=(n, first_off, time.monotonic()),
-                    )
+                    try:
+                        disp.launch(
+                            lambda h=handle, X=X, n=n, o=offsets: (
+                                self._dispatch_checked(h, X, n, o)
+                            ),
+                            meta=(
+                                n, first_off, time.monotonic(), handle,
+                                X if self._retain_batches else None,
+                                offsets if self._retain_batches else None,
+                            ),
+                        )
+                    except PoisonIsolationOverflow:
+                        raise  # isolation already abandoned: die honestly
+                    except Exception as e:
+                        # the dispatch itself raised (host encode, an
+                        # injected poison, a device fault at launch):
+                        # errors of OLDER entries were handled inside
+                        # launch's trim, so this one is THIS batch's
+                        kind = devfault.classify(e)
+                        if kind is not None and self._failover is not None:
+                            # older in-flight batches commit first
+                            disp.flush()
+                            self._device_recover(
+                                handle, X, offsets, e, kind
+                            )
+                        elif kind is not None or self._dlq is None:
+                            raise
+                        else:
+                            disp.flush()
+                            self._suspect_scan(
+                                handle, X, offsets, error=e
+                            )
                     batches.inc()
                     fill.inc(n)
                 disp.close()  # drain the window: every dispatched batch sinks
+            self._ckpt.save_now(self._ckpt_state)  # clean drain → exact resume
         except BaseException as e:
             self._error = e
             self._stop.set()
+
+
+class BlockPipeline(BlockPipelineBase):
+    """source → ring → batches → rank-wire (or f32) scoring → sink.
+
+    ``sink(out, n: int, first_offset: int)`` receives one completed
+    dispatch's host output (a tensor, or the f32 path's
+    :class:`ModelOutput` of host tensors) in offset order. ``backend``
+    says which scoring path engaged (``rank_wire_cuda`` for the GBM) and
+    is also counted in metrics as ``scorer_backend_*``. The model's device
+    is the pipeline's device: the card unless it was compiled with
+    ``device="cpu"``. Records travel the C++ ring, which raises
+    ``NativeBuildError`` when its library cannot be built. The rank-wire
+    scorer's ``encode_placement`` says where each batch is encoded
+    (``dispatch_quantized``). ``prefetch`` (None = auto: the source's
+    own ``prefetchable`` mark) wraps the source in the prefetch sidecar;
+    ``FJT_PREFETCH_DISABLE`` turns it off either way.
+
+    ``checkpoint`` (a ``CheckpointManager``), ``dlq`` and ``failover``
+    arm recovery (module docstring); ``restore()`` resumes from the
+    newest checkpoint.
+    """
+
+    def __init__(
+        self,
+        source: BlockSource,
+        model: CompiledModel,
+        sink: Callable,
+        config: Optional[RuntimeConfig] = None,
+        metrics: Optional[MetricsRegistry] = None,
+        in_flight: int = 2,
+        use_quantized: bool = True,
+        checkpoint=None,
+        max_dispatch_chunks: int = 8,
+        dlq=None,
+        prefetch: Optional[bool] = None,
+        failover=None,
+        slo=None,
+        batcher=None,
+        admission=None,
+        state=None,
+        mesh=None,
+        donate: Optional[bool] = None,
+    ):
+        refuse(slo=slo, batcher=batcher, admission=admission, state=state,
+               mesh=mesh, donate=donate)
+        if model.batch_size is None:
+            raise InputValidationException(
+                "BlockPipeline needs a fixed-batch compiled model "
+                "(compile_pmml(batch_size=...))"
+            )
+        super().__init__(
+            source=source,
+            sink=sink,
+            arity=model.field_space.arity,
+            batch_size=model.batch_size,
+            device=model.device,
+            config=config,
+            metrics=metrics,
+            in_flight=in_flight,
+            checkpoint=checkpoint,
+            max_dispatch_chunks=max_dispatch_chunks,
+            dlq=dlq,
+            prefetch=prefetch,
+            failover=failover,
+        )
+        self._bound = BoundScorer("static", model, use_quantized)
+        self.backend = self._bound.backend
+        self.metrics.counter(f"scorer_backend_{self.backend}").inc()
+
+    def decode(self, out, n: int):
+        """Sink-received host output → ``Prediction`` list."""
+        return self._bound.decode(out, n)
+
+    def _acquire(self, finish_one):
+        return self._bound  # one static model: nothing to resolve
+
+    def _dispatch(self, bound, X, n):
+        return self._dispatch_bound(bound, X, n), None

@@ -24,10 +24,14 @@ at most ``depth`` dispatches stay in flight after ``launch`` returns
 ``close()`` flushes (``close(drain=False)`` abandons). The handle API
 the dynamic scorer needs is the JAX package's too: ``launch`` returns an
 :class:`InFlight` handle, ``wait(handle)`` finishes entries in FIFO order
-up to it, ``abandon()`` drops the window. The JAX dispatcher's sampled
-device profiler, its ``on_error`` hook, its fault-injection sites and
-its ``accounted=False`` launches (the admission controller's) are not
-ported.
+up to it, ``abandon()`` drops the window. So is its ``on_error`` hook
+(a failed completion goes to the block pipeline's recovery ladder or
+suspect scan instead of raising) and its fault-injection sites:
+``dispatch`` and ``device_dispatch`` before each launch,
+``device_readback`` inside the wait, so that an injected device fault
+takes the path a real one takes. The JAX dispatcher's sampled device
+profiler and its ``accounted=False`` launches (the admission
+controller's) are not ported.
 
 Metrics: ``h2d_stall_s`` (host time blocked on device work),
 ``dispatches``, ``window_full_launches``, the ``inflight_depth`` gauge,
@@ -67,6 +71,7 @@ import torch
 from flink_jpmml_tpu_torch.compile import prepare
 from flink_jpmml_tpu_torch.obs import attr as attr_mod
 from flink_jpmml_tpu_torch.obs import recorder as flight
+from flink_jpmml_tpu_torch.runtime import faults
 from flink_jpmml_tpu_torch.utils.exceptions import FlinkJpmmlTpuError
 from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry
 
@@ -292,17 +297,25 @@ class OverlappedDispatcher:
     dispatches allowed to remain in flight after ``launch`` returns (0 =
     synchronous; None = unbounded: ``launch`` never blocks, for callers
     whose own contract forbids blocking in ``submit`` — they bound the
-    window themselves through ``wait``)."""
+    window themselves through ``wait``).
+
+    ``on_error(out, meta, exc) -> bool`` (optional) runs on the launching
+    thread when finishing an entry raised an ``Exception``: True means
+    handled — the complete-callback is skipped and the caller's loop goes
+    on; False re-raises. The block pipelines hang the device-fault ladder
+    and poison isolation on it."""
 
     def __init__(
         self,
         depth: Optional[int] = 2,
         metrics: Optional[MetricsRegistry] = None,
         complete: Optional[Callable[[Any, Any], None]] = None,
+        on_error: Optional[Callable[[Any, Any, Exception], bool]] = None,
     ):
         self._depth = None if depth is None else max(0, int(depth))
         self._window: "deque[InFlight]" = deque()
         self._complete = complete
+        self._on_error = on_error
         self._closed = False
         self.metrics = metrics or MetricsRegistry()
         self._stall = self.metrics.counter("h2d_stall_s")
@@ -325,6 +338,11 @@ class OverlappedDispatcher:
         handle."""
         if self._closed:
             raise DispatcherClosed("launch() on a closed dispatcher")
+        # dispatch delay + launch-time device-fault injection: one global
+        # load + None check each when no faults are configured; a fault
+        # raised here propagates to the caller's direct-dispatch handler
+        faults.fire("dispatch")
+        faults.fire("device_dispatch")
         handle = InFlight(dispatch_fn(), meta)
         self._window.append(handle)
         self._dispatches.inc()
@@ -348,11 +366,15 @@ class OverlappedDispatcher:
             return None
         handle = self._window[0]
         t0 = time.monotonic()
+        error: Optional[BaseException] = None
         try:
+            # readback-time device-fault injection, inside the same try
+            # as the real wait: an injected fault takes the real path
+            faults.fire("device_readback")
             handle.out.synchronize()
         except BaseException as e:
             handle.error = e
-            raise
+            error = e
         finally:
             # stall time counts even when the wait raised; the entry
             # leaves the window either way, so one poisoned batch cannot
@@ -363,6 +385,16 @@ class OverlappedDispatcher:
             self._window.popleft()
             handle.done = True
             self._gauge.set(len(self._window))
+        if error is not None:
+            if (
+                self._on_error is not None
+                and isinstance(error, Exception)
+                and self._on_error(handle.out, handle.meta, error)
+            ):
+                # handled (recovered, or isolated to the DLQ): the
+                # handler owns delivery and commit
+                return None
+            raise error
         if self._complete is not None:
             self._complete(handle.out, handle.meta)
         return handle.out, handle.meta
@@ -378,6 +410,7 @@ class OverlappedDispatcher:
         if not handle.done:
             t0 = time.monotonic()
             try:
+                faults.fire("device_readback")
                 handle.out.synchronize()
             except BaseException as e:
                 handle.error = e

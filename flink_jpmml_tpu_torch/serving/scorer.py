@@ -30,14 +30,23 @@ scorer and its staging referenced from its ticket until ``finish`` has
 waited on it, so a Del that lands between ``submit`` and ``finish`` frees
 nothing the card still reads.
 
+Device-fault recovery is the JAX scorer's: ``device_retry`` (None, the
+default, means True) re-dispatches a group whose wait raised a
+device-classified fault (``runtime/devfault.py``) from its retained
+payloads, under the shared full-jitter backoff, for up to
+``FJT_DEVICE_RETRIES`` attempts; each redispatch launches the same
+kernel on the card and counts in ``redispatches`` (the port adds it). Each group recovers on its own. A lost context
+(``chip_loss``), an exhausted streak or a record error re-raises from
+``finish`` — where the record engine's ladder (or its poison isolation)
+takes over. ``device_retry=False`` fails fast. The checkpointed state
+(the served-model registry) rides the record engine's checkpoint.
+
 Not ported (each raises :class:`NotPortedError` and names itself):
 staged rollouts (``RolloutMessage``, ``guardrails=``, ``key_fn=``,
 ``auto_rollout=False``, another ``rollout_interval_s``), the overload
-plane (``admission=``, ``lane_fn=``, ``batcher=``), the zoo (``zoo=``),
-``mesh=`` and device-fault recovery (``device_retry=True``). The JAX
-scorer retries a device fault by default; this one fails fast: a scoring
-error re-raises from ``finish``. The drift plane and the ``score_finish``
-span wait for their slices.
+plane (``admission=``, ``lane_fn=``, ``batcher=``), the zoo (``zoo=``)
+and ``mesh=``. The drift plane and the ``score_finish`` span wait for
+their slices.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ from flink_jpmml_tpu_torch.models.prediction import Prediction
 from flink_jpmml_tpu_torch.obs import freshness as fresh_mod
 from flink_jpmml_tpu_torch.obs import pressure as pressure_mod
 from flink_jpmml_tpu_torch.obs import recorder as flight
+from flink_jpmml_tpu_torch.runtime import devfault
 from flink_jpmml_tpu_torch.runtime.engine import (
     Scorer,
     ScoringStream,
@@ -142,9 +152,6 @@ class DynamicScorer(Scorer):
         if auto_rollout is not True or rollout_interval_s != 0.5:
             raise NotPortedError("auto_rollout= / rollout_interval_s= "
                                  "(staged rollouts) are not ported")
-        if device_retry:
-            raise NotPortedError("device_retry=True (device-fault "
-                                 "recovery) is not ported")
         self.metrics = metrics or MetricsRegistry()
         self.registry = ModelRegistry(
             batch_size=batch_size,
@@ -185,6 +192,12 @@ class DynamicScorer(Scorer):
         # models whose load/compile failed: don't re-attempt every batch;
         # cleared when the registry changes (a fixed version can be re-Added)
         self._failed: set = set()
+        # device-fault group redispatch: default ON — the retry is
+        # bounded, the payloads are already retained, and totality wants
+        # a transient card hiccup absorbed; device_retry=False fails fast
+        self._device_retry = (
+            device_retry if device_retry is not None else True
+        )
 
     def _drain_control(self) -> None:
         while True:
@@ -292,7 +305,8 @@ class DynamicScorer(Scorer):
     def _launch_group(self, key: str, model, idxs, payloads):
         """Featurize + dispatch one per-model group through the shared
         window → its ticket entry: (the object whose ``decode`` matches the
-        dispatch, indices, handle, model, staging)."""
+        dispatch, indices, handle, model, staging, key, payloads — the
+        last two let a device-faulted group re-dispatch)."""
         first = payloads[0]
         if isinstance(first, dict):
             X, M = prepare.from_records(model.field_space, payloads)
@@ -307,7 +321,7 @@ class DynamicScorer(Scorer):
             handle = self._dispatcher.launch(
                 lambda: dispatch_f32(model, X, M)
             )
-            return model, idxs, handle, model, None
+            return model, idxs, handle, model, None, key, payloads
         staging = self._staging.get(key)
         if staging is None and self.device.type == "cuda":
             staging = self._staging[key] = new_staging(self.device)
@@ -316,15 +330,31 @@ class DynamicScorer(Scorer):
                 q, X, M, metrics=self.metrics, staging=staging
             )
         )
-        return q, idxs, handle, model, staging
+        return q, idxs, handle, model, staging, key, payloads
 
     def finish(self, ticket) -> List[Any]:
         n, records, tickets, unserved, t_submit = ticket
         preds: List[Optional[Prediction]] = [None] * n
-        for scorer, idxs, handle, _model, _staging in tickets:
-            # fail fast (no device-fault recovery): an error re-raises
-            out = self._dispatcher.wait(handle)
-            decoded = scorer.decode(out.result(), len(idxs))
+        for scorer, idxs, handle, model, _staging, key, payloads in tickets:
+            try:
+                out = self._dispatcher.wait(handle)
+                decoded = scorer.decode(out.result(), len(idxs))
+            except Exception as e:
+                kind = devfault.classify(e)
+                decoded = None
+                if kind is not None:
+                    # book EVERY classified fault, chip loss included
+                    devfault.note(self.metrics, kind, n=len(idxs), error=e)
+                if (
+                    kind is not None
+                    and kind != devfault.KIND_LOST
+                    and self._device_retry
+                ):
+                    decoded, e = self._redispatch_group(
+                        key, model, idxs, payloads, e
+                    )
+                if decoded is None:
+                    raise e
             for i, p in zip(idxs, decoded):
                 preds[i] = p
         for i in unserved:
@@ -342,6 +372,40 @@ class DynamicScorer(Scorer):
         if self._emit_pairs:
             return [(p, r) for p, r in zip(preds, records)]
         return list(preds)
+
+    def _redispatch_group(self, key, model, idxs, payloads, error):
+        """Device-fault recovery for one per-model group: re-launch it
+        from the retained payloads through the same window under the
+        shared full-jitter backoff → (decoded, last_error), with
+        ``decoded=None`` when the streak exhausted or the fault turned
+        into a lost context or a record error (the caller re-raises)."""
+        from flink_jpmml_tpu_torch.utils.retry import Backoff, env_int
+
+        n_idxs = len(idxs)
+        bo = Backoff(
+            "device", base_s=0.02, cap_s=0.5,
+            max_attempts=env_int("FJT_DEVICE_RETRIES", 2),
+        )
+        while not bo.exhausted:
+            bo.sleep()
+            try:
+                with self._stream.context():
+                    scorer, _, handle, _, _, _, _ = self._launch_group(
+                        key, model, idxs, payloads
+                    )
+                self.metrics.counter("redispatches").inc()
+                out = self._dispatcher.wait(handle)
+                decoded = scorer.decode(out.result(), n_idxs)
+            except Exception as e2:
+                error = e2
+                k2 = devfault.classify(e2)
+                if k2 is None or k2 == devfault.KIND_LOST:
+                    return None, e2
+                devfault.note(self.metrics, k2, n=n_idxs, error=e2)
+                continue
+            self.metrics.counter("redispatch_records").inc(n_idxs)
+            return decoded, error
+        return None, error
 
     # -- checkpointed operator state (C6/C7) ------------------------------
 

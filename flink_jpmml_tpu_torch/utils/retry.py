@@ -1,7 +1,8 @@
 """Capped exponential backoff with full jitter — the shared retry cadence.
 
 The port's copy of ``flink_jpmml_tpu/utils/retry.py``, with the import
-lines renamed and its notes on the project's history cut. The JAX
+lines renamed and its notes on the project's history cut. ``env_float``
+and ``env_int`` are copied as they are. The JAX
 package's ``FJT_RETRY_BASE_S`` / ``FJT_RETRY_CAP_S`` / ``FJT_RETRY_MAX``
 overrides are left out: the caller's values (defaults 0.05 s, 5 s and 8
 attempts, the JAX package's) hold.
@@ -29,11 +30,36 @@ can see which worker is deep in a retry streak.
 
 from __future__ import annotations
 
+import os
 import random
 import time
 from typing import Callable, Optional
 
 from flink_jpmml_tpu_torch.obs import recorder as flight
+
+def env_float(name: str, fallback: float) -> float:
+    """Positive-float env knob with a silent fallback (the FJT_* knob
+    convention; the failover plane's thresholds read it)."""
+    raw = os.environ.get(name)
+    if not raw:
+        return fallback
+    try:
+        v = float(raw)
+    except ValueError:
+        return fallback
+    return v if v > 0 else fallback
+
+
+def env_int(name: str, fallback: int) -> int:
+    raw = os.environ.get(name)
+    if not raw:
+        return fallback
+    try:
+        v = int(raw)
+    except ValueError:
+        return fallback
+    return v if v > 0 else fallback
+
 
 _DEFAULT_BASE_S = 0.05
 _DEFAULT_CAP_S = 5.0

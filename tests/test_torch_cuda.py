@@ -12,8 +12,9 @@ KNN with its exact ties, BayesianNetwork, GaussianProcess, Baseline,
 Association, TextModel, TimeSeries) on the card against the CPU port,
 with TF32 off; and the record API (``StreamEnvironment.evaluate`` over
 the record engine) and the dynamic scorer on the card against the CPU
-port, with the kernel launched once a dispatch.
-They skip where there is no card. This file
+port, with the kernel launched once a dispatch; and a real out-of-memory
+error, which the device-fault ladder reads as ``device_oom`` and which
+leaves the card scoring. They skip where there is no card. This file
 imports neither jax nor the JAX package, so it runs on a machine that has
 only torch:
 
@@ -711,3 +712,23 @@ def test_dynamic_scorer_on_the_card_matches_the_cpu_port(card, tmp_path):
     np.testing.assert_array_equal(np.isnan(cv), names == 2)
     np.testing.assert_allclose(cv, pv, rtol=RTOL, atol=ATOL)
     assert cl == pl
+
+
+def test_real_oom_classifies_as_device_oom_and_the_card_survives(
+        card, tmp_path):
+    """A real ``torch.cuda.OutOfMemoryError`` (more than the card holds)
+    is a ``device_oom`` to the ladder, and the CUDA context survives it:
+    the kernel scores the same records the same way after it."""
+    from flink_jpmml_tpu_torch.runtime import devfault
+
+    cm = _gbm(tmp_path, 256, n_trees=19, depth=6, n_features=32)
+    q = cm.quantized_scorer()
+    X = _X(np.random.default_rng(9), 256, 32)
+    before = q.predict_padded(*q.pad_wire(q.wire.encode(X))).cpu()
+    with pytest.raises(torch.cuda.OutOfMemoryError) as err:
+        torch.empty((1 << 46,), dtype=torch.uint8, device=card)
+    assert devfault.classify(err.value) == devfault.KIND_OOM
+    torch.cuda.empty_cache()
+    after = q.predict_padded(*q.pad_wire(q.wire.encode(X))).cpu()
+    torch.cuda.synchronize()
+    assert torch.equal(before, after)

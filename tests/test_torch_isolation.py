@@ -69,6 +69,14 @@ API_SLICE = {
 }
 
 
+# recovery on both hot paths
+RECOVERY_SLICE = {
+    "utils.diskio", "utils.retry", "runtime.checkpoint", "runtime.dlq",
+    "runtime.devfault", "runtime.faults", "serving.failover",
+    "serving.block",
+}
+
+
 def test_every_port_module_imports_without_jax():
     res = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
@@ -76,10 +84,10 @@ def test_every_port_module_imports_without_jax():
     )
     assert res.returncode == 0, res.stderr
     count, names = res.stdout.split(maxsplit=1)
-    assert int(count) >= 73  # every module ported so far
+    assert int(count) >= 80  # every module ported so far
     names = set(names.split())
     for slice_ in (KAFKA_SLICE, DENSE_SLICE, TREE_SHAPES_SLICE,
-                   MORE_FAMILIES_SLICE, API_SLICE):
+                   MORE_FAMILIES_SLICE, API_SLICE, RECOVERY_SLICE):
         assert {f"flink_jpmml_tpu_torch.{m}" for m in slice_} <= names
     assert {f"flink_jpmml_tpu_torch.{m}" for m in DENSE_SLICE} <= names
 

@@ -487,3 +487,37 @@ def test_event_time_books_staleness_like_the_jax_package(paths):
     pipe.run_until_exhausted(timeout=30.0)
     assert len(sink.items) == 4 and pipe.committed_offset == 4
     assert reg.snapshot()["watermark_ts"] == now - 3.0
+
+
+# -- a device fault at default settings (the JAX scorer retries) ------------
+
+
+def test_default_scorer_redispatches_a_device_faulted_group(paths):
+    """``DynamicScorer`` with default arguments retries a device fault, as
+    the JAX scorer does (``device_retry=None`` means retry): one injected
+    ``device_error`` on a group's readback, and every event is scored on
+    both packages, the group re-dispatched from its payloads."""
+    from flink_jpmml_tpu.runtime import faults as jfaults
+    from flink_jpmml_tpu_torch.runtime import faults as tfaults
+
+    tw = Twins()
+    tw.push("AddMessage", "gbm", 1, paths["gbm"], 1.0)
+    tw.push("AddMessage", "votes", 1, paths["votes"], 1.5)
+    tw.warm("gbm", 1)
+    tw.warm("votes", 1)
+    events = mixed_events(5)
+    try:
+        for f in (jfaults, tfaults):
+            f.inject("device_error", site="device_readback", n=1)
+        _, got = tw.score(events)
+        fired = (jfaults.stats(), tfaults.stats())
+    finally:
+        jfaults.clear()
+        tfaults.clear()
+    assert fired[0] == fired[1] == {"device_error": 1}
+    assert all(p.is_empty == (e[0] == "ghost") for p, e in got)
+    j = tw.j.metrics.struct_snapshot()["counters"]
+    t = tw.t.metrics.struct_snapshot()["counters"]
+    for k in ("redispatch_records", 'device_fault_total{kind="device_error"}'):
+        assert t[k] == j[k] > 0
+    assert t["redispatches"] == 1

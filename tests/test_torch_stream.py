@@ -387,11 +387,29 @@ def test_reader_cache_is_keyed_by_device_and_path(models, tmp_path):
         ModelReader(str(tmp_path / "missing.pmml")).load(device="cpu")
 
 
-# -- the options this slice does not port ----------------------------------
+# -- the options the port does not carry, and the ones recovery lifted -----
+
+# cut in earlier slices and lifted by the recovery slice: each case now
+# builds (and, where it can, runs) the option and checks that it took
+LIFTED = frozenset((
+    "pipeline_checkpoint", "pipeline_dlq", "pipeline_restore",
+    "with_checkpointing", "execute_restore", "start_restore",
+    "checkpoint_dir", "scorer_device_retry",
+))
 
 
-def _cut_cases():
+def _ckpt_files(d):
+    import os
+
+    return [n for n in os.listdir(d) if n.startswith("ckpt-")]
+
+
+def _cut_cases(tmp="."):
+    import os
+
     from flink_jpmml_tpu_torch.models.control import RolloutMessage
+    from flink_jpmml_tpu_torch.runtime.checkpoint import CheckpointManager
+    from flink_jpmml_tpu_torch.runtime.dlq import DeadLetterQueue
     from flink_jpmml_tpu_torch.runtime.sources import ControlSource
     from flink_jpmml_tpu_torch.serving.registry import ModelRegistry
     from flink_jpmml_tpu_torch.serving.scorer import DynamicScorer
@@ -415,17 +433,57 @@ def _cut_cases():
         ModelRegistry(device="cpu").apply(RolloutMessage(
             "m", 2, "canary", 1.0, path=p))
 
+    def pipeline_checkpoint(p):
+        pipe(checkpoint=CheckpointManager(tmp))(p).run_until_exhausted(10)
+        assert _ckpt_files(tmp)  # the clean drain saved one
+
+    def pipeline_dlq(p):
+        pl = pipe(dlq=DeadLetterQueue(os.path.join(tmp, "dlq")))(p)
+        assert pl._dlq is not None and pl._devfault_armed
+
+    def pipeline_restore(p):
+        assert pipe()(p).restore() is False  # no checkpoint to resume
+
+    def with_checkpointing(p):
+        e = env()
+        e.from_collection([[0.0] * 4]).evaluate(
+            ModelReader(p)).with_checkpointing(tmp).collect()
+        e.execute(timeout=10)
+        assert _ckpt_files(tmp)
+
+    def execute_restore(p):
+        e = env()
+        e.from_collection([[0.0] * 4]).evaluate(
+            ModelReader(p)).with_checkpointing(tmp).collect()
+        e.execute(restore=True, timeout=10)
+        assert _ckpt_files(tmp)
+
+    def start_restore(p):
+        e = env()
+        e.from_collection([[0.0] * 4]).evaluate(
+            ModelReader(p)).with_checkpointing(tmp).collect()
+        e.start(restore=True)
+        e.stop()
+
+    def checkpoint_dir(p):
+        e = StreamEnvironment(RuntimeConfig(checkpoint_dir=tmp),
+                              device="cpu")
+        e.from_collection([[0.0] * 4]).evaluate(ModelReader(p)).collect()
+        e.execute(timeout=10)
+        assert _ckpt_files(tmp)
+
+    def scorer_device_retry(p):
+        assert dyn(device_retry=True)(p)._device_retry is True
+
     return {
-        "pipeline_checkpoint": pipe(checkpoint=object()),
-        "pipeline_dlq": pipe(dlq=object()),
+        "pipeline_checkpoint": pipeline_checkpoint,
+        "pipeline_dlq": pipeline_dlq,
         "pipeline_tenant": pipe(tenant="t"),
-        "pipeline_restore": lambda p: pipe()(p).restore(),
-        "with_checkpointing": lambda p: stream(p).with_checkpointing("/x"),
-        "execute_restore": lambda p: env().execute(restore=True),
-        "start_restore": lambda p: env().start(restore=True),
-        "checkpoint_dir": lambda p: StreamEnvironment(
-            RuntimeConfig(checkpoint_dir="/x"), device="cpu"
-        ).from_collection([]).evaluate(ModelReader(p)).collect(),
+        "pipeline_restore": pipeline_restore,
+        "with_checkpointing": with_checkpointing,
+        "execute_restore": execute_restore,
+        "start_restore": start_restore,
+        "checkpoint_dir": checkpoint_dir,
         "static_state": lambda p: StaticScorer(
             ModelReader(p).load(device="cpu"), state=object()),
         "evaluate_guardrails": lambda p: env().from_collection([]).evaluate(
@@ -444,7 +502,7 @@ def _cut_cases():
         "scorer_lane_fn": dyn(lane_fn=str),
         "scorer_batcher": dyn(batcher=object()),
         "scorer_zoo": dyn(zoo=True),
-        "scorer_device_retry": dyn(device_retry=True),
+        "scorer_device_retry": scorer_device_retry,
     }
 
 
@@ -452,17 +510,23 @@ CUTS = sorted(_cut_cases())
 
 
 @pytest.mark.parametrize("cut", CUTS)
-def test_cut_option_raises_not_ported(cut, models):
+def test_cut_option_raises_not_ported(cut, models, tmp_path):
+    case = _cut_cases(str(tmp_path))[cut]
+    if cut in LIFTED:
+        case(models["iris"])  # accepted now, and its checks hold
+        return
     with pytest.raises(NotPortedError):
-        _cut_cases()[cut](models["iris"])
+        case(models["iris"])
 
 
 def test_failover_env_raises_not_ported(models, monkeypatch):
+    # lifted by the recovery slice: FJT_FAILOVER arms the record
+    # engine's device-fault ladder instead of raising
     monkeypatch.setenv("FJT_FAILOVER", "1")
-    with pytest.raises(NotPortedError, match="FJT_FAILOVER"):
-        Pipeline(tsources.InMemorySource([]), StaticScorer(
-            ModelReader(models["iris"]).load(device="cpu")),
-            tsinks.NullSink())
+    pl = Pipeline(tsources.InMemorySource([]), StaticScorer(
+        ModelReader(models["iris"]).load(device="cpu")),
+        tsinks.NullSink())
+    assert pl._devfault_armed and pl._dlq is None
 
 
 # -- utils/profiling.py ------------------------------------------------------
