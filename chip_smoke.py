@@ -235,6 +235,42 @@ JAX package, and prints one JSON line per phase:
     ``BlockPipeline`` records/s over 16 dispatches of 262,144 plain and
     with checkpoints (every second) plus the DLQ armed, twice in the
     order plain, armed, armed, plain.
+22. serving edge — overload control, SLO burn rate, journeys, span files,
+    the framed-TCP feed and a remote model path, on the card, with the
+    main path's GBM on the fused placement and the 3-class vote forest;
+    every delivery is held to the card's direct run and every part holds
+    the kernel's launches to the dispatches it counted. ``overload``: the
+    JAX package's overload drill (``bench.run_overload_drill``) with an
+    ``AdaptiveBatcher`` (its capacity model in the port's cache, keyed by
+    the card's name) and an ``AdmissionController`` on the ``block``
+    lane, over a paced source of 131,072-record blocks (one aggregated
+    dispatch each) cycling a 262,144-record pool, through a ring of 8
+    blocks: capacity measured unpaced, the deadline 5 × the
+    predicted single-batch latency clamped to [100 ms, 2 s], then 80% of
+    capacity (p99 ≤ deadline), 150% (``shed_records`` > 0, p99 ≤ 10 ×
+    max(deadline, base p99)) and 80% again (p99 < max(1.05 × base, base
+    + 10 ms)); the sink's ranges and the shed batches tile the committed
+    offsets exactly, and launches equal the accounted dispatches.
+    ``scorer``: a ``DynamicScorer(admission=, lane_fn=)`` serving the GBM
+    and the vote forest over 3 micro-batches of 16,384 dict events with
+    the "low" lane held shed (the last micro-batch all "low"): shed
+    events empty, launches equal the groups dispatched, and with
+    ``FJT_SLO_TARGET_MS`` set the SLO gauges in its registry.
+    ``oom_cap``: ``device_oom`` at the ``device_dispatch`` site three
+    times into a checkpointed pipeline with a batcher: ``adaptive_batch``
+    pins at the largest size the OOM bisection proved, and every later
+    delivery stays at or under it. ``journey``: a Kafka-fed,
+    checkpointed pipeline with ``FJT_JOURNEY_DIR`` armed and a poison at
+    offset 300,000: its rows show ``ingest``, ``dispatch``,
+    ``suspect_scan`` and a ``dlq`` terminal with ``reason=score``, and the
+    DLQ envelope carries the terminal's ids; ``journey_cost``: the fused
+    GBM plain against journey-armed, four runs each. ``spans``: with
+    ``FJT_TRACE_DIR`` set the span file parses and holds one
+    ``h2d_dispatch``, one ``readback`` and one ``sink`` span a dispatch.
+    ``net_remote``: ``BlockFrameServer`` → ``TcpBlockSource`` →
+    ``BlockPipeline``, and the GBM loaded from a loopback ``http.server``
+    through ``ModelReader("http://...")``, its second load a 304 with no
+    recompile.
 
 Every main path runs the C++ ring, and its line carries the stage ledger
 of its registry (``attribution``: per stage the count, total ms, p50 /
@@ -251,7 +287,10 @@ beyond numpy and torch and the port; the CPU tests import them too, so
 the card and the CPU see the same trees and cells.
 
 Then the kernels line, the ``nvidia-smi`` line, and last the contract
-line ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
+line ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --ab
+OTHER_CHECKOUT`` instead times the fused GBM's block path in child
+processes alternating between another checkout and this one
+(``ab_main``). Any failed phase raises, and the
 script exits non-zero without printing the last line. Without a CUDA
 device, or without the port beside it, it exits 1 at once. The flight
 recorder's directory and the generated model files live in a temporary
@@ -3689,6 +3728,834 @@ def recovery(workdir: str, counter, q, vq, cm, smi: str) -> dict:
                 parts["dynamic"]["engine"]["max_abs_err"])}
 
 
+EDGE_RECORDS = 4 * DISPATCH  # the oom_cap, spans and TCP parts
+EDGE_BLOCK = 8 * BATCH  # the overload drill's paced block: one dispatch
+EDGE_POOL = 2 * EDGE_BLOCK  # the overload drill's cycling pool
+# seconds a paced phase of the drill lasts (the JAX drill's 2.5 s): its
+# p99 is over one sample a block, ~60 blocks a second at 80%, so a
+# longer phase keeps one host hiccup from being the p99
+EDGE_PHASE_S = 5.0
+EDGE_SCORER_BATCHES = 3  # micro-batches of BATCH events through the scorer
+EDGE_POISON = 300_000  # the journey part's poisoned offset K
+EDGE_KAFKA_ROWS = 2 * DISPATCH
+
+
+def edge_overload(cm, q, counter, workdir) -> dict:
+    """The overload drill of the JAX package's ``bench.run_overload_drill``
+    on the card, with its four checks: capacity measured unpaced and the
+    batcher fitted; a paced source at 80% of it (p99 ≤ deadline); 150%
+    (``shed_records{lane="block"}`` > 0, p99 bounded by 10 × max(deadline,
+    base p99)); back at 80% (p99 < max(1.05 × base, base + 10 ms)). The
+    deadline is the drill's rule: 5 × the predicted single-batch latency,
+    clamped to [100 ms, 2 s]. Every delivery is held to the card's direct
+    run (after the drill, off the score thread), the sink's ranges and the
+    shed records must tile the committed offsets exactly, and the
+    kernel's launches must equal the accounted dispatches (a shed batch
+    launches nothing). A failed check raises with the drill's readings."""
+    import collections
+
+    import torch
+
+    from flink_jpmml_tpu_torch.obs.slo import SLOTracker
+    from flink_jpmml_tpu_torch.runtime.block import BlockPipeline, BlockSource
+    from flink_jpmml_tpu_torch.serving import overload
+    from flink_jpmml_tpu_torch.utils import cache
+    from flink_jpmml_tpu_torch.utils.config import BatchConfig, RuntimeConfig
+    from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry, _nearest_rank
+
+    F = len(q.wire.fields)
+    pool = features(np.random.default_rng(31), EDGE_POOL, F)
+    direct = direct_rows(q, pool)
+    km = MetricsRegistry()
+    # the batcher's default path: the port's cache, keyed by the card
+    # (under this run's scratch HOME, removed with it)
+    home = os.environ.get("HOME")
+    os.environ["HOME"] = workdir
+    try:
+        batcher = overload.AdaptiveBatcher(
+            metrics=km, min_records=BATCH, max_records=8 * BATCH,
+            model="gbm_500", backend="rank_wire_cuda")
+        cap_path = overload.capacity_model_path()
+    finally:
+        if home is None:
+            os.environ.pop("HOME", None)
+        else:
+            os.environ["HOME"] = home
+    batcher.deadline_s = None  # capacity is measured uncapped
+    admission = overload.AdmissionController(
+        km, lanes=("block",), interval_s=0.1, dwell_s=0.4,
+        on_threshold=0.7, off_threshold=0.35)
+    admission.enabled = False  # the capacity phase measures, not sheds
+    arrivals = collections.deque()  # (offset, arrival time) a block
+    cur_lats = [None]
+    rate_now = [None]  # None: unpaced
+    sunk = []  # (first offset, records, values) a delivery
+
+    class Paced(BlockSource):
+        def __init__(self):
+            self._pos = 0
+            self._off = 0
+            self._next = None
+
+        def poll(self):
+            now = time.monotonic()
+            rate = rate_now[0]
+            if rate is not None:
+                if self._next is None:
+                    self._next = now
+                if now < self._next:
+                    # sleep to the block's time (at most 5 ms, so a rate
+                    # change is seen) instead of waking the ingest thread
+                    # every half millisecond to take the GIL for nothing
+                    time.sleep(min(self._next - now, 0.005))
+                    return None
+            blk = pool[self._pos:self._pos + EDGE_BLOCK]
+            self._pos = (self._pos + EDGE_BLOCK) % EDGE_POOL
+            off = self._off
+            self._off += EDGE_BLOCK
+            arrivals.append((off, time.monotonic()))
+            if rate is not None:
+                # a late block does not buy a burst: the JAX drill lets
+                # 5 of its 64-record blocks catch up, which is a sixth of
+                # its ring; 5 of these would overfill this ring, so at
+                # most one block catches up
+                interval = EDGE_BLOCK / rate
+                self._next = max(self._next + interval, now - interval)
+            return off, blk
+
+    def sink(out, n, first_off):
+        t = time.monotonic()
+        sunk.append((first_off, n, np.asarray(out)[:n].copy()))
+        while arrivals and arrivals[0][0] < first_off:
+            arrivals.popleft()  # shed: no latency sample
+        lats = cur_lats[0]
+        while arrivals and arrivals[0][0] + EDGE_BLOCK <= first_off + n:
+            _, t_arr = arrivals.popleft()
+            if lats is not None:
+                lats.append(t - t_arr)
+
+    # blocks of 8 batches, a full aggregated dispatch each: on the card a
+    # dispatch's fixed host cost is a large share of a single batch's, so
+    # single-batch blocks at 80% of the (aggregated) capacity would load
+    # the pipeline near 100%. The ring holds 8 blocks, so the
+    # on-threshold (70% full) is ~5 blocks of queueing, near the deadline
+    # at the base rate: a host stall of a block or two is not read as
+    # saturation, a sustained backlog is
+    pipe = BlockPipeline(
+        Paced(), cm, sink,
+        RuntimeConfig(batch=BatchConfig(size=BATCH, deadline_us=2000,
+                                        queue_capacity=8 * EDGE_BLOCK)),
+        metrics=km, in_flight=1, max_dispatch_chunks=8,
+        batcher=batcher, admission=admission)
+    if pipe.backend != "rank_wire_cuda" or q.encode_placement != "fused":
+        raise RuntimeError(f"overload: {pipe.backend}, {q.encode_placement}")
+    for k in (1, 2, 4, 8):  # every aggregation shape once, uncounted
+        q.predict_fused(pool[:k * BATCH])
+    torch.cuda.synchronize()
+    samples = []
+    phases = {}
+
+    def sample(tag):
+        samples.append({"t": time.monotonic(), "tag": tag, **{
+            k: km.gauge(k).get() for k in (
+                "pressure", "shed_level", "ring_occupancy",
+                "adaptive_batch")}})
+
+    def counts():
+        snap = km.snapshot()
+        return {"t": time.monotonic(), "sunk": sum(k for _, k, _ in sunk),
+                "dispatches": snap.get("dispatches", 0),
+                "records": snap.get("batch_fill_records", 0),
+                "shed": sum(admission.counts()["shed"].values())}
+
+    def run_phase(seconds, tag, lats=None):
+        c0 = counts()
+        cur_lats[0] = lats
+        end = time.monotonic() + seconds
+        while time.monotonic() < end:
+            if pipe.error is not None:
+                raise RuntimeError(f"overload: {pipe.error!r}")
+            sample(tag)
+            time.sleep(0.1)
+        cur_lats[0] = None
+        c1 = counts()
+        dt = c1["t"] - c0["t"]
+        d = {k: c1[k] - c0[k] for k in ("sunk", "dispatches", "records",
+                                         "shed")}
+        phases[tag] = {
+            "seconds": dt, "sunk_per_s": d["sunk"] / dt,
+            "offered_per_s": (d["records"] + d["shed"]) / dt,
+            "shed": d["shed"], "dispatches": d["dispatches"],
+            "records_per_dispatch": d["records"] / max(1, d["dispatches"]),
+            "p99_ms": None if not lats else 1e3 * p99(lats),
+            "p50_ms": None if not lats else 1e3 * sorted(lats)[
+                len(lats) // 2]}
+
+    def p99(lats):
+        s = sorted(lats)
+        return s[_nearest_rank(0.99, len(s))] if s else None
+
+    drill = {"phases": phases}
+    failed = []
+    reset(counter)
+    t_phase = time.perf_counter()
+    pipe.start()
+    try:
+        run_phase(0.7, "capacity-ramp")
+        run_phase(1.5, "capacity")
+        capacity = phases["capacity"]["sunk_per_s"]
+        if capacity <= 0:
+            raise RuntimeError("overload: the capacity phase scored nothing")
+        drill["capacity_records_per_s"] = capacity
+        drill["coefficients"] = batcher.coefficients()
+        pred = batcher.predicted_latency(BATCH)
+        drill["predicted_batch_ms"] = None if pred is None else 1e3 * pred
+        deadline_s = min(max(5.0 * (pred or 0.01), 0.1), 2.0)
+        drill["deadline_ms"] = 1e3 * deadline_s
+        batcher.deadline_s = deadline_s
+        pipe._slo = SLOTracker(km, source="batch_latency_s",
+                               deadline_s=deadline_s, windows=((5.0, 10.0),))
+        admission.enabled = True
+
+        def paced(frac, seconds, tag):
+            rate_now[0] = frac * capacity
+            lats = []
+            run_phase(seconds, tag, lats)
+            return lats
+
+        def drained(tag):
+            rate_now[0] = 0.8 * capacity
+            t_d = time.monotonic()
+            while time.monotonic() - t_d < 12.0:
+                sample(tag)
+                if len(pipe._ring) < EDGE_BLOCK and not admission.shedding:
+                    break
+                time.sleep(0.1)
+
+        drained("settle")
+        base = paced(0.8, EDGE_PHASE_S, "base")
+        for retry in (1, 2):
+            if p99(base) is not None and p99(base) <= deadline_s:
+                break
+            base = paced(0.8, EDGE_PHASE_S, f"base-retry{retry}")
+        p99_base = p99(base)
+        drill["p99_base_ms"] = None if p99_base is None else 1e3 * p99_base
+        if p99_base is None or p99_base > deadline_s:
+            failed.append("p99 over the deadline at 80% of capacity")
+            p99_base = p99_base or deadline_s
+        shed0 = sum(admission.counts()["shed"].values())
+        surge = paced(1.5, EDGE_PHASE_S, "surge")
+        shed = sum(admission.counts()["shed"].values()) - shed0
+        p99_surge = p99(surge)
+        bound = 10.0 * max(deadline_s, p99_base)
+        drill.update(shed_records=int(shed), surge_all_shed=not surge,
+                     p99_surge_ms=None if p99_surge is None
+                     else 1e3 * p99_surge)
+        if shed <= 0:
+            failed.append("150% of capacity shed nothing")
+        if surge and p99_surge > bound:
+            failed.append(f"surge p99 not bounded by {bound}")
+        drained("drain")
+        allowed = max(1.05 * p99_base, p99_base + 0.010)
+        rec = paced(0.8, EDGE_PHASE_S, "recovery")
+        for retry in (1, 2):
+            if p99(rec) is not None and p99(rec) < allowed:
+                break
+            rec = paced(0.8, EDGE_PHASE_S, f"recovery-retry{retry}")
+        p99_rec = p99(rec)
+        drill["p99_recovery_ms"] = None if p99_rec is None else 1e3 * p99_rec
+        if p99_rec is None or p99_rec >= allowed:
+            failed.append(f"p99 did not recover below {allowed}")
+    finally:
+        pipe.stop()
+        pipe.join(timeout=60)
+    dt = time.perf_counter() - t_phase
+    if failed:
+        raise RuntimeError(f"overload: {failed}: " + json.dumps(
+            {**drill, "capacity_model": batcher.state(),
+             "samples": samples[-60:]}, default=str))
+    snap = pipe.metrics.snapshot()
+    run = held_launches(counter, snap, "overload")
+    counts_ = admission.counts()
+    shed_total = int(sum(counts_["shed"].values()))
+    # every delivery against the direct run; the sink's ranges and the
+    # shed batches tile [0, committed) exactly: ranges never overlap,
+    # and every gap is a shed batch's
+    pos, gaps, err = 0, 0, 0.0
+    for first, n, v in sunk:
+        ref = direct.take(np.arange(first, first + n), mode="wrap")
+        if v.shape[0] != n or not np.allclose(v, ref, rtol=RTOL, atol=ATOL):
+            raise RuntimeError(f"overload: records {first}..{first + n} "
+                               "differ from the card's direct run")
+        err = max(err, float(np.abs(v - ref).max()))
+        if first < pos:
+            raise RuntimeError(f"overload: offset {first} sunk twice")
+        gaps += first - pos
+        pos = first + n
+    committed = pipe.committed_offset
+    gaps += committed - pos
+    n_sunk = sum(n for _, n, _ in sunk)
+    if gaps != shed_total or n_sunk + shed_total != committed:
+        raise RuntimeError(f"overload: sunk + shed != committed ({gaps} gap "
+                           f"records, {shed_total} shed, {committed})")
+    if int(snap.get("records_out", 0)) != n_sunk:
+        raise RuntimeError("overload: records_out != the sink's records")
+    batcher.flush()
+    surge_samples = [x for x in samples if x["tag"] == "surge"]
+    return {
+        "seconds": dt, **drill, "capacity_model": batcher.state(),
+        "capacity_model_path": os.path.relpath(cap_path, workdir),
+        "capacity_model_written": os.path.exists(cap_path),
+        "device_tag": cache.device_tag(),
+        "shed_total": shed_total, "admitted_records": int(
+            counts_["admitted"]),
+        "shed_share_surge": (phases["surge"]["shed"]
+                             / max(1.0, phases["surge"]["offered_per_s"]
+                                   * phases["surge"]["seconds"])),
+        "surge_max_pressure": max(
+            (x["pressure"] or 0.0) for x in surge_samples)
+        if surge_samples else None,
+        "adaptive_max_records": batcher.max_records(),
+        "committed_offset": committed, "records_sunk": n_sunk,
+        "slo": pipe._slo.health(),
+        "summary": overload.summary(km.struct_snapshot()),
+        **run, "max_abs_err": err,
+    }
+
+
+def edge_scorer(gbm, votes, q, vq, counter) -> dict:
+    """A ``DynamicScorer(admission=, lane_fn=)`` serving the GBM and the
+    vote forest with the "low" lane held shed: shed events come back
+    empty, the rest equal the card's direct run, the kernel's launches
+    equal the groups dispatched, and with ``FJT_SLO_TARGET_MS`` set the
+    registry carries the SLO gauges."""
+    from flink_jpmml_tpu_torch.models.control import AddMessage
+    from flink_jpmml_tpu_torch.models.core import ModelId
+    from flink_jpmml_tpu_torch.runtime.sources import ControlSource
+    from flink_jpmml_tpu_torch.serving.overload import AdmissionController
+    from flink_jpmml_tpu_torch.serving.scorer import DynamicScorer
+    from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry
+
+    F = len(q.wire.fields)
+    n = EDGE_SCORER_BATCHES * BATCH
+    X = features(np.random.default_rng(37), n, F)
+    refs = {"gbm": direct_rows(q, X), "votes": direct_rows(vq, X)}
+    rng = np.random.default_rng(38)
+    names = np.where(rng.random(n) < 0.5, "gbm", "votes")
+    lanes = rng.choice(["low", "normal", "high"], n)
+    lanes[2 * BATCH:] = "low"  # the last micro-batch is shed whole
+    fields = q.wire.fields
+    events = [dict({f: float(v) for f, v in zip(fields, X[i])
+                    if not np.isnan(v)}, _model=str(names[i]),
+                   _lane=str(lanes[i])) for i in range(n)]
+    m = MetricsRegistry()
+    # the lowest lane held shed: the level set by hand, and a pressure
+    # inside the hysteresis band, so the controller's ticks hold it there
+    adm = AdmissionController(m, lanes=("low", "normal", "high"),
+                              on_threshold=0.85, off_threshold=0.55,
+                              pressure_fn=lambda: 0.7)
+    adm._level = 1
+    old = os.environ.get("FJT_SLO_TARGET_MS")
+    os.environ["FJT_SLO_TARGET_MS"] = "500"
+    try:
+        ctrl = ControlSource()
+        sc = DynamicScorer(control=ctrl, batch_size=BATCH, metrics=m,
+                           admission=adm,
+                           lane_fn=lambda p: p.get("_lane", "normal"))
+    finally:
+        if old is None:
+            os.environ.pop("FJT_SLO_TARGET_MS", None)
+        else:
+            os.environ["FJT_SLO_TARGET_MS"] = old
+    ctrl.push(AddMessage("gbm", 1, gbm, 1.0))
+    ctrl.push(AddMessage("votes", 1, votes, 1.0))
+    sc.finish(sc.submit([]))
+    for name in ("gbm", "votes"):
+        wait_for(lambda: sc.registry.model_if_warm(ModelId(name, 1))
+                 is not None, f"{name}'s warm")
+    cold = m.histogram("cold_start_s")
+    cold0 = cold.count()
+    reset(counter)
+    groups = 0
+    preds = []
+    t0 = time.perf_counter()
+    for i in range(0, n, BATCH):
+        batch = events[i:i + BATCH]
+        groups += len({e["_model"] for e in batch if e["_lane"] != "low"})
+        preds += sc.finish(sc.submit(batch))
+    dt = time.perf_counter() - t0
+    snap = m.snapshot()
+    run = held_launches(counter, snap, "edge scorer",
+                        warms=cold.count() - cold0, windowed=True)
+    if run["dispatches"] != groups or run["launches"] != groups:
+        raise RuntimeError(f"edge scorer: {run} for {groups} groups")
+    shed_idx = np.flatnonzero(lanes == "low")
+    err = 0.0
+    for name in ("gbm", "votes"):
+        idx = np.flatnonzero((names == name) & (lanes != "low"))
+        got = [preds[i][0] for i in idx]
+        if name == "gbm":
+            err = max(err, check_values(got, refs[name][idx], "edge gbm"))
+        else:
+            err = max(err, check_vote_preds(
+                got, tuple(r[idx] for r in refs[name]), vq.labels,
+                "edge votes"))
+    if not all(preds[i][0].is_empty for i in shed_idx):
+        raise RuntimeError("edge scorer: a shed event came back scored")
+    counts = adm.counts()
+    if counts["shed"] != {"low": float(shed_idx.size)}:
+        raise RuntimeError(f"edge scorer: shed counts {counts}")
+    gauges = m.struct_snapshot()["gauges"]
+    slo_gauges = sorted(g for g in gauges if g.startswith("slo_"))
+    if not sc.slo.enabled or not {"slo_ok", "slo_deadline_ms"} <= set(
+            slo_gauges):
+        raise RuntimeError(f"edge scorer: SLO gauges {slo_gauges}")
+    return {"events": n, "seconds": dt, "groups": groups,
+            "shed_events": int(shed_idx.size), "admission": counts,
+            "slo_gauges": slo_gauges,
+            "score_latency_p99_s": snap.get("score_latency_s_p99"),
+            **run, "max_abs_err": err}
+
+
+def edge_oom_cap(cm, X, direct, counter, workdir) -> dict:
+    """``device_oom:site=device_dispatch:n=3`` into a checkpointed
+    pipeline with a batcher, armed from the sink after two deliveries:
+    the next launch fails, its full redispatch and its first half fail,
+    the ladder delivers the quarters and the other half, and
+    ``adaptive_batch`` pins at the largest size that fit; every delivery
+    of a dispatch made after that stays at or under it."""
+    from flink_jpmml_tpu_torch.runtime import faults
+    from flink_jpmml_tpu_torch.runtime.block import (
+        BlockPipeline,
+        FiniteBlockSource,
+    )
+    from flink_jpmml_tpu_torch.runtime.checkpoint import CheckpointManager
+    from flink_jpmml_tpu_torch.serving.overload import AdaptiveBatcher
+    from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry
+
+    n = X.shape[0]
+    held = HeldSink({"static": direct}, n, "edge oom_cap")
+    held.hooks = {2: lambda: faults.inject("device_oom",
+                                           site="device_dispatch", n=3)}
+    m = MetricsRegistry()
+    batcher = AdaptiveBatcher(m, min_records=BATCH,
+                              path=os.path.join(workdir, "oom_cap.json"))
+    sizes = []  # (records, the batcher's OOM cap when they arrived)
+
+    def sink(out, k, first):
+        sizes.append((k, batcher._oom_cap))
+        held(out, k, first)
+
+    pipe = BlockPipeline(
+        FiniteBlockSource(X, BATCH), cm, sink, recovery_config(1.0),
+        metrics=m, batcher=batcher,
+        checkpoint=CheckpointManager(tempfile.mkdtemp(dir=workdir)),
+        max_dispatch_chunks=DISPATCH // BATCH)
+    reset(counter)
+    t0 = time.perf_counter()
+    try:
+        pipe.run_until_exhausted(timeout=300)
+        fired = faults.stats()
+    finally:
+        faults.clear()
+    dt = time.perf_counter() - t0
+    cap = batcher.max_records()
+    snap = pipe.metrics.snapshot()
+    run = held_launches(counter, snap, "edge oom_cap")
+    lad = ladder_counts(snap)
+    before = max(k for k, c in sizes if c is None)
+    after = [k for k, c in sizes if c is not None]
+    if (fired != {"device_oom": 3} or lad["oom_shrinks"] != 1
+            or cap is None or snap.get("adaptive_batch") != cap
+            or not (held.seen == 1).all()):
+        raise RuntimeError(f"edge oom_cap: {fired}, {lad}, cap {cap}")
+    if cap >= before or not after or max(after) > cap:
+        raise RuntimeError(f"edge oom_cap: cap {cap} against deliveries "
+                           f"{sizes}")
+    return {"records": n, "seconds": dt, "cap_records": cap,
+            "largest_before": before, "largest_after": max(after),
+            "deliveries_after": len(after), **run, **lad,
+            "max_abs_err": held.max_abs_err}
+
+
+def edge_journey(cm, q, counter, workdir) -> dict:
+    """A Kafka-fed, checkpointed ``BlockPipeline`` (loopback broker, the
+    DLQ beside the checkpoints) with ``FJT_JOURNEY_DIR`` armed and a
+    poison at offset K: K's journey rows show ``ingest``, ``dispatch``,
+    ``suspect_scan`` and a ``dlq`` terminal with ``reason=score``, and
+    the envelope carries the terminal's ``trace_id`` / ``span_id``."""
+    from flink_jpmml_tpu_torch.obs import trace
+    from flink_jpmml_tpu_torch.runtime import faults
+    from flink_jpmml_tpu_torch.runtime.block import BlockPipeline
+    from flink_jpmml_tpu_torch.runtime.checkpoint import CheckpointManager
+    from flink_jpmml_tpu_torch.runtime.kafka import (
+        KafkaBlockSource,
+        MiniKafkaBroker,
+    )
+    from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry
+
+    F = len(q.wire.fields)
+    X = features(np.random.default_rng(41), EDGE_KAFKA_ROWS, F)
+    direct = direct_rows(q, X)
+    jdir = os.path.join(workdir, "journeys")
+    ck = tempfile.mkdtemp(dir=workdir)
+    sink = HeldSink({"static": direct}, X.shape[0], "edge journey")
+    m = MetricsRegistry()
+    broker = MiniKafkaBroker(topic="edge")
+    src = pipe = None
+    os.environ["FJT_JOURNEY_DIR"] = jdir
+    try:
+        broker.append_rows(X)
+        src = KafkaBlockSource(broker.host, broker.port, "edge", n_cols=F,
+                               metrics=m, max_wait_ms=20)
+        pipe = BlockPipeline(src, cm, sink, recovery_config(1.0), metrics=m,
+                             max_dispatch_chunks=DISPATCH // BATCH,
+                             checkpoint=CheckpointManager(ck))
+        faults.inject("poison_record", offset=EDGE_POISON)
+        reset(counter)
+        t0 = time.perf_counter()
+        pipe.start()
+        wait_for(lambda: pipe.committed_offset >= X.shape[0]
+                 or pipe.error is not None, "the Kafka journey run")
+    finally:
+        os.environ.pop("FJT_JOURNEY_DIR", None)
+        faults.clear()
+        if pipe is not None:
+            pipe.stop()
+            pipe.join(timeout=60)
+        if src is not None:
+            src.close()
+        broker.close()
+    dt = time.perf_counter() - t0
+    if pipe.error is not None:
+        raise RuntimeError(f"edge journey: {pipe.error!r}")
+    run = held_launches(counter, pipe.metrics.snapshot(), "edge journey")
+    rows = trace.read_rows(jdir, limit=1_000_000)
+    tid = trace.trace_id_for(EDGE_POISON)
+    kinds = set()
+    for r in rows:
+        lo, k = r.get("first_off"), r.get("n")
+        if (r["trace_id"] == tid or r.get("offset") == EDGE_POISON
+                or (lo is not None and k is not None
+                    and lo <= EDGE_POISON < lo + k)):
+            kinds.add(r["kind"])
+    dlq_rows = [r for r in rows if r["kind"] == "dlq"]
+    envs = list(pipe._dlq.scan())
+    want = np.ones(X.shape[0], np.int32)
+    want[EDGE_POISON] = 0
+    if not {"ingest", "dispatch", "suspect_scan", "dlq"} <= kinds:
+        raise RuntimeError(f"edge journey: K's hops {sorted(kinds)}")
+    if ([(r["offset"], r["reason"]) for r in dlq_rows]
+            != [(EDGE_POISON, "score")] or len(envs) != 1
+            or (envs[0]["trace_id"], envs[0]["span_id"])
+            != (dlq_rows[0]["trace_id"], dlq_rows[0]["span_id"])
+            or dlq_rows[0]["trace_id"] != tid):
+        raise RuntimeError(f"edge journey: dlq rows {dlq_rows}, envelopes "
+                           f"{envs}")
+    if not np.array_equal(sink.seen, want):
+        raise RuntimeError("edge journey: a clean record missed the sink, or "
+                           "the poisoned one reached it")
+    snap = m.snapshot()
+    return {"records": int(X.shape[0]), "seconds": dt,
+            "poison_offset": EDGE_POISON, "k_hops": sorted(kinds),
+            "rows": len(rows), "journeys_sampled": snap.get(
+                "journeys_sampled"),
+            "journeys_dropped": {k: v for k, v in snap.items()
+                                 if k.startswith("journeys_dropped")
+                                 and not k.endswith("_per_s")},
+            "envelope_trace_id": envs[0]["trace_id"], **run,
+            "max_abs_err": sink.max_abs_err}
+
+
+def edge_journey_cost(cm, X, counter, workdir) -> list:
+    """The fused GBM's BlockPipeline over 16 dispatches of 262,144 plain
+    and with ``FJT_JOURNEY_DIR`` armed, twice in the order plain, armed,
+    armed, plain."""
+    from flink_jpmml_tpu_torch.runtime.block import CyclingBlockSource
+
+    runs = []
+    for armed in (False, True, True, False) * 2:
+        count = [0]
+
+        def sink(out, n, first_off, count=count):
+            count[0] += n
+
+        if armed:
+            os.environ["FJT_JOURNEY_DIR"] = tempfile.mkdtemp(dir=workdir)
+        try:
+            r = drive(cm, CyclingBlockSource(X, block_size=DISPATCH), sink,
+                      count, counter)
+        finally:
+            os.environ.pop("FJT_JOURNEY_DIR", None)
+        runs.append({"journeys": armed, **{k: r[k] for k in (
+            "records", "seconds", "records_per_s", "dispatches",
+            "launches", "encode_mode", "batch_latency_p50_s",
+            "batch_latency_p99_s")}})
+    return runs
+
+
+def edge_spans(cm, X, direct, counter, workdir) -> dict:
+    """With ``FJT_TRACE_DIR`` set, the span file parses and holds one
+    ``h2d_dispatch`` and one ``readback`` span a dispatch."""
+    from flink_jpmml_tpu_torch.obs import spans
+    from flink_jpmml_tpu_torch.runtime.block import (
+        BlockPipeline,
+        FiniteBlockSource,
+    )
+
+    sdir = os.path.join(workdir, "spans")
+    sink = HeldSink({"static": direct}, X.shape[0], "edge spans")
+    os.environ["FJT_TRACE_DIR"] = sdir
+    try:
+        pipe = BlockPipeline(FiniteBlockSource(X, BATCH), cm, sink,
+                             recovery_config(),
+                             max_dispatch_chunks=DISPATCH // BATCH)
+        reset(counter)
+        t0 = time.perf_counter()
+        pipe.run_until_exhausted(timeout=300)
+        dt = time.perf_counter() - t0
+        w = spans.writer()
+        w.flush()
+        path = w.path
+        w.close()
+    finally:
+        os.environ.pop("FJT_TRACE_DIR", None)
+    raw = open(path, encoding="utf-8").read()
+    events = json.loads(raw.rstrip().rstrip(",") + "]")
+    run = held_launches(counter, pipe.metrics.snapshot(), "edge spans")
+    by = {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("dur", -1) < 0:
+            raise RuntimeError(f"edge spans: bad event {e}")
+        by[e["name"]] = by.get(e["name"], 0) + 1
+    d = run["dispatches"]
+    if not (by.get("h2d_dispatch") == by.get("readback") == d
+            == by.get("sink")) or not (sink.seen == 1).all():
+        raise RuntimeError(f"edge spans: {by} for {d} dispatches")
+    return {"records": int(X.shape[0]), "seconds": dt, "span_counts": by,
+            "span_file_bytes": len(raw), **run,
+            "max_abs_err": sink.max_abs_err}
+
+
+def edge_net_remote(cm, q, X, direct, counter, workdir) -> dict:
+    """``BlockFrameServer`` → ``TcpBlockSource`` → ``BlockPipeline`` on the
+    card, held to the direct run; then the GBM loaded through
+    ``ModelReader("http://127.0.0.1:<port>/gbm_500.pmml")`` from a
+    loopback ``http.server`` scores equal to the local file, and the
+    second load is a 304 with no recompile."""
+    import http.server
+    import threading
+
+    from flink_jpmml_tpu_torch.api import ModelReader
+    from flink_jpmml_tpu_torch.runtime.block import (
+        BlockPipeline,
+        FiniteBlockSource,
+    )
+    from flink_jpmml_tpu_torch.runtime.net import (
+        BlockFrameServer,
+        TcpBlockSource,
+    )
+
+    F = len(q.wire.fields)
+    n = X.shape[0]
+    sink = HeldSink({"static": direct}, n, "edge tcp")
+    srv = BlockFrameServer(X, block_size=BATCH)
+    src = TcpBlockSource("127.0.0.1", srv.port, arity=F)
+    try:
+        pipe = BlockPipeline(src, cm, sink, recovery_config(),
+                             max_dispatch_chunks=DISPATCH // BATCH)
+        reset(counter)
+        t0 = time.perf_counter()
+        pipe.run_until_exhausted(timeout=300)
+        dt_tcp = time.perf_counter() - t0
+    finally:
+        src.close()
+        srv.stop()
+    tcp = held_launches(counter, pipe.metrics.snapshot(), "edge tcp")
+    if not (sink.seen == 1).all() or pipe.committed_offset != n:
+        raise RuntimeError("edge tcp: records lost or repeated")
+    tcp.update(records=n, seconds=dt_tcp, records_per_s=n / dt_tcp,
+               max_abs_err=sink.max_abs_err)
+
+    stats = {"GET": 0, "304": 0}
+
+    class Handler(http.server.SimpleHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_GET(self):
+            stats["GET"] += 1
+            super().do_GET()
+
+        def send_response(self, code, *a, **kw):
+            if code == 304:
+                stats["304"] += 1
+            super().send_response(code, *a, **kw)
+
+    os.environ["FJT_MODEL_CACHE"] = os.path.join(workdir, "model-cache")
+    srv_http = http.server.ThreadingHTTPServer(
+        ("127.0.0.1", 0),
+        lambda *a, **kw: Handler(*a, directory=workdir, **kw))
+    th = threading.Thread(target=srv_http.serve_forever, daemon=True)
+    th.start()
+    try:
+        uri = f"http://127.0.0.1:{srv_http.server_address[1]}/gbm_500.pmml"
+        t0 = time.perf_counter()
+        rcm = ModelReader(uri).load(batch_size=BATCH)
+        t_first = time.perf_counter() - t0
+        gets = stats["GET"]
+        t0 = time.perf_counter()
+        rcm2 = ModelReader(uri).load(batch_size=BATCH)
+        t_second = time.perf_counter() - t0
+        if rcm2 is not rcm or stats["GET"] != gets + 1 or stats["304"] != 1:
+            raise RuntimeError(f"edge remote: second load {stats}, same "
+                               f"model {rcm2 is rcm}")
+        rq = rcm.quantized_scorer()
+        rsink = HeldSink({"static": direct}, DISPATCH, "edge remote")
+        rpipe = BlockPipeline(FiniteBlockSource(X[:DISPATCH], BATCH), rcm,
+                              rsink, recovery_config(),
+                              max_dispatch_chunks=DISPATCH // BATCH)
+        reset(counter)
+        rpipe.run_until_exhausted(timeout=300)
+    finally:
+        os.environ.pop("FJT_MODEL_CACHE", None)
+        srv_http.shutdown()
+        srv_http.server_close()
+        th.join(timeout=30)
+    remote = held_launches(counter, rpipe.metrics.snapshot(), "edge remote")
+    if (rq is None or rq.backend != "cuda" or not (rsink.seen == 1).all()
+            or rpipe.backend != "rank_wire_cuda"):
+        raise RuntimeError("edge remote: the remote model did not score on "
+                           "the kernel")
+    remote.update(records=DISPATCH, first_load_s=t_first,
+                  second_load_s=t_second, http=dict(stats),
+                  recompiled=False, max_abs_err=rsink.max_abs_err)
+    return {"tcp": tcp, "remote": remote,
+            "launches": tcp["launches"] + remote["launches"],
+            "max_abs_err": max(tcp["max_abs_err"], remote["max_abs_err"])}
+
+
+def serving_edge(workdir: str, counter, q, vq, cm, smi: str) -> dict:
+    """The phase: overload, scorer, oom_cap, journey (with its cost part),
+    spans and net_remote, at the main path's width (the 500-tree GBM on
+    the fused placement, the 3-class vote forest), each part's outputs
+    held to the card's direct run."""
+    t_phase = time.perf_counter()
+    gbm = os.path.join(workdir, "gbm_500.pmml")
+    votes = os.path.join(workdir, "votes_500.pmml")
+    F = len(q.wire.fields)
+    X = features(np.random.default_rng(43), EDGE_RECORDS, F)
+    direct = direct_rows(q, X)
+    parts = {
+        "overload": edge_overload(cm, q, counter, workdir),
+        "scorer": edge_scorer(gbm, votes, q, vq, counter),
+        "oom_cap": edge_oom_cap(cm, np.concatenate([X, X]),
+                                np.concatenate([direct, direct]), counter,
+                                workdir),
+        "journey": edge_journey(cm, q, counter, workdir),
+        "spans": edge_spans(cm, X, direct, counter, workdir),
+        "net_remote": edge_net_remote(cm, q, X, direct, counter, workdir),
+    }
+    parts["journey_cost"] = edge_journey_cost(cm, X, counter, workdir)
+    plain = [r["records_per_s"] for r in parts["journey_cost"]
+             if not r["journeys"]]
+    armed = [r["records_per_s"] for r in parts["journey_cost"]
+             if r["journeys"]]
+    parts["journey_cost_summary"] = {
+        "plain_records_per_s": plain, "armed_records_per_s": armed,
+        "fraction_lost": 1.0 - statistics.mean(armed) / statistics.mean(plain),
+    }
+    by_classes = {}
+    for part in ("overload", "scorer", "oom_cap", "journey", "spans"):
+        for c, k in parts[part]["launches_by_classes"].items():
+            by_classes[c] = by_classes.get(c, 0) + k
+    for sub in ("tcp", "remote"):
+        for c, k in parts["net_remote"][sub]["launches_by_classes"].items():
+            by_classes[c] = by_classes.get(c, 0) + k
+    c1 = by_classes.get(1, 0) + sum(r["launches"]
+                                    for r in parts["journey_cost"])
+    return {"nvidia_smi": smi, "seconds": time.perf_counter() - t_phase,
+            "parts": parts, "launches_c1": c1,
+            "launches_c3": by_classes.get(3, 0),
+            "max_abs_err": max(parts[p]["max_abs_err"] for p in (
+                "overload", "scorer", "oom_cap", "journey", "spans",
+                "net_remote"))}
+
+
+# -- A/B of the fused block path against another checkout ---------------
+
+AB_CHILD = r"""
+import json, os, shutil, sys, tempfile
+tree = os.path.abspath(sys.argv[1])
+sys.path.insert(0, tree)
+import numpy as np
+import chip_smoke as cs
+from flink_jpmml_tpu_torch.compile import qtrees_cuda
+from flink_jpmml_tpu_torch.runtime.block import CyclingBlockSource
+assert os.path.dirname(os.path.abspath(cs.__file__)) == tree
+scratch = tempfile.mkdtemp(prefix="fjt-ab-")
+os.environ["FJT_FLIGHT_DIR"] = os.path.join(scratch, "flight")
+try:
+    qtrees_cuda.build()
+    _, cm, q = cs.model_tables(scratch, 500, "gbm_500.pmml")
+    data = cs.features(np.random.default_rng(0), 4 * cs.DISPATCH, 32)
+    q.predict_fused(data[:cs.BATCH])
+    runs = []
+    for _ in range(int(sys.argv[2])):
+        count = [0]
+        def sink(out, n, first, count=count):
+            count[0] += n
+        r = cs.drive(cm, CyclingBlockSource(data, block_size=cs.DISPATCH),
+                     sink, count, qtrees_cuda.leaf_rows)
+        runs.append(r["records_per_s"])
+    print(json.dumps({"records_per_s": runs}), flush=True)
+finally:
+    shutil.rmtree(scratch, ignore_errors=True)
+"""
+
+
+def ab_main(other: str, rounds: int = 2, runs: int = 5) -> int:
+    """``python3 chip_smoke.py --ab OTHER_CHECKOUT``: the fused GBM's
+    ``BlockPipeline`` (``drive``: 16 dispatches of 262,144, the main
+    path's model) in child processes alternating between another
+    checkout and this one, in the order other, this, this, other, each
+    ``rounds`` times, ``runs`` runs a child; prints each child's
+    records/s, then a line with both sides' medians and quartiles and
+    the pairs this checkout won (run i of a child against run i of its
+    neighbour in the order)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    other = os.path.abspath(other)
+    print(nvidia_smi_line(), flush=True)
+    order = [other, here, here, other] * rounds
+    got = []
+    for tree in order:
+        res = subprocess.run(
+            [sys.executable, "-c", AB_CHILD, tree, str(runs)], cwd=tree,
+            capture_output=True, text=True, timeout=600)
+        lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+        if res.returncode or not lines:
+            print(res.stderr[-2000:], file=sys.stderr)
+            return 1
+        rps = json.loads(lines[-1])["records_per_s"]
+        side = "this" if tree == here else "other"
+        got.append((side, rps))
+        emit({"ab": side, "tree": tree, "records_per_s": rps})
+    wins = pairs = 0
+    for (sa, ra), (sb, rb) in zip(got[0::2], got[1::2]):
+        this, oth = (ra, rb) if sa == "this" else (rb, ra)
+        pairs += len(this)
+        wins += sum(t > o for t, o in zip(this, oth))
+
+    def quart(side):
+        v = sorted(x for sd, r in got if sd == side for x in r)
+        q = statistics.quantiles(v, n=4)
+        return {"median": statistics.median(v), "q1": q[0], "q3": q[2]}
+
+    emit({"ab_summary": {"this": quart("this"), "other": quart("other"),
+                         "pairs": pairs, "this_won": wins}})
+    return 0
+
+
 def main() -> int:
     import importlib.util
 
@@ -4014,6 +4881,10 @@ def run_phases(workdir: str) -> int:
     rcv = recovery(workdir, qtrees_cuda.leaf_rows, q, vq, cm, smi)
     emit({"phase": "recovery", **rcv})
 
+    # -- the serving edge: overload, SLO, journeys, spans, TCP and HTTP ----
+    edge = serving_edge(workdir, qtrees_cuda.leaf_rows, q, vq, cm, smi)
+    emit({"phase": "serving_edge", **edge})
+
     def kernel_entry(name, replaces, runs, checked, t):
         return {
             "name": name, "route": "cuda",
@@ -4040,14 +4911,16 @@ def run_phases(workdir: str) -> int:
                       "record_dynamic": {
                           "launches": rec["dynamic"]["launches_gbm"]},
                       "record_kafka": rec["kafka"],
-                      "recovery": {"launches": rcv["launches_c1"]}},
+                      "recovery": {"launches": rcv["launches_c1"]},
+                      "serving_edge": {"launches": edge["launches_c1"]}},
                      rows + [r for r in wrows if r["classes"] == 1], timing),
         kernel_entry("qtrees_leaf_rows (vote shares)",
                      "flink_jpmml_tpu/compile/qtrees_pallas.py:187 and :238",
                      {"vote_main_path": vrun, "vote_fused_main_path": vfrun,
                       "record_dynamic": {
                           "launches": rec["dynamic"]["launches_votes"]},
-                      "recovery": {"launches": rcv["launches_c3"]}},
+                      "recovery": {"launches": rcv["launches_c3"]},
+                      "serving_edge": {"launches": edge["launches_c3"]}},
                      vrows + [r for r in wrows if r["classes"] > 1], vtiming),
     ]})
     print(smi, flush=True)
@@ -4057,4 +4930,6 @@ def run_phases(workdir: str) -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 2 and sys.argv[1] == "--ab":
+        sys.exit(ab_main(sys.argv[2]))
     sys.exit(main())

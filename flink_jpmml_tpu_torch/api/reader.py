@@ -15,23 +15,28 @@ Where it differs from the JAX package:
 - ``load`` takes ``device=`` (``utils/device.resolve_device``: the card by
   default, the CPU only on request), and the cache key holds the resolved
   device, so a CPU load and a card load of one path never share a model;
-- remote paths (``http(s)://``, ``gs://``, ``s3://``, ``hdfs://``,
-  ``alluxio://``; the JAX package's ``api/remote.py``) and ``mesh=``
-  raise :class:`NotPortedError`. A local path's cache token is its mtime,
-  as there; ``file://`` URIs resolve to their path.
+- ``mesh=`` raises :class:`NotPortedError`.
+
+Remote paths (``http(s)://``, ``gs://``, ``s3://``, ``hdfs://``,
+``alluxio://``) resolve through ``api/remote.py`` as in the JAX package:
+the bytes are cached in the port's own model cache and revalidated on
+each ``load`` (a 304 costs one round trip and no recompile), and the
+remote version token (ETag / Last-Modified / generation) takes the
+compile-cache slot that a local file's mtime fills, so a changed remote
+model recompiles and an unchanged one does not. ``file://`` URIs resolve
+to their path.
 """
 
 from __future__ import annotations
 
 import os
 import threading
-import urllib.parse
-import urllib.request
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple, Union
 
 import torch
 
+from flink_jpmml_tpu_torch.api import remote
 from flink_jpmml_tpu_torch.compile import CompiledModel, compile_pmml
 from flink_jpmml_tpu_torch.pmml import parse_pmml_file
 from flink_jpmml_tpu_torch.utils.config import CompileConfig
@@ -41,29 +46,9 @@ from flink_jpmml_tpu_torch.utils.exceptions import (
     NotPortedError,
 )
 
-# the JAX package's api/remote.py schemes
-_REMOTE_SCHEMES = ("http", "https", "gs", "s3", "hdfs", "alluxio")
-
 _cache_lock = threading.Lock()
 _cache: Dict[Tuple, CompiledModel] = {}
 _verified: set = set()  # cache keys whose models passed verification
-
-
-def _local(path: str) -> Tuple[str, str]:
-    """→ (local path, version token: its mtime, -1.0 when unreadable)."""
-    parts = urllib.parse.urlsplit(path)
-    if parts.scheme in _REMOTE_SCHEMES:
-        raise NotPortedError(
-            f"ModelReader: remote path {path!r} (api/remote.py is not "
-            "ported)"
-        )
-    if parts.scheme == "file":
-        path = urllib.request.url2pathname(parts.path)
-    try:
-        token = os.stat(path).st_mtime
-    except OSError:
-        token = -1.0
-    return path, str(token)
 
 
 @dataclass(frozen=True)
@@ -88,9 +73,16 @@ class ModelReader:
         the default) or ``"cpu"``."""
         if mesh is not None:
             raise NotPortedError("ModelReader.load(mesh=...)")
-        local_path, token = _local(self.path)
+        local_path, token = remote.fetch(self.path)
         dev = resolve_device(device)
-        key = (os.path.abspath(local_path), token, batch_size, config, dev)
+        key = (
+            self.path if remote.is_remote(self.path)
+            else os.path.abspath(local_path),
+            token,
+            batch_size,
+            config,
+            dev,
+        )
         with _cache_lock:
             cached = _cache.get(key)
             cached_verified = key in _verified

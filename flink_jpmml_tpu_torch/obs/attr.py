@@ -5,12 +5,7 @@ lines renamed and its notes on the project's history cut.
 ``dispatch_profile`` and ``_scorer_flops_per_record`` are left out: they
 feed the sampled device profiler (``obs/profiler.py``), which the port
 does not have yet, and no caller needs them without it. The ``device``
-stage is that profiler's to book, so the port books the other eight.
-Also left out: the ``stage_stall`` flight event (it needs a deadline from
-``FJT_SLO_TARGET_MS``, and the SLO plane is not ported), the exemplar's
-span event (``obs/spans.py``) and the journey linkage of an exemplar
-(``obs/trace.py``'s active context): an exemplar's id is always a fresh
-``new_trace_id()``. On
+stage is that profiler's to book, so the port books the other eight. On
 the card, ``h2d`` is the host-side staging plus the issue of the
 asynchronous copy and launch; the device's own time shows up as
 ``readback`` (the score thread waiting on the oldest dispatch) and
@@ -56,11 +51,19 @@ Stage semantics (who observes what):
 
 **Exemplars**: an observation landing at (or above) the highest bucket
 a stage has ever filled gets a trace id attached — recorded as a
-``latency_exemplar`` flight-recorder event and exported on the ``_bucket`` line of
+``latency_exemplar`` flight-recorder event (with the active span file,
+if tracing) and exported on the ``_bucket`` line of
 OpenMetrics-negotiated ``/metrics`` scrapes (classic 0.0.4 scrapes
 stay suffix-free: that format does not admit exemplars) — so a p99
 scrape links directly to the postmortem context of the batch that
-caused it.
+caused it. With a record-journey context active on the thread
+(``obs/trace.py``), the exemplar id IS the journey's trace id and the
+capture marks the journey kept.
+
+**Stall events**: with a deadline configured (``FJT_SLO_TARGET_MS``), a
+``queue_wait`` observation beyond ``FJT_SLO_STALL_FRAC`` (default 0.5)
+of it records a ``stage_stall`` flight event (rate-limited: the flight
+ring is for rare events).
 
 Steady-state cost with nothing special happening: one dict lookup, one
 ``bisect``, one locked histogram increment per stage per batch — the
@@ -77,6 +80,8 @@ import weakref
 from typing import Dict, Optional
 
 from flink_jpmml_tpu_torch.obs import recorder as flight
+from flink_jpmml_tpu_torch.obs import spans
+from flink_jpmml_tpu_torch.obs import trace as trace_mod
 from flink_jpmml_tpu_torch.utils.metrics import Histogram, MetricsRegistry
 
 STAGES = (
@@ -102,11 +107,14 @@ STAGE_THREADS = {
     "sink": "score",
 }
 
+_STALL_MS_ENV = "FJT_SLO_TARGET_MS"
+_STALL_FRAC_ENV = "FJT_SLO_STALL_FRAC"
 _EXEMPLAR_MIN_PERIOD_S = 1.0  # repeat top-bucket exemplars at most 1/s
 # a steady stream landing in the SAME top bucket re-checks the clock
 # only every this-many hits: the common hot-path outcome (top bucket,
 # not due) costs an int compare instead of a time.monotonic() call
 _EXEMPLAR_CHECK_EVERY = 32
+_STALL_MIN_PERIOD_S = 1.0
 
 _tid_lock = threading.Lock()
 _tid_seq = 0
@@ -149,6 +157,18 @@ class StageLedger:
         # per-stage exemplar state: [max bucket idx, last capture t,
         # same-bucket hits since the last clock check]
         self._ex_state: Dict[str, list] = {}
+        self._last_stall = 0.0
+        # deadline config is read once per ledger: the hot path must not
+        # hit os.environ per batch
+        try:
+            ms = float(os.environ.get(_STALL_MS_ENV) or 0.0)
+        except ValueError:
+            ms = 0.0
+        try:
+            frac = float(os.environ.get(_STALL_FRAC_ENV) or 0.5)
+        except ValueError:
+            frac = 0.5
+        self._stall_threshold_s = (ms / 1000.0) * frac if ms > 0 else None
 
     def _hist(self, stage: str) -> Histogram:
         h = self._hists.get(stage)
@@ -163,12 +183,21 @@ class StageLedger:
 
     def observe(self, stage: str, seconds: float) -> None:
         """Record one batch's time in ``stage``; captures an exemplar
-        when the observation lands in the stage's top-ever bucket."""
+        when the observation lands in the stage's top-ever bucket and
+        a ``stage_stall`` flight event when a ``queue_wait`` crosses
+        the configured deadline fraction."""
         h = self._hists.get(stage)
         if h is None:
             h = self._hist(stage)
         idx = h.bucket_index(seconds)
         exemplar = None
+        # journey linkage (obs/trace.py): with a record-journey context
+        # active on this thread, the exemplar id IS the journey's trace
+        # id — the fjt-top exemplar row pivots straight to fjt-trace —
+        # and capturing one marks the journey interesting, which is
+        # exactly the "top-latency journeys survive tail-sampling"
+        # policy (the exemplar path already decides what the tail is)
+        jctx = trace_mod.current()
         with self._mu:
             st = self._ex_state.get(stage)
             # st = [max bucket idx seen, last capture t, hits since check]
@@ -178,7 +207,9 @@ class StageLedger:
                 st[0] = idx
                 st[1] = time.monotonic()
                 st[2] = 0
-                exemplar = new_trace_id()
+                exemplar = (
+                    jctx.trace_id if jctx is not None else new_trace_id()
+                )
             elif idx == st[0]:
                 # the steady-state outcome for a stage whose tail sits
                 # in one bucket: an int compare, no clock read
@@ -188,15 +219,47 @@ class StageLedger:
                     now = time.monotonic()
                     if now - st[1] >= _EXEMPLAR_MIN_PERIOD_S:
                         st[1] = now
-                        exemplar = new_trace_id()
+                        exemplar = (
+                            jctx.trace_id if jctx is not None
+                            else new_trace_id()
+                        )
+        if exemplar is not None and jctx is not None:
+            jstore = trace_mod.store_for(self._metrics_ref())
+            if jstore is not None:
+                jstore.mark(jctx.trace_id, "exemplar")
         if exemplar is not None:
+            w = spans.writer()
             flight.record(
                 "latency_exemplar",
                 trace_id=exemplar,
                 stage=stage,
                 seconds=round(seconds, 6),
+                span_file=(w.path if w is not None else None),
+            )
+            spans.emit(
+                stage + "_exemplar",
+                time.monotonic() - seconds,
+                seconds,
+                trace_id=exemplar,
             )
         h.observe(seconds, exemplar=exemplar)
+        if (
+            stage == "queue_wait"
+            and self._stall_threshold_s is not None
+            and seconds > self._stall_threshold_s
+        ):
+            now = time.monotonic()  # rare path: past the deadline frac
+            with self._mu:
+                stall_due = now - self._last_stall >= _STALL_MIN_PERIOD_S
+                if stall_due:
+                    self._last_stall = now
+            if stall_due:
+                flight.record(
+                    "stage_stall",
+                    stage=stage,
+                    seconds=round(seconds, 6),
+                    threshold_s=round(self._stall_threshold_s, 6),
+                )
 
 
 # one ledger per registry, resolved once per dispatch path (cf. the

@@ -4,8 +4,9 @@ The port's copy of ``flink_jpmml_tpu/obs/pressure.py``, with the import
 lines renamed and its notes on the project's history cut. The JAX
 package reads its breach windows from ``FJT_PRESSURE_WINDOWS`` through
 ``obs/slo.py``'s grammar; the port takes them as an argument, by default
-the JAX package's ``((10, 0.8), (60, 0.6))``, and has no ``obs/slo.py``
-(its ``SLOTracker`` waits for a pipeline that takes ``slo=``).
+the JAX package's ``((10, 0.8), (60, 0.6))``, and reads no such knob
+(no port caller sets one). Its ``pressure`` gauge is what the port's
+``AdmissionController`` sheds on by default.
 
 ROADMAP item 5's adaptive-batching / load-shedding controller needs a
 sensor that says "the pipeline is saturating" BEFORE p99 blows through

@@ -1,7 +1,7 @@
 """Flight recorder: a bounded ring of structured runtime events.
 
 The port's copy of ``flink_jpmml_tpu/obs/recorder.py``, with the import
-lines renamed. Tests point ``flight_dir()`` at a temporary directory
+lines renamed (a dump flushes the span writer first, as there). Tests point ``flight_dir()`` at a temporary directory
 through ``FJT_FLIGHT_DIR``.
 
 A crashed or wedged worker used to leave NOTHING behind but an exit
@@ -70,6 +70,16 @@ class FlightRecorder:
     ) -> Optional[str]:
         """Write the ring as JSONL → the file path (None on I/O failure:
         a postmortem helper must never become the second failure)."""
+        try:
+            # the span file must contain everything up to the moment of
+            # the dump: a buffered span writer (obs/spans.py) would
+            # otherwise hold the last ~flush-interval of the story a
+            # postmortem exists to tell
+            from flink_jpmml_tpu_torch.obs import spans
+
+            spans.flush()
+        except Exception:
+            pass
         events = self.events()
         try:
             if path is None:

@@ -51,16 +51,43 @@ freshness and pressure planes tick from the score loop. The fault sites
 ``score_loop`` and ``score_batch`` (with the dispatched offsets) fire
 where the JAX package fires them.
 
+The serving edge, as in the JAX package:
+
+- **overload** (``serving/overload.py``): ``batcher=`` (an
+  ``AdaptiveBatcher``) caps multi-chunk aggregation at its
+  ``max_records()``, observes every completed dispatch's (records,
+  latency) — on the card the latency ends after the CUDA event wait, so
+  it holds the card's time — and takes the OOM ladder's proven size as a
+  hard cap (``note_oom_cap``); ``admission=`` (an
+  ``AdmissionController``) sheds whole drained batches under
+  ``shed_lane`` (checked against its lanes at construction): a shed batch
+  rides the window as an ``accounted=False`` no-op, so its offsets commit
+  in FIFO order, it launches no kernel, never reaches the sink, and counts
+  in no ``dispatches``. Where the JAX package aggregates a backed-up
+  ring's batches and then sheds the aggregate, the port does not
+  aggregate while its lane is refused: each drained batch is shed on its
+  own, so a shed costs one ring drain and no aggregation copies, and
+  shedding drains a full ring faster than the load that filled it. The
+  shed and admitted totals and the commit order are the JAX package's;
+- **SLO burn rate**: ``slo=`` (an ``obs/slo.SLOTracker``) ticks from the
+  completion path;
+- **journeys** (``obs/trace.py``, armed by ``FJT_JOURNEY_DIR``): restore,
+  suspect mode, one ``dispatch`` hop a batch, the suspect scan's hops and
+  its ``dlq`` terminal, the ``shed`` terminal and the ``sink`` hop that
+  closes a batch's journey; the batch's context is active around its
+  launch and its sink, so spans and exemplars carry its ids. Unarmed,
+  every site is one None test;
+- **spans** (``obs/spans.py``, ``FJT_TRACE_DIR``): the ``sink`` span here,
+  ``featurize`` / ``h2d_dispatch`` / ``readback`` in the dispatcher.
+
 Where it differs: the JAX package's Python ring (its fall-back when the
 C++ library cannot be built) is not ported — the ring raises
 ``NativeBuildError`` instead. The f32 path (``_dispatch_f32``) books the
 bytes it ships in ``h2d_bytes``, as the rank-wire path does. Not ported
-(each raises :class:`NotPortedError` and names itself): ``slo=``,
-``batcher=``, ``admission=`` / ``shed_lane=``, ``state=``, ``mesh=``,
-``tenant=`` and ``donate=``; with them go the ladder's mesh rebuild
-(a ``chip_loss`` always escalates — one card, no mesh), the OOM cap fed
-to an adaptive batcher, admission shedding, keyed state and journey
-tracing.
+(each raises :class:`NotPortedError` and names itself): ``state=`` (keyed
+state) waits for the multi-tenant and stateful slice, ``mesh=`` and
+``donate=`` for the parallel slice; with the mesh goes the ladder's mesh
+rebuild (a ``chip_loss`` always escalates — one card, no mesh).
 
 The sink receives host tensors (the pinned buffer the D2H copy filled)
 once their dispatch has completed; :meth:`BlockPipeline.decode` turns one
@@ -82,6 +109,7 @@ from flink_jpmml_tpu_torch.obs import attr as attr_mod
 from flink_jpmml_tpu_torch.obs import freshness as fresh_mod
 from flink_jpmml_tpu_torch.obs import pressure as pressure_mod
 from flink_jpmml_tpu_torch.obs import recorder as flight
+from flink_jpmml_tpu_torch.obs import spans
 from flink_jpmml_tpu_torch.obs import trace as trace_mod
 from flink_jpmml_tpu_torch.runtime import devfault
 from flink_jpmml_tpu_torch.runtime import faults
@@ -254,9 +282,38 @@ class BlockPipelineBase:
         dlq=None,
         prefetch: Optional[bool] = None,
         failover=None,
+        slo=None,
+        batcher=None,
+        admission=None,
+        shed_lane: str = "block",
     ):
         self._source = source
         self._sink = sink
+        # optional obs/slo.SLOTracker: ticked from the completion path
+        # (between batches, on the score thread), so burn-rate state
+        # stays live without a thread of its own
+        self._slo = slo
+        # overload plane (serving/overload.py), both optional:
+        # - batcher: AdaptiveBatcher — caps opportunistic multi-chunk
+        #   aggregation at the size predicted to fit the deadline, fed
+        #   from every completed dispatch;
+        # - admission: AdmissionController — drained batches it refuses
+        #   ride the FIFO window as no-op entries (offsets commit in
+        #   order, the sink never sees a shed record) under
+        #   ``shed_lane``; its controller ticks between batches.
+        self._batcher = batcher
+        self._admission = admission
+        self._shed_lane = shed_lane
+        if admission is not None and shed_lane not in admission.lanes:
+            # unknown lanes are never shed (the safe per-record
+            # default), which here would mean a controller that climbs
+            # levels and reports shedding while refusing NOTHING — fail
+            # loudly at construction instead
+            raise InputValidationException(
+                f"shed_lane {shed_lane!r} is not one of the admission "
+                f"controller's lanes {admission.lanes!r} — this "
+                "pipeline could never shed"
+            )
         self._arity = arity
         self._batch_size = batch_size
         self.device = device
@@ -280,6 +337,9 @@ class BlockPipelineBase:
         # iterations (aggregation stops at an offset discontinuity, and
         # the poison plane splits mid-batch gaps)
         self._carry_drain: "List[Tuple[np.ndarray, np.ndarray]]" = []
+        # the aggregate buffer (rows, offsets), made at the first
+        # multi-chunk dispatch (see _aggregate_full_batches)
+        self._agg = None
         # True only for run_until_exhausted's full drain; plain stop()
         # discards the uncommitted ring backlog
         self._drain_all = False
@@ -412,6 +472,15 @@ class BlockPipelineBase:
             # marker from a range that later committed: stale
             self._death_marker = None
             self._fingerprint.clear_marker()
+        jstore = trace_mod.store_for(self.metrics)
+        if jstore is not None:
+            # the incarnation boundary, durable: the pid change + the
+            # committed offset this restore resumed at
+            jstore.hop(
+                "restore", trace_mod.context_for(committed),
+                first_off=committed, durable=True,
+                restarts=max(count - 1, streak),
+            )
         threshold = env_count("FJT_POISON_RESTARTS", 3)
         if max(count - 1, streak) >= threshold:
             hi = self._replay_until
@@ -419,6 +488,16 @@ class BlockPipelineBase:
                 hi = committed + self._batch_size
             self._suspect_until = hi
             self._suspect_gauge.set(1.0)
+            if jstore is not None:
+                # suspect mode flips the journey store to write-through:
+                # every hop of the bisection protocol must be on disk
+                # BEFORE a process-killing record strikes again
+                jstore.write_through = True
+                jstore.hop(
+                    "suspect_mode", trace_mod.context_for(committed),
+                    first_off=committed, n=hi - committed, durable=True,
+                    restarts=max(count - 1, streak),
+                )
             flight.record(
                 "poison_suspect_mode", lo=committed, hi=hi,
                 restarts=max(count - 1, streak),
@@ -509,32 +588,67 @@ class BlockPipelineBase:
         provably-full extra batches are drained, and an offset
         discontinuity (a cycling source's wrap) is carried to the next
         loop iteration as its own dispatch. Drained views alias the
-        ring's reuse buffer, hence the copies."""
+        ring's reuse buffer, so each batch is copied once, into the
+        pipeline's aggregate buffer; the returned arrays are views of it,
+        valid until the next aggregation (every dispatch path is done with
+        its batch when it returns, and a retained batch is copied)."""
         avail = 1 + len(self._ring) // bs  # full batches on hand NOW
+        k_cap = self._max_dispatch_chunks
+        if self._batcher is not None:
+            # deadline-aware aggregation cap: a backed-up ring wants the
+            # biggest dispatch, the deadline wants the smallest — the
+            # capacity model's max_records() is where they meet (None =
+            # no deadline/no fit yet: keep the static cap)
+            mr = self._batcher.max_records()
+            if mr is not None:
+                k_cap = min(k_cap, max(1, mr // bs))
         k_target = 1
-        while k_target * 2 <= avail and k_target * 2 <= self._max_dispatch_chunks:
+        while k_target * 2 <= avail and k_target * 2 <= k_cap:
             k_target *= 2
         if k_target == 1:
             return X, offsets, bs
-        parts = [np.array(X, copy=True)]
-        off_parts = [np.array(offsets, copy=True)]
+        # one copy a drained batch, into an aggregate buffer the pipeline
+        # keeps (already faulted in after its first use): the dispatch is
+        # done with it when it returns, and each drain reuses the ring's
+        # buffer, so the first batch moves out before the next drain
+        rows = bs * self._max_dispatch_chunks
+        agg = self._agg
+        if (agg is None or agg[0].shape[0] < rows
+                or agg[0].shape[1:] != X.shape[1:]):
+            agg = self._agg = (
+                np.empty((rows,) + X.shape[1:], X.dtype),
+                np.empty(rows, offsets.dtype),
+            )
+        buf, obuf = agg
+        buf[:bs] = X
+        obuf[:bs] = offsets
         total = bs
         while total < bs * k_target and len(self._ring) >= bs:
             X2, off2 = self._ring.drain(0, 0)
             n2 = X2.shape[0]
             if n2 == 0:
                 break
-            if n2 < bs or int(off2[0]) != int(off_parts[-1][-1]) + 1:
+            if n2 < bs or int(off2[0]) != int(obuf[total - 1]) + 1:
                 self._carry_drain.append(
                     (np.array(X2, copy=True), np.array(off2, copy=True))
                 )
                 break
-            parts.append(np.array(X2, copy=True))
-            off_parts.append(np.array(off2, copy=True))
+            buf[total:total + n2] = X2
+            obuf[total:total + n2] = off2
             total += n2
-        if len(parts) == 1:
-            return parts[0], off_parts[0], bs
-        return np.concatenate(parts, axis=0), np.concatenate(off_parts), total
+        return buf[:total], obuf[:total], total
+
+    def _shedding(self) -> bool:
+        """True while the admission controller refuses this pipeline's
+        lane: the drained batch is about to be shed, so aggregating more
+        batches into it would only add host copies to a shed (the port
+        sheds drained batches one at a time; the JAX package aggregates
+        first). The decision itself stays ``admit``'s."""
+        adm = self._admission
+        return (
+            adm is not None and adm.enabled
+            and self._shed_lane in adm.shed_lanes()
+        )
 
     def _dispatch_bound(self, bound: BoundScorer, X, n) -> DeviceOutput:
         """Async dispatch of one drained batch through a
@@ -572,19 +686,19 @@ class BlockPipelineBase:
         """Dispatcher error hook, with device-fault triage FIRST: a sick
         card runs the recovery ladder and record poison the suspect scan.
         → False (re-raise) when the entry carries no retained batch or the
-        matching plane is not wired."""
-        n, first_off, t_start, handle, X, offsets = meta
-        if X is None or offsets is None:
+        matching plane is not wired, or for a shed no-op."""
+        n, first_off, t_start, shed, handle, X, offsets, ctx = meta
+        if shed or X is None or offsets is None:
             return False
         kind = devfault.classify(error)
         if kind is not None:
             if self._failover is None:
                 return False  # fail fast: die, restart
-            self._device_recover(handle, X, offsets, error, kind)
+            self._device_recover(handle, X, offsets, error, kind, ctx=ctx)
             return True
         if self._dlq is None:
             return False
-        self._suspect_scan(handle, X, offsets, error=error)
+        self._suspect_scan(handle, X, offsets, error=error, ctx=ctx)
         return True
 
     def _redispatch_sync(self, handle, X, n, offsets) -> _Dispatched:
@@ -600,7 +714,7 @@ class BlockPipelineBase:
         return d
 
     def _emit_recovered(self, d: _Dispatched, offsets, lo, hi,
-                        t0=None) -> None:
+                        ctx=None, t0=None) -> None:
         """Deliver + commit one recovered run (redispatch, OOM sub-batch
         or host-tier score): sink in offset order, freshness stamps
         consumed, offsets committed — the failed dispatch never reached
@@ -610,6 +724,13 @@ class BlockPipelineBase:
         self._emit(d.res.result(), n_run, first, d.decode)
         self.metrics.counter("records_out").inc(n_run)
         fresh_mod.freshness_for(self.metrics).observe_sink(first, n_run)
+        jstore = trace_mod.store_for(self.metrics)
+        if jstore is not None:
+            c = ctx if ctx is not None else trace_mod.context_for(first)
+            jstore.hop(
+                "sink", c.child(), first, n_run, durable=True,
+                recovered=True,
+            )
         if t0 is not None:
             # host-tier batches are real deliveries: their latency
             # belongs in the histogram
@@ -619,13 +740,15 @@ class BlockPipelineBase:
         self.committed_offset = int(offsets[hi - 1]) + 1
         self._ckpt.maybe_save(self._ckpt_state)
 
-    def _device_recover(self, handle, X, offsets, error, kind) -> None:
+    def _device_recover(self, handle, X, offsets, error, kind,
+                        ctx=None) -> None:
         """The recovery ladder for one device-classified dispatch
         failure: (1) transient errors re-dispatch the retained batch
         under the shared full-jitter backoff; (2) OOM bisects the BATCH
         SIZE (never the records); (3) exhausted retries fall through to
         the host tier where it serves, else re-raise; (4) a lost context
-        escalates with a raise."""
+        escalates with a raise. The OOM rung feeds its proven size to the
+        adaptive batcher as a hard cap."""
         from flink_jpmml_tpu_torch.utils.retry import Backoff
 
         plane = self._failover
@@ -639,7 +762,7 @@ class BlockPipelineBase:
         breaker = plane.breaker_for(key)
         breaker.record_failure(kind)
         if kind == devfault.KIND_OOM:
-            self._oom_recover(handle, X, offsets, error)
+            self._oom_recover(handle, X, offsets, error, ctx=ctx)
             return
         bo = Backoff(
             "device", base_s=0.02, cap_s=0.5,
@@ -655,7 +778,9 @@ class BlockPipelineBase:
                     # the device fault cleared and a RECORD error
                     # surfaced underneath: poison's jurisdiction
                     if self._dlq is not None:
-                        self._suspect_scan(handle, X, offsets, error=e2)
+                        self._suspect_scan(
+                            handle, X, offsets, error=e2, ctx=ctx
+                        )
                         return
                     raise
                 plane.note_fault(k2, key, first_off=first, n=n, error=e2)
@@ -664,7 +789,7 @@ class BlockPipelineBase:
                     return
                 breaker.record_failure(k2)
                 if k2 == devfault.KIND_OOM:
-                    self._oom_recover(handle, X, offsets, e2)
+                    self._oom_recover(handle, X, offsets, e2, ctx=ctx)
                     return
                 error = e2
                 continue
@@ -674,12 +799,12 @@ class BlockPipelineBase:
                 "device_redispatch", model=key, first=first, n=n,
                 attempts=bo.attempts,
             )
-            self._emit_recovered(d, offsets, 0, n)
+            self._emit_recovered(d, offsets, 0, n, ctx=ctx)
             return
         # retries exhausted: the host tier serves where it may (an f32
         # model whose caller asked); the rank wire escalates
         if plane.tier.supports(handle):
-            self._serve_fallback(handle, X, offsets)
+            self._serve_fallback(handle, X, offsets, jctx=ctx)
             return
         raise error
 
@@ -695,9 +820,10 @@ class BlockPipelineBase:
         )
         raise error
 
-    def _oom_recover(self, handle, X, offsets, error) -> None:
+    def _oom_recover(self, handle, X, offsets, error, ctx=None) -> None:
         """Device-OOM ladder step: bisect the BATCH SIZE until runs fit
-        and deliver each run in offset order. Records are never
+        and deliver each run in offset order, then feed the largest size
+        that fit to the adaptive batcher as a hard cap. Records are never
         quarantined — an allocator refusal says nothing about the
         data."""
         plane = self._failover
@@ -716,7 +842,8 @@ class BlockPipelineBase:
                 if k2 is None:
                     if self._dlq is not None:
                         self._suspect_scan(
-                            handle, X[lo:hi], offsets[lo:hi], error=e2
+                            handle, X[lo:hi], offsets[lo:hi],
+                            error=e2, ctx=ctx,
                         )
                         return
                     raise
@@ -736,7 +863,7 @@ class BlockPipelineBase:
                     # a sick card never quarantines a clean record
                     if plane.tier.supports(handle):
                         self._serve_fallback(
-                            handle, X[lo:hi], offsets[lo:hi]
+                            handle, X[lo:hi], offsets[lo:hi], jctx=ctx
                         )
                         return
                     raise e2
@@ -746,13 +873,16 @@ class BlockPipelineBase:
                 return
             state["max_ok"] = max(state["max_ok"], size)
             plane.redispatch_records.inc(size)
-            self._emit_recovered(d, offsets, lo, hi)
+            self._emit_recovered(d, offsets, lo, hi, ctx=ctx)
 
         attempt(0, n)
         plane.oom_shrinks.inc()
+        cap = state["max_ok"] or None
+        if cap and self._batcher is not None:
+            cap = self._batcher.note_oom_cap(cap)
         flight.record(
             "oom_batch_shrink", model=key, from_records=n,
-            to_records=state["max_ok"] or None,
+            to_records=cap,
         )
         plane.record_success(key)
 
@@ -769,7 +899,7 @@ class BlockPipelineBase:
         faults.fire("score_batch", offsets=offsets)
         return self._fallback_dispatch(handle, X, n)
 
-    def _serve_fallback(self, handle, X, offsets) -> None:
+    def _serve_fallback(self, handle, X, offsets, jctx=None) -> None:
         """Score one batch on the host tier (an f32 model whose caller
         asked for it) — degraded, not down. Record poison that surfaces
         here isolates on the host tier, never by re-dispatching to the
@@ -789,16 +919,16 @@ class BlockPipelineBase:
             if devfault.classify(e) is not None or self._dlq is None:
                 raise
             self._suspect_scan(
-                handle, X, offsets, error=e,
+                handle, X, offsets, error=e, ctx=jctx,
                 dispatch=self._fallback_checked,
             )
             return
         plane.note_fallback(n, key)
-        self._emit_recovered(d, offsets, 0, n, t0=t0)
+        self._emit_recovered(d, offsets, 0, n, ctx=jctx, t0=t0)
 
     def _suspect_scan(
         self, handle, X, offsets, error, persist: bool = False,
-        dispatch=None,
+        ctx=None, dispatch=None,
     ) -> None:
         """Bisection ("suspect mode") over one failed batch: dispatch
         halves synchronously until the offending record(s) are single —
@@ -827,10 +957,22 @@ class BlockPipelineBase:
         records_out = self.metrics.counter("records_out")
         cap = env_count("FJT_DLQ_MAX_PER_BATCH", 32)
         state = {"q": 0}
+        # journey trail (obs/trace.py): isolation is exactly the story
+        # a journey exists to tell, so every bisection hop is durable
+        jstore = trace_mod.store_for(self.metrics)
+        if ctx is None and jstore is not None:
+            ctx = trace_mod.context_for(int(offsets[0]))
+        if jstore is not None:
+            jstore.hop(
+                "suspect_scan", ctx, int(offsets[0]), n, durable=True,
+                persist=persist,
+                error=None if error is None else repr(error),
+            )
         flight.record(
             "poison_isolation",
             first=int(offsets[0]), n=n, persist=persist,
             error=None if error is None else repr(error),
+            trace_id=None if ctx is None else ctx.trace_id,
         )
         self._suspect_gauge.set(1.0)
 
@@ -841,7 +983,18 @@ class BlockPipelineBase:
                 )
             state["q"] += 1
             off = int(offsets[i])
-            rctx = trace_mod.context_for(off)
+            # the terminal hop + the envelope's trace context: the ids
+            # the DLQ carries are what a redrive stamps into the
+            # traceparent header, linking the redriven journey segment
+            rctx = trace_mod.TraceContext(
+                trace_mod.trace_id_for(off),
+                parent_id=None if ctx is None else ctx.span_id,
+            )
+            if jstore is not None:
+                jstore.terminal(
+                    "dlq", rctx, offset=off, reason=reason,
+                    attempts=attempts,
+                )
             self._dlq.quarantine(
                 X[i].tobytes(), offset=off, reason=reason, error=exc,
                 attempts=attempts, model=getattr(handle, "key", None),
@@ -856,6 +1009,11 @@ class BlockPipelineBase:
             first = int(offsets[lo])
             self._emit(d.res.result(), n_run, first, d.decode)
             records_out.inc(n_run)
+            if jstore is not None:
+                jstore.hop(
+                    "sink", ctx.child(), first, n_run, durable=True,
+                    isolated=True,
+                )
             freshness.observe_sink(first, n_run)
 
         def scan(lo: int, hi: int):
@@ -896,6 +1054,15 @@ class BlockPipelineBase:
                 ):
                     attempts = dm.get("attempts", 1) + 1
                 self._fingerprint.write_marker(off_lo, off_hi, attempts)
+                if jstore is not None:
+                    # the marker's journey twin, written BEFORE the
+                    # sub-dispatch: if this range kills the process the
+                    # hop survives
+                    jstore.hop(
+                        "suspect_dispatch", ctx.child(),
+                        off_lo, off_hi - off_lo, durable=True,
+                        attempts=attempts,
+                    )
             try:
                 d = dispatch(handle, X[lo:hi], n_sub, offsets[lo:hi])
                 if on_card:
@@ -945,6 +1112,18 @@ class BlockPipelineBase:
         if self._fingerprint is not None:
             self._fingerprint.clear_marker()
         self._suspect_gauge.set(0.0)
+        jstore = trace_mod.store_for(self.metrics)
+        if jstore is not None:
+            jstore.hop(
+                "suspect_exit",
+                trace_mod.context_for(self.committed_offset),
+                first_off=self.committed_offset, durable=True,
+            )
+            # back to tail-sampled buffering — unless a fault drill (or
+            # FJT_JOURNEY_SYNC) armed write-through for the process
+            jstore.write_through = bool(
+                faults.active() or os.environ.get("FJT_JOURNEY_SYNC")
+            )
 
     # -- threads ---------------------------------------------------------------
 
@@ -982,33 +1161,69 @@ class BlockPipelineBase:
         # own
         freshness = fresh_mod.freshness_for(self.metrics)
         monitor = pressure_mod.pressure_for(self.metrics)
+        # record-journey tracing (obs/trace.py): None unless
+        # FJT_JOURNEY_DIR armed it — one env check at loop start, and
+        # with it None every per-batch site below is a None test
+        jstore = trace_mod.store_for(self.metrics)
         ring_occ = self.metrics.gauge("ring_occupancy")
         ring_cap = float(max(self._config.batch.queue_capacity, 1))
 
-        def _complete(d: _Dispatched, meta):
+        def _complete(d: Optional[_Dispatched], meta):
             """FIFO completion: sink, then commit — offsets only advance
-            past records that reached the sink."""
-            n, first_off, t_start, handle = meta[:4]
+            past records that reached the sink. A SHED entry (admission
+            refusal, a no-op through the same FIFO window) commits its
+            offsets and consumes its freshness stamps without ever
+            touching the sink."""
+            n, first_off, t_start, shed, handle = meta[:5]
+            jctx = meta[7]
             if first_off < self._replay_until:
                 # at-least-once replay accounting: records below the
                 # previous incarnation's in-flight high-water mark
                 replayed.inc(min(n, self._replay_until - first_off))
+            if shed:
+                self.committed_offset = first_off + n
+                freshness.discard_stamps(first_off, n)
+                self._ckpt.maybe_save(self._ckpt_state)
+                monitor.maybe_tick()
+                return
             out = d.res.result()  # the event wait is booked by the window
             t_sink = time.monotonic()
-            self._emit(out, n, first_off, d.decode)
-            t_done = time.monotonic()
-            ledger.observe("sink", t_done - t_sink)
+            # the completing batch's OWN context wraps the sink: its span
+            # (and any exemplar the sink stage captures) carries THIS
+            # journey's ids
+            with trace_mod.use(jctx):
+                self._emit(out, n, first_off, d.decode)
+                t_done = time.monotonic()
+                spans.emit(
+                    "sink", t_sink, t_done - t_sink, n=n,
+                    first_off=first_off,
+                )
+                ledger.observe("sink", t_done - t_sink)
+            if jstore is not None and jctx is not None:
+                # the sink hop closes the journey: tail-sampling keeps
+                # it only if it is interesting (exemplar-marked, head
+                # sample, terminal elsewhere)
+                jstore.finish(
+                    jctx, first_off, n, latency_s=t_done - t_start,
+                )
             lat.observe(t_done - t_start)
             records_out.inc(n)
             if self._failover is not None:
                 # green completion: clears strike streaks / counts a
                 # half-open probe
                 self._failover.record_success(getattr(handle, "key", None))
+            if self._batcher is not None:
+                # the capacity model's verify half: every completed
+                # dispatch is a (size, latency) observation; the latency
+                # ends after the CUDA event wait, so it holds card time
+                self._batcher.observe(n, t_done - t_start)
             self.committed_offset = first_off + n
             # consume the source's ingest stamps for this offset range
             # (record_staleness_s, the sink watermark)
             freshness.observe_sink(first_off, n)
             self._ckpt.maybe_save(self._ckpt_state)
+            if self._slo is not None:
+                self._slo.maybe_tick()
             monitor.maybe_tick()
 
         disp = OverlappedDispatcher(
@@ -1048,7 +1263,11 @@ class BlockPipelineBase:
                         )
                     n = X.shape[0]
                     ring_occ.set(min(len(self._ring) / ring_cap, 1.0))
-                    if n == self._batch_size and self._max_dispatch_chunks > 1:
+                    if (
+                        n == self._batch_size
+                        and self._max_dispatch_chunks > 1
+                        and not self._shedding()
+                    ):
                         X, offsets, n = self._aggregate_full_batches(
                             X, offsets, self._batch_size
                         )
@@ -1073,6 +1292,33 @@ class BlockPipelineBase:
                             ))
                             X, offsets = X[:cut], offsets[:cut]
                             n = cut
+                    if self._admission is not None:
+                        self._admission.maybe_tick()
+                        if not self._admission.admit(self._shed_lane, n):
+                            # explicit load shed: the batch rides the
+                            # FIFO window as a no-op entry, so its
+                            # offsets commit strictly in launch order
+                            # behind the in-flight dispatches — the sink
+                            # never sees it, no kernel launches, and the
+                            # entry is UNACCOUNTED (no dispatch counted)
+                            if jstore is not None:
+                                # the shed decision IS the journey's
+                                # point: terminal hop, always kept
+                                jstore.terminal(
+                                    "shed",
+                                    trace_mod.context_for(int(offsets[0])),
+                                    int(offsets[0]), n,
+                                    lane=self._shed_lane,
+                                )
+                            disp.launch(
+                                lambda: None,
+                                meta=(
+                                    n, int(offsets[0]), time.monotonic(),
+                                    True, None, None, None, None,
+                                ),
+                                accounted=False,
+                            )
+                            continue
                     handle = self._acquire(disp.finish_oldest)
                     if handle is None:
                         # abandoned (dynamic give-up): drop un-fetched
@@ -1099,7 +1345,11 @@ class BlockPipelineBase:
                         # (nothing else in flight)
                         disp.flush()
                         self._suspect_scan(
-                            handle, X, offsets, error=None, persist=True
+                            handle, X, offsets, error=None, persist=True,
+                            ctx=(
+                                trace_mod.context_for(first_off)
+                                if jstore is not None else None
+                            ),
                         )
                         if self.committed_offset >= self._suspect_until:
                             self._exit_suspect_mode()
@@ -1116,24 +1366,47 @@ class BlockPipelineBase:
                         # drain the window first (FIFO commit order),
                         # then serve this batch there
                         disp.flush()
-                        self._serve_fallback(handle, X, offsets)
+                        self._serve_fallback(
+                            handle, X, offsets,
+                            jctx=(
+                                trace_mod.context_for(first_off)
+                                if jstore is not None else None
+                            ),
+                        )
                         batches.inc()
                         fill.inc(n)
                         continue
                     # the dispatch-stage watermark advances with this
                     # batch's own ingest-stamp event times
                     freshness.propagate_low_watermark("dispatch", first_off, n)
-                    try:
-                        disp.launch(
-                            lambda h=handle, X=X, n=n, o=offsets: (
-                                self._dispatch_checked(h, X, n, o)
-                            ),
-                            meta=(
-                                n, first_off, time.monotonic(), handle,
-                                X if self._retain_batches else None,
-                                offsets if self._retain_batches else None,
-                            ),
+                    t_start = time.monotonic()
+                    # the batch's journey context: trace id derived
+                    # purely from first_off, one dispatch hop per BATCH;
+                    # active around the launch so the featurize / h2d /
+                    # readback spans and any exemplar carry its ids
+                    jctx = (
+                        trace_mod.context_for(first_off)
+                        if jstore is not None else None
+                    )
+                    if jstore is not None:
+                        jstore.hop(
+                            "dispatch", jctx, first_off, n,
+                            model=getattr(handle, "key", None),
                         )
+                    try:
+                        with trace_mod.use(jctx):
+                            disp.launch(
+                                lambda h=handle, X=X, n=n, o=offsets: (
+                                    self._dispatch_checked(h, X, n, o)
+                                ),
+                                meta=(
+                                    n, first_off, t_start, False, handle,
+                                    X if self._retain_batches else None,
+                                    offsets if self._retain_batches
+                                    else None,
+                                    jctx,
+                                ),
+                            )
                     except PoisonIsolationOverflow:
                         raise  # isolation already abandoned: die honestly
                     except Exception as e:
@@ -1146,14 +1419,14 @@ class BlockPipelineBase:
                             # older in-flight batches commit first
                             disp.flush()
                             self._device_recover(
-                                handle, X, offsets, e, kind
+                                handle, X, offsets, e, kind, ctx=jctx
                             )
                         elif kind is not None or self._dlq is None:
                             raise
                         else:
                             disp.flush()
                             self._suspect_scan(
-                                handle, X, offsets, error=e
+                                handle, X, offsets, error=e, ctx=jctx
                             )
                     batches.inc()
                     fill.inc(n)
@@ -1182,7 +1455,8 @@ class BlockPipeline(BlockPipelineBase):
 
     ``checkpoint`` (a ``CheckpointManager``), ``dlq`` and ``failover``
     arm recovery (module docstring); ``restore()`` resumes from the
-    newest checkpoint.
+    newest checkpoint. ``slo``, ``batcher`` and ``admission`` /
+    ``shed_lane`` arm the serving edge (module docstring).
     """
 
     def __init__(
@@ -1202,12 +1476,12 @@ class BlockPipeline(BlockPipelineBase):
         slo=None,
         batcher=None,
         admission=None,
+        shed_lane: str = "block",
         state=None,
         mesh=None,
         donate: Optional[bool] = None,
     ):
-        refuse(slo=slo, batcher=batcher, admission=admission, state=state,
-               mesh=mesh, donate=donate)
+        refuse(state=state, mesh=mesh, donate=donate)
         if model.batch_size is None:
             raise InputValidationException(
                 "BlockPipeline needs a fixed-batch compiled model "
@@ -1227,6 +1501,10 @@ class BlockPipeline(BlockPipelineBase):
             dlq=dlq,
             prefetch=prefetch,
             failover=failover,
+            slo=slo,
+            batcher=batcher,
+            admission=admission,
+            shed_lane=shed_lane,
         )
         self._bound = BoundScorer("static", model, use_quantized)
         self.backend = self._bound.backend

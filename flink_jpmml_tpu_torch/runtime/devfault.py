@@ -151,9 +151,9 @@ def note(metrics, kind: str, model=None, first_off=None, n=None,
     """Book one observed device fault: the ``device_fault_total{kind}``
     counter plus a rate-limited ``device_fault`` flight event. Shared by
     the block path's failover plane, the record engine and the dynamic
-    scorer so the taxonomy cannot drift between them. (The JAX event
-    also carries the active journey's trace id; journey tracing is not
-    ported.)"""
+    scorer so the taxonomy cannot drift between them. The event carries
+    the active journey's trace id when one is set (the ``fjt-trace``
+    pivot), as in the JAX package."""
     if metrics is not None:
         metrics.counter(f'device_fault_total{{kind="{kind}"}}').inc()
     now = time.monotonic()
@@ -163,7 +163,11 @@ def note(metrics, kind: str, model=None, first_off=None, n=None,
             _last_event[kind] = now
             due = True
     if due:
+        from flink_jpmml_tpu_torch.obs import trace as trace_mod
+
+        ctx = trace_mod.current()
         flight.record(
             "device_fault", fault=kind, model=model, first=first_off,
             n=n, error=None if error is None else repr(error),
+            trace_id=None if ctx is None else ctx.trace_id,
         )

@@ -51,9 +51,16 @@ pipeline and re-raises from ``join`` (so from
 record offsets), ``device_dispatch`` and ``device_readback`` fire where
 the JAX engine fires them.
 
+Record-journey tracing (``obs/trace.py``, armed by ``FJT_JOURNEY_DIR``)
+puts its hops where the JAX engine does: restore and suspect mode, one
+``dispatch`` hop a micro-batch, the isolation hops and their ``dlq``
+terminals, and the ``sink`` hop that closes the micro-batch's journey;
+the batch's context is active around submit, readback and sink, so the
+scorer's ``score_finish`` span and any exemplar carry its ids.
+
 Not ported (each raises :class:`NotPortedError` and names itself): keyed
-state (``StaticScorer(state=)``) and the zoo's ``tenant=``. Journey
-tracing is not ported either.
+state (``StaticScorer(state=)``) and the zoo's ``tenant=``, which wait
+for the multi-tenant and stateful slice.
 """
 
 from __future__ import annotations
@@ -362,6 +369,13 @@ class Pipeline:
         ):
             self._death_marker = None
             self._fingerprint.clear_marker()
+        jstore = trace_mod.store_for(self.metrics)
+        if jstore is not None:
+            jstore.hop(
+                "restore", trace_mod.context_for(committed),
+                first_off=committed, durable=True,
+                restarts=max(count - 1, streak),
+            )
         threshold = env_count("FJT_POISON_RESTARTS", 3)
         if max(count - 1, streak) >= threshold:
             hi = self._replay_until
@@ -369,6 +383,14 @@ class Pipeline:
                 hi = committed + self._config.batch.size
             self._suspect_until = hi
             self._suspect_gauge.set(1.0)
+            if jstore is not None:
+                # see block.py: suspect mode → write-through journeys
+                jstore.write_through = True
+                jstore.hop(
+                    "suspect_mode", trace_mod.context_for(committed),
+                    first_off=committed, n=hi - committed, durable=True,
+                    restarts=max(count - 1, streak),
+                )
             flight.record(
                 "poison_suspect_mode", lo=committed, hi=hi,
                 restarts=max(count - 1, streak),
@@ -464,6 +486,7 @@ class Pipeline:
     def _quarantine_stamped(
         self, s: "_Stamped", exc, state: dict,
         reason: str = REASON_SCORE, attempts: int = 1, original=None,
+        parent_ctx=None,
     ) -> None:
         cap = env_count("FJT_DLQ_MAX_PER_BATCH", 32)
         if state["q"] >= cap:
@@ -472,20 +495,43 @@ class Pipeline:
             )
         state["q"] += 1
         off = self._record_off(s)
-        rctx = trace_mod.context_for(off)
+        # terminal journey hop + the envelope's trace context (the ids a
+        # redrive stamps into the traceparent header)
+        rctx = trace_mod.TraceContext(
+            trace_mod.trace_id_for(off),
+            parent_id=(
+                None if parent_ctx is None else parent_ctx.span_id
+            ),
+        )
+        jstore = trace_mod.store_for(self.metrics)
+        if jstore is not None:
+            jstore.terminal(
+                "dlq", rctx, offset=off, reason=reason,
+                attempts=attempts,
+            )
         self._dlq.quarantine(
             serialize_record(s.record), offset=off,
             reason=reason, error=exc, attempts=attempts,
             trace_id=rctx.trace_id, span_id=rctx.span_id,
         )
 
-    def _isolate(self, stamped: List["_Stamped"], error) -> None:
+    def _isolate(self, stamped: List["_Stamped"], error, ctx=None) -> None:
         """Bisection over one failed micro-batch: clean runs reach the
         sink in order, single failing records go to the DLQ, the whole
         range commits (a parked poison record never replays)."""
+        jstore = trace_mod.store_for(self.metrics)
+        if ctx is None and jstore is not None:
+            ctx = trace_mod.context_for(self._record_off(stamped[0]))
+        if jstore is not None:
+            jstore.hop(
+                "suspect_scan", ctx, self._record_off(stamped[0]),
+                len(stamped), durable=True, persist=False,
+                error=repr(error),
+            )
         flight.record(
             "poison_isolation", first=stamped[0].offset,
             n=len(stamped), error=repr(error), persist=False,
+            trace_id=None if ctx is None else ctx.trace_id,
         )
         self._suspect_gauge.set(1.0)
         state = {"q": 0}
@@ -504,7 +550,8 @@ class Pipeline:
                     raise
                 if len(seq) == 1:
                     self._quarantine_stamped(
-                        seq[0], e, state, original=error
+                        seq[0], e, state, original=error,
+                        parent_ctx=ctx,
                     )
                     return
                 mid = len(seq) // 2
@@ -512,6 +559,13 @@ class Pipeline:
                 scan(seq[mid:])
                 return
             self._deliver_seq(seq, outputs)
+            if jstore is not None:
+                # surviving runs get durable sink hops, like the block
+                # path's emit_run
+                jstore.hop(
+                    "sink", ctx.child(), self._record_off(seq[0]),
+                    len(seq), durable=True, isolated=True,
+                )
 
         try:
             scan(stamped)
@@ -533,21 +587,31 @@ class Pipeline:
         quarantined by the next incarnation without being dispatched
         again."""
         state = {"q": 0}
+        jstore = trace_mod.store_for(self.metrics)
         for s in stamped:
             r = self._record_off(s)
+            rctx = (
+                trace_mod.context_for(r) if jstore is not None else None
+            )
             dm = self._death_marker
             if dm is not None and dm["lo"] == r and dm["hi"] == r + 1:
                 # the previous incarnation died dispatching exactly this
                 # record: quarantine it unscored
                 self._quarantine_stamped(
                     s, None, state, reason=REASON_CRASH_LOOP,
-                    attempts=dm.get("attempts", 1),
+                    attempts=dm.get("attempts", 1), parent_ctx=rctx,
                 )
                 self._death_marker = None
                 self._fingerprint.clear_marker()
                 continue
             if self._fingerprint is not None:
                 self._fingerprint.write_marker(r, r + 1, attempts=1)
+                if jstore is not None:
+                    # the marker's journey twin (see block.py): written
+                    # BEFORE the dispatch so a kill leaves it behind
+                    jstore.hop(
+                        "suspect_dispatch", rctx, r, 1, durable=True,
+                    )
             try:
                 outputs = self._score_seq([s])
             except PoisonIsolationOverflow:
@@ -555,16 +619,21 @@ class Pipeline:
             except Exception as e:
                 if devfault.classify(e) is not None:
                     raise  # device fault ≠ poison: never quarantine
-                self._quarantine_stamped(s, e, state)
+                self._quarantine_stamped(s, e, state, parent_ctx=rctx)
                 continue
             self._deliver_seq([s], outputs)
+            if jstore is not None:
+                jstore.hop(
+                    "sink", rctx.child(), r, 1, durable=True,
+                    isolated=True,
+                )
         if self._fingerprint is not None:
             self._fingerprint.clear_marker()
         self._committed_offset = stamped[-1].offset
         self._ckpt.maybe_save(self._ckpt_state)
 
     def _recover_device(self, stamped: List["_Stamped"], error,
-                        kind: str) -> None:
+                        kind: str, ctx=None) -> None:
         """Record-path device-fault ladder: transient errors re-dispatch
         the micro-batch through the real submit/finish path under the
         shared full-jitter backoff; OOM drains in halves (batch-size
@@ -611,7 +680,7 @@ class Pipeline:
                     # surfaced underneath: isolation's jurisdiction
                     if self._dlq is None:
                         raise
-                    self._isolate(pending, e2)
+                    self._isolate(pending, e2, ctx=ctx)
                     return
                 devfault.note(
                     self.metrics, k2,
@@ -650,6 +719,16 @@ class Pipeline:
         if self._fingerprint is not None:
             self._fingerprint.clear_marker()
         self._suspect_gauge.set(0.0)
+        jstore = trace_mod.store_for(self.metrics)
+        if jstore is not None:
+            jstore.hop(
+                "suspect_exit",
+                trace_mod.context_for(self._committed_offset),
+                first_off=self._committed_offset, durable=True,
+            )
+            jstore.write_through = bool(
+                faults.active() or os.environ.get("FJT_JOURNEY_SYNC")
+            )
 
     # -- internals ---------------------------------------------------------
 
@@ -684,7 +763,9 @@ class Pipeline:
         fill = self.metrics.counter("batch_fill_records")
         lat = self.metrics.histogram("record_latency_s")
         replayed = self.metrics.counter("records_replayed")
-        in_flight: List[Tuple[Any, List[_Stamped]]] = []
+        in_flight: List[Tuple[Any, List[_Stamped], Any]] = []
+        # record-journey tracing (obs/trace.py): None unless armed
+        jstore = trace_mod.store_for(self.metrics)
         stages = StageTimer(self.metrics)
         # the freshness tracker exists only when the source opts in with
         # an event_time_fn; the pressure score always runs (the queue
@@ -698,13 +779,17 @@ class Pipeline:
         queue_occ = self.metrics.gauge("ring_occupancy")
 
         def _finish_one():
-            ticket, stamped = in_flight.pop(0)
+            ticket, stamped, jctx = in_flight.pop(0)
             try:
-                with stages.stage("readback"):
-                    # readback-time device-fault site (cf. the block
-                    # dispatcher's finish_oldest)
-                    faults.fire("device_readback")
-                    outputs = self._scorer.finish(ticket)
+                # the finishing batch's context wraps readback + sink:
+                # DynamicScorer.finish's span (and any exemplar those
+                # stages capture) carries THIS journey's ids
+                with trace_mod.use(jctx):
+                    with stages.stage("readback"):
+                        # readback-time device-fault site (cf. the block
+                        # dispatcher's finish_oldest)
+                        faults.fire("device_readback")
+                        outputs = self._scorer.finish(ticket)
             except PoisonIsolationOverflow:
                 raise
             except Exception as e:
@@ -715,15 +800,21 @@ class Pipeline:
                 if kind is not None:
                     if not self._devfault_armed:
                         raise  # fail fast: restart instead
-                    self._recover_device(stamped, e, kind)
+                    self._recover_device(stamped, e, kind, ctx=jctx)
                     return
                 if self._dlq is None:
                     raise
-                self._isolate(stamped, e)
+                self._isolate(stamped, e, ctx=jctx)
                 return
-            with stages.stage("sink"):
-                self._sink.emit(outputs)
+            with trace_mod.use(jctx):
+                with stages.stage("sink"):
+                    self._sink.emit(outputs)
             now = time.monotonic()
+            if jstore is not None and jctx is not None:
+                jstore.finish(
+                    jctx, self._record_off(stamped[0]), len(stamped),
+                    latency_s=now - stamped[0].t_enq,
+                )
             # sample a handful of lanes, not all (host-side cost control)
             for s in stamped[:: max(1, len(stamped) // 8)]:
                 lat.observe(now - s.t_enq)
@@ -774,8 +865,21 @@ class Pipeline:
                     batches.inc()
                     fill.inc(len(stamped))
                     continue
+                jctx = None
+                if jstore is not None:
+                    # one dispatch hop per micro-batch, keyed (first
+                    # record offset, n) — the record-path twin of the
+                    # block pipeline's batch journey
+                    jctx = trace_mod.context_for(
+                        self._record_off(stamped[0])
+                    )
+                    jstore.hop(
+                        "dispatch", jctx,
+                        self._record_off(stamped[0]), len(stamped),
+                    )
                 try:
-                    with stages.stage("featurize_dispatch"):
+                    with trace_mod.use(jctx), \
+                            stages.stage("featurize_dispatch"):
                         faults.fire(
                             "score_batch",
                             offsets=[self._record_off(s) for s in stamped],
@@ -799,13 +903,13 @@ class Pipeline:
                     while in_flight:
                         _finish_one()
                     if kind is not None:
-                        self._recover_device(stamped, e, kind)
+                        self._recover_device(stamped, e, kind, ctx=jctx)
                     else:
-                        self._isolate(stamped, e)
+                        self._isolate(stamped, e, ctx=jctx)
                     batches.inc()
                     fill.inc(len(stamped))
                     continue
-                in_flight.append((ticket, stamped))
+                in_flight.append((ticket, stamped, jctx))
                 batches.inc()
                 fill.inc(len(stamped))
                 if len(in_flight) >= self._in_flight_max:

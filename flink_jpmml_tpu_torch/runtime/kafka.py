@@ -4,8 +4,13 @@ The port's copy of ``flink_jpmml_tpu/runtime/kafka.py``, with the import
 lines renamed and its notes on the project's history cut. Where it
 differs: ``chip_block_sources`` waits for the mesh. ``KafkaRecordSource``
 (and the record-path helpers only it calls: ``_fetch``, ``_pump``,
-``_fetch_part``) feeds the record engine (``runtime/engine.py``) without
-the journey ingest hop of its decode. The C++ tiers go through the port's
+``_fetch_part``) feeds the record engine (``runtime/engine.py``). The
+journey plane (``obs/trace.py``) is the JAX package's: with
+``FJT_JOURNEY_DIR`` armed the sources write one durable ``ingest`` hop a
+fetched run (block sources and the record source's decode) and a
+``decode_error`` terminal for a record the decoder rejects, and a
+single-partition source picks up each record's ``traceparent`` header
+(``record_batch_traceparents``) for that hop. The C++ tiers go through the port's
 ``runtime/native.py``, which has no fall-back: a failed g++ build raises
 ``NativeBuildError`` out of ``KafkaBlockSource.poll`` and
 ``MiniKafkaBroker.append_rows``. ``kafka_decode_fixed`` returning None
@@ -14,14 +19,14 @@ set to the vectorized decoder, as in the JAX package. ``append_rows``
 takes the Python encoder only when ``timestamp_ms`` is given, decided
 before the call (the port's ``kafka_encode_fixed`` raises where the JAX
 one returns None). The ``dlq=`` argument stays, duck-typed; without a
-DLQ, decode errors raise as in the JAX package. Also left out until the
-serving/recovery and journey-tracing slices, since nothing in the port
+DLQ, decode errors raise as in the JAX package. The header-aware decode
+``decode_record_batches_h`` and the traceparent walk
+``record_batch_traceparents`` are copies; the other decoders skip the
+headers of a record that carries some. Left out until the observability
+and control slice brings the DLQ redrive CLI, since nothing in the port
 reaches them: the Produce API (``KafkaClient.produce`` and the broker's
-Produce handler, which exist for the DLQ redrive), record headers on the
-producer side (``encode_record_batch(headers=)``, ``append(headers=)``),
-the header-aware decode ``decode_record_batches_h``, the traceparent walk
-``record_batch_traceparents`` and the sources' journey hops. The decoders
-still skip the headers of a record that carries some. Left out as well,
+Produce handler) and record headers on the producer side
+(``encode_record_batch(headers=)``, ``append(headers=)``). Left out as well,
 since no port path or test drives them: ``KafkaClient.fetch`` (the
 value-list fetch; the sources use ``fetch_raw``), and the broker's
 keyed producer (``append_rows_keyed``) and log compaction (``compact``).
@@ -74,7 +79,7 @@ import numpy as np
 from flink_jpmml_tpu_torch.obs import attr
 from flink_jpmml_tpu_torch.obs import freshness as fresh_mod
 from flink_jpmml_tpu_torch.obs import recorder as flight
-from flink_jpmml_tpu_torch.obs.trace import context_for
+from flink_jpmml_tpu_torch.obs import trace as trace_mod
 from flink_jpmml_tpu_torch.runtime import faults
 from flink_jpmml_tpu_torch.runtime.block import BlockSource
 from flink_jpmml_tpu_torch.runtime.sources import Polled, Source
@@ -479,6 +484,127 @@ def decode_record_batches(buf) -> List[Tuple[int, bytes]]:
             out.append((base_offset + off_delta, bytes(value)))
             p = rec_end
         pos = end
+    return out
+
+
+def decode_record_batches_h(
+    buf,
+) -> List[Tuple[int, bytes, Optional[List[Tuple[str, bytes]]]]]:
+    """record-set bytes → [(absolute offset, value, headers)] across
+    all whole batches — the header-aware decoder shape (headers is
+    None when a record carries none). :func:`decode_record_batches`
+    stays the fast header-skipping path; this one exists for the
+    consumers that NEED headers: traceparent pickup (record-journey
+    tracing), and — in the JAX package — the broker's Produce handler
+    (headers must survive a redrive round-trip)."""
+    out: List[Tuple[int, bytes, Optional[List[Tuple[str, bytes]]]]] = []
+    mv = memoryview(buf)
+    pos = 0
+    while pos + 12 <= len(buf):
+        (base_offset,) = _I64.unpack_from(buf, pos)
+        (batch_len,) = _I32.unpack_from(buf, pos + 8)
+        end = pos + 12 + batch_len
+        if batch_len < 49 or end > len(buf):
+            break  # partial trailing batch
+        magic = buf[pos + 16]
+        if magic != 2:
+            raise ValueError(f"unsupported record-batch magic {magic}")
+        (crc_stored,) = _U32.unpack_from(buf, pos + 17)
+        body = mv[pos + 21 : end]
+        if crc32c_vec(body) != crc_stored:
+            raise ValueError("record batch CRC32C mismatch")
+        r = _Reader(body)
+        r.i16()  # attributes
+        r.i32()  # last offset delta
+        r.i64()  # first ts
+        r.i64()  # max ts
+        r.i64()  # producer id
+        r.i16()  # producer epoch
+        r.i32()  # base sequence
+        count = r.i32()
+        p = r.pos
+        for _ in range(count):
+            rec_len, p = read_varint(body, p)
+            rec_end = p + rec_len
+            p += 1  # record attributes
+            _, p = read_varint(body, p)  # timestamp delta
+            off_delta, p = read_varint(body, p)
+            klen, p = read_varint(body, p)
+            if klen > 0:
+                p += klen
+            vlen, p = read_varint(body, p)
+            value = body[p : p + vlen] if vlen >= 0 else b""
+            p += max(vlen, 0)
+            n_hdrs, p = read_varint(body, p)
+            hdrs: Optional[List[Tuple[str, bytes]]] = None
+            if n_hdrs > 0:
+                hdrs = []
+                for _h in range(n_hdrs):
+                    hklen, p = read_varint(body, p)
+                    hkey = bytes(body[p : p + hklen]).decode(
+                        "utf-8", "replace"
+                    )
+                    p += hklen
+                    hvlen, p = read_varint(body, p)
+                    hval = bytes(body[p : p + max(hvlen, 0)])
+                    p += max(hvlen, 0)
+                    hdrs.append((hkey, hval))
+            out.append((base_offset + off_delta, bytes(value), hdrs))
+            p = rec_end
+        pos = end
+    return out
+
+
+def record_batch_traceparents(buf: bytes) -> Dict[int, str]:
+    """record-set bytes → {absolute offset: traceparent string} for
+    the records carrying a ``traceparent`` header. A HEADER-ONLY walk:
+    no CRC pass (the real decode path already verified it, or will),
+    no value copies — key/value payloads are skipped by length, and
+    the common no-headers record costs the varint walk up to its zero
+    headers-count. The sources run this at all only when the journey
+    plane is armed (the timestamp plumbing's gating template);
+    malformed bytes return what was parsed so far — transport damage
+    raises on the DECODE path, not here."""
+    out: Dict[int, str] = {}
+    try:
+        pos = 0
+        while pos + 12 <= len(buf):
+            (base_offset,) = _I64.unpack_from(buf, pos)
+            (batch_len,) = _I32.unpack_from(buf, pos + 8)
+            end = pos + 12 + batch_len
+            if batch_len < 49 or end > len(buf):
+                break  # partial trailing batch
+            if buf[pos + 16] != 2:
+                break  # foreign magic: the decode path will raise
+            body = memoryview(buf)[pos + 21 : end]
+            count = _I32.unpack_from(body, 36)[0]
+            p = 40  # first record (past the fixed batch header tail)
+            for _ in range(count):
+                rec_len, p = read_varint(body, p)
+                rec_end = p + rec_len
+                p += 1  # record attributes
+                _, p = read_varint(body, p)  # timestamp delta
+                off_delta, p = read_varint(body, p)
+                klen, p = read_varint(body, p)
+                if klen > 0:
+                    p += klen
+                vlen, p = read_varint(body, p)
+                p += max(vlen, 0)  # skip the value, no copy
+                n_hdrs, p = read_varint(body, p)
+                for _h in range(n_hdrs):
+                    hklen, p = read_varint(body, p)
+                    hkey = bytes(body[p : p + hklen])
+                    p += hklen
+                    hvlen, p = read_varint(body, p)
+                    if hkey == b"traceparent":
+                        out[base_offset + off_delta] = bytes(
+                            body[p : p + max(hvlen, 0)]
+                        ).decode("ascii", "replace")
+                    p += max(hvlen, 0)
+                p = rec_end
+            pos = end
+    except (IndexError, ValueError, struct.error):
+        return out
     return out
 
 
@@ -996,6 +1122,14 @@ class _KafkaSourceBase:
         # _fetch_raw_part, read by the poll paths when they
         # know which global offsets the decoded rows landed on)
         self._last_trange = None
+        # traceparent record headers awaiting their poll-path ingest
+        # hop ({offset: str}; populated only when the journey plane is
+        # armed). Keyed persistently — NOT per fetch — because the
+        # record-source poll path buffers fetch surplus across polls,
+        # and the next fetch must not clobber an unconsumed header.
+        # Bounded; consumed by _journey_ingest, cleared with the buffers
+        # on seek/restore.
+        self._tps_pending: Dict[int, str] = {}
         self._lag_gauges: Dict[int, object] = {}
         self._topic = topic
         self._parts = (
@@ -1159,9 +1293,16 @@ class _KafkaSourceBase:
             self._decode_err_counters[label] = c
         if c is not None:
             c.inc()
-        # the record's deterministic trace context rides the flight
-        # event and the DLQ envelope
-        rctx = context_for(off)
+        # terminal journey hop + the envelope's trace context: the
+        # quarantine is this record's journey exit, and the carried ids
+        # are what a DLQ redrive stamps back into the topic header
+        rctx = trace_mod.context_for(off)
+        jstore = trace_mod.store_for(self._metrics)
+        if jstore is not None:
+            jstore.terminal(
+                "decode_error", rctx, offset=int(off),
+                partition=part if isinstance(part, int) else None,
+            )
         now = time.monotonic()
         if now - self._last_decode_event >= 1.0:
             self._last_decode_event = now
@@ -1192,6 +1333,7 @@ class _KafkaSourceBase:
         batches' header timestamps and remember the range for the poll
         path's ingest stamp (a header-only walk; skipped entirely when
         no registry is attached)."""
+        self._note_traceparents(record_set)
         if self._freshness is None or not record_set:
             self._last_trange = None
             return
@@ -1199,6 +1341,47 @@ class _KafkaSourceBase:
         self._last_trange = tr
         if tr is not None:
             self._freshness.observe_source(part, tr[0], tr[1])
+
+    def _note_traceparents(self, record_set: bytes) -> None:
+        """Stash the fetch's ``traceparent`` record headers for the
+        poll path's journey ingest hop (record-journey tracing,
+        obs/trace.py). Only walked when the journey plane is armed —
+        the unarmed cost is the store_for gate; and only on
+        single-partition sources, where record offsets ARE the global
+        offset domain the journey fragments key on."""
+        if self._multi or not record_set:
+            return
+        if trace_mod.store_for(self._metrics) is None:
+            return
+        tps = record_batch_traceparents(record_set)
+        if tps:
+            self._tps_pending.update(tps)
+            while len(self._tps_pending) > 4096:
+                # headers of records that were never polled out (a
+                # seek away, a re-fetch overlap): oldest first
+                self._tps_pending.pop(next(iter(self._tps_pending)))
+
+    def _journey_ingest(self, first_off: int, n: int) -> None:
+        """One fetched run's ingest hop (batch-keyed — per-record cost
+        only for the rare header-carrying records, i.e. redrives).
+        Consumes the emitted range's pending traceparents, however many
+        fetches ago they arrived."""
+        store = trace_mod.store_for(self._metrics)
+        if store is None or n <= 0:
+            return
+        tps = None
+        if self._tps_pending:
+            hits = [
+                off for off in self._tps_pending
+                if first_off <= off < first_off + n
+            ]
+            if hits:
+                tps = {off: self._tps_pending.pop(off) for off in hits}
+        store.ingest(
+            first_off, n,
+            partition=self._partition if not self._multi else None,
+            traceparents=tps,
+        )
 
     _TRANGE_LAST = object()  # "use the last fetch's range" default
 
@@ -1341,6 +1524,9 @@ class _KafkaSourceBase:
     def _clear_buffers(self) -> None:
         for buf in self._bufs.values():
             buf.clear()
+        # the offset domain is about to restart: pending traceparents
+        # would mis-key against the new offsets (cf. reset_stamps)
+        self._tps_pending.clear()
 
     def seek(self, offset: int) -> None:
         # engine offset k ("k records consumed") == next Kafka offset
@@ -1457,6 +1643,10 @@ class KafkaRecordSource(_KafkaSourceBase, Source):
                 self._note_decode_error(part, off, value, e)
                 continue
             out.append((off + 1, rec))
+        if pairs:
+            # record-path ingest hop, in the RECORD-offset domain the
+            # engine's journeys key on (stamp − 1; see _record_off)
+            self._journey_ingest(int(pairs[0][0]), len(pairs))
         return out
 
     def poll(self, max_n: int) -> Polled:
@@ -1628,6 +1818,7 @@ class KafkaBlockSource(_KafkaSourceBase, BlockSource):
         self._g = g0 + m
         # the interleaved run spans every consumed slot's fetch range
         self._stamp_ingest(g0, m, trange=trange)
+        self._journey_ingest(g0, m)
         return g0, out
 
     def _poll_multi_auto(self) -> Optional[Tuple[int, np.ndarray]]:
@@ -1686,6 +1877,7 @@ class KafkaBlockSource(_KafkaSourceBase, BlockSource):
                 # one fetch == one emitted run here, so the fetch's
                 # event-time range stamps these global offsets exactly
                 self._stamp_ingest(g0, rows.shape[0])
+                self._journey_ingest(g0, rows.shape[0])
                 return g0, rows
         return None
 
@@ -1735,6 +1927,7 @@ class KafkaBlockSource(_KafkaSourceBase, BlockSource):
         # times (batch granularity: the cursor filter above may narrow
         # the rows, never widen them — staleness stays an upper bound)
         self._stamp_ingest(first, rows.shape[0])
+        self._journey_ingest(first, rows.shape[0])
         return first, rows
 
 

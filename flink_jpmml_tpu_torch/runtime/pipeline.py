@@ -29,9 +29,12 @@ up to it, ``abandon()`` drops the window. So is its ``on_error`` hook
 suspect scan instead of raising) and its fault-injection sites:
 ``dispatch`` and ``device_dispatch`` before each launch,
 ``device_readback`` inside the wait, so that an injected device fault
-takes the path a real one takes. The JAX dispatcher's sampled device
-profiler and its ``accounted=False`` launches (the admission
-controller's) are not ported.
+takes the path a real one takes. So are its ``accounted=False``
+launches: the admission controller's shed entries ride the window only
+for their FIFO offset commit — they launch no kernel, fire no device
+fault site, and count in neither ``dispatches`` nor
+``window_full_launches``. The JAX dispatcher's sampled device profiler
+is not ported: it waits for the autotune, layouts and profiler slice.
 
 Metrics: ``h2d_stall_s`` (host time blocked on device work),
 ``dispatches``, ``window_full_launches``, the ``inflight_depth`` gauge,
@@ -57,6 +60,13 @@ event wait:
 The card's own time therefore shows up in ``queue_wait`` and
 ``readback``: the host waits there for the events behind the queued
 work.
+
+Spans (``obs/spans.py``, with ``FJT_TRACE_DIR`` set), where the JAX
+package emits them: ``featurize`` and ``h2d_dispatch`` in
+:func:`dispatch_quantized` (the ``encode`` and ``h2d`` intervals above,
+host time: ``h2d_dispatch`` is the staging plus the issue, not the copy)
+and ``readback`` around every wait on the oldest entry (the window's
+depth in its args). Each carries the active journey context's ids.
 """
 
 from __future__ import annotations
@@ -71,6 +81,7 @@ import torch
 from flink_jpmml_tpu_torch.compile import prepare
 from flink_jpmml_tpu_torch.obs import attr as attr_mod
 from flink_jpmml_tpu_torch.obs import recorder as flight
+from flink_jpmml_tpu_torch.obs import spans
 from flink_jpmml_tpu_torch.runtime import faults
 from flink_jpmml_tpu_torch.utils.exceptions import FlinkJpmmlTpuError
 from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry
@@ -226,6 +237,7 @@ def dispatch_quantized(
     rows = n if bs is None else -(-n // bs) * bs
     K = rows // bs if bs else 1
     t1 = time.monotonic()
+    spans.emit("featurize", t0, t1 - t0, fused=placement == "fused")
     ledger = attr_mod.ledger_for(metrics)
     if metrics is not None:
         metrics.counter("encode_s").inc(t1 - t0)
@@ -239,8 +251,10 @@ def dispatch_quantized(
     else:
         staged = staging.stage(payload, rows)
         out = device_output(predict(staged, K), staged)
+    t2 = time.monotonic()
+    spans.emit("h2d_dispatch", t1, t2 - t1, bytes=payload.nbytes)
     if ledger is not None:
-        ledger.observe("h2d", time.monotonic() - t1)
+        ledger.observe("h2d", t2 - t1)
     return out
 
 
@@ -273,15 +287,27 @@ class InFlight:
     caller's metadata. ``done`` means the entry left the window; ``error``
     carries the wait's failure when it left poisoned, so a later
     :meth:`OverlappedDispatcher.wait` re-raises it instead of handing back
-    a result that never completed."""
+    a result that never completed. ``accounted`` is False for a shed
+    entry, which launched nothing."""
 
-    __slots__ = ("out", "meta", "done", "error")
+    __slots__ = ("out", "meta", "done", "error", "accounted")
 
-    def __init__(self, out: Any, meta: Any):
+    def __init__(self, out: Any, meta: Any, accounted: bool = True):
         self.out = out
         self.meta = meta
         self.done = False
         self.error: Optional[BaseException] = None
+        self.accounted = accounted
+
+
+def _ready(out) -> bool:
+    """Readiness of a window entry's result (None: a shed no-op)."""
+    return out is None or out.ready()
+
+
+def _synchronize(out) -> None:
+    if out is not None:
+        out.synchronize()
 
 
 class OverlappedDispatcher:
@@ -327,7 +353,8 @@ class OverlappedDispatcher:
     def __len__(self) -> int:
         return len(self._window)
 
-    def launch(self, dispatch_fn: Callable[[], Any], meta: Any = None) -> InFlight:
+    def launch(self, dispatch_fn: Callable[[], Any], meta: Any = None,
+               accounted: bool = True) -> InFlight:
         """Dispatch (``dispatch_fn()`` must queue device work and return
         without waiting on it) and admit the result to the window; if that
         overflows ``depth``, finish the oldest entry first — the only
@@ -335,7 +362,14 @@ class OverlappedDispatcher:
         counts the launches whose oldest entry was still running. The
         wait books ``queue_wait``; at depth 0 the host waits on its own
         just-launched batch, and that is ``readback``. → the entry's
-        handle."""
+        handle.
+
+        ``accounted=False`` keeps this entry out of the ``dispatches``
+        and window-full counters: the admission controller's shed no-ops
+        (``dispatch_fn`` returns None, no kernel) ride the window only for
+        their FIFO offset commit — counting them as dispatches would
+        dilute the pressure monitor's window-full fraction exactly while
+        the shed rate is highest, flapping the gate open mid-overload."""
         if self._closed:
             raise DispatcherClosed("launch() on a closed dispatcher")
         # dispatch delay + launch-time device-fault injection: one global
@@ -343,12 +377,14 @@ class OverlappedDispatcher:
         # raised here propagates to the caller's direct-dispatch handler
         faults.fire("dispatch")
         faults.fire("device_dispatch")
-        handle = InFlight(dispatch_fn(), meta)
+        handle = InFlight(dispatch_fn(), meta, accounted=accounted)
         self._window.append(handle)
-        self._dispatches.inc()
+        if accounted:
+            self._dispatches.inc()
         depth = self._depth
         if depth is not None:
-            if 0 < depth < len(self._window) and not self._window[0].out.ready():
+            if (accounted and 0 < depth < len(self._window)
+                    and not _ready(self._window[0].out)):
                 self._window_full.inc()
             while len(self._window) > depth:
                 self.finish_oldest(
@@ -365,13 +401,16 @@ class OverlappedDispatcher:
         if not self._window:
             return None
         handle = self._window[0]
+        depth = len(self._window)
         t0 = time.monotonic()
         error: Optional[BaseException] = None
         try:
             # readback-time device-fault injection, inside the same try
-            # as the real wait: an injected fault takes the real path
-            faults.fire("device_readback")
-            handle.out.synchronize()
+            # as the real wait: an injected fault takes the real path;
+            # a shed no-op launched nothing and is skipped
+            if handle.accounted:
+                faults.fire("device_readback")
+            _synchronize(handle.out)
         except BaseException as e:
             handle.error = e
             error = e
@@ -381,6 +420,9 @@ class OverlappedDispatcher:
             # wedge every later flush
             dt = time.monotonic() - t0
             self._stall.inc(dt)
+            # the in-flight window on the trace: how long the host sat
+            # on the oldest dispatch, and how deep the window was
+            spans.emit("readback", t0, dt, inflight=depth)
             self._ledger.observe(_stage, dt)
             self._window.popleft()
             handle.done = True
@@ -410,8 +452,9 @@ class OverlappedDispatcher:
         if not handle.done:
             t0 = time.monotonic()
             try:
-                faults.fire("device_readback")
-                handle.out.synchronize()
+                if handle.accounted:
+                    faults.fire("device_readback")
+                _synchronize(handle.out)
             except BaseException as e:
                 handle.error = e
                 raise

@@ -41,11 +41,17 @@ on the served key. Every dispatch, redispatch and bisection probe of a
 rank-wire model goes through ``dispatch_quantized`` and launches
 ``qtrees_leaf_rows`` on the card.
 
+The serving edge is the base's too: ``slo=`` ticks from the completion
+path, ``batcher=`` caps aggregation and learns from completions,
+``admission=`` sheds drained batches under ``shed_lane`` as FIFO no-ops
+that launch nothing, and the journey hops of an armed
+``FJT_JOURNEY_DIR`` ride every dispatch, as in the JAX package.
+
 Where it differs: models come from the port's ``ModelRegistry`` on the
 pipeline's ``device`` (the card by default, ``"cpu"`` on request).
-``mesh=``, ``slo=``, ``batcher=``, ``admission=`` and ``donate=`` raise
-:class:`NotPortedError`; staged rollouts are not ported, so no candidate
-is ever excluded from latest-wins adoption.
+``mesh=`` and ``donate=`` raise :class:`NotPortedError` until the
+parallel slice; staged rollouts are not ported, so no candidate is ever
+excluded from latest-wins adoption.
 """
 
 from __future__ import annotations
@@ -111,10 +117,10 @@ class DynamicBlockPipeline(BlockPipelineBase):
         slo=None,
         batcher=None,
         admission=None,
+        shed_lane: str = "block",
         donate: Optional[bool] = None,
     ):
-        refuse(mesh=mesh, slo=slo, batcher=batcher, admission=admission,
-               donate=donate)
+        refuse(mesh=mesh, donate=donate)
         if batch_size <= 0:
             raise InputValidationException(
                 f"batch_size must be positive: {batch_size}"
@@ -140,6 +146,10 @@ class DynamicBlockPipeline(BlockPipelineBase):
             max_dispatch_chunks=max_dispatch_chunks,
             dlq=dlq,
             failover=failover,
+            slo=slo,
+            batcher=batcher,
+            admission=admission,
+            shed_lane=shed_lane,
         )
         self.registry = registry
         self._control = control

@@ -41,12 +41,23 @@ kernel on the card and counts in ``redispatches`` (the port adds it). Each group
 takes over. ``device_retry=False`` fails fast. The checkpointed state
 (the served-model registry) rides the record engine's checkpoint.
 
+The serving edge is the JAX scorer's: ``admission=`` (an
+``AdmissionController``) sheds per event before routing, by the lane
+``lane_fn`` gives its payload (:func:`default_lane`: a dict's ``"_lane"``,
+else ``"normal"``) — a shed event is never resolved or dispatched and
+leaves ``finish`` as ``Prediction.empty()``, so a micro-batch whose every
+event is shed launches no kernel; ``batcher=`` observes each micro-batch's
+(scored events, submit→finish seconds), a latency that ends after the
+CUDA event wait; ``self.slo`` is always an ``SLOTracker`` over
+``score_latency_s`` (inert without ``FJT_SLO_TARGET_MS``), ticked every
+``finish``; and ``finish`` emits the ``score_finish`` span.
+
 Not ported (each raises :class:`NotPortedError` and names itself):
 staged rollouts (``RolloutMessage``, ``guardrails=``, ``key_fn=``,
-``auto_rollout=False``, another ``rollout_interval_s``), the overload
-plane (``admission=``, ``lane_fn=``, ``batcher=``), the zoo (``zoo=``)
-and ``mesh=``. The drift plane and the ``score_finish`` span wait for
-their slices.
+``auto_rollout=False``, another ``rollout_interval_s``) wait for the
+observability and control slice, the zoo (``zoo=``) for the multi-tenant
+slice and ``mesh=`` for the parallel slice. The drift plane waits for the
+observability and control slice.
 """
 
 from __future__ import annotations
@@ -64,6 +75,8 @@ from flink_jpmml_tpu_torch.models.prediction import Prediction
 from flink_jpmml_tpu_torch.obs import freshness as fresh_mod
 from flink_jpmml_tpu_torch.obs import pressure as pressure_mod
 from flink_jpmml_tpu_torch.obs import recorder as flight
+from flink_jpmml_tpu_torch.obs import spans
+from flink_jpmml_tpu_torch.obs.slo import SLOTracker
 from flink_jpmml_tpu_torch.runtime import devfault
 from flink_jpmml_tpu_torch.runtime.engine import (
     Scorer,
@@ -98,6 +111,16 @@ def default_route(event: Any) -> Tuple[Optional[str], Optional[int], Any]:
         payload = {k: v for k, v in event.items() if k not in ("_model", "_version")}
         return event["_model"], event.get("_version"), payload
     return None, None, event
+
+
+def default_lane(payload: Any) -> str:
+    """Admission lane of a routed payload: the ``"_lane"`` key on dict
+    records, else ``"normal"``."""
+    if isinstance(payload, dict):
+        lane = payload.get("_lane")
+        if isinstance(lane, str):
+            return lane
+    return "normal"
 
 
 class DynamicScorer(Scorer):
@@ -146,9 +169,7 @@ class DynamicScorer(Scorer):
         ``record_staleness_s`` and advances the event-time watermark.
         ``device`` picks the card (None, the default) or ``"cpu"`` for
         every model this scorer serves."""
-        refuse(mesh=mesh, key_fn=key_fn, guardrails=guardrails,
-               admission=admission, lane_fn=lane_fn, batcher=batcher,
-               zoo=zoo)
+        refuse(mesh=mesh, key_fn=key_fn, guardrails=guardrails, zoo=zoo)
         if auto_rollout is not True or rollout_interval_s != 0.5:
             raise NotPortedError("auto_rollout= / rollout_interval_s= "
                                  "(staged rollouts) are not ported")
@@ -198,6 +219,13 @@ class DynamicScorer(Scorer):
         self._device_retry = (
             device_retry if device_retry is not None else True
         )
+        # deadline SLO burn-rate tracking over the submit→finish latency
+        # histogram, ticked from the batch loop; inert without
+        # FJT_SLO_TARGET_MS
+        self.slo = SLOTracker(self.metrics, source="score_latency_s")
+        self.admission = admission
+        self.batcher = batcher
+        self._lane_fn = lane_fn or default_lane
 
     def _drain_control(self) -> None:
         while True:
@@ -270,6 +298,8 @@ class DynamicScorer(Scorer):
 
     def submit(self, records: Sequence[Any]):
         self._drain_control()
+        if self.admission is not None:
+            self.admission.maybe_tick()
         n = len(records)
         # model key -> [model, [indices], [payloads]]
         groups: dict = {}
@@ -277,8 +307,17 @@ class DynamicScorer(Scorer):
         # change within one batch
         resolved: dict = {}
         unserved: List[int] = []
+        shed: List[int] = []
         for i, event in enumerate(records):
             name, version, payload = self._route(event)
+            if self.admission is not None and not self.admission.admit(
+                self._lane_fn(payload)
+            ):
+                # shed BEFORE any model work: the event is never
+                # resolved or dispatched — it leaves finish() as an
+                # explicit empty prediction
+                shed.append(i)
+                continue
             if name is None:
                 model, key = self._default_model, _DEFAULT_KEY
             else:
@@ -300,7 +339,7 @@ class DynamicScorer(Scorer):
         with self._stream.context():
             for key, (model, idxs, payloads) in groups.items():
                 tickets.append(self._launch_group(key, model, idxs, payloads))
-        return n, records, tickets, unserved, time.monotonic()
+        return n, records, tickets, unserved, shed, time.monotonic()
 
     def _launch_group(self, key: str, model, idxs, payloads):
         """Featurize + dispatch one per-model group through the shared
@@ -333,7 +372,7 @@ class DynamicScorer(Scorer):
         return q, idxs, handle, model, staging, key, payloads
 
     def finish(self, ticket) -> List[Any]:
-        n, records, tickets, unserved, t_submit = ticket
+        n, records, tickets, unserved, shed, t_submit = ticket
         preds: List[Optional[Prediction]] = [None] * n
         for scorer, idxs, handle, model, _staging, key, payloads in tickets:
             try:
@@ -359,10 +398,37 @@ class DynamicScorer(Scorer):
                 preds[i] = p
         for i in unserved:
             preds[i] = Prediction.empty()
+        for i in shed:
+            # explicit degradation, not an error: the lane was refused
+            # by the admission controller at submit
+            preds[i] = Prediction.empty()
         if tickets:  # an all-unserved batch scored nothing: no sample
-            self._lat.observe(time.monotonic() - t_submit)
+            dt = time.monotonic() - t_submit
+            self._lat.observe(dt)
+            # the micro-batch's submit→finish span (host clock; it ends
+            # after the CUDA event waits above): under a journey context
+            # it picks up the journey's ids
+            spans.emit(
+                "score_finish", t_submit, dt,
+                groups=len(tickets), n=n,
+            )
+            if self.batcher is not None:
+                scored = n - len(unserved) - len(shed)
+                if scored > 0:
+                    self.batcher.observe(scored, dt)
+        self.slo.maybe_tick()  # burn-rate state rides the batch loop
         if self._freshness is not None and records:
-            tr = batch_event_range(records, self._event_time_fn)
+            if shed:
+                # shed records were DROPPED, not delivered: booking
+                # their event times would advance the sink watermark
+                shed_set = set(shed)
+                served = [
+                    r for i, r in enumerate(records)
+                    if i not in shed_set
+                ]
+            else:
+                served = records
+            tr = batch_event_range(served, self._event_time_fn)
             if tr is not None:
                 self._freshness.observe_batch(tr[0], tr[1])
         if self._pressure is not None:

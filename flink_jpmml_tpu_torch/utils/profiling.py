@@ -13,11 +13,12 @@ run on ``jax.profiler`` there, run on ``torch.profiler`` here:
 - :func:`annotate` — a ``record_function`` span, so runtime stages show
   up by name inside a trace.
 
-Not ported: the host-side chrome://tracing spans that ``FJT_TRACE_DIR``
-turns on in the JAX package (``obs/spans.py``); they wait for the
-journey-tracing slice, and until then :class:`StageTimer` and
-:func:`annotate` emit none. Nor ``overlap_stats`` / ``wire_stats``, which
-only the JAX package's bench reads.
+With ``FJT_TRACE_DIR`` set, :class:`StageTimer` and :func:`annotate`
+additionally emit host-side chrome://tracing spans (``obs/spans.py``), as
+in the JAX package: host clocks, so on the card a stage's span holds the
+card's time only where the stage waits on a CUDA event (``readback``).
+Not ported: ``overlap_stats`` / ``wire_stats``, which only the JAX
+package's bench reads.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from typing import Iterator, Optional
 
 import torch
 
+from flink_jpmml_tpu_torch.obs import spans
 from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry
 
 
@@ -55,9 +57,14 @@ def trace(log_dir: str) -> Iterator[None]:
 @contextlib.contextmanager
 def annotate(name: str) -> Iterator[None]:
     """Named span inside a ``torch.profiler`` trace (a cheap no-op when
-    nothing is tracing)."""
-    with torch.profiler.record_function(name):
-        yield
+    nothing is tracing); also a host-side chrome://tracing span when
+    ``FJT_TRACE_DIR`` is set."""
+    t0 = time.monotonic()
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        spans.emit(name, t0, time.monotonic() - t0)
 
 
 class StageTimer:
@@ -74,8 +81,10 @@ class StageTimer:
     @contextlib.contextmanager
     def stage(self, name: str) -> Iterator[None]:
         t0 = time.perf_counter()
+        t0_span = time.monotonic()  # span clock: shared across emitters
         try:
             yield
         finally:
             dt = time.perf_counter() - t0
             self.metrics.counter(f"stage_{name}_s").inc(dt)
+            spans.emit(name, t0_span, dt)

@@ -14,7 +14,11 @@ with TF32 off; and the record API (``StreamEnvironment.evaluate`` over
 the record engine) and the dynamic scorer on the card against the CPU
 port, with the kernel launched once a dispatch; and a real out-of-memory
 error, which the device-fault ladder reads as ``device_oom`` and which
-leaves the card scoring. They skip where there is no card. This file
+leaves the card scoring; and the serving edge on the card: a shed batch
+or event launches no kernel and reaches no sink, the batcher observes
+completions that include the card's time, the span file holds a pair of
+spans a dispatch, and a TCP-fed pipeline scores as the CPU port. They
+skip where there is no card. This file
 imports neither jax nor the JAX package, so it runs on a machine that has
 only torch:
 
@@ -732,3 +736,131 @@ def test_real_oom_classifies_as_device_oom_and_the_card_survives(
     after = q.predict_padded(*q.pad_wire(q.wire.encode(X))).cpu()
     torch.cuda.synchronize()
     assert torch.equal(before, after)
+
+
+# -- the serving edge -------------------------------------------------------------
+
+
+def _shed_controller(metrics, level, lanes=("block",)):
+    from flink_jpmml_tpu_torch.serving.overload import AdmissionController
+
+    adm = AdmissionController(metrics, lanes=lanes, on_threshold=0.85,
+                              off_threshold=0.55, pressure_fn=lambda: 0.7)
+    adm._level = level  # held: the pressure sits inside the band
+    return adm
+
+
+def test_block_shed_launches_nothing_on_the_card(card, tmp_path):
+    cm = _gbm(tmp_path, 256, n_trees=19, depth=6, n_features=32)
+    X = _X(np.random.default_rng(3), 16 * 256, 32)
+    m = MetricsRegistry()
+    sunk = []
+    pipe = BlockPipeline(
+        FiniteBlockSource(X, 256), cm, lambda o, n, f: sunk.append((f, n)),
+        RuntimeConfig(batch=BatchConfig(size=256, deadline_us=2000)),
+        metrics=m, max_dispatch_chunks=1, admission=_shed_controller(m, 1))
+    before = qtrees_cuda.leaf_rows.launches
+    pipe.run_until_exhausted(timeout=120)
+    snap = m.snapshot()
+    assert sunk == [] and pipe.committed_offset == 16 * 256
+    assert snap['shed_records{lane="block"}'] == 16 * 256
+    assert snap.get("dispatches", 0) == 0
+    assert qtrees_cuda.leaf_rows.launches == before
+
+
+def test_batcher_sees_the_cards_time(card, tmp_path):
+    from flink_jpmml_tpu_torch.serving.overload import AdaptiveBatcher
+
+    cm = _gbm(tmp_path, 4096, n_trees=500, depth=6, n_features=32)
+    X = _X(np.random.default_rng(4), 16 * 4096, 32)
+    m = MetricsRegistry()
+    b = AdaptiveBatcher(m, deadline_s=1.0, path=str(tmp_path / "cap.json"))
+    pipe = BlockPipeline(
+        FiniteBlockSource(X, 4096), cm, lambda *a: None,
+        RuntimeConfig(batch=BatchConfig(size=4096, deadline_us=2000)),
+        metrics=m, max_dispatch_chunks=4, batcher=b)
+    pipe.run_until_exhausted(timeout=120)
+    c0, c1 = b.coefficients()
+    # a 500-tree walk costs the card well over a nanosecond a record; an
+    # observation taken before the event wait would read near zero
+    assert c1 > 1e-9 and b.state()["samples"] == m.snapshot()["dispatches"]
+
+
+def test_dynamic_scorer_shed_launches_nothing_on_the_card(card, tmp_path):
+    from flink_jpmml_tpu_torch.models.control import AddMessage
+    from flink_jpmml_tpu_torch.runtime.sources import ControlSource
+    from flink_jpmml_tpu_torch.serving.scorer import DynamicScorer
+
+    path = gen_gbm(str(tmp_path), n_trees=19, depth=6, n_features=32)
+    m = MetricsRegistry()
+    ctrl = ControlSource()
+    sc = DynamicScorer(control=ctrl, batch_size=256, metrics=m,
+                       admission=_shed_controller(
+                           m, 1, ("low", "normal", "high")))
+    ctrl.push(AddMessage("gbm", 1, path, 1.0))
+    sc.finish(sc.submit([]))
+    sc.registry.model(sc.registry.resolve("gbm", 1))
+    X = _X(np.random.default_rng(5), 64, 32, missing=0.0)
+    ev = [{"_model": "gbm", "_lane": lane,
+           **{f"f{j}": float(v) for j, v in enumerate(x)}}
+          for lane, x in zip(["low"] * 32 + ["high"] * 32, X)]
+    before = qtrees_cuda.leaf_rows.launches
+    out = sc.finish(sc.submit(ev[:32]))  # every event shed
+    assert all(p.is_empty for p, _ in out)
+    assert qtrees_cuda.leaf_rows.launches == before
+    out = sc.finish(sc.submit(ev))
+    assert qtrees_cuda.leaf_rows.launches == before + 1
+    assert [p.is_empty for p, _ in out] == [True] * 32 + [False] * 32
+
+
+def test_span_pair_a_dispatch_on_the_card(card, tmp_path, monkeypatch):
+    import json
+
+    from flink_jpmml_tpu_torch.obs import spans
+
+    monkeypatch.setattr(spans, "_writer", None)
+    monkeypatch.setattr(spans, "_writer_dir", None)
+    monkeypatch.setenv("FJT_TRACE_DIR", str(tmp_path / "spans"))
+    cm = _gbm(tmp_path, 256, n_trees=19, depth=6, n_features=32)
+    m = MetricsRegistry()
+    pipe = BlockPipeline(
+        FiniteBlockSource(_X(np.random.default_rng(6), 8 * 256, 32), 256),
+        cm, lambda *a: None,
+        RuntimeConfig(batch=BatchConfig(size=256, deadline_us=2000)),
+        metrics=m, max_dispatch_chunks=1)
+    pipe.run_until_exhausted(timeout=120)
+    w = spans.writer()
+    w.close()
+    evs = json.loads(open(w.path).read().rstrip().rstrip(",") + "]")
+    names = [e["name"] for e in evs]
+    d = m.snapshot()["dispatches"]
+    assert names.count("h2d_dispatch") == names.count("readback") == d
+
+
+def test_tcp_fed_pipeline_on_the_card_matches_the_cpu_port(card, tmp_path):
+    from flink_jpmml_tpu_torch.runtime.net import (
+        BlockFrameServer,
+        TcpBlockSource,
+    )
+
+    cm = _gbm(tmp_path, 1024, n_trees=19, depth=6, n_features=32)
+    cm_cpu = _gbm(tmp_path, 1024, device="cpu", n_trees=19, depth=6,
+                  n_features=32)
+    X = _X(np.random.default_rng(7), 8 * 1024, 32)
+    got = {}
+    srv = BlockFrameServer(X, block_size=1024)
+    src = TcpBlockSource("127.0.0.1", srv.port, arity=32)
+    try:
+        pipe = BlockPipeline(
+            src, cm, lambda o, n, f: got.__setitem__(
+                f, np.asarray(o)[:n].copy()),
+            RuntimeConfig(batch=BatchConfig(size=1024, deadline_us=2000)))
+        pipe.run_until_exhausted(timeout=120)
+    finally:
+        src.close()
+        srv.stop()
+    q_cpu = cm_cpu.quantized_scorer()
+    ref = np.asarray(q_cpu.predict_padded(*q_cpu.pad_wire(
+        q_cpu.wire.encode(X))))[:X.shape[0]]
+    out = np.concatenate([got[k] for k in sorted(got)])
+    np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL)

@@ -3,7 +3,9 @@ package's: the same Add/Del messages at the same points of the stream
 give the same deliveries (offsets, serving model key, values), the
 checkpointed serving key comes back on restore, poison isolates through
 the served model with its key on the envelope, and the options that
-wait for other slices raise ``NotPortedError``.
+wait for other slices raise ``NotPortedError`` (the serving edge's
+``slo=`` / ``batcher=`` / ``admission=`` are accepted since it was
+ported).
 
 Control lands at marks the source holds until every earlier record was
 sunk and the pipeline serves what the mark expects, so both packages
@@ -210,10 +212,36 @@ def test_poison_isolates_through_the_served_model(paths, tmp_path):
     same(runs["port"][1], runs["jax"][1])
 
 
+def _edge_option(option, metrics):
+    """A real serving-edge object of the port for ``option`` (the
+    serving-edge slice lifted these three), or None for an option that
+    still raises."""
+    from flink_jpmml_tpu_torch.obs.slo import SLOTracker
+    from flink_jpmml_tpu_torch.serving.overload import (
+        AdaptiveBatcher,
+        AdmissionController,
+    )
+
+    return {
+        "slo": lambda: SLOTracker(metrics, deadline_s=0.05),
+        "batcher": lambda: AdaptiveBatcher(metrics, deadline_s=0.05,
+                                           path="/nonexistent/cap.json"),
+        "admission": lambda: AdmissionController(metrics, lanes=("block",)),
+    }.get(option, lambda: None)()
+
+
 @pytest.mark.parametrize("option", ["mesh", "slo", "batcher", "admission",
                                     "donate"])
 def test_options_of_later_slices_raise_not_ported(option):
     pk = twin("port")
+    reg = pk.metrics.MetricsRegistry()
+    edge = _edge_option(option, reg)
+    if edge is not None:  # lifted: accepted and wired
+        pipe = dyn(pk, pk.block.FiniteBlockSource(data(B), B),
+                   pk.sources.ControlSource(), lambda *a: None,
+                   metrics=reg, **{option: edge})
+        assert getattr(pipe, f"_{option}") is edge
+        return
     with pytest.raises(NotPortedError, match=f"{option}="):
         dyn(pk, pk.block.FiniteBlockSource(data(B), B),
             pk.sources.ControlSource(), lambda *a: None,
@@ -225,6 +253,14 @@ def test_options_of_later_slices_raise_not_ported(option):
 def test_block_pipeline_options_of_later_slices_raise_not_ported(paths,
                                                                  option):
     pk = twin("port")
+    reg = pk.metrics.MetricsRegistry()
+    edge = _edge_option(option, reg)
+    if edge is not None:  # lifted: accepted and wired
+        pipe = pk.block.BlockPipeline(
+            pk.block.FiniteBlockSource(data(B), B), pk.compile(paths["v1"]),
+            lambda *a: None, metrics=reg, **{option: edge})
+        assert getattr(pipe, f"_{option}") is edge
+        return
     with pytest.raises(NotPortedError, match=f"{option}="):
         pk.block.BlockPipeline(pk.block.FiniteBlockSource(data(B), B),
                                pk.compile(paths["v1"]), lambda *a: None,

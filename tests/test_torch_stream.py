@@ -395,6 +395,8 @@ LIFTED = frozenset((
     "pipeline_checkpoint", "pipeline_dlq", "pipeline_restore",
     "with_checkpointing", "execute_restore", "start_restore",
     "checkpoint_dir", "scorer_device_retry",
+    # the serving edge
+    "reader_remote", "scorer_admission", "scorer_lane_fn", "scorer_batcher",
 ))
 
 
@@ -475,6 +477,34 @@ def _cut_cases(tmp="."):
     def scorer_device_retry(p):
         assert dyn(device_retry=True)(p)._device_retry is True
 
+    def reader_remote(p):
+        # gs:// and s3:// without their optional dependency: the typed
+        # error of api/remote.py, as in the JAX package
+        from flink_jpmml_tpu_torch.utils.exceptions import (
+            ModelLoadingException,
+        )
+
+        with pytest.raises(ModelLoadingException, match="boto3"):
+            ModelReader("s3://bucket/m.pmml").load()
+
+    def scorer_admission(p):
+        from flink_jpmml_tpu_torch.serving.overload import (
+            AdmissionController,
+        )
+        from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry
+
+        adm = AdmissionController(MetricsRegistry())
+        assert dyn(admission=adm)(p).admission is adm
+
+    def scorer_lane_fn(p):
+        assert dyn(lane_fn=str)(p)._lane_fn is str
+
+    def scorer_batcher(p):
+        from flink_jpmml_tpu_torch.serving.overload import AdaptiveBatcher
+
+        b = AdaptiveBatcher(path=os.path.join(tmp, "cap.json"))
+        assert dyn(batcher=b)(p).batcher is b
+
     return {
         "pipeline_checkpoint": pipeline_checkpoint,
         "pipeline_dlq": pipeline_dlq,
@@ -491,16 +521,16 @@ def _cut_cases(tmp="."):
         "evaluate_key_fn": lambda p: env().from_collection([]).evaluate(
             ModelReader(p), key_fn=str),
         "reader_mesh": lambda p: ModelReader(p).load(mesh=object()),
-        "reader_remote": lambda p: ModelReader("s3://bucket/m.pmml").load(),
+        "reader_remote": reader_remote,
         "registry_mesh": lambda p: ModelRegistry(mesh=object()),
         "registry_rollout": registry_apply,
         "scorer_mesh": dyn(mesh=object()),
         "scorer_key_fn": dyn(key_fn=str),
         "scorer_guardrails": dyn(guardrails=object()),
         "scorer_auto_rollout": dyn(auto_rollout=False),
-        "scorer_admission": dyn(admission=object()),
-        "scorer_lane_fn": dyn(lane_fn=str),
-        "scorer_batcher": dyn(batcher=object()),
+        "scorer_admission": scorer_admission,
+        "scorer_lane_fn": scorer_lane_fn,
+        "scorer_batcher": scorer_batcher,
         "scorer_zoo": dyn(zoo=True),
         "scorer_device_retry": scorer_device_retry,
     }
