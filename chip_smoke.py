@@ -245,7 +245,9 @@ JAX package, and prints one JSON line per phase:
     the card's name) and an ``AdmissionController`` on the ``block``
     lane, over a paced source of 131,072-record blocks (one aggregated
     dispatch each) cycling a 262,144-record pool, through a ring of 8
-    blocks: capacity measured unpaced, the deadline 5 × the
+    blocks: capacity measured unpaced over 5 s (a paced phase's length),
+    each measured phase started with nothing queued, the gate open and
+    the batcher's cap where it was before the surge, the deadline 5 × the
     predicted single-batch latency clamped to [100 ms, 2 s], then 80% of
     capacity (p99 ≤ deadline), 150% (``shed_records`` > 0, p99 ≤ 10 ×
     max(deadline, base p99)) and 80% again (p99 < max(1.05 × base, base
@@ -271,6 +273,18 @@ JAX package, and prints one JSON line per phase:
     ``BlockPipeline``, and the GBM loaded from a loopback ``http.server``
     through ``ModelReader("http://...")``, its second load a 304 with no
     recompile.
+23. kernel search — ``compile/autotune.py`` on the card over fresh builds
+    of the main path's GBM and the 3-class vote forest at 262,144 rows:
+    every candidate of the space (the kernel's launch shape × the walk
+    layout, ``ref`` / ``bfs``) launched on 16,384 records and held bit for
+    bit to today's launch and to the plain version; the sweep (the GBM
+    bootstraps, 8 candidates timed on a cold ledger; the vote forest
+    ranks by the fit that gave, top 5), the winner stored in the port's
+    cache under the run's scratch HOME and adopted by a second build with
+    no launch; then the tuned GBM through ``BlockPipeline`` for 19
+    dispatches with the profiler sampling every 50 ms: ``device_samples``,
+    ``device_mfu`` (the walk's path steps against the H100's INT32 rate),
+    ``device_membw_util`` and the cost ledger's row.
 
 Every main path runs the C++ ring, and its line carries the stage ledger
 of its registry (``attribution``: per stage the count, total ms, p50 /
@@ -290,12 +304,16 @@ Then the kernels line, the ``nvidia-smi`` line, and last the contract
 line ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --ab
 OTHER_CHECKOUT`` instead times the fused GBM's block path in child
 processes alternating between another checkout and this one
-(``ab_main``). Any failed phase raises, and the
+(``ab_main``), and ``python3 chip_smoke.py --phase NAME`` runs one
+phase alone (``serving_edge`` or ``kernel_search``) with what it needs
+built (``run_phase_alone``). Any failed phase raises, and the
 script exits non-zero without printing the last line. Without a CUDA
 device, or without the port beside it, it exits 1 at once. The flight
 recorder's directory and the generated model files live in a temporary
-directory that the run removes; the broker, the source and the
-pipelines' threads are stopped whether a phase passes or fails.
+directory that the run removes, as do the autotune cache, the kernel
+cost ledger and the cost model (``FJT_AUTOTUNE_CACHE`` there; the kernel
+search phase's own cache under a scratch HOME); the broker, the source
+and the pipelines' threads are stopped whether a phase passes or fails.
 """
 
 from __future__ import annotations
@@ -3742,20 +3760,27 @@ EDGE_KAFKA_ROWS = 2 * DISPATCH
 
 def edge_overload(cm, q, counter, workdir) -> dict:
     """The overload drill of the JAX package's ``bench.run_overload_drill``
-    on the card, with its four checks: capacity measured unpaced and the
-    batcher fitted; a paced source at 80% of it (p99 ≤ deadline); 150%
+    on the card, with its four checks: capacity measured unpaced over a
+    window as long as a paced phase, and the batcher fitted; a paced
+    source at 80% of it (p99 ≤ deadline); 150%
     (``shed_records{lane="block"}`` > 0, p99 bounded by 10 × max(deadline,
     base p99)); back at 80% (p99 < max(1.05 × base, base + 10 ms)). The
     deadline is the drill's rule: 5 × the predicted single-batch latency,
     clamped to [100 ms, 2 s]. Every delivery is held to the card's direct
-    run (after the drill, off the score thread), the sink's ranges and the
-    shed records must tile the committed offsets exactly, and the
+    run in the sink as it arrives (no copy is kept), the sink's ranges and
+    the shed records must tile the committed offsets exactly, and the
     kernel's launches must equal the accounted dispatches (a shed batch
-    launches nothing). A failed check raises with the drill's readings."""
+    launches nothing). Each measured phase starts from steady state
+    (``drained``). Each phase's readings include the mean ms of the host
+    stages and of a dispatch, the process's CPU seconds a wall second and
+    its full garbage collections. A failed check raises with the drill's
+    readings."""
     import collections
+    import gc
 
     import torch
 
+    from flink_jpmml_tpu_torch.obs import attr
     from flink_jpmml_tpu_torch.obs.slo import SLOTracker
     from flink_jpmml_tpu_torch.runtime.block import BlockPipeline, BlockSource
     from flink_jpmml_tpu_torch.serving import overload
@@ -3789,7 +3814,9 @@ def edge_overload(cm, q, counter, workdir) -> dict:
     arrivals = collections.deque()  # (offset, arrival time) a block
     cur_lats = [None]
     rate_now = [None]  # None: unpaced
-    sunk = []  # (first offset, records, values) a delivery
+    sunk = []  # (first offset, records) a delivery
+    n_sunk = [0]
+    max_err = [0.0]
 
     class Paced(BlockSource):
         def __init__(self):
@@ -3823,9 +3850,31 @@ def edge_overload(cm, q, counter, workdir) -> dict:
                 self._next = max(self._next + interval, now - interval)
             return off, blk
 
+    def ref_rows(first, n):
+        """The direct run's values of offsets [first, first + n): slices
+        of the cycled pool (a delivery is at most half of it, so it wraps
+        at most once)."""
+        i = first % EDGE_POOL
+        if i + n <= EDGE_POOL:
+            return direct[i:i + n]
+        return np.concatenate([direct[i:], direct[:i + n - EDGE_POOL]])
+
     def sink(out, n, first_off):
         t = time.monotonic()
-        sunk.append((first_off, n, np.asarray(out)[:n].copy()))
+        # held to the card's direct run here, in place: a kept copy of
+        # each delivery would cost the score thread page faults and a
+        # copy a dispatch and grow the process all drill
+        v = np.asarray(out)[:n]
+        ref = ref_rows(first_off, n)
+        if v.shape != ref.shape or not np.array_equal(v, ref):
+            if v.shape != ref.shape or not np.allclose(v, ref, rtol=RTOL,
+                                                       atol=ATOL):
+                raise RuntimeError(f"overload: records {first_off}.."
+                                   f"{first_off + n} differ from the "
+                                   "card's direct run")
+            max_err[0] = max(max_err[0], float(np.abs(v - ref).max()))
+        sunk.append((first_off, n))
+        n_sunk[0] += n
         while arrivals and arrivals[0][0] < first_off:
             arrivals.popleft()  # shed: no latency sample
         lats = cur_lats[0]
@@ -3861,12 +3910,32 @@ def edge_overload(cm, q, counter, workdir) -> dict:
                 "pressure", "shed_level", "ring_occupancy",
                 "adaptive_batch")}})
 
+    stage_hists = {"batch": "batch_latency_s", **{
+        st: attr.stage_metric_name(st) for st in (
+            "encode", "h2d", "queue_wait", "readback", "sink")}}
+
     def counts():
         snap = km.snapshot()
-        return {"t": time.monotonic(), "sunk": sum(k for _, k, _ in sunk),
+        hists = km.struct_snapshot()["histograms"]
+        return {"t": time.monotonic(), "sunk": n_sunk[0],
                 "dispatches": snap.get("dispatches", 0),
                 "records": snap.get("batch_fill_records", 0),
-                "shed": sum(admission.counts()["shed"].values())}
+                "shed": sum(admission.counts()["shed"].values()),
+                "cpu": time.process_time(),
+                "gc2": gc.get_stats()[2]["collections"],
+                "hists": {k: (hists.get(h) or {}) for k, h in
+                          stage_hists.items()}}
+
+    def stage_ms(c0, c1):
+        """Per phase, the mean ms of each host stage and of a dispatch's
+        drain → sink (batch latency): where a phase's time went."""
+        out = {}
+        for k in stage_hists:
+            a, b = c0["hists"][k], c1["hists"][k]
+            n = b.get("n", 0) - a.get("n", 0)
+            out[k] = (1e3 * (b.get("sum", 0.0) - a.get("sum", 0.0)) / n
+                      if n else None)
+        return out
 
     def run_phase(seconds, tag, lats=None):
         c0 = counts()
@@ -3889,7 +3958,10 @@ def edge_overload(cm, q, counter, workdir) -> dict:
             "records_per_dispatch": d["records"] / max(1, d["dispatches"]),
             "p99_ms": None if not lats else 1e3 * p99(lats),
             "p50_ms": None if not lats else 1e3 * sorted(lats)[
-                len(lats) // 2]}
+                len(lats) // 2],
+            "mean_ms": stage_ms(c0, c1),
+            "cpu_per_wall": (c1["cpu"] - c0["cpu"]) / dt,
+            "gc_gen2": c1["gc2"] - c0["gc2"]}
 
     def p99(lats):
         s = sorted(lats)
@@ -3902,7 +3974,9 @@ def edge_overload(cm, q, counter, workdir) -> dict:
     pipe.start()
     try:
         run_phase(0.7, "capacity-ramp")
-        run_phase(1.5, "capacity")
+        # as long as a paced phase: the sustained rate the paced phases
+        # are fractions of, not a short burst's
+        run_phase(EDGE_PHASE_S, "capacity")
         capacity = phases["capacity"]["sunk_per_s"]
         if capacity <= 0:
             raise RuntimeError("overload: the capacity phase scored nothing")
@@ -3923,14 +3997,29 @@ def edge_overload(cm, q, counter, workdir) -> dict:
             run_phase(seconds, tag, lats)
             return lats
 
+        steady_cap = [None]
+
         def drained(tag):
+            """Settle at 80% until the previous phase is gone, as the JAX
+            drill's ``wait_drained`` (at most 12 s): nothing queued in
+            the ring (its "less than a block" is half a compile batch
+            there: here less than one batch, so no part of a block is
+            left and the next block goes out whole in one dispatch), the
+            gate open, and the batcher's cap where it was before the
+            surge."""
             rate_now[0] = 0.8 * capacity
             t_d = time.monotonic()
-            while time.monotonic() - t_d < 12.0:
+            settled = False
+            while not settled and time.monotonic() - t_d < 12.0:
                 sample(tag)
-                if len(pipe._ring) < EDGE_BLOCK and not admission.shedding:
-                    break
-                time.sleep(0.1)
+                settled = (len(pipe._ring) < BATCH
+                           and not admission.shedding
+                           and steady_cap[0] in (None,
+                                                 batcher.max_records()))
+                if not settled:
+                    time.sleep(0.1)
+            drill.setdefault("settled", {})[tag] = {
+                "seconds": time.monotonic() - t_d, "settled": settled}
 
         drained("settle")
         base = paced(0.8, EDGE_PHASE_S, "base")
@@ -3944,6 +4033,7 @@ def edge_overload(cm, q, counter, workdir) -> dict:
             failed.append("p99 over the deadline at 80% of capacity")
             p99_base = p99_base or deadline_s
         shed0 = sum(admission.counts()["shed"].values())
+        steady_cap[0] = batcher.max_records()
         surge = paced(1.5, EDGE_PHASE_S, "surge")
         shed = sum(admission.counts()["shed"].values()) - shed0
         p99_surge = p99(surge)
@@ -3978,27 +4068,21 @@ def edge_overload(cm, q, counter, workdir) -> dict:
     run = held_launches(counter, snap, "overload")
     counts_ = admission.counts()
     shed_total = int(sum(counts_["shed"].values()))
-    # every delivery against the direct run; the sink's ranges and the
-    # shed batches tile [0, committed) exactly: ranges never overlap,
-    # and every gap is a shed batch's
-    pos, gaps, err = 0, 0, 0.0
-    for first, n, v in sunk:
-        ref = direct.take(np.arange(first, first + n), mode="wrap")
-        if v.shape[0] != n or not np.allclose(v, ref, rtol=RTOL, atol=ATOL):
-            raise RuntimeError(f"overload: records {first}..{first + n} "
-                               "differ from the card's direct run")
-        err = max(err, float(np.abs(v - ref).max()))
+    # every delivery was held to the direct run in the sink; the sink's
+    # ranges and the shed batches tile [0, committed) exactly: ranges
+    # never overlap, and every gap is a shed batch's
+    pos, gaps, err = 0, 0, max_err[0]
+    for first, n in sunk:
         if first < pos:
             raise RuntimeError(f"overload: offset {first} sunk twice")
         gaps += first - pos
         pos = first + n
     committed = pipe.committed_offset
     gaps += committed - pos
-    n_sunk = sum(n for _, n, _ in sunk)
-    if gaps != shed_total or n_sunk + shed_total != committed:
+    if gaps != shed_total or n_sunk[0] + shed_total != committed:
         raise RuntimeError(f"overload: sunk + shed != committed ({gaps} gap "
                            f"records, {shed_total} shed, {committed})")
-    if int(snap.get("records_out", 0)) != n_sunk:
+    if int(snap.get("records_out", 0)) != n_sunk[0]:
         raise RuntimeError("overload: records_out != the sink's records")
     batcher.flush()
     surge_samples = [x for x in samples if x["tag"] == "surge"]
@@ -4016,7 +4100,7 @@ def edge_overload(cm, q, counter, workdir) -> dict:
             (x["pressure"] or 0.0) for x in surge_samples)
         if surge_samples else None,
         "adaptive_max_records": batcher.max_records(),
-        "committed_offset": committed, "records_sunk": n_sunk,
+        "committed_offset": committed, "records_sunk": n_sunk[0],
         "slo": pipe._slo.health(),
         "summary": overload.summary(km.struct_snapshot()),
         **run, "max_abs_err": err,
@@ -4482,6 +4566,235 @@ def serving_edge(workdir: str, counter, q, vq, cm, smi: str) -> dict:
                 "net_remote"))}
 
 
+# -- the kernel search: launch shapes, walk layouts, the profiler ---------
+
+KS_SLICE = BATCH  # rows of the every-candidate check
+KS_DISPATCHES = 19  # the profiled drive's dispatches of DISPATCH records
+
+
+def check_candidates(q, codes, counter) -> dict:
+    """Every candidate of ``q``'s search space (``autotune.candidate_space``)
+    built and launched on ``codes``: each one's raw rows bit-equal to
+    today's launch (the built default) and to the plain version on the
+    same codes. → the candidates' names, and the launches the check made
+    (not the path's)."""
+    import torch
+
+    from flink_jpmml_tpu_torch.compile import autotune, qtrees_cuda
+
+    F = len(q.wire.fields)
+
+    def tables(params):
+        return {k: params[k] for k in qtrees_cuda.TABLE_KEYS}
+
+    before = counter.launches
+    today = qtrees_cuda.leaf_rows(codes, tables(q.params), F)
+    plain = qtrees_cuda.leaf_rows_reference(codes, tables(q.params))
+    torch.cuda.synchronize()
+    if not torch.equal(today, plain):
+        raise RuntimeError("kernel_search: today's launch differs from the "
+                           "plain version")
+    names = []
+    for c in autotune.candidate_space(q):
+        name = autotune._cand_name(q, c)
+        built = q.build_variant(c["layout"], c["threads"], c["chunk_bytes"])
+        if built is None:
+            raise RuntimeError(f"kernel_search: candidate {name} not built")
+        got = qtrees_cuda.leaf_rows(codes, tables(built["params"]), F,
+                                    c["threads"], c["chunk_bytes"])
+        torch.cuda.synchronize()
+        if not torch.equal(got, today):
+            raise RuntimeError(f"kernel_search: candidate {name} differs "
+                               "from today's launch")
+        names.append(name)
+    return {"candidates": names, "rows": int(codes.shape[0]),
+            "check_launches": counter.launches - before}
+
+
+def kernel_search(workdir: str, counter, smi: str) -> dict:
+    """The kernel search on the card (``compile/autotune.py``): the main
+    path's 500-tree GBM (bootstrap, the first 8 candidates timed on a cold
+    ledger) and then the 3-class vote forest (learned, ranked by the fit
+    the GBM's timings gave), each from a fresh build of its PMML file, at
+    the main path's 262,144 rows. Every candidate of each space is held
+    bit-equal to today's launch and to the plain version on a
+    16,384-record slice; the sweep itself holds each timed one to the
+    default on its own rows. The winner is stored in the port's cache
+    under this run's scratch HOME, and a second build adopts it with no
+    kernel launch. Then the tuned GBM drives 19 dispatches through
+    ``BlockPipeline`` with the profiler sampling every 50 ms; the line
+    holds ``device_samples``, ``device_mfu`` / ``device_membw_util`` (the
+    walk's path steps against the H100's INT32 rate, bytes against HBM3)
+    and the cost ledger's row."""
+    import torch
+
+    from flink_jpmml_tpu_torch.compile import autotune, costmodel
+    from flink_jpmml_tpu_torch.compile.compiler import compile_pmml
+    from flink_jpmml_tpu_torch.obs import profiler
+    from flink_jpmml_tpu_torch.pmml import parse_pmml_file
+    from flink_jpmml_tpu_torch.runtime.block import CyclingBlockSource
+    from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry
+
+    t_phase = time.perf_counter()
+    keys = ("HOME", "FJT_AUTOTUNE_CACHE", "FJT_PROF_SAMPLE")
+    saved = {k: os.environ.get(k) for k in keys}
+    # the port's default cache path, under this run's scratch HOME
+    os.environ["HOME"] = workdir
+    os.environ.pop("FJT_AUTOTUNE_CACHE", None)
+    try:
+        cache_file = str(autotune.cache_path())
+        if not cache_file.startswith(os.path.join(workdir, ".cache") + os.sep):
+            raise RuntimeError(f"kernel_search: cache at {cache_file}")
+        models = {}
+        by_classes = {}
+        for name, file, top_k in (("gbm500", "gbm_500.pmml", 8),
+                                  ("votes500", "votes_500.pmml", None)):
+            doc = parse_pmml_file(os.path.join(workdir, file))
+            q = compile_pmml(doc, batch_size=BATCH).quantized_scorer()
+            if q.backend != "cuda" or q.tuned is not None:
+                raise RuntimeError(f"kernel_search: {name} built "
+                                   f"{q.backend}, tuned {q.tuned}")
+            F = len(q.wire.fields)
+            X = features(np.random.default_rng(61), DISPATCH, F)
+            checked = check_candidates(q, torch.from_numpy(
+                q.wire.encode(X[:KS_SLICE])).cuda(), counter)
+            before = (q.encode_placement, q.layout, q.launch)
+            reset(counter)
+            cfg = autotune.ensure_tuned(q, X, repeats=3, top_k=top_k)
+            torch.cuda.synchronize()
+            sweep_launches = counter.launches
+            C = len(q.labels) if q.labels else 1
+            by_classes[C] = by_classes.get(C, 0) + sweep_launches
+            if cfg.source != "sweep" or sweep_launches == 0:
+                raise RuntimeError(f"kernel_search: {name} did not sweep")
+            stored = autotune.lookup(q.model_hash, autotune.backend_key(q))
+            if stored is None or not os.path.exists(cache_file):
+                raise RuntimeError(f"kernel_search: {name}'s winner not in "
+                                   f"{cache_file}")
+            # a second build adopts the stored winner, with no sweep
+            reset(counter)
+            q2 = compile_pmml(doc, batch_size=BATCH).quantized_scorer()
+            build_launches = counter.launches
+            if (build_launches or q2.tuned is None
+                    or q2.tuned.source != "cache"
+                    or q2.layout != cfg.layout
+                    or q2.launch != (cfg.threads, cfg.chunk_bytes)
+                    or q2.encode_placement != cfg.encode):
+                raise RuntimeError(
+                    f"kernel_search: {name}'s second build ran "
+                    f"{build_launches} launches, tuned {q2.tuned}, layout "
+                    f"{q2.layout}, launch {q2.launch}, encode "
+                    f"{q2.encode_placement}")
+            codes = torch.from_numpy(q.wire.encode(X[:KS_SLICE])).cuda()
+            with torch.no_grad():
+                a, b = q._fn(q.params, codes), q2._fn(q2.params, codes)
+            same = (all(torch.equal(x, y) for x, y in zip(a, b))
+                    if isinstance(a, tuple) else torch.equal(a, b))
+            if not same:
+                raise RuntimeError(f"kernel_search: {name}'s adopted build "
+                                   "scores differently")
+            search = cfg.search or {}
+            models[name] = {
+                "classes": C, **checked, "before": {
+                    "encode": before[0], "layout": before[1],
+                    "launch": list(before[2])},
+                "chosen": {"variant": search.get("chosen"),
+                           "layout": cfg.layout, "threads": cfg.threads,
+                           "chunk_bytes": cfg.chunk_bytes,
+                           "encode": cfg.encode},
+                "mode": search.get("mode"), "timed": search.get("timed"),
+                "candidates_total": search.get("candidates_total"),
+                "sweep_rows": search.get("rows"),
+                # per candidate: the sweep's best-of ms at its rows
+                "ms": {k: 1e3 * search.get("rows", DISPATCH) / v
+                       for k, v in cfg.rates.items()
+                       if not k.startswith("encode_")},
+                "encode_records_per_s": {
+                    k: v for k, v in cfg.rates.items()
+                    if k.startswith("encode_")},
+                "predicted_s_per_record": search.get("predicted"),
+                "pred_abs_log_err": search.get("pred_abs_log_err"),
+                "fit": search.get("model"),
+                "sweep_launches": sweep_launches,
+                "second_build_launches": build_launches,
+                "cache_file": os.path.relpath(cache_file, workdir),
+            }
+
+        # the tuned GBM through BlockPipeline, profiled
+        os.environ["FJT_PROF_SAMPLE"] = "0.05"
+        cm = compile_pmml(parse_pmml_file(os.path.join(workdir,
+                                                       "gbm_500.pmml")),
+                          batch_size=BATCH)
+        q = cm.quantized_scorer()
+        if q.tuned is None or q.tuned.source != "cache":
+            raise RuntimeError("kernel_search: the profiled drive's scorer "
+                               "did not adopt the cached winner")
+        F = len(q.wire.fields)
+        data = features(np.random.default_rng(0), 4 * DISPATCH, F)
+        if q.encode_placement == "fused":
+            q.predict_fused(data[:BATCH])
+        else:
+            q.predict_wire(q.wire.encode(data[:BATCH]))
+        torch.cuda.synchronize()
+        reg = MetricsRegistry()
+        count = [0]
+
+        def sink(out, n, first_off):
+            vals = np.asarray(out)
+            if vals.ndim != 1 or vals.shape[0] < n or not np.isfinite(
+                    vals[:n]).all():
+                raise RuntimeError(f"kernel_search sink got {vals.shape}")
+            count[0] += n
+
+        run = drive(cm, CyclingBlockSource(data, block_size=DISPATCH), sink,
+                    count, counter, metrics=reg,
+                    target=KS_DISPATCHES * DISPATCH)
+        by_classes[1] = by_classes.get(1, 0) + run["launches"]
+        samples = int(reg.counter("device_samples").get())
+        mfu = reg.gauge("device_mfu").get()
+        membw = reg.gauge("device_membw_util").get()
+        ops = reg.gauge("flops_per_record").get()
+        steps = q._meta["path_steps"]
+        if samples <= 0 or not mfu or not membw or ops != steps:
+            raise RuntimeError(f"kernel_search: {samples} device samples, "
+                               f"mfu {mfu}, membw {membw}, {ops} operations "
+                               f"a record against {steps} path steps")
+        rows = {k: v for k, v in profiler._COST_LEDGER.entries().items()
+                if v.get("model") == "static" and v.get("backend") == "cuda"}
+        if not rows:
+            raise RuntimeError("kernel_search: no cost ledger row for the "
+                               "profiled drive")
+        device_stage = (run["attribution"] or {}).get("device")
+        return {
+            "nvidia_smi": smi, "seconds": time.perf_counter() - t_phase,
+            "models": models,
+            "profiled_drive": {
+                **{k: run[k] for k in ("records", "records_per_s",
+                                       "dispatches", "launches",
+                                       "encode_mode")},
+                "device_samples": samples, "device_mfu": mfu,
+                "device_membw_util": membw, "flops_per_record": ops,
+                "path_steps_per_record": steps,
+                "device_ns_per_record": reg.gauge(
+                    "device_ns_per_record").get(),
+                "peaks": profiler.chip_peaks(torch.cuda.get_device_name(0),
+                                             strict=True),
+                "device_stage": device_stage,
+                "cost_ledger": rows,
+            },
+            "cost_model_rows": len(costmodel.training_rows(
+                platform=autotune.platform_key())),
+            "launches_c1": by_classes.get(1, 0),
+            "launches_c3": by_classes.get(3, 0),
+        }
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 # -- A/B of the fused block path against another checkout ---------------
 
 AB_CHILD = r"""
@@ -4556,7 +4869,7 @@ def ab_main(other: str, rounds: int = 2, runs: int = 5) -> int:
     return 0
 
 
-def main() -> int:
+def main(phase: str = None) -> int:
     import importlib.util
 
     import torch
@@ -4569,14 +4882,54 @@ def main() -> int:
               "this script; run it from the root of a checkout",
               file=sys.stderr)
         return 1
-    # the flight recorder and the model files live in temporary
-    # directories that the run removes
+    # the flight recorder, the model files and the autotune cache (with
+    # the kernel cost ledger and the cost model beside it) live in
+    # temporary directories that the run removes
     scratch = tempfile.mkdtemp(prefix="fjt-smoke-")
     os.environ["FJT_FLIGHT_DIR"] = os.path.join(scratch, "flight")
+    os.environ["FJT_AUTOTUNE_CACHE"] = os.path.join(scratch, "autotune",
+                                                    "autotune.json")
     try:
+        if phase is not None:
+            return run_phase_alone(scratch, phase)
         return run_phases(scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
+
+
+def run_phase_alone(workdir: str, phase: str) -> int:
+    """``python3 chip_smoke.py --phase NAME``: one phase of the whole
+    run, alone in a fresh process. It builds what the phase needs (the
+    kernel; the 500-tree GBM and the 3-class vote forest compiled on the
+    card, each with the scorer's own encode placement, fused on the card,
+    as the whole run leaves them), prints the card's line and the phase's
+    line as the whole run does, and exits 0 only if the phase passed."""
+    import torch
+
+    from flink_jpmml_tpu_torch.compile import qtrees_cuda
+
+    smi = nvidia_smi_line()
+    emit({"phase": "card", "nvidia_smi": smi,
+          "torch_device": torch.cuda.get_device_name(0),
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+    qtrees_cuda.build()
+    _, cm, q = model_tables(workdir, 500, "gbm_500.pmml")
+    _, _, vq = model_tables(workdir, 500, "votes_500.pmml", votes=dict(
+        depth=6, n_features=32, n_classes=3, seed=0))
+    F = len(q.wire.fields)
+    for s in (q, vq):
+        s.predict_fused(features(np.random.default_rng(0), BATCH, F))
+    torch.cuda.synchronize()
+    if phase == "serving_edge":
+        edge = serving_edge(workdir, qtrees_cuda.leaf_rows, q, vq, cm, smi)
+        emit({"phase": "serving_edge", **edge})
+    elif phase == "kernel_search":
+        ks = kernel_search(workdir, qtrees_cuda.leaf_rows, smi)
+        emit({"phase": "kernel_search", **ks})
+    else:
+        raise ValueError(f"no phase {phase!r} runs alone")
+    print(smi, flush=True)
+    return 0
 
 
 def run_phases(workdir: str) -> int:
@@ -4885,6 +5238,10 @@ def run_phases(workdir: str) -> int:
     edge = serving_edge(workdir, qtrees_cuda.leaf_rows, q, vq, cm, smi)
     emit({"phase": "serving_edge", **edge})
 
+    # -- the kernel search, and the profiler on a tuned main path ---------
+    ks = kernel_search(workdir, qtrees_cuda.leaf_rows, smi)
+    emit({"phase": "kernel_search", **ks})
+
     def kernel_entry(name, replaces, runs, checked, t):
         return {
             "name": name, "route": "cuda",
@@ -4912,7 +5269,8 @@ def run_phases(workdir: str) -> int:
                           "launches": rec["dynamic"]["launches_gbm"]},
                       "record_kafka": rec["kafka"],
                       "recovery": {"launches": rcv["launches_c1"]},
-                      "serving_edge": {"launches": edge["launches_c1"]}},
+                      "serving_edge": {"launches": edge["launches_c1"]},
+                      "kernel_search": {"launches": ks["launches_c1"]}},
                      rows + [r for r in wrows if r["classes"] == 1], timing),
         kernel_entry("qtrees_leaf_rows (vote shares)",
                      "flink_jpmml_tpu/compile/qtrees_pallas.py:187 and :238",
@@ -4920,7 +5278,8 @@ def run_phases(workdir: str) -> int:
                       "record_dynamic": {
                           "launches": rec["dynamic"]["launches_votes"]},
                       "recovery": {"launches": rcv["launches_c3"]},
-                      "serving_edge": {"launches": edge["launches_c3"]}},
+                      "serving_edge": {"launches": edge["launches_c3"]},
+                      "kernel_search": {"launches": ks["launches_c3"]}},
                      vrows + [r for r in wrows if r["classes"] > 1], vtiming),
     ]})
     print(smi, flush=True)
@@ -4932,4 +5291,6 @@ def run_phases(workdir: str) -> int:
 if __name__ == "__main__":
     if len(sys.argv) > 2 and sys.argv[1] == "--ab":
         sys.exit(ab_main(sys.argv[2]))
+    if len(sys.argv) > 2 and sys.argv[1] == "--phase":
+        sys.exit(main(sys.argv[2]))
     sys.exit(main())

@@ -39,25 +39,34 @@ Encode placement (``QuantizedScorer.encode_placement``):
 The scorer picks from what it sees: fused on a CUDA device when the model
 has a stage (on the H100 it carried 1.3-2.0x the host path's records/s on
 both main paths, PERF.md), host-encoded on the CPU, where the C++
-bucketizer is the faster encode. ``encode_mode`` overrides the choice
-(the JAX package's autotuner sets it there; it is not ported).
+bucketizer is the faster encode. ``encode_mode`` overrides the choice:
+the kernel search (``compile/autotune.py``) sets it from what it measured
+on this device, and a scorer built with an entry in the autotune cache
+takes the cached placement and kernel variant at build time
+(:func:`_consult_autotune`, as the JAX package does). With no entry the
+scorer's own choice stands.
 
 Both are byte-identical to :meth:`QuantizedWire.encode_reference`, the
 numpy ``searchsorted`` encode (the JAX package's fall-back branch), which
 stays as the plain version and runs only where a caller asks for it.
-Autotune (which picks the placement in the JAX package) and kernel
-layouts are not ported yet.
+
+Kernel variants (``compile/layouts.py``): :meth:`QuantizedScorer.
+build_variant` builds, and :meth:`~QuantizedScorer.adopt_variant` swaps
+in, a layout of the tables (``bfs``; on the torch twin also the packed
+wire) and, for the ``cuda`` backends, the kernel's launch shape. Every
+variant scores bit-identically to the built default.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import hashlib
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from flink_jpmml_tpu_torch.compile import prepare, qtrees_cuda
+from flink_jpmml_tpu_torch.compile import layouts, prepare, qtrees_cuda
 from flink_jpmml_tpu_torch.compile.common import (
     LowerCtx,
     apply_targets_value,
@@ -290,6 +299,31 @@ class QuantizedScorer:
     # the device encode stage (_make_encode_stage); None when the model's
     # padded cut tables exceed _DEVICE_TABLE_BUDGET
     _encode_stage: object = None
+    # stable identity for the autotune cache (the JAX package's hash of
+    # the wire tables and packed shapes)
+    model_hash: str = ""
+    tuned: object = None  # the applied autotune.TunedConfig
+    # the catalogue layout now built (compile/layouts.py) and, on the
+    # cuda backends, the kernel's launch shape (threads, chunk_bytes);
+    # None: the kernel's own choice
+    layout: str = "ref"
+    launch: Tuple[Optional[int], Optional[int]] = (None, None)
+    # the active wire packing plan (layouts.WirePack, torch twin only):
+    # host-encoded codes ship packed and are unpacked on the device
+    _wire_pack: object = None
+    # the kernel search's hook: _rebuild(layout, threads, chunk_bytes) →
+    # a built variant or None; released once a config is applied (it pins
+    # the host-side tables)
+    _rebuild: object = None
+    # packed-shape summary for the cost model's features
+    # (compile/costmodel.py): trees/splits/leaves/fields/batch/dtype
+    _meta: dict = field(default_factory=dict)
+    # the serving variant's feature dict, canonical id and the cost
+    # model's prediction for it (set by autotune; ride the dispatch
+    # profile into the kernel cost ledger and the drift band)
+    _cost_feat: object = None
+    _cost_variant: object = None
+    _pred_s_per_record: object = None
 
     @property
     def is_classification(self) -> bool:
@@ -318,7 +352,38 @@ class QuantizedScorer:
         host path."""
         if self.encode_placement == "fused":
             return 4.0 * len(self.wire.fields)
+        if self._wire_pack is not None:
+            return float(self._wire_pack.bytes_per_record)
         return float(self.wire.bytes_per_record)
+
+    def pack_wire(self, Xq: np.ndarray) -> np.ndarray:
+        """Host-encoded codes → what ships: packed through the active
+        wire pack (``wirepack`` layouts), else unchanged."""
+        if self._wire_pack is None:
+            return Xq
+        return self._wire_pack.pack(Xq)
+
+    def build_variant(self, layout: str = "ref", threads=None,
+                      chunk_bytes=None):
+        """Kernel-search hook: build (without adopting) the catalogue
+        variant ``layout`` at the launch shape ``(threads, chunk_bytes)``
+        → a built dict for :meth:`adopt_variant`, or None when this
+        scorer cannot take it (a layout outside its backend's catalogue,
+        a launch shape on the torch twin or one the card cannot take, the
+        hook already released). Any other failure raises."""
+        if self._rebuild is None:
+            return None
+        return self._rebuild(layout, threads, chunk_bytes)
+
+    def adopt_variant(self, built: dict, layout: str = "ref") -> None:
+        """Swap in a variant from :meth:`build_variant`: tables, scoring
+        function, wire pack and launch shape together, so the host side
+        and the device side always agree on the wire format."""
+        self.params = built["params"]
+        self._fn = built["fn"]
+        self._wire_pack = built.get("wire_pack")
+        self.launch = built.get("launch", (None, None))
+        self.layout = layout
 
     def pad_wire(self, Xq: np.ndarray) -> Tuple[np.ndarray, int]:
         """Host-side batch alignment → ``(Xq_padded, K)``: a batch whose
@@ -343,6 +408,13 @@ class QuantizedScorer:
         if isinstance(Xq, np.ndarray):
             Xq = torch.from_numpy(np.ascontiguousarray(Xq))
         Xq = Xq.to(self.device)
+        if self._wire_pack is not None and Xq.dtype == torch.uint8:
+            # packed codes (the wire itself is uint16): unpack on the
+            # device in front of the scorer
+            Xq = self._wire_pack.unpack_stage()(Xq)
+        return self._score_codes(Xq, K)
+
+    def _score_codes(self, Xq: torch.Tensor, K: int) -> Output:
         with torch.no_grad():
             if self.backend != "torch" or K == 1:
                 return self._fn(self.params, Xq)
@@ -393,8 +465,8 @@ class QuantizedScorer:
         """Fused twin of :meth:`predict_padded`: ``X`` is an aligned raw
         f32 batch from :meth:`pad_f32` (numpy, or staged on the device);
         the encode stage and the scorer queue on the current stream, one
-        after the other."""
-        return self.predict_padded(self.encode_device(X), K)
+        after the other. The stage's codes never pass a wire pack."""
+        return self._score_codes(self.encode_device(X), K)
 
     def predict_fused(self, X) -> Output:
         """Fused entry: align (:meth:`pad_f32`) + encode + score. Callers
@@ -711,24 +783,88 @@ def build_quantized_scorer(
             feat, qthr, dleft, P.astype(np.int8), p["count"], params[hi],
             params[lo], n_fields=F,
         ))
+        C = params["rows"].shape[2]
 
-        def fn(pp, Xq):
-            rows = qtrees_cuda.leaf_rows(
-                Xq, {k: pp[k] for k in qtrees_cuda.TABLE_KEYS}, F
-            )
-            if classification:
-                return _vote_epilogue(rows, targets)
-            return apply_targets_value(rows[:, 0], targets).float()
+        def make_fn(threads=None, chunk_bytes=None):
+            def fn(pp, Xq):
+                rows = qtrees_cuda.leaf_rows(
+                    Xq, {k: pp[k] for k in qtrees_cuda.TABLE_KEYS}, F,
+                    threads, chunk_bytes,
+                )
+                if classification:
+                    return _vote_epilogue(rows, targets)
+                return apply_targets_value(rows[:, 0], targets).float()
+            return fn
+
+        fn = make_fn()
     else:
-        fn = _torch_qfn(method, classification, fused_linear, sentinel, targets)
+        qfn = fn = _torch_qfn(method, classification, fused_linear, sentinel,
+                              targets)
     chosen = (
         "torch" if not kernel_fits
         else "cuda" if dev.type == "cuda" else "cuda_plain"
     )
+    dev_params = to_device(params, dev)
+    bfs_tables: Dict[str, torch.Tensor] = {}
 
-    return QuantizedScorer(
+    def rebuild(layout="ref", threads=None, chunk_bytes=None):
+        """A catalogue variant (compile/layouts.py) of this scorer → a
+        built dict, or None where the backend cannot take it."""
+        fl = layouts.flags(layout)
+        if fl is None:
+            return None
+        if kernel_fits:
+            if not fl <= {"bfs"}:
+                return None
+            try:
+                qtrees_cuda.launch_shape(
+                    F, T, params["walk"].shape[1], threads, chunk_bytes)
+            except ValueError:
+                return None
+            p2 = dict(dev_params)
+            if "bfs" in fl:
+                if "walk" not in bfs_tables:  # built once, shared
+                    bfs_tables["walk"] = torch.from_numpy(layouts.bfs_walk(
+                        params["walk"], S, L, C)).to(dev)
+                p2["walk"] = bfs_tables["walk"]
+            return {"params": p2, "fn": make_fn(threads, chunk_bytes),
+                    "wire_pack": None, "launch": (threads, chunk_bytes)}
+        if threads is not None or chunk_bytes is not None:
+            return None
+        p2 = dict(dev_params)
+        if "bfs" in fl:
+            perm = layouts.bfs_split_order(params["P_i8"])
+            soa = layouts.apply_split_order(
+                perm, params["feat"], params["qthr"], params["dleft"],
+                params["P_i8"])
+            p2.update(to_device({
+                "feat": soa["feat"], "qthr": soa["qthr"],
+                "dleft": soa["dleft"], "P_i8": soa["P"]}, dev))
+        wp = None
+        if "wirepack" in fl:
+            wp = layouts.plan_wire_pack(wire)
+            if wp is None:
+                return None
+        return {"params": p2, "fn": qfn, "wire_pack": wp,
+                "launch": (None, None)}
+
+    # stable identity for the autotune cache, the JAX package's: the wire
+    # tables and packed shapes pin the kernel variant (weights do not
+    # change the choice, but folding in the threshold tables keeps the key
+    # from colliding across same-shape models)
+    hasher = hashlib.sha256()
+    hasher.update(
+        f"{T}:{S}:{L}:{F}:{batch_size}:{np.dtype(dtype).name}:"
+        f"{int(classification)}:{method}".encode()
+    )
+    for c in cuts:
+        hasher.update(c.tobytes())
+    hasher.update(qthr.tobytes())
+    hasher.update(np.asarray(dleft, np.uint8).tobytes())
+
+    scorer = QuantizedScorer(
         wire=wire,
-        params=to_device(params, dev),
+        params=dev_params,
         field_space=prepare.FieldSpace(fields=fields, codecs=ctx.codecs),
         batch_size=batch_size,
         n_trees=T,
@@ -737,4 +873,32 @@ def build_quantized_scorer(
         backend=chosen,
         labels=packed.labels if classification else (),
         _encode_stage=encode_stage,
+        model_hash=hasher.hexdigest()[:16],
+        _rebuild=rebuild,
+        _meta={
+            "trees": float(T), "splits": float(S), "leaves": float(L),
+            "fields": float(F), "batch": float(batch_size or 0),
+            "dtype_rank": float(np.dtype(dtype).itemsize),
+            "classification": 1.0 if classification else 0.0,
+            "classes": float(len(packed.labels)) if classification else 1.0,
+            # the walk's integer steps per record: the sum of the trees'
+            # depths (the profiler's operations per record on the card)
+            **({"path_steps": float(
+                ((params["walk"][:, 0] >> 8) & 0xFF).sum())}
+               if kernel_fits else {}),
+        },
     )
+    _consult_autotune(scorer)
+    return scorer
+
+
+def _consult_autotune(scorer: QuantizedScorer) -> None:
+    """Apply the config the autotune cache holds for this scorer's model
+    and device (compile/autotune.py), as the JAX package does at every
+    build. A missing, stale or corrupt entry reads as none, and the
+    scorer keeps its own choices."""
+    from flink_jpmml_tpu_torch.compile import autotune
+
+    cfg = autotune.lookup(scorer.model_hash, autotune.backend_key(scorer))
+    if cfg is not None:
+        autotune.apply(scorer, cfg)

@@ -57,7 +57,11 @@ tree, so the walk reaches exactly the leaf the masks select.
 Dispatch (``leaf_rows``): a CUDA tensor launches the kernel or raises; a
 CPU tensor runs the plain PyTorch version (:func:`leaf_rows_reference`,
 the mask form), with the same arithmetic and the same ascending-tree f32
-order. There is no fall-back from one to the other. The kernel reads only
+order. There is no fall-back from one to the other. ``threads`` and
+``chunk_bytes`` choose the launch shape (:func:`launch_shape`; left out,
+the kernel's own choice), which the kernel search (``compile/autotune.py``)
+varies; a shape the card cannot take raises before the launch. The kernel
+reads only
 ``walk``; the wrapper takes the other tables' shapes for its dimensions,
 and the mask tables stay for the plain version. The kernel is built with
 ``nvcc`` from the repository's sources on first use, into ``build/`` beside
@@ -90,6 +94,14 @@ MAX_FIELDS = 256  # a node word holds the feature in 8 bits
 # source.
 MAX_CLASSES = 16
 TABLE_KEYS = ("split", "on", "left", "rows", "walk")
+# the launch-shape arithmetic of the .cu source's launch(); each must
+# equal its constant there
+MAX_THREADS = 256  # kMaxThreads (also the kernel's __launch_bounds__)
+RECORDS_PER_THREAD = 4  # kRecordsPerThread
+CHUNK_BYTES = 24 * 1024  # kChunkBytes: the default tree tables per buffer
+SMEM_TARGET = 112 * 1024  # kSmemTarget: two blocks per SM
+SMEM_MAX = 232448  # kSmemMax: 227 KB, a block's limit
+BAR_BYTES = 16  # kBarBytes
 
 _PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 SOURCE = _PKG_DIR / "csrc" / "qtrees_ensemble.cu"
@@ -396,7 +408,7 @@ def build() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(lib_path))
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.qtrees_leaf_rows.argtypes = [
-            p, i64, i32, p, i32, i32, i32, i32, i32, i32, p, p]
+            p, i64, i32, p, i32, i32, i32, i32, i32, i32, i32, i32, p, p]
         lib.qtrees_leaf_rows.restype = ctypes.c_int
         _LIB = lib
         return lib
@@ -476,6 +488,51 @@ def _check_tables(tables: Dict[str, torch.Tensor], device: torch.device):
     return T, S, L, C
 
 
+def staged_row_stride(n_fields: int) -> int:
+    """Bytes of one record's codes in the kernel's shared tile: an odd
+    number of 4-byte words (``staged_row_stride`` in the .cu source)."""
+    words = (n_fields + 3) // 4
+    if words % 2 == 0:
+        words += 1
+    return 4 * words
+
+
+def launch_shape(n_fields: int, n_trees: int, tree_words: int,
+                 threads: Optional[int] = None,
+                 chunk_bytes: Optional[int] = None) -> Tuple[int, int, int]:
+    """The kernel's launch shape for a table of ``n_trees`` slices of
+    ``tree_words`` words and codes of ``n_fields`` fields →
+    ``(threads, chunk_trees, smem_bytes)``, by the arithmetic of the .cu
+    source's ``launch()``. ``chunk_bytes`` (None: ``CHUNK_BYTES``) is the
+    tree tables a shared-memory buffer holds, at least one tree;
+    ``threads`` (None: the most, halving from ``MAX_THREADS``, whose
+    shared memory fits ``SMEM_TARGET``) the block's threads. Raises
+    ValueError for a shape the card cannot take: threads not a positive
+    multiple of 32 up to ``MAX_THREADS``, or a block over ``SMEM_MAX``
+    bytes of shared memory."""
+    if chunk_bytes is not None and chunk_bytes <= 0:
+        raise ValueError(f"chunk_bytes {chunk_bytes} must be positive")
+    row_stride = staged_row_stride(n_fields)
+    tree_bytes = tree_words * 8
+    chunk_trees = min(max((chunk_bytes or CHUNK_BYTES) // tree_bytes, 1),
+                      max(n_trees, 1))
+    tables = BAR_BYTES + 2 * chunk_trees * tree_bytes
+    if threads is None:
+        threads = MAX_THREADS
+        while (threads > 32 and tables + threads * RECORDS_PER_THREAD
+               * row_stride > SMEM_TARGET):
+            threads //= 2
+    elif threads <= 0 or threads % 32 or threads > MAX_THREADS:
+        raise ValueError(f"{threads} threads per block: the kernel takes a "
+                         f"multiple of 32 up to {MAX_THREADS}")
+    smem = tables + threads * RECORDS_PER_THREAD * row_stride
+    if smem > SMEM_MAX:
+        raise ValueError(f"{threads} threads and {chunk_trees} trees a chunk "
+                         f"need {smem} bytes of shared memory, over the "
+                         f"block's {SMEM_MAX}")
+    return threads, chunk_trees, smem
+
+
 def _check_codes(codes: torch.Tensor, n_fields: int) -> None:
     if codes.dtype != torch.uint8 or codes.dim() != 2:
         raise ValueError(f"codes must be u8[N, F], got {codes.dtype}"
@@ -492,7 +549,8 @@ def _check_codes(codes: torch.Tensor, n_fields: int) -> None:
 
 
 def leaf_rows(codes: torch.Tensor, tables: Dict[str, torch.Tensor],
-              n_fields: int):
+              n_fields: int, threads: Optional[int] = None,
+              chunk_bytes: Optional[int] = None):
     """u8[N, F] rank codes → f32[N, C]: per record, the sum over trees of
     the hit leaf's row — the ensemble sum before Targets (C = 1) or the
     vote shares of a majorityVote / weightedMajorityVote forest (the
@@ -506,9 +564,15 @@ def leaf_rows(codes: torch.Tensor, tables: Dict[str, torch.Tensor],
     ``leaf_rows.launches_by_classes``) or raise — on codes of another width, more than
     ``MAX_CLASSES`` classes, or a ``walk`` table that is not on the card
     (the other tables lend only their shapes). On a CPU tensor: the plain
-    version, with all five tables on the CPU."""
+    version, with all five tables on the CPU.
+
+    ``threads`` and ``chunk_bytes`` set the kernel's launch shape
+    (:func:`launch_shape`; None: the kernel's own choice). A shape the
+    card cannot take raises ValueError before any launch, on either
+    device; the plain version reads no launch shape."""
     _check_codes(codes, n_fields)
     T, S, L, C = _check_tables(tables, codes.device)
+    launch_shape(n_fields, T, walk_words(S, L, C), threads, chunk_bytes)
     if codes.device.type == "cpu":
         return leaf_rows_reference(codes, tables)
     lib = build()
@@ -517,7 +581,8 @@ def leaf_rows(codes: torch.Tensor, tables: Dict[str, torch.Tensor],
     stream = torch.cuda.current_stream(codes.device).cuda_stream
     rc = lib.qtrees_leaf_rows(
         codes.data_ptr(), N, F, tables["walk"].data_ptr(), T,
-        tables["walk"].shape[1], S, L, C, SENTINEL, out.data_ptr(), stream,
+        tables["walk"].shape[1], S, L, C, SENTINEL, threads or 0,
+        chunk_bytes or 0, out.data_ptr(), stream,
     )
     if rc != 0:
         raise KernelLaunchError(f"qtrees_leaf_rows launch failed: "

@@ -94,6 +94,9 @@
 
 namespace {
 
+// qtrees_cuda.launch_shape repeats the launch-shape arithmetic with
+// kMaxThreads, kRecordsPerThread, kChunkBytes, kSmemTarget, kSmemMax and
+// kBarBytes: keep them equal to its constants.
 constexpr int kMaxThreads = 256;
 constexpr int kRecordsPerThread = 4;
 // Must equal qtrees_cuda.MAX_CLASSES: the accumulator's registers.
@@ -284,22 +287,37 @@ int staged_row_stride(int n_fields) {
   return 4 * words;
 }
 
+// The launch shape: `chunk_bytes` of tree tables per buffer (0: kChunkBytes)
+// and `threads` per block (0: the most, halving from kMaxThreads, whose
+// shared memory fits kSmemTarget). qtrees_cuda.launch_shape does the same
+// arithmetic and refuses a shape before the launch; a shape refused here
+// returns cudaErrorInvalidValue and launches nothing.
 template <int kC>
 cudaError_t launch(const void* codes, long long n_rows, int n_fields,
                    const void* walk, int n_trees, int tree_words,
                    int leaf_base, int row_word, int n_classes,
-                   unsigned sentinel, void* out, cudaStream_t stream) {
+                   unsigned sentinel, int threads_req, int chunk_bytes_req,
+                   void* out, cudaStream_t stream) {
   const int row_stride = staged_row_stride(n_fields);
   const size_t tree_bytes = (size_t)tree_words * 8;
-  int chunk_trees = (int)(kChunkBytes / tree_bytes);
+  const size_t chunk_bytes =
+      chunk_bytes_req > 0 ? (size_t)chunk_bytes_req : (size_t)kChunkBytes;
+  int chunk_trees = (int)(chunk_bytes / tree_bytes);
   if (chunk_trees < 1) chunk_trees = 1;
   if (chunk_trees > n_trees) chunk_trees = n_trees;
   const size_t tables = kBarBytes + 2 * chunk_trees * tree_bytes;
   int threads = kMaxThreads;
-  while (threads > 32 &&
-         tables + (size_t)threads * kRecordsPerThread * row_stride >
-             (size_t)kSmemTarget) {
-    threads /= 2;
+  if (threads_req > 0) {
+    if (threads_req % 32 != 0 || threads_req > kMaxThreads) {
+      return cudaErrorInvalidValue;
+    }
+    threads = threads_req;
+  } else {
+    while (threads > 32 &&
+           tables + (size_t)threads * kRecordsPerThread * row_stride >
+               (size_t)kSmemTarget) {
+      threads /= 2;
+    }
   }
   const size_t smem =
       tables + (size_t)threads * kRecordsPerThread * row_stride;
@@ -324,8 +342,9 @@ cudaError_t launch(const void* codes, long long n_rows, int n_fields,
 // C interface, loaded with ctypes (flink_jpmml_tpu_torch/compile/
 // qtrees_cuda.py). `walk` is the i64[n_trees, tree_words] table of
 // qtrees_cuda.pack_tables for S = n_splits split and L = n_leaves leaf
-// slots. Launches on `stream` and returns cudaGetLastError(), or the error
-// of a refused argument or attribute.
+// slots; `threads` and `chunk_bytes` are the launch shape (0: the
+// kernel's own choice, see launch). Launches on `stream` and returns
+// cudaGetLastError(), or the error of a refused argument or attribute.
 extern "C" int qtrees_leaf_rows(const void* codes,
                                 long long n_rows,
                                 int n_fields,
@@ -336,6 +355,8 @@ extern "C" int qtrees_leaf_rows(const void* codes,
                                 int n_leaves,
                                 int n_classes,
                                 int sentinel,
+                                int threads,
+                                int chunk_bytes,
                                 void* out,
                                 void* stream) {
   const int row_word = 1 + n_splits + n_leaves;
@@ -354,14 +375,16 @@ extern "C" int qtrees_leaf_rows(const void* codes,
   cudaError_t err;
   if (n_classes == 1) {
     err = launch<1>(codes, n_rows, n_fields, walk, n_trees, tree_words,
-                    leaf_base, row_word, n_classes, sent, out, s);
+                    leaf_base, row_word, n_classes, sent, threads, chunk_bytes,
+                    out, s);
   } else if (n_classes <= 4) {
     err = launch<4>(codes, n_rows, n_fields, walk, n_trees, tree_words,
-                    leaf_base, row_word, n_classes, sent, out, s);
+                    leaf_base, row_word, n_classes, sent, threads, chunk_bytes,
+                    out, s);
   } else {
     err = launch<kMaxClasses>(codes, n_rows, n_fields, walk, n_trees,
                               tree_words, leaf_base, row_word, n_classes,
-                              sent, out, s);
+                              sent, threads, chunk_bytes, out, s);
   }
   return (int)err;
 }

@@ -1,13 +1,16 @@
 """Latency attribution: the per-batch stage ledger.
 
 The port's copy of ``flink_jpmml_tpu/obs/attr.py``, with the import
-lines renamed and its notes on the project's history cut.
-``dispatch_profile`` and ``_scorer_flops_per_record`` are left out: they
-feed the sampled device profiler (``obs/profiler.py``), which the port
-does not have yet, and no caller needs them without it. The ``device``
-stage is that profiler's to book, so the port books the other eight. On
-the card, ``h2d`` is the host-side staging plus the issue of the
-asynchronous copy and launch; the device's own time shows up as
+lines renamed and its notes on the project's history cut. The
+``device`` stage is booked by the sampled device profiler
+(``obs/profiler.py``) from a timing event pair on a sampled dispatch's
+stream. :func:`dispatch_profile` tells it what a launch is; for a
+``cuda`` scorer (the walk kernel) it counts what PERF.md's bound counts
+where the JAX package counts the dense path matrix: the walk's integer
+steps per record (the sum of the trees' depths) and the bytes the kernel
+moves per record (its codes in, its f32[C] row out). On the card,
+``h2d`` is the host-side staging plus the issue of the asynchronous copy
+and launch; outside the samples the device's own time shows up as
 ``readback`` (the score thread waiting on the oldest dispatch) and
 ``queue_wait`` (a launch waiting for a window slot).
 
@@ -42,9 +45,9 @@ Stage semantics (who observes what):
 - ``h2d``       — host-side staging + async dispatch issue;
 - ``queue_wait``— a ready batch waiting for an in-flight window slot
                   (``OverlappedDispatcher.launch`` on a full window);
-- ``device``    — SAMPLED pure device execution time (the profiler's
-                  block-until-ready delta pair, obs/profiler.py — a
-                  sampled distribution, not every batch);
+- ``device``    — SAMPLED device time of a dispatch (the profiler's
+                  CUDA event pair, obs/profiler.py — a sampled
+                  distribution, not every batch);
 - ``readback``  — host blocked fetching results (``finish_oldest`` /
                   ``wait``);
 - ``sink``      — sink delivery (block pipelines' ``_complete``).
@@ -279,6 +282,101 @@ def ledger_for(metrics: Optional[MetricsRegistry]) -> Optional[StageLedger]:
             if led is None:
                 led = _LEDGERS[metrics] = StageLedger(metrics)
     return led
+
+
+# ---------------------------------------------------------------------------
+# Dispatch profiles: what a launch site tells the device profiler
+# ---------------------------------------------------------------------------
+
+def _scorer_flops_per_record(q) -> Optional[float]:
+    """Operations per record of a quantized tree-ensemble scorer. On the
+    ``cuda`` backends, the walk kernel's integer steps: the sum of the
+    trees' depths (``_meta["path_steps"]``, from the walk table's
+    headers). On the torch twin, the JAX package's path-matrix count
+    (2·T·S·L split-indicator einsum + 2·T·L leaf contraction, from the
+    shape of ``P_i8``), which its einsums execute. None when unknown."""
+    meta = getattr(q, "_meta", None) or {}
+    from flink_jpmml_tpu_torch.compile.layouts import CUDA_BACKENDS
+
+    if getattr(q, "backend", None) in CUDA_BACKENDS:
+        steps = meta.get("path_steps")
+        return float(steps) if steps else None
+    P = (getattr(q, "params", None) or {}).get("P_i8")
+    shape = tuple(getattr(P, "shape", ()) or ())
+    if len(shape) != 3:
+        return None
+    t, s, l = (float(x) for x in shape)
+    return 2.0 * t * s * l + 2.0 * t * l
+
+
+_PLATFORMS: Dict[object, str] = {}
+
+
+def _platform_of(device) -> str:
+    """``"<type>:<device tag>"`` of a scorer's device, looked up once per
+    device (the per-launch profile stays a handful of lookups)."""
+    p = _PLATFORMS.get(device)
+    if p is None:
+        from flink_jpmml_tpu_torch.compile import autotune
+
+        p = _PLATFORMS[device] = autotune._device_key(device)
+    return p
+
+
+def _output_bytes_per_record(q) -> float:
+    """Bytes of one record's f32 result: C class shares (1 for a
+    regression)."""
+    meta = getattr(q, "_meta", None) or {}
+    return 4.0 * float(meta.get("classes", 1.0) or 1.0)
+
+
+def dispatch_profile(scorer_or_bound, n: int) -> dict:
+    """Per-launch metadata for the sampled device profiler: record count,
+    operations and bytes per record (None when unknown — e.g. the f32
+    path), the model keys for the kernel cost ledger and the kernel
+    search's provenance. Accepts a ``QuantizedScorer``, a ``BoundScorer``
+    (its ``q`` is used when present), or any model object. Bytes: on the
+    ``cuda`` backends what the kernel moves (F codes of the wire dtype
+    in, its f32 row out); on the torch twin the staged bytes in and the
+    f32 row out."""
+    q = getattr(scorer_or_bound, "q", None) or scorer_or_bound
+    flops = bpr = None
+    wire = getattr(q, "wire", None)
+    if wire is not None:
+        from flink_jpmml_tpu_torch.compile.layouts import CUDA_BACKENDS
+
+        flops = _scorer_flops_per_record(q)
+        if getattr(q, "backend", None) in CUDA_BACKENDS:
+            bpr = float(wire.bytes_per_record) + _output_bytes_per_record(q)
+        else:
+            bpr = (float(q.staged_bytes_per_record)
+                   + _output_bytes_per_record(q))
+    device = getattr(q, "device", None)
+    model_key = (
+        getattr(scorer_or_bound, "key", None)
+        or getattr(q, "model_hash", None)
+        or None
+    )
+    platform = None if device is None else _platform_of(device)
+    return {
+        "records": int(n),
+        "flops_per_record": flops,
+        "bytes_per_record": bpr,
+        "model": model_key,
+        # the autotune cache key half: the drift-band re-search trigger
+        # clears by model_hash, while ``model`` above may be the serving
+        # registry name (BoundScorer.key)
+        "model_hash": getattr(q, "model_hash", None),
+        "backend": getattr(q, "backend", None),
+        "platform": platform,
+        # kernel-search provenance: which catalogue variant is serving,
+        # its feature vector (ledger training row), and the prediction
+        # for the variant actually running
+        "layout": getattr(q, "layout", None),
+        "variant": getattr(q, "_cost_variant", None),
+        "features": getattr(q, "_cost_feat", None),
+        "predicted_s_per_record": getattr(q, "_pred_s_per_record", None),
+    }
 
 
 # ---------------------------------------------------------------------------

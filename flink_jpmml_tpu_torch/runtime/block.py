@@ -78,7 +78,11 @@ The serving edge, as in the JAX package:
   launch and its sink, so spans and exemplars carry its ids. Unarmed,
   every site is one None test;
 - **spans** (``obs/spans.py``, ``FJT_TRACE_DIR``): the ``sink`` span here,
-  ``featurize`` / ``h2d_dispatch`` / ``readback`` in the dispatcher.
+  ``featurize`` / ``h2d_dispatch`` / ``readback`` in the dispatcher;
+- **device profiling** (``obs/profiler.py``): each scoring launch carries
+  ``attr.dispatch_profile`` while the registry's profiler is on
+  (``FJT_PROF_SAMPLE``), so a sampled dispatch books the ``device``
+  stage, the roofline gauges and the kernel cost ledger.
 
 Where it differs: the JAX package's Python ring (its fall-back when the
 C++ library cannot be built) is not ported — the ring raises
@@ -1405,6 +1409,14 @@ class BlockPipelineBase:
                                     offsets if self._retain_batches
                                     else None,
                                     jctx,
+                                ),
+                                # opts this launch into the sampled
+                                # device-timing pool (obs/profiler.py):
+                                # the live roofline gauges, the device
+                                # stage and the kernel cost ledger
+                                profile=(
+                                    attr_mod.dispatch_profile(handle, n)
+                                    if disp.profiling else None
                                 ),
                             )
                     except PoisonIsolationOverflow:

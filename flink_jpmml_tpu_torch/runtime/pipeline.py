@@ -33,8 +33,15 @@ takes the path a real one takes. So are its ``accounted=False``
 launches: the admission controller's shed entries ride the window only
 for their FIFO offset commit — they launch no kernel, fire no device
 fault site, and count in neither ``dispatches`` nor
-``window_full_launches``. The JAX dispatcher's sampled device profiler
-is not ported: it waits for the autotune, layouts and profiler slice.
+``window_full_launches``. So is its sampled device profiler
+(``obs/profiler.py``; ``profiler=``, ``profiling``, ``launch(profile=)``),
+on CUDA events instead of a drained window and a blocking bracket: a
+launch the profiler picks runs its dispatch with a timing event recorded
+on the stream just before the dispatch's H2D copy (after the host-side
+staging) and one behind its D2H copy, and the pair is read when the entry
+completes, after the wait the window makes anyway. No synchronize is
+added. On the CPU, where the work is synchronous, the sample is the
+dispatch's host time.
 
 Metrics: ``h2d_stall_s`` (host time blocked on device work),
 ``dispatches``, ``window_full_launches``, the ``inflight_depth`` gauge,
@@ -71,6 +78,7 @@ depth in its args). Each carries the active journey context's ids.
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import deque
 from typing import Any, Callable, Optional
@@ -80,6 +88,7 @@ import torch
 
 from flink_jpmml_tpu_torch.compile import prepare
 from flink_jpmml_tpu_torch.obs import attr as attr_mod
+from flink_jpmml_tpu_torch.obs import profiler as prof_mod
 from flink_jpmml_tpu_torch.obs import recorder as flight
 from flink_jpmml_tpu_torch.obs import spans
 from flink_jpmml_tpu_torch.runtime import faults
@@ -87,16 +96,35 @@ from flink_jpmml_tpu_torch.utils.exceptions import FlinkJpmmlTpuError
 from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry
 
 
+# set on the launching thread while the dispatcher runs a dispatch the
+# profiler picked: the dispatch helpers then record a timing event
+# before their H2D copy (sample_start)
+_SAMPLING = threading.local()
+
+
+def sample_start() -> Optional["torch.cuda.Event"]:
+    """A timing event for the device profiler when the dispatch now
+    running on this thread is sampled, else None. The dispatch records it
+    on its stream just before its first device work."""
+    if getattr(_SAMPLING, "on", False):
+        return torch.cuda.Event(enable_timing=True)
+    return None
+
+
 class DeviceOutput:
     """One dispatch's result: host tensor(s) filled by a queued D2H copy,
-    and the event behind that copy (None when the work ran on the CPU)."""
+    and the event behind that copy (None when the work ran on the CPU).
+    ``start`` is the profiler's timing event before the dispatch's device
+    work (a sampled dispatch only); ``start`` → ``event`` is its device
+    time."""
 
-    __slots__ = ("host", "event", "_keep")
+    __slots__ = ("host", "event", "start", "_keep")
 
     def __init__(self, host, event: Optional["torch.cuda.Event"] = None,
-                 keep=None):
+                 keep=None, start: Optional["torch.cuda.Event"] = None):
         self.host = host
         self.event = event
+        self.start = start
         # device tensors the queued copies read: alive until completion
         self._keep = keep
 
@@ -132,7 +160,10 @@ class HostStaging:
         self._slots = [None] * max(1, slots)  # (buffer, event) per slot
         self._next = 0
 
-    def stage(self, payload: np.ndarray, rows: int) -> torch.Tensor:
+    def stage(self, payload: np.ndarray, rows: int,
+              start: Optional["torch.cuda.Event"] = None) -> torch.Tensor:
+        """→ the device tensor the payload is copied into; ``start`` (a
+        profiler's timing event) is recorded just before the H2D copy."""
         i = self._next
         self._next = (i + 1) % len(self._slots)
         held = self._slots[i]
@@ -150,6 +181,8 @@ class HostStaging:
         buf[:n].copy_(src)
         dev = torch.empty((rows,) + tuple(src.shape[1:]), dtype=src.dtype,
                           device=self._device)
+        if start is not None:
+            start.record()
         dev[:n].copy_(buf[:n], non_blocking=True)
         if rows > n:
             dev[n:].zero_()
@@ -173,17 +206,20 @@ def _to_host(out, keep: list):
     return host
 
 
-def device_output(out, staged: Optional[torch.Tensor] = None) -> DeviceOutput:
+def device_output(out, staged: Optional[torch.Tensor] = None,
+                  start: Optional["torch.cuda.Event"] = None) -> DeviceOutput:
     """Wrap a just-launched result: on the card, queue its D2H copy and an
     event behind it on the current stream (keeping ``staged`` and the
-    device result alive until then); on the CPU the result is final."""
+    device result alive until then; a timing event when ``start``, the
+    profiler's, was recorded before the dispatch); on the CPU the result
+    is final."""
     if staged is None or staged.device.type != "cuda":
         return DeviceOutput(out)
     keep = [staged]
     host = _to_host(out, keep)
-    done = torch.cuda.Event()
+    done = torch.cuda.Event(enable_timing=start is not None)
     done.record()
-    return DeviceOutput(host, done, keep)
+    return DeviceOutput(host, done, keep, start)
 
 
 def dispatch_quantized(
@@ -231,7 +267,8 @@ def dispatch_quantized(
             payload = np.where(M, np.float32(np.nan), payload)
         pad, predict = q.pad_f32, q.predict_fused_padded
     else:
-        payload = q.wire.encode(X, M)
+        # the active wire pack (a wirepack layout) packs what ships
+        payload = q.pack_wire(q.wire.encode(X, M))
         pad, predict = q.pad_wire, q.predict_padded
     n, bs = payload.shape[0], q.batch_size
     rows = n if bs is None else -(-n // bs) * bs
@@ -249,8 +286,9 @@ def dispatch_quantized(
     elif staging is None:
         raise ValueError("a CUDA dispatch needs a HostStaging")
     else:
-        staged = staging.stage(payload, rows)
-        out = device_output(predict(staged, K), staged)
+        start = sample_start()
+        staged = staging.stage(payload, rows, start)
+        out = device_output(predict(staged, K), staged, start)
     t2 = time.monotonic()
     spans.emit("h2d_dispatch", t1, t2 - t1, bytes=payload.nbytes)
     if ledger is not None:
@@ -271,11 +309,14 @@ def dispatch_f32(model, X, M, *, metrics: Optional[MetricsRegistry] = None
         X, M, _ = prepare.pad_batch(X, M, bs)
     if metrics is not None:
         metrics.counter("h2d_bytes").inc(X.nbytes + M.nbytes)
+    start = sample_start() if model.device.type == "cuda" else None
+    if start is not None:
+        start.record()
     Xs = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(
         model.device, non_blocking=True)
     Ms = torch.from_numpy(np.ascontiguousarray(M)).to(
         model.device, non_blocking=True)
-    return device_output(model.predict(Xs, Ms), Xs)
+    return device_output(model.predict(Xs, Ms), Xs, start)
 
 
 class DispatcherClosed(FlinkJpmmlTpuError):
@@ -290,7 +331,7 @@ class InFlight:
     a result that never completed. ``accounted`` is False for a shed
     entry, which launched nothing."""
 
-    __slots__ = ("out", "meta", "done", "error", "accounted")
+    __slots__ = ("out", "meta", "done", "error", "accounted", "sample")
 
     def __init__(self, out: Any, meta: Any, accounted: bool = True):
         self.out = out
@@ -298,6 +339,9 @@ class InFlight:
         self.done = False
         self.error: Optional[BaseException] = None
         self.accounted = accounted
+        # (dispatch profile, host seconds of the dispatch) when the
+        # profiler picked this launch
+        self.sample = None
 
 
 def _ready(out) -> bool:
@@ -329,7 +373,11 @@ class OverlappedDispatcher:
     thread when finishing an entry raised an ``Exception``: True means
     handled — the complete-callback is skipped and the caller's loop goes
     on; False re-raises. The block pipelines hang the device-fault ladder
-    and poison isolation on it."""
+    and poison isolation on it.
+
+    ``profiler`` (default: the registry's, ``obs/profiler.profiler_for``)
+    is the sampled device profiler that launches with a ``profile`` feed
+    (see the module docstring)."""
 
     def __init__(
         self,
@@ -337,6 +385,7 @@ class OverlappedDispatcher:
         metrics: Optional[MetricsRegistry] = None,
         complete: Optional[Callable[[Any, Any], None]] = None,
         on_error: Optional[Callable[[Any, Any, Exception], bool]] = None,
+        profiler: Optional["prof_mod.DeviceProfiler"] = None,
     ):
         self._depth = None if depth is None else max(0, int(depth))
         self._window: "deque[InFlight]" = deque()
@@ -349,12 +398,25 @@ class OverlappedDispatcher:
         self._window_full = self.metrics.counter("window_full_launches")
         self._gauge = self.metrics.gauge("inflight_depth")
         self._ledger = attr_mod.ledger_for(self.metrics)
+        self._profiler = (
+            profiler if profiler is not None
+            else prof_mod.profiler_for(self.metrics)
+        )
 
     def __len__(self) -> int:
         return len(self._window)
 
+    @property
+    def profiling(self) -> bool:
+        """True when launches should build a dispatch profile — a sampled
+        device profiler is attached and not disabled — so call sites skip
+        the per-launch profile when ``FJT_PROF_SAMPLE`` is off."""
+        p = self._profiler
+        return p is not None and p.enabled
+
     def launch(self, dispatch_fn: Callable[[], Any], meta: Any = None,
-               accounted: bool = True) -> InFlight:
+               accounted: bool = True,
+               profile: Optional[dict] = None) -> InFlight:
         """Dispatch (``dispatch_fn()`` must queue device work and return
         without waiting on it) and admit the result to the window; if that
         overflows ``depth``, finish the oldest entry first — the only
@@ -369,7 +431,12 @@ class OverlappedDispatcher:
         (``dispatch_fn`` returns None, no kernel) ride the window only for
         their FIFO offset commit — counting them as dispatches would
         dilute the pressure monitor's window-full fraction exactly while
-        the shed rate is highest, flapping the gate open mid-overload."""
+        the shed rate is highest, flapping the gate open mid-overload.
+
+        ``profile`` (:func:`obs.attr.dispatch_profile`) opts this launch
+        into the sampled device-timing pool: when the profiler's rate
+        limiter picks it, the dispatch carries a timing event pair, read
+        when the entry completes."""
         if self._closed:
             raise DispatcherClosed("launch() on a closed dispatcher")
         # dispatch delay + launch-time device-fault injection: one global
@@ -377,7 +444,20 @@ class OverlappedDispatcher:
         # raised here propagates to the caller's direct-dispatch handler
         faults.fire("dispatch")
         faults.fire("device_dispatch")
-        handle = InFlight(dispatch_fn(), meta, accounted=accounted)
+        prof = self._profiler
+        sampling = (accounted and profile is not None and prof is not None
+                    and prof.should_sample())
+        if sampling:
+            t0 = time.monotonic()
+            _SAMPLING.on = True
+            try:
+                out = dispatch_fn()
+            finally:
+                _SAMPLING.on = False
+            handle = InFlight(out, meta, accounted=accounted)
+            handle.sample = (profile, time.monotonic() - t0)
+        else:
+            handle = InFlight(dispatch_fn(), meta, accounted=accounted)
         self._window.append(handle)
         if accounted:
             self._dispatches.inc()
@@ -437,6 +517,7 @@ class OverlappedDispatcher:
                 # handler owns delivery and commit
                 return None
             raise error
+        self._record_sample(handle)
         if self._complete is not None:
             self._complete(handle.out, handle.meta)
         return handle.out, handle.meta
@@ -463,9 +544,31 @@ class OverlappedDispatcher:
                 self._stall.inc(dt)
                 self._ledger.observe("readback", dt)
                 handle.done = True
+            if handle.error is None:
+                self._record_sample(handle)
         if handle.error is not None:
             raise handle.error
         return handle.out
+
+    def _record_sample(self, handle: InFlight) -> None:
+        """Hand a completed sampled entry's device time to the profiler:
+        its event pair on the card (both have fired: the entry's wait is
+        done), its dispatch's host time on the CPU. The events cost the
+        pipeline nothing, so no overhead is charged."""
+        if handle.sample is None:
+            return
+        profile, host_s = handle.sample
+        handle.sample = None
+        out = handle.out
+        event = getattr(out, "event", None)
+        start = getattr(out, "start", None)
+        if event is None:
+            device_s = host_s  # the CPU: the dispatch did the work
+        elif start is not None:
+            device_s = start.elapsed_time(event) / 1e3
+        else:
+            return  # a dispatch path that records no start event
+        self._profiler.record_sample(device_s, profile, overhead_s=0.0)
 
     def flush(self) -> None:
         """Finish everything in flight."""

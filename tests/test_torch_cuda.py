@@ -17,7 +17,9 @@ error, which the device-fault ladder reads as ``device_oom`` and which
 leaves the card scoring; and the serving edge on the card: a shed batch
 or event launches no kernel and reaches no sink, the batcher observes
 completions that include the card's time, the span file holds a pair of
-spans a dispatch, and a TCP-fed pipeline scores as the CPU port. They
+spans a dispatch, and a TCP-fed pipeline scores as the CPU port; and the
+kernel search: every launch shape and walk layout of its space bit-equal
+to the default launch, and a pipeline's sampled device profile. They
 skip where there is no card. This file
 imports neither jax nor the JAX package, so it runs on a machine that has
 only torch:
@@ -864,3 +866,71 @@ def test_tcp_fed_pipeline_on_the_card_matches_the_cpu_port(card, tmp_path):
         q_cpu.wire.encode(X))))[:X.shape[0]]
     out = np.concatenate([got[k] for k in sorted(got)])
     np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL)
+
+
+def test_every_search_candidate_equals_the_default_on_the_card(
+        card, tmp_path, monkeypatch):
+    """Each launch shape and walk layout of the kernel search's space,
+    built and launched: bit-equal to today's launch and to the plain
+    version; a shape the card cannot take is refused before a launch."""
+    from flink_jpmml_tpu_torch.compile import autotune
+
+    monkeypatch.setenv("FJT_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
+    for path in (gen_gbm(str(tmp_path), n_trees=60, depth=6, n_features=32,
+                         name="g.pmml"),
+                 gen_vote_forest(str(tmp_path), n_trees=40, depth=5,
+                                 n_features=32, n_classes=3, name="v.pmml")):
+        q = compile_pmml(parse_pmml_file(path), batch_size=4096
+                         ).quantized_scorer()
+        assert q.backend == "cuda"
+        codes = torch.from_numpy(q.wire.encode(
+            _X(np.random.default_rng(8), 20_003, 32))).to(card)
+        tables = {k: q.params[k] for k in qtrees_cuda.TABLE_KEYS}
+        today = qtrees_cuda.leaf_rows(codes, tables, 32)
+        plain = qtrees_cuda.leaf_rows_reference(codes, tables)
+        assert torch.equal(today, plain)
+        cands = autotune.candidate_space(q)
+        assert len(cands) > 2
+        for c in cands:
+            built = q.build_variant(c["layout"], c["threads"],
+                                    c["chunk_bytes"])
+            got = qtrees_cuda.leaf_rows(
+                codes, {k: built["params"][k]
+                        for k in qtrees_cuda.TABLE_KEYS}, 32,
+                c["threads"], c["chunk_bytes"])
+            assert torch.equal(got, today), c
+        with pytest.raises(ValueError):
+            qtrees_cuda.leaf_rows(codes, tables, 32, threads=96 + 1)
+
+
+def test_profiled_pipeline_on_the_card(card, tmp_path, monkeypatch):
+    """A block pipeline with the profiler sampling: device samples from
+    the event pair, the device stage, and the walk's path steps against
+    the H100 row."""
+    from flink_jpmml_tpu_torch.obs import profiler
+
+    monkeypatch.setenv("FJT_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
+    monkeypatch.setenv("FJT_PROF_SAMPLE", "1e-6")
+    cm = compile_pmml(parse_pmml_file(gen_gbm(
+        str(tmp_path), n_trees=100, depth=6, n_features=32)),
+        batch_size=16384)
+    q = cm.quantized_scorer()
+    X = _X(np.random.default_rng(9), 8 * 16384, 32)
+    m = MetricsRegistry()
+    got = []
+    pipe = BlockPipeline(
+        FiniteBlockSource(X, block_size=16384), cm,
+        lambda out, n, off: got.append(n),
+        RuntimeConfig(batch=BatchConfig(size=16384, deadline_us=2000)),
+        metrics=m)
+    pipe.run_until_exhausted(timeout=120)
+    assert sum(got) == X.shape[0]
+    snap = m.struct_snapshot()
+    assert snap["counters"]["device_samples"] >= 1
+    assert snap["gauges"]["flops_per_record"]["value"] == \
+        q._meta["path_steps"]
+    assert snap["gauges"]["device_mfu"]["value"] > 0
+    dev = snap["histograms"][attr.stage_metric_name("device")]
+    assert dev["n"] >= 1 and dev["sum"] > 0
+    assert profiler.chip_peaks(torch.cuda.get_device_name(0),
+                               strict=True) is not None

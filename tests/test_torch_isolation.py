@@ -82,6 +82,11 @@ EDGE_SLICE = {
     "obs.slo", "serving.overload", "obs.spans", "obs.trace", "runtime.net",
     "api.remote", "utils.cache",
 }
+# the kernel search: layouts, the cost model, autotune and the profiler
+TUNING_SLICE = {
+    "compile.layouts", "compile.costmodel", "compile.autotune",
+    "obs.profiler",
+}
 
 
 def test_every_port_module_imports_without_jax():
@@ -91,11 +96,11 @@ def test_every_port_module_imports_without_jax():
     )
     assert res.returncode == 0, res.stderr
     count, names = res.stdout.split(maxsplit=1)
-    assert int(count) >= 86  # every module ported so far
+    assert int(count) >= 90  # every module ported so far
     names = set(names.split())
     for slice_ in (KAFKA_SLICE, DENSE_SLICE, TREE_SHAPES_SLICE,
                    MORE_FAMILIES_SLICE, API_SLICE, RECOVERY_SLICE,
-                   EDGE_SLICE):
+                   EDGE_SLICE, TUNING_SLICE):
         assert {f"flink_jpmml_tpu_torch.{m}" for m in slice_} <= names
     assert {f"flink_jpmml_tpu_torch.{m}" for m in DENSE_SLICE} <= names
 
