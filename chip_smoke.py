@@ -4738,6 +4738,16 @@ def kernel_search(workdir: str, counter, smi: str) -> dict:
         torch.cuda.synchronize()
         reg = MetricsRegistry()
         count = [0]
+        # every sample the pipeline's profiler takes, in s a record
+        prof = profiler.profiler_for(reg)
+        per_record = []
+        record_sample = prof.record_sample
+
+        def keep(device_s, profile, overhead_s=None):
+            per_record.append(device_s / profile["records"])
+            record_sample(device_s, profile, overhead_s)
+
+        prof.record_sample = keep
 
         def sink(out, n, first_off):
             vals = np.asarray(out)
@@ -4764,6 +4774,19 @@ def kernel_search(workdir: str, counter, smi: str) -> dict:
         if not rows:
             raise RuntimeError("kernel_search: no cost ledger row for the "
                                "profiled drive")
+        # a sample times what the sweep timed for the serving variant
+        # (the scorer's function on codes on the card): its median sits
+        # inside the drift band of the sweep's reading of the winner
+        gbm = models["gbm500"]
+        sweep_s = gbm["ms"][gbm["chosen"]["variant"]] / 1e3 / gbm[
+            "sweep_rows"]
+        sample_s = float(np.median(per_record))
+        band = profiler._PRED_BAND
+        if not sweep_s / band <= sample_s <= sweep_s * band:
+            raise RuntimeError(
+                f"kernel_search: sampled {sample_s:.4g} s a record against "
+                f"the sweep's {sweep_s:.4g} for {gbm['chosen']['variant']}")
+        profiler._COST_LEDGER.flush()
         device_stage = (run["attribution"] or {}).get("device")
         return {
             "nvidia_smi": smi, "seconds": time.perf_counter() - t_phase,
@@ -4780,6 +4803,9 @@ def kernel_search(workdir: str, counter, smi: str) -> dict:
                 "peaks": profiler.chip_peaks(torch.cuda.get_device_name(0),
                                              strict=True),
                 "device_stage": device_stage,
+                "sample_ns_per_record": [1e9 * v for v in per_record],
+                "sweep_ns_per_record": 1e9 * sweep_s,
+                "sample_over_sweep": sample_s / sweep_s,
                 "cost_ledger": rows,
             },
             "cost_model_rows": len(costmodel.training_rows(

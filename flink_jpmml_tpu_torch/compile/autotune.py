@@ -84,7 +84,7 @@ _SEARCH_DISABLE_ENV = "FJT_KERNEL_SEARCH_DISABLE"
 _TOPK_ENV = "FJT_SEARCH_TOPK"
 _DEFAULT_TOPK = 5
 # the launch-shape axis of the cuda space: threads per block × tree-table
-# bytes per shared-memory buffer (the kernel's own choice is candidate 0)
+# bytes per shared-memory buffer (the default shape is candidate 0)
 _THREADS = (64, 128, 256)
 _CHUNK_BYTES = (12288, 24576, 49152, 98304)
 
@@ -508,7 +508,7 @@ def candidate_space(scorer, legacy: bool = False) -> List[dict]:
     alone on the torch twin. The built default (``ref``, the kernel's own
     launch shape) is always candidate 0. A launch shape the card cannot
     take, or one that resolves to a shape already listed for its layout
-    (the kernel's own choice first), is left out.
+    (the default shape first), is left out.
     ``legacy`` restricts to the ``ref`` layout's launch shapes
     (``FJT_KERNEL_SEARCH_DISABLE``)."""
     cands = [{"layout": "ref", "threads": None, "chunk_bytes": None}]

@@ -82,6 +82,7 @@ from flink_jpmml_tpu_torch.compile.trees import (
     pack_ensemble,
 )
 from flink_jpmml_tpu_torch.models.prediction import Prediction, decode_batch
+from flink_jpmml_tpu_torch.obs import profiler as prof_mod
 from flink_jpmml_tpu_torch.pmml import ir
 from flink_jpmml_tpu_torch.runtime import native
 from flink_jpmml_tpu_torch.utils.config import CompileConfig
@@ -305,7 +306,7 @@ class QuantizedScorer:
     tuned: object = None  # the applied autotune.TunedConfig
     # the catalogue layout now built (compile/layouts.py) and, on the
     # cuda backends, the kernel's launch shape (threads, chunk_bytes);
-    # None: the kernel's own choice
+    # None: the default shape (qtrees_cuda.launch_shape)
     layout: str = "ref"
     launch: Tuple[Optional[int], Optional[int]] = (None, None)
     # the active wire packing plan (layouts.WirePack, torch twin only):
@@ -408,6 +409,9 @@ class QuantizedScorer:
         if isinstance(Xq, np.ndarray):
             Xq = torch.from_numpy(np.ascontiguousarray(Xq))
         Xq = Xq.to(self.device)
+        # a sampled dispatch's region opens here (obs/profiler.py), where
+        # the kernel search's timed call starts from codes on the device
+        prof_mod.mark_start(self.device)
         if self._wire_pack is not None and Xq.dtype == torch.uint8:
             # packed codes (the wire itself is uint16): unpack on the
             # device in front of the scorer
@@ -417,13 +421,16 @@ class QuantizedScorer:
     def _score_codes(self, Xq: torch.Tensor, K: int) -> Output:
         with torch.no_grad():
             if self.backend != "torch" or K == 1:
-                return self._fn(self.params, Xq)
-            # the torch twin materialises [rows, T, S] planes: score it
-            # in compile-batch chunks to bound that memory
-            outs = [self._fn(self.params, c) for c in Xq.chunk(K)]
-        if isinstance(outs[0], tuple):
-            return tuple(torch.cat(o) for o in zip(*outs))
-        return torch.cat(outs)
+                out = self._fn(self.params, Xq)
+            else:
+                # the torch twin materialises [rows, T, S] planes: score
+                # it in compile-batch chunks to bound that memory
+                outs = [self._fn(self.params, c) for c in Xq.chunk(K)]
+                out = (tuple(torch.cat(o) for o in zip(*outs))
+                       if isinstance(outs[0], tuple) else torch.cat(outs))
+        # the sampled region closes before the D2H copy
+        prof_mod.mark_stop(self.device)
+        return out
 
     def predict_wire(self, Xq) -> Output:
         Xq, K = self.pad_wire(Xq)
@@ -466,7 +473,9 @@ class QuantizedScorer:
         f32 batch from :meth:`pad_f32` (numpy, or staged on the device);
         the encode stage and the scorer queue on the current stream, one
         after the other. The stage's codes never pass a wire pack."""
-        return self._score_codes(self.encode_device(X), K)
+        codes = self.encode_device(X)
+        prof_mod.mark_start(self.device)
+        return self._score_codes(codes, K)
 
     def predict_fused(self, X) -> Output:
         """Fused entry: align (:meth:`pad_f32`) + encode + score. Callers

@@ -59,7 +59,7 @@ CPU tensor runs the plain PyTorch version (:func:`leaf_rows_reference`,
 the mask form), with the same arithmetic and the same ascending-tree f32
 order. There is no fall-back from one to the other. ``threads`` and
 ``chunk_bytes`` choose the launch shape (:func:`launch_shape`; left out,
-the kernel's own choice), which the kernel search (``compile/autotune.py``)
+the default shape), which the kernel search (``compile/autotune.py``)
 varies; a shape the card cannot take raises before the launch. The kernel
 reads only
 ``walk``; the wrapper takes the other tables' shapes for its dimensions,
@@ -94,14 +94,15 @@ MAX_FIELDS = 256  # a node word holds the feature in 8 bits
 # source.
 MAX_CLASSES = 16
 TABLE_KEYS = ("split", "on", "left", "rows", "walk")
-# the launch-shape arithmetic of the .cu source's launch(); each must
-# equal its constant there
+# the launch shape (launch_shape): the .cu source's launch() takes the
+# shape chosen here and checks it against the first four, each equal to
+# its constant there
 MAX_THREADS = 256  # kMaxThreads (also the kernel's __launch_bounds__)
 RECORDS_PER_THREAD = 4  # kRecordsPerThread
-CHUNK_BYTES = 24 * 1024  # kChunkBytes: the default tree tables per buffer
-SMEM_TARGET = 112 * 1024  # kSmemTarget: two blocks per SM
 SMEM_MAX = 232448  # kSmemMax: 227 KB, a block's limit
 BAR_BYTES = 16  # kBarBytes
+CHUNK_BYTES = 24 * 1024  # the default tree tables per buffer
+SMEM_TARGET = 112 * 1024  # the default block's budget: two blocks per SM
 
 _PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 SOURCE = _PKG_DIR / "csrc" / "qtrees_ensemble.cu"
@@ -502,8 +503,8 @@ def launch_shape(n_fields: int, n_trees: int, tree_words: int,
                  chunk_bytes: Optional[int] = None) -> Tuple[int, int, int]:
     """The kernel's launch shape for a table of ``n_trees`` slices of
     ``tree_words`` words and codes of ``n_fields`` fields →
-    ``(threads, chunk_trees, smem_bytes)``, by the arithmetic of the .cu
-    source's ``launch()``. ``chunk_bytes`` (None: ``CHUNK_BYTES``) is the
+    ``(threads, chunk_trees, smem_bytes)``; the .cu source's ``launch()``
+    takes the first two as they are. ``chunk_bytes`` (None: ``CHUNK_BYTES``) is the
     tree tables a shared-memory buffer holds, at least one tree;
     ``threads`` (None: the most, halving from ``MAX_THREADS``, whose
     shared memory fits ``SMEM_TARGET``) the block's threads. Raises
@@ -567,12 +568,13 @@ def leaf_rows(codes: torch.Tensor, tables: Dict[str, torch.Tensor],
     version, with all five tables on the CPU.
 
     ``threads`` and ``chunk_bytes`` set the kernel's launch shape
-    (:func:`launch_shape`; None: the kernel's own choice). A shape the
+    (:func:`launch_shape`; None: the default shape). A shape the
     card cannot take raises ValueError before any launch, on either
     device; the plain version reads no launch shape."""
     _check_codes(codes, n_fields)
     T, S, L, C = _check_tables(tables, codes.device)
-    launch_shape(n_fields, T, walk_words(S, L, C), threads, chunk_bytes)
+    threads, chunk_trees, _ = launch_shape(
+        n_fields, T, walk_words(S, L, C), threads, chunk_bytes)
     if codes.device.type == "cpu":
         return leaf_rows_reference(codes, tables)
     lib = build()
@@ -581,8 +583,8 @@ def leaf_rows(codes: torch.Tensor, tables: Dict[str, torch.Tensor],
     stream = torch.cuda.current_stream(codes.device).cuda_stream
     rc = lib.qtrees_leaf_rows(
         codes.data_ptr(), N, F, tables["walk"].data_ptr(), T,
-        tables["walk"].shape[1], S, L, C, SENTINEL, threads or 0,
-        chunk_bytes or 0, out.data_ptr(), stream,
+        tables["walk"].shape[1], S, L, C, SENTINEL, threads, chunk_trees,
+        out.data_ptr(), stream,
     )
     if rc != 0:
         raise KernelLaunchError(f"qtrees_leaf_rows launch failed: "

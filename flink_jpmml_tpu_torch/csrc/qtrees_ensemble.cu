@@ -67,8 +67,9 @@
 //     chunk but one, completing on an mbarrier, while the block walks the
 //     current one. Each block reads each tree's table once from L2, and the
 //     data-dependent node and row reads hit shared memory. A chunk holds as
-//     many trees as fit kChunkBytes (19 depth-6 trees at C = 1, 13 at
-//     C = 3, 4 at C = 16 with 64 splits).
+//     many trees as the launch shape gives it (qtrees_cuda.launch_shape;
+//     by default as fit 24 KB: 19 depth-6 trees at C = 1, 13 at C = 3, 4
+//     at C = 16 with 64 splits).
 //   - The block's codes are staged once in shared memory with an odd word
 //     stride per row, so the gather code[feat] spreads over banks.
 //   - Each thread carries kRecordsPerThread records, whose walks are
@@ -94,15 +95,13 @@
 
 namespace {
 
-// qtrees_cuda.launch_shape repeats the launch-shape arithmetic with
-// kMaxThreads, kRecordsPerThread, kChunkBytes, kSmemTarget, kSmemMax and
-// kBarBytes: keep them equal to its constants.
+// qtrees_cuda.launch_shape chooses the launch shape from kMaxThreads,
+// kRecordsPerThread, kSmemMax and kBarBytes: keep them equal to its
+// constants.
 constexpr int kMaxThreads = 256;
 constexpr int kRecordsPerThread = 4;
 // Must equal qtrees_cuda.MAX_CLASSES: the accumulator's registers.
 constexpr int kMaxClasses = 16;
-constexpr int kChunkBytes = 24 * 1024;    // tree tables per buffer
-constexpr int kSmemTarget = 112 * 1024;   // two blocks per SM
 constexpr int kSmemMax = 232448;          // 227 KB, a block's limit
 constexpr int kBarBytes = 16;             // two mbarriers
 
@@ -287,40 +286,25 @@ int staged_row_stride(int n_fields) {
   return 4 * words;
 }
 
-// The launch shape: `chunk_bytes` of tree tables per buffer (0: kChunkBytes)
-// and `threads` per block (0: the most, halving from kMaxThreads, whose
-// shared memory fits kSmemTarget). qtrees_cuda.launch_shape does the same
-// arithmetic and refuses a shape before the launch; a shape refused here
-// returns cudaErrorInvalidValue and launches nothing.
+// The launch shape, chosen by qtrees_cuda.launch_shape: `threads` per
+// block and `chunk_trees` whole trees per shared-memory buffer. A shape the
+// card cannot take (threads not a multiple of 32 up to kMaxThreads, a chunk
+// outside 1..n_trees, shared memory over kSmemMax) returns
+// cudaErrorInvalidValue and launches nothing.
 template <int kC>
 cudaError_t launch(const void* codes, long long n_rows, int n_fields,
                    const void* walk, int n_trees, int tree_words,
                    int leaf_base, int row_word, int n_classes,
-                   unsigned sentinel, int threads_req, int chunk_bytes_req,
+                   unsigned sentinel, int threads, int chunk_trees,
                    void* out, cudaStream_t stream) {
-  const int row_stride = staged_row_stride(n_fields);
-  const size_t tree_bytes = (size_t)tree_words * 8;
-  const size_t chunk_bytes =
-      chunk_bytes_req > 0 ? (size_t)chunk_bytes_req : (size_t)kChunkBytes;
-  int chunk_trees = (int)(chunk_bytes / tree_bytes);
-  if (chunk_trees < 1) chunk_trees = 1;
-  if (chunk_trees > n_trees) chunk_trees = n_trees;
-  const size_t tables = kBarBytes + 2 * chunk_trees * tree_bytes;
-  int threads = kMaxThreads;
-  if (threads_req > 0) {
-    if (threads_req % 32 != 0 || threads_req > kMaxThreads) {
-      return cudaErrorInvalidValue;
-    }
-    threads = threads_req;
-  } else {
-    while (threads > 32 &&
-           tables + (size_t)threads * kRecordsPerThread * row_stride >
-               (size_t)kSmemTarget) {
-      threads /= 2;
-    }
+  if (threads < 32 || threads % 32 != 0 || threads > kMaxThreads ||
+      chunk_trees < 1 || chunk_trees > n_trees) {
+    return cudaErrorInvalidValue;
   }
-  const size_t smem =
-      tables + (size_t)threads * kRecordsPerThread * row_stride;
+  const int row_stride = staged_row_stride(n_fields);
+  const size_t smem = kBarBytes +
+                      2 * (size_t)chunk_trees * tree_words * 8 +
+                      (size_t)threads * kRecordsPerThread * row_stride;
   if (smem > (size_t)kSmemMax) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -342,8 +326,8 @@ cudaError_t launch(const void* codes, long long n_rows, int n_fields,
 // C interface, loaded with ctypes (flink_jpmml_tpu_torch/compile/
 // qtrees_cuda.py). `walk` is the i64[n_trees, tree_words] table of
 // qtrees_cuda.pack_tables for S = n_splits split and L = n_leaves leaf
-// slots; `threads` and `chunk_bytes` are the launch shape (0: the
-// kernel's own choice, see launch). Launches on `stream` and returns
+// slots; `threads` and `chunk_trees` are the launch shape (see launch).
+// Launches on `stream` and returns
 // cudaGetLastError(), or the error of a refused argument or attribute.
 extern "C" int qtrees_leaf_rows(const void* codes,
                                 long long n_rows,
@@ -356,7 +340,7 @@ extern "C" int qtrees_leaf_rows(const void* codes,
                                 int n_classes,
                                 int sentinel,
                                 int threads,
-                                int chunk_bytes,
+                                int chunk_trees,
                                 void* out,
                                 void* stream) {
   const int row_word = 1 + n_splits + n_leaves;
@@ -375,16 +359,16 @@ extern "C" int qtrees_leaf_rows(const void* codes,
   cudaError_t err;
   if (n_classes == 1) {
     err = launch<1>(codes, n_rows, n_fields, walk, n_trees, tree_words,
-                    leaf_base, row_word, n_classes, sent, threads, chunk_bytes,
+                    leaf_base, row_word, n_classes, sent, threads, chunk_trees,
                     out, s);
   } else if (n_classes <= 4) {
     err = launch<4>(codes, n_rows, n_fields, walk, n_trees, tree_words,
-                    leaf_base, row_word, n_classes, sent, threads, chunk_bytes,
+                    leaf_base, row_word, n_classes, sent, threads, chunk_trees,
                     out, s);
   } else {
     err = launch<kMaxClasses>(codes, n_rows, n_fields, walk, n_trees,
                               tree_words, leaf_base, row_word, n_classes,
-                              sent, threads, chunk_bytes, out, s);
+                              sent, threads, chunk_trees, out, s);
   }
   return (int)err;
 }

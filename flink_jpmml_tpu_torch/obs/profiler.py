@@ -27,15 +27,23 @@ reads against the INT32 rate, a quarter of the card's FP32 rate).
 
 How a sample is taken (``runtime/pipeline.py``). The dispatcher asks
 :meth:`DeviceProfiler.should_sample` at a launch; on yes, the dispatch
-records a timing CUDA event on its stream just before its H2D copy and
-another behind its D2H copy, and the dispatcher reads the pair when the
-batch completes, after the wait it makes anyway. So a sample is the
-stream's time for the dispatch's copies, encode stage and kernel; it adds
-no synchronize and no drain to the hot path, and the 1% overhead budget
-of the JAX sampler (whose bracket drains the window) is never spent. On
-the CPU the work is synchronous and the sample is the dispatch's host
-time. ``FJT_PROF_SAMPLE`` sets the interval (default 1.0 s; ``0`` /
-``off`` disables).
+runs inside :func:`open_sample`, and the scorer marks the two ends of the
+work the kernel search times for the variant it serves
+(:func:`mark_start` / :func:`mark_stop`): on the ``cuda`` backends its
+function on codes already on the card (the walk kernel and its epilogue,
+after the H2D copy and the encode stage, before the D2H copy); on the
+torch twin the staged payload's copy, its unpack and the torch stages.
+On the card the marks are timing CUDA events on the dispatch's stream,
+read when the batch completes, after the wait the window makes anyway:
+no synchronize and no drain is added to the hot path, and the 1%
+overhead budget of the JAX sampler (whose bracket drains the window) is
+never spent. On the CPU, where the work is synchronous, the marks read
+the host clock. A region the sweep does not time (the torch twin behind
+a fused encode) still feeds the gauges and the ``device`` stage but
+trains no cost-model row and arms no drift band, so a sample and a sweep
+row for the same features always time the same work.
+``FJT_PROF_SAMPLE`` sets the interval (default 1.0 s; ``0`` / ``off``
+disables).
 
 Peaks (:func:`chip_peaks`): one row, the H100 (SXM, data sheet): INT32
 issue 1.67e13 operations/s (132 SMs × 64 INT32 lanes × 1.98 GHz boost)
@@ -48,11 +56,14 @@ as trends (``FJT_PROF_PEAKS=ops,bytes`` overrides), or None under
 The ledger persists beside the autotune cache as
 ``kernel_costs-<device>.json`` (``utils/cache.device_tag``), never in the
 JAX package's cache; its rows carry the platform they were measured on.
+The path is resolved at each write, and the writes run on a background
+thread (and at a dispatcher's close), never on the thread that scores.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import threading
 import time
@@ -207,27 +218,36 @@ class KernelCostLedger:
     Every profiler sample updates one entry (EWMA of device
     seconds/record, sample count, last batch shape, the operations and
     bytes per record); entries persist through the corrupt-tolerant
-    atomic-replace JSON discipline of the autotune cache, rate-limited to
-    one write per ``flush_interval_s``."""
+    atomic-replace JSON discipline of the autotune cache, at most once
+    per ``flush_interval_s``, on a background thread: the thread that
+    records a sample (the score thread) never waits on the file.
+    ``flush_interval_s=0`` writes through on the caller's thread;
+    ``math.inf`` writes only on :meth:`flush`. ``path`` (default: beside
+    the autotune cache, resolved at each write) is the ledger file."""
 
     def __init__(
         self,
         path: Optional[str] = None,
         flush_interval_s: float = 5.0,
-        clock: Callable[[], float] = time.monotonic,
     ):
         self._path = path
         self._flush_interval = flush_interval_s
-        self._clock = clock
         self._mu = threading.Lock()
         self._entries: Dict[str, dict] = {}
         self._dirty = False
-        self._last_flush = 0.0
+        self._flusher: Optional[threading.Thread] = None
 
-    def _resolve_path(self) -> str:
-        if self._path is None:
-            self._path = cost_ledger_path()
-        return self._path
+    def _flush_loop(self) -> None:
+        """The background writer: one write an interval while there is
+        anything to write, then the thread ends (the next update starts
+        another)."""
+        while True:
+            time.sleep(self._flush_interval)
+            self.flush()
+            with self._mu:
+                if not self._dirty:
+                    self._flusher = None
+                    return
 
     def update(
         self,
@@ -287,11 +307,14 @@ class KernelCostLedger:
                 )
             e["ts"] = time.time()
             self._dirty = True
-            now = self._clock()
-            due = now - self._last_flush >= self._flush_interval
-            if due:
-                self._last_flush = now
-        if due:
+            through = self._flush_interval <= 0
+            if (not through and self._flusher is None
+                    and self._flush_interval != math.inf):
+                self._flusher = threading.Thread(
+                    target=self._flush_loop, name="fjt-cost-ledger",
+                    daemon=True)
+                self._flusher.start()
+        if through:
             self.flush()
 
     def entries(self) -> Dict[str, dict]:
@@ -305,12 +328,12 @@ class KernelCostLedger:
         per key), and the write is temp file, fsync, ``os.replace``. Any
         I/O or parse failure is silent — a read-only cache dir must not
         break serving."""
-        path = self._resolve_path()
         with self._mu:
             if not self._dirty:
                 return
             mine = {k: dict(v) for k, v in self._entries.items()}
             self._dirty = False
+        path = self._path or cost_ledger_path()
         lock = None
         try:
             import fcntl
@@ -335,6 +358,86 @@ class KernelCostLedger:
                     lock.close()  # closing releases the flock
                 except OSError:
                     pass
+
+
+# ---------------------------------------------------------------------------
+# The sampled region
+# ---------------------------------------------------------------------------
+
+_MARKS = threading.local()
+
+
+class SampleMarks:
+    """The two ends of one sampled dispatch's region on its device:
+    timing CUDA events on the card (read once the batch completed), host
+    clock readings on the CPU. ``sweep_region`` is False where the region
+    is not what the kernel search times for the serving variant."""
+
+    __slots__ = ("device", "start", "stop", "sweep_region")
+
+    def __init__(self):
+        self.device = None
+        self.start = None
+        self.stop = None
+        self.sweep_region = True
+
+    def seconds(self) -> Optional[float]:
+        """The region's time, or None when a dispatch marked no region
+        (or only one end of it). On the card both events must have
+        fired: call this after the batch's wait."""
+        if self.start is None or self.stop is None:
+            return None
+        if self.device.type == "cuda":
+            return self.start.elapsed_time(self.stop) / 1e3
+        return self.stop - self.start
+
+
+def open_sample() -> SampleMarks:
+    """Start collecting marks on this thread, for the dispatch the
+    dispatcher is about to run."""
+    marks = _MARKS.marks = SampleMarks()
+    return marks
+
+
+def close_sample() -> None:
+    _MARKS.marks = None
+
+
+def active_sample() -> Optional[SampleMarks]:
+    """The marks of the sampled dispatch running on this thread, else
+    None: the one test an unsampled dispatch pays."""
+    return getattr(_MARKS, "marks", None)
+
+
+def _stamp(device):
+    if device.type == "cuda":
+        import torch
+
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(device))
+        return ev
+    return time.perf_counter()
+
+
+def mark_start(device) -> None:
+    """Open the sampled region on ``device`` (its current stream on the
+    card) when this thread runs a sampled dispatch. The first mark of a
+    dispatch holds: a torch twin that marked its payload's copy keeps
+    that start when its scoring stage marks again."""
+    marks = getattr(_MARKS, "marks", None)
+    if marks is not None and marks.start is None:
+        marks.device = device
+        marks.start = _stamp(device)
+
+
+def mark_stop(device) -> None:
+    """Close the sampled region on the device that opened it (the last
+    mark holds). A mark on another device (a host tier scoring in the
+    card's stead) leaves the region unclosed, so no sample is taken."""
+    marks = getattr(_MARKS, "marks", None)
+    if (marks is not None and marks.device is not None
+            and marks.device.type == device.type):
+        marks.stop = _stamp(marks.device)
 
 
 # ---------------------------------------------------------------------------

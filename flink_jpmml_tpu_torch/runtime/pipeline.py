@@ -36,12 +36,13 @@ fault site, and count in neither ``dispatches`` nor
 ``window_full_launches``. So is its sampled device profiler
 (``obs/profiler.py``; ``profiler=``, ``profiling``, ``launch(profile=)``),
 on CUDA events instead of a drained window and a blocking bracket: a
-launch the profiler picks runs its dispatch with a timing event recorded
-on the stream just before the dispatch's H2D copy (after the host-side
-staging) and one behind its D2H copy, and the pair is read when the entry
-completes, after the wait the window makes anyway. No synchronize is
-added. On the CPU, where the work is synchronous, the sample is the
-dispatch's host time.
+launch the profiler picks runs its dispatch inside
+``profiler.open_sample()``, the scorer marks the region the kernel search
+times (on the ``cuda`` backends the walk kernel and its epilogue, after
+the H2D copy and the encode stage and before the D2H copy), and the pair
+of events is read when the entry completes, after the wait the window
+makes anyway. No synchronize is added. On the CPU the marks read the
+host clock.
 
 Metrics: ``h2d_stall_s`` (host time blocked on device work),
 ``dispatches``, ``window_full_launches``, the ``inflight_depth`` gauge,
@@ -78,7 +79,6 @@ depth in its args). Each carries the active journey context's ids.
 
 from __future__ import annotations
 
-import threading
 import time
 from collections import deque
 from typing import Any, Callable, Optional
@@ -87,6 +87,7 @@ import numpy as np
 import torch
 
 from flink_jpmml_tpu_torch.compile import prepare
+from flink_jpmml_tpu_torch.compile.layouts import CUDA_BACKENDS
 from flink_jpmml_tpu_torch.obs import attr as attr_mod
 from flink_jpmml_tpu_torch.obs import profiler as prof_mod
 from flink_jpmml_tpu_torch.obs import recorder as flight
@@ -96,35 +97,16 @@ from flink_jpmml_tpu_torch.utils.exceptions import FlinkJpmmlTpuError
 from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry
 
 
-# set on the launching thread while the dispatcher runs a dispatch the
-# profiler picked: the dispatch helpers then record a timing event
-# before their H2D copy (sample_start)
-_SAMPLING = threading.local()
-
-
-def sample_start() -> Optional["torch.cuda.Event"]:
-    """A timing event for the device profiler when the dispatch now
-    running on this thread is sampled, else None. The dispatch records it
-    on its stream just before its first device work."""
-    if getattr(_SAMPLING, "on", False):
-        return torch.cuda.Event(enable_timing=True)
-    return None
-
-
 class DeviceOutput:
     """One dispatch's result: host tensor(s) filled by a queued D2H copy,
-    and the event behind that copy (None when the work ran on the CPU).
-    ``start`` is the profiler's timing event before the dispatch's device
-    work (a sampled dispatch only); ``start`` → ``event`` is its device
-    time."""
+    and the event behind that copy (None when the work ran on the CPU)."""
 
-    __slots__ = ("host", "event", "start", "_keep")
+    __slots__ = ("host", "event", "_keep")
 
     def __init__(self, host, event: Optional["torch.cuda.Event"] = None,
-                 keep=None, start: Optional["torch.cuda.Event"] = None):
+                 keep=None):
         self.host = host
         self.event = event
-        self.start = start
         # device tensors the queued copies read: alive until completion
         self._keep = keep
 
@@ -161,9 +143,10 @@ class HostStaging:
         self._next = 0
 
     def stage(self, payload: np.ndarray, rows: int,
-              start: Optional["torch.cuda.Event"] = None) -> torch.Tensor:
-        """→ the device tensor the payload is copied into; ``start`` (a
-        profiler's timing event) is recorded just before the H2D copy."""
+              mark: bool = False) -> torch.Tensor:
+        """→ the device tensor the payload is copied into; ``mark`` opens
+        a sampled dispatch's region (``obs/profiler.mark_start``) just
+        before the H2D copy."""
         i = self._next
         self._next = (i + 1) % len(self._slots)
         held = self._slots[i]
@@ -181,8 +164,8 @@ class HostStaging:
         buf[:n].copy_(src)
         dev = torch.empty((rows,) + tuple(src.shape[1:]), dtype=src.dtype,
                           device=self._device)
-        if start is not None:
-            start.record()
+        if mark:
+            prof_mod.mark_start(self._device)
         dev[:n].copy_(buf[:n], non_blocking=True)
         if rows > n:
             dev[n:].zero_()
@@ -206,20 +189,18 @@ def _to_host(out, keep: list):
     return host
 
 
-def device_output(out, staged: Optional[torch.Tensor] = None,
-                  start: Optional["torch.cuda.Event"] = None) -> DeviceOutput:
+def device_output(out, staged: Optional[torch.Tensor] = None
+                  ) -> DeviceOutput:
     """Wrap a just-launched result: on the card, queue its D2H copy and an
     event behind it on the current stream (keeping ``staged`` and the
-    device result alive until then; a timing event when ``start``, the
-    profiler's, was recorded before the dispatch); on the CPU the result
-    is final."""
+    device result alive until then); on the CPU the result is final."""
     if staged is None or staged.device.type != "cuda":
         return DeviceOutput(out)
     keep = [staged]
     host = _to_host(out, keep)
-    done = torch.cuda.Event(enable_timing=start is not None)
+    done = torch.cuda.Event()
     done.record()
-    return DeviceOutput(host, done, keep, start)
+    return DeviceOutput(host, done, keep)
 
 
 def dispatch_quantized(
@@ -281,14 +262,22 @@ def dispatch_quantized(
         metrics.counter("h2d_bytes").inc(payload.nbytes)
         metrics.counter(f"encode_{placement}").inc()
         ledger.observe("encode", t1 - t0)
+    # a sampled dispatch's region is what the kernel search times for
+    # the serving variant (obs/profiler.py): the torch twin's opens at
+    # its payload's copy; behind a fused encode the search timed no such
+    # copy, so that sample trains no cost-model row
+    torch_twin = q.backend not in CUDA_BACKENDS
+    marks = prof_mod.active_sample()
+    if marks is not None and torch_twin and placement == "fused":
+        marks.sweep_region = False
     if q.device.type != "cuda":
         out = device_output(predict(*pad(payload)))
     elif staging is None:
         raise ValueError("a CUDA dispatch needs a HostStaging")
     else:
-        start = sample_start()
-        staged = staging.stage(payload, rows, start)
-        out = device_output(predict(staged, K), staged, start)
+        staged = staging.stage(
+            payload, rows, mark=torch_twin and placement != "fused")
+        out = device_output(predict(staged, K), staged)
     t2 = time.monotonic()
     spans.emit("h2d_dispatch", t1, t2 - t1, bytes=payload.nbytes)
     if ledger is not None:
@@ -309,14 +298,15 @@ def dispatch_f32(model, X, M, *, metrics: Optional[MetricsRegistry] = None
         X, M, _ = prepare.pad_batch(X, M, bs)
     if metrics is not None:
         metrics.counter("h2d_bytes").inc(X.nbytes + M.nbytes)
-    start = sample_start() if model.device.type == "cuda" else None
-    if start is not None:
-        start.record()
     Xs = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(
         model.device, non_blocking=True)
     Ms = torch.from_numpy(np.ascontiguousarray(M)).to(
         model.device, non_blocking=True)
-    return device_output(model.predict(Xs, Ms), Xs, start)
+    # a sampled dispatch's region: the model's own device work
+    prof_mod.mark_start(model.device)
+    out = model.predict(Xs, Ms)
+    prof_mod.mark_stop(model.device)
+    return device_output(out, Xs)
 
 
 class DispatcherClosed(FlinkJpmmlTpuError):
@@ -339,8 +329,8 @@ class InFlight:
         self.done = False
         self.error: Optional[BaseException] = None
         self.accounted = accounted
-        # (dispatch profile, host seconds of the dispatch) when the
-        # profiler picked this launch
+        # (dispatch profile, SampleMarks) when the profiler picked this
+        # launch
         self.sample = None
 
 
@@ -435,8 +425,8 @@ class OverlappedDispatcher:
 
         ``profile`` (:func:`obs.attr.dispatch_profile`) opts this launch
         into the sampled device-timing pool: when the profiler's rate
-        limiter picks it, the dispatch carries a timing event pair, read
-        when the entry completes."""
+        limiter picks it, the dispatch runs with its region marked
+        (``obs/profiler.open_sample``), read when the entry completes."""
         if self._closed:
             raise DispatcherClosed("launch() on a closed dispatcher")
         # dispatch delay + launch-time device-fault injection: one global
@@ -448,14 +438,13 @@ class OverlappedDispatcher:
         sampling = (accounted and profile is not None and prof is not None
                     and prof.should_sample())
         if sampling:
-            t0 = time.monotonic()
-            _SAMPLING.on = True
+            marks = prof_mod.open_sample()
             try:
                 out = dispatch_fn()
             finally:
-                _SAMPLING.on = False
+                prof_mod.close_sample()
             handle = InFlight(out, meta, accounted=accounted)
-            handle.sample = (profile, time.monotonic() - t0)
+            handle.sample = (profile, marks)
         else:
             handle = InFlight(dispatch_fn(), meta, accounted=accounted)
         self._window.append(handle)
@@ -551,23 +540,26 @@ class OverlappedDispatcher:
         return handle.out
 
     def _record_sample(self, handle: InFlight) -> None:
-        """Hand a completed sampled entry's device time to the profiler:
-        its event pair on the card (both have fired: the entry's wait is
-        done), its dispatch's host time on the CPU. The events cost the
-        pipeline nothing, so no overhead is charged."""
+        """Hand a completed sampled entry's region time to the profiler
+        (on the card both events have fired: the entry's wait is done).
+        The marks cost the pipeline nothing, so no overhead is charged.
+        No sample when the dispatch marked no whole region, or marked it
+        on another device than its profile's (a host tier scoring in the
+        card's stead)."""
         if handle.sample is None:
             return
-        profile, host_s = handle.sample
+        profile, marks = handle.sample
         handle.sample = None
-        out = handle.out
-        event = getattr(out, "event", None)
-        start = getattr(out, "start", None)
-        if event is None:
-            device_s = host_s  # the CPU: the dispatch did the work
-        elif start is not None:
-            device_s = start.elapsed_time(event) / 1e3
-        else:
-            return  # a dispatch path that records no start event
+        device_s = marks.seconds()
+        platform = profile.get("platform")
+        if device_s is None or (
+                platform and platform.split(":")[0] != marks.device.type):
+            return
+        if not marks.sweep_region:
+            # not what the sweep timed for these features
+            profile = {k: v for k, v in profile.items()
+                       if k not in ("variant", "features",
+                                    "predicted_s_per_record")}
         self._profiler.record_sample(device_s, profile, overhead_s=0.0)
 
     def flush(self) -> None:
@@ -586,10 +578,12 @@ class OverlappedDispatcher:
         return n
 
     def close(self, drain: bool = True) -> None:
-        """Flush (default) or abandon, then refuse further launches.
-        Idempotent."""
+        """Flush (default) or abandon, then refuse further launches, and
+        write the profiler's cost ledger out. Idempotent."""
         if drain:
             self.flush()
         else:
             self.abandon()
         self._closed = True
+        if self._profiler is not None:
+            self._profiler.cost_ledger.flush()

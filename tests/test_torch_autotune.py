@@ -10,7 +10,7 @@ bit-equal to the built default and raises on one that is not; the winner
 persists in the port's cache and a fresh build adopts it without a
 sweep; a stale tag, a corrupt file or ``FJT_AUTOTUNE_DISABLE`` read as no
 entry. ``leaf_rows`` refuses a launch shape the card cannot take, by the
-arithmetic of the .cu source's constants."""
+.cu source's own limits."""
 
 import json
 import re
@@ -63,8 +63,8 @@ class TestLaunchShape:
 
         assert const("kMaxThreads") == qtrees_cuda.MAX_THREADS
         assert const("kRecordsPerThread") == qtrees_cuda.RECORDS_PER_THREAD
-        assert const("kChunkBytes") == qtrees_cuda.CHUNK_BYTES
-        assert const("kSmemTarget") == qtrees_cuda.SMEM_TARGET
+        # the default shape's budgets live only in launch_shape
+        assert "kChunkBytes" not in src and "kSmemTarget" not in src
         assert const("kSmemMax") == qtrees_cuda.SMEM_MAX
         assert const("kBarBytes") == qtrees_cuda.BAR_BYTES
 

@@ -25,8 +25,14 @@ imports neither jax nor the JAX package, so it runs on a machine that has
 only torch:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Run so, without the repo's conftest, it keeps every cache it writes (the
+autotune cache, and the kernel cost ledger beside it) in a temporary
+directory all the same.
 """
 
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -46,6 +52,8 @@ from flink_jpmml_tpu_torch.utils.config import BatchConfig, RuntimeConfig
 from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry
 
 pytestmark = pytest.mark.cuda
+os.environ.setdefault("FJT_AUTOTUNE_CACHE", os.path.join(
+    tempfile.mkdtemp(prefix="fjt-card-tests-"), "autotune.json"))
 RTOL, ATOL = 1e-4, 1e-5  # the repo's rank-wire bar
 
 
@@ -906,7 +914,9 @@ def test_every_search_candidate_equals_the_default_on_the_card(
 def test_profiled_pipeline_on_the_card(card, tmp_path, monkeypatch):
     """A block pipeline with the profiler sampling: device samples from
     the event pair, the device stage, and the walk's path steps against
-    the H100 row."""
+    the H100 row. A sample times the scorer's function on codes already
+    on the card, as the kernel search does: it reads within the drift
+    band of that call timed alone."""
     from flink_jpmml_tpu_torch.obs import profiler
 
     monkeypatch.setenv("FJT_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
@@ -917,6 +927,15 @@ def test_profiled_pipeline_on_the_card(card, tmp_path, monkeypatch):
     q = cm.quantized_scorer()
     X = _X(np.random.default_rng(9), 8 * 16384, 32)
     m = MetricsRegistry()
+    prof = profiler.profiler_for(m)  # the pipeline's own profiler
+    samples = []
+    record = prof.record_sample
+
+    def keep(device_s, profile, overhead_s=None):
+        samples.append(device_s / profile["records"])
+        record(device_s, profile, overhead_s)
+
+    monkeypatch.setattr(prof, "record_sample", keep)
     got = []
     pipe = BlockPipeline(
         FiniteBlockSource(X, block_size=16384), cm,
@@ -934,3 +953,17 @@ def test_profiled_pipeline_on_the_card(card, tmp_path, monkeypatch):
     assert dev["n"] >= 1 and dev["sum"] > 0
     assert profiler.chip_peaks(torch.cuda.get_device_name(0),
                                strict=True) is not None
+    codes = torch.from_numpy(q.wire.encode(X[:16384])).to(card)
+    alone = []
+    for _ in range(5):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        q._fn(q.params, codes)
+        t1.record()
+        t1.synchronize()
+        alone.append(t0.elapsed_time(t1) * 1e6 / 16384)  # ns a record
+    sampled = 1e9 * float(np.median(samples))
+    band = profiler._PRED_BAND
+    assert min(alone) / band <= sampled <= min(alone) * band, (sampled,
+                                                               alone)

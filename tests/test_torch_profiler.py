@@ -8,9 +8,16 @@ integer steps per record (the sum of the trees' depths) and the bytes the
 kernel moves (its codes in, its f32 row out), held to the H100 row's
 INT32 rate and HBM3 bandwidth; for the torch twin the JAX package's
 path-matrix count, equal to the JAX function's for the same model. The
-dispatcher takes a sample from the dispatch's event pair when it
-completes (here, fakes of CUDA events) and adds no wait."""
+dispatcher takes a sample from the region the scorer marks, the one the
+kernel search times (on the card an event pair, here fakes of CUDA
+events or the host clock), when the dispatch completes, and adds no
+wait: host work around the region is not device time, so a tuned
+scorer's samples agree with its sweep and its prediction. The cost
+ledger writes off the recording thread, to the path of the moment."""
 
+import os
+
+import math
 import time
 
 import numpy as np
@@ -163,6 +170,13 @@ class _Event:
         return end.t_ms - self.t_ms
 
 
+def _mark_on_card(start_ms, stop_ms):
+    """What the scorer's marks leave on the card: an event pair."""
+    marks = profiler.active_sample()
+    marks.device = torch.device("cuda")
+    marks.start, marks.stop = _Event(start_ms), _Event(stop_ms)
+
+
 class TestDispatcherSampling:
     def test_event_pair_is_the_sample_and_host_work_is_not(self, tmp_path):
         m, prof = _prof(tmp_path, interval=1e-9)
@@ -170,8 +184,8 @@ class TestDispatcherSampling:
 
         def dispatch():
             time.sleep(0.05)  # host staging before the device work
-            return DeviceOutput(torch.zeros(4), _Event(20.0),
-                                start=_Event(5.0))
+            _mark_on_card(5.0, 20.0)  # the kernel's region
+            return DeviceOutput(torch.zeros(4), _Event(30.0))
 
         disp.launch(dispatch, profile=_profile())
         assert m.struct_snapshot()["counters"].get("device_samples", 0) == 0
@@ -192,15 +206,56 @@ class TestDispatcherSampling:
     def test_cpu_dispatch_is_timed_on_the_host(self, tmp_path):
         m, prof = _prof(tmp_path, interval=1e-9)
         disp = OverlappedDispatcher(depth=0, metrics=m, profiler=prof)
+        cpu = torch.device("cpu")
 
         def dispatch():
+            time.sleep(0.3)  # host encode: outside the region
+            profiler.mark_start(cpu)
             time.sleep(0.02)
+            profiler.mark_stop(cpu)
             return DeviceOutput(torch.zeros(4))
 
         disp.launch(dispatch, profile=_profile())
         dev = m.struct_snapshot()["histograms"][
             attr.stage_metric_name("device")]
-        assert dev["n"] == 1 and 0.02 <= dev["sum"] < 1.0
+        assert dev["n"] == 1 and 0.02 <= dev["sum"] < 0.3
+
+    def test_unmarked_or_elsewhere_scored_dispatch_takes_no_sample(
+            self, tmp_path):
+        m, prof = _prof(tmp_path, interval=1e-9)
+        disp = OverlappedDispatcher(depth=0, metrics=m, profiler=prof)
+        on_card = dict(_profile(), platform="cuda:NVIDIA_H100_80GB_HBM3")
+        disp.launch(lambda: DeviceOutput(torch.zeros(4)), profile=on_card)
+
+        def host_tier():
+            # a host tier scoring in the card's stead marks the CPU
+            profiler.mark_start(torch.device("cpu"))
+            profiler.mark_stop(torch.device("cpu"))
+            return DeviceOutput(torch.zeros(4))
+
+        disp.launch(host_tier, profile=on_card)
+        disp.close()
+        assert m.struct_snapshot()["counters"].get("device_samples", 0) == 0
+        assert profiler.active_sample() is None
+
+    def test_region_the_sweep_did_not_time_trains_nothing(self, tmp_path):
+        m, prof = _prof(tmp_path, interval=1e-9)
+        disp = OverlappedDispatcher(depth=0, metrics=m, profiler=prof)
+        p = dict(_profile(), variant="torch_ref", features={"depth": 3.0},
+                 predicted_s_per_record=1e-12)
+
+        def dispatch():
+            _mark_on_card(0.0, 10.0)
+            profiler.active_sample().sweep_region = False
+            return DeviceOutput(torch.zeros(4))
+
+        for _ in range(4):
+            disp.launch(dispatch, profile=p)
+        snap = m.struct_snapshot()
+        assert snap["counters"]["device_samples"] == 4
+        assert "kernel_pred_error" not in snap["gauges"]
+        (e,) = prof.cost_ledger.entries().values()
+        assert "features" not in e and "variant" not in e
 
     def test_block_pipeline_profiles_its_dispatches(self, tmp_path,
                                                     monkeypatch):
@@ -230,3 +285,123 @@ class TestDispatcherSampling:
                 and e.get("backend") == "cuda_plain"]
         assert rows and rows[0]["flops_per_record"] == steps
         assert rows[0]["platform"] == "cpu:cpu"
+
+
+class _FakeClock:
+    """``time.perf_counter`` that moves only by the work a test books."""
+
+    def __init__(self):
+        self.t = 1000.0
+
+    def __call__(self):
+        return self.t
+
+    def advance(self, s):
+        self.t += s
+
+
+def test_tuned_scorer_samples_agree_with_its_sweep(tmp_path, monkeypatch):
+    """A tuned scorer served through the dispatcher: its samples time the
+    region its sweep timed, not the host encode around it, so with a
+    kernel-only prediction equal to the sweep's reading the drift band
+    never fires, the cache entry and the cost-model fit stay, and the
+    ledger row for the serving variant keeps the sweep's value. The
+    clock moves 1 µs a record scored and 1 s an encode, so a sample of
+    the whole dispatch would sit some 250× outside the band."""
+    from flink_jpmml_tpu_torch.compile import autotune, costmodel, qtrees_cuda
+    from flink_jpmml_tpu_torch.runtime.pipeline import dispatch_quantized
+
+    clock = _FakeClock()
+    monkeypatch.setattr(time, "perf_counter", clock)
+    reference = qtrees_cuda.leaf_rows_reference
+
+    def timed_reference(codes, tables):
+        clock.advance(1e-6 * codes.shape[0])
+        return reference(codes, tables)
+
+    monkeypatch.setattr(qtrees_cuda, "leaf_rows_reference", timed_reference)
+    path = gen_gbm(str(tmp_path), n_trees=12, depth=4, n_features=6)
+    q = build_quantized_scorer(parse_pmml_file(path), batch_size=4096,
+                               device="cpu")
+    X = np.random.default_rng(5).normal(0, 1.5, (4096, 6)).astype(np.float32)
+    cfg = autotune.ensure_tuned(q, X, top_k=3)
+    chosen = cfg.search["chosen"]
+    sweep_s = 1.0 / cfg.rates[chosen]
+    assert sweep_s == pytest.approx(1e-6)
+    key = f"{q.model_hash}|{q.backend}|{chosen}"
+    assert profiler.read_ledger()[key]["device_s_per_record"] == \
+        pytest.approx(sweep_s)
+    # the kernel-only prediction the live band verifies
+    q._pred_s_per_record = sweep_s
+    q.encode_mode = "host"
+    pack = q.pack_wire
+
+    def slow_pack(Xq):
+        clock.advance(1.0)  # host work of the dispatch
+        return pack(Xq)
+
+    q.pack_wire = slow_pack
+    gen0 = costmodel.generation()
+    m = MetricsRegistry()
+    prof = profiler.DeviceProfiler(m, interval_s=1e-9,
+                                   cost_ledger=profiler.KernelCostLedger(
+                                       flush_interval_s=math.inf))
+    disp = OverlappedDispatcher(depth=1, metrics=m, profiler=prof)
+    for _ in range(5):
+        disp.launch(lambda: dispatch_quantized(q, X, metrics=m),
+                    profile=attr.dispatch_profile(q, X.shape[0]))
+    disp.close()
+    snap = m.struct_snapshot()
+    assert snap["counters"]["device_samples"] == 5
+    assert snap["gauges"]["kernel_pred_error"]["value"] == \
+        pytest.approx(0.0, abs=1e-9)
+    assert snap["gauges"]["device_ns_per_record"]["value"] == \
+        pytest.approx(1e3)
+    assert costmodel.generation() == gen0
+    assert autotune.lookup(q.model_hash, autotune.backend_key(q)) is not None
+    row = profiler.read_ledger()[key]
+    assert row["device_s_per_record"] == pytest.approx(sweep_s)
+    assert row["samples"] > 1
+
+
+class TestLedgerWrites:
+    def test_written_off_the_recording_thread(self, tmp_path):
+        path = str(tmp_path / "kc.json")
+        led = profiler.KernelCostLedger(path=path, flush_interval_s=0.2)
+        led.update("m", "cuda", 0.1, 100, None, None)
+        assert not os.path.exists(path)  # no write on the caller's thread
+        deadline = time.monotonic() + 30
+        while not os.path.exists(path) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert profiler.read_ledger(path)["m|cuda"]["samples"] == 1
+        while led._flusher is not None and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert led._flusher is None  # the writer ends when idle
+
+    def test_path_is_resolved_at_each_write(self, tmp_path, monkeypatch):
+        led = profiler.KernelCostLedger(flush_interval_s=math.inf)
+        for name in ("a", "b"):
+            monkeypatch.setenv("FJT_AUTOTUNE_CACHE",
+                               str(tmp_path / name / "autotune.json"))
+            led.update(name, "cuda", 0.1, 100, None, None)
+            led.flush()
+            assert f"{name}|cuda" in profiler.read_ledger()
+        assert os.path.dirname(profiler.cost_ledger_path()) == str(
+            tmp_path / "b")
+
+    def test_a_dispatcher_writes_its_ledger_at_close(self, tmp_path):
+        path = str(tmp_path / "kc.json")
+        m = MetricsRegistry()
+        prof = profiler.DeviceProfiler(
+            m, interval_s=1e-9, cost_ledger=profiler.KernelCostLedger(
+                path=path, flush_interval_s=3600.0))
+        disp = OverlappedDispatcher(depth=0, metrics=m, profiler=prof)
+
+        def dispatch():
+            _mark_on_card(0.0, 1.0)
+            return DeviceOutput(torch.zeros(4))
+
+        disp.launch(dispatch, profile=_profile())
+        assert not os.path.exists(path)
+        disp.close()
+        assert "m|cuda" in profiler.read_ledger(path)
