@@ -285,6 +285,33 @@ JAX package, and prints one JSON line per phase:
     dispatches with the profiler sampling every 50 ms: ``device_samples``,
     ``device_mfu`` (the walk's path steps against the H100's INT32 rate),
     ``device_membw_util`` and the cost ledger's row.
+24. zoo_state — multi-tenant and stateful scoring. ``packed_kernel``:
+    the packed launch (``qtrees_leaf_rows_packed``) against each member's
+    solo launch and its plain version, bit for bit: 16 zoo members at 256
+    rows, a pack mixing C = 1 and a 3-class vote forest, ragged row counts
+    (0 to 256), and eight members of the main path's shape
+    (``gen_gbm(500, depth=6, n_features=32)``, seeds 11-18, compiled in
+    worker processes on the host) at 16,384 rows each, timed in CUDA-event
+    medians against the eight solo launches back to back (blocks, launches
+    and the bound as ``time_kernel`` counts them). ``zoo``: the JAX zoo
+    drill's geometry (1,000 registered tenants cycling 10 ``gen_gbm``
+    documents of 6-15 trees, depth 3, 4 features, seeds 100-109; 100 hot
+    with 1,024 records each, 1% missing, batch 256): a one-tenant
+    baseline, the solo oracle and ``DynamicScorer(zoo=True)``; every
+    (tenant, record) equal to the oracle's, pack dispatches and packed
+    launches counted (the counts zeroed just before the zoo run), then a
+    ``device_error`` at a pack's readback re-dispatched with parity held;
+    ``zoo_rps`` against the baseline is printed beside the JAX drill's
+    0.75, not gated. ``stateful``: the JAX stateful drill's geometry
+    (``gen_gbm(20, depth=4, 8 features, seed 29)``, batch 8,192, a 2^21-row
+    table, 10,000,000 keys, a sweep and a zipf a = 1.1 mix of 10,485,760
+    records each) against the stateless loop; the zipf stream run twice
+    more must give the same table bytes; a 2,048-key sample of a
+    262,144-record prefix held to the CPU port (count, last-seen, min, max
+    exact; sums rtol 1e-5 / atol 1e-6); then the JAX SIGKILL replay at its
+    sizes (49,152 records, 16,384 keys, capacity 32,768, batch 1,024, two
+    SIGKILLs) with the workers on the card: the final table the same bytes
+    as an uninterrupted life's.
 
 Every main path runs the C++ ring, and its line carries the stage ledger
 of its registry (``attribution``: per stage the count, total ms, p50 /
@@ -305,8 +332,8 @@ line ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --ab
 OTHER_CHECKOUT`` instead times the fused GBM's block path in child
 processes alternating between another checkout and this one
 (``ab_main``), and ``python3 chip_smoke.py --phase NAME`` runs one
-phase alone (``serving_edge`` or ``kernel_search``) with what it needs
-built (``run_phase_alone``). Any failed phase raises, and the
+phase alone (``serving_edge``, ``kernel_search`` or ``zoo_state``) with
+what it needs built (``run_phase_alone``). Any failed phase raises, and the
 script exits non-zero without printing the last line. Without a CUDA
 device, or without the port beside it, it exits 1 at once. The flight
 recorder's directory and the generated model files live in a temporary
@@ -3898,6 +3925,43 @@ def edge_overload(cm, q, counter, workdir) -> dict:
         batcher=batcher, admission=admission)
     if pipe.backend != "rank_wire_cuda" or q.encode_placement != "fused":
         raise RuntimeError(f"overload: {pipe.backend}, {q.encode_placement}")
+    # the three suspects of a failed recovery check, read a phase: the
+    # ring's push (its lock held over a block's copy) and drain, timed on
+    # the host clock as each call returns; the host's other load (all
+    # cores' busy time from /proc/stat less this process's); h2d staging
+    # is the ledger's ``h2d`` stage in mean_ms
+    ring_calls = {"push": [], "drain": []}
+
+    def timed(kind, fn):
+        calls = ring_calls[kind]
+
+        def call(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                now = time.perf_counter()
+                calls.append((now, now - t))
+        return call
+
+    pipe._ring.push_block = timed("push", pipe._ring.push_block)
+    pipe._ring.drain = timed("drain", pipe._ring.drain)
+    clk = os.sysconf("SC_CLK_TCK")
+
+    def host_cpu():
+        """(busy core-seconds of the whole host, steal core-seconds)."""
+        with open("/proc/stat") as f:
+            v = [int(x) for x in f.readline().split()[1:]]
+        steal = v[7] if len(v) > 7 else 0
+        return (sum(v[:8]) - v[3] - v[4]) / clk, steal / clk
+
+    def ring_ms(kind, t0, t1):
+        d = sorted(1e3 * dt for t, dt in ring_calls[kind] if t0 <= t < t1)
+        if not d:
+            return {"n": 0}
+        return {"n": len(d), "mean": sum(d) / len(d),
+                "p99": d[min(len(d) - 1, int(0.99 * len(d)))],
+                "max": d[-1], "sum": sum(d)}
     for k in (1, 2, 4, 8):  # every aggregation shape once, uncounted
         q.predict_fused(pool[:k * BATCH])
     torch.cuda.synchronize()
@@ -3917,7 +3981,9 @@ def edge_overload(cm, q, counter, workdir) -> dict:
     def counts():
         snap = km.snapshot()
         hists = km.struct_snapshot()["histograms"]
-        return {"t": time.monotonic(), "sunk": n_sunk[0],
+        busy, steal = host_cpu()
+        return {"t": time.monotonic(), "pc": time.perf_counter(),
+                "busy": busy, "steal": steal, "sunk": n_sunk[0],
                 "dispatches": snap.get("dispatches", 0),
                 "records": snap.get("batch_fill_records", 0),
                 "shed": sum(admission.counts()["shed"].values()),
@@ -3961,7 +4027,15 @@ def edge_overload(cm, q, counter, workdir) -> dict:
                 len(lats) // 2],
             "mean_ms": stage_ms(c0, c1),
             "cpu_per_wall": (c1["cpu"] - c0["cpu"]) / dt,
-            "gc_gen2": c1["gc2"] - c0["gc2"]}
+            "gc_gen2": c1["gc2"] - c0["gc2"],
+            # cores busy on the whole host a wall second, and those not
+            # this process's (other tenants of the host, the kernel)
+            "host_busy_cores": (c1["busy"] - c0["busy"]) / dt,
+            "host_other_cores": ((c1["busy"] - c0["busy"])
+                                 - (c1["cpu"] - c0["cpu"])) / dt,
+            "host_steal_cores": (c1["steal"] - c0["steal"]) / dt,
+            "ring_push_ms": ring_ms("push", c0["pc"], c1["pc"]),
+            "ring_drain_ms": ring_ms("drain", c0["pc"], c1["pc"])}
 
     def p99(lats):
         s = sorted(lats)
@@ -4821,6 +4895,680 @@ def kernel_search(workdir: str, counter, smi: str) -> dict:
                 os.environ[k] = v
 
 
+# -- multi-tenant and stateful scoring (the zoo_state phase) ---------------
+
+ZOO_DOCS = 10  # distinct documents the zoo cycles (bench.py run_zoo_bench)
+ZOO_REGISTERED = 1000
+ZOO_HOT = 100
+ZOO_PER_HOT = 1024  # records per hot tenant
+ZOO_BATCH = 256
+ZOO_PER_ROUND = 256
+PACK_ROWS = 16384  # rows a main-path-shaped member in the timed pack
+PACK_SEEDS = tuple(range(11, 19))
+PACK_TREES = 500
+STATE_KEYS = 10_000_000
+STATE_RECORDS = 10_485_760
+STATE_CAPACITY = 1 << 21
+STATE_BATCH = 8192
+STATE_SAMPLE_KEYS = 2048
+STATE_CPU_BATCHES = 32  # the stream prefix the CPU port replays
+KILL_RECORDS, KILL_KEYS, KILL_CAPACITY, KILL_BATCH, KILLS = (
+    49_152, 16_384, 32_768, 1024, 2)
+_PERM = 2654435761  # 0x9E3779B1: offset → key, a permutation of the domain
+
+
+def zoo_doc_paths(workdir: str) -> list:
+    """The JAX zoo drill's documents: gen_gbm of 6-15 trees, depth 3, 4
+    features, seeds 100-109."""
+    from flink_jpmml_tpu_torch.assets_gen import gen_gbm
+
+    return [gen_gbm(workdir, n_trees=6 + d, depth=3, n_features=4,
+                    seed=100 + d, name=f"zoo{d}.pmml")
+            for d in range(ZOO_DOCS)]
+
+
+def _main_member(seed: int) -> tuple:
+    """(walk tables as numpy, codes of PACK_ROWS records) of the main
+    path's GBM shape at ``seed``, compiled on the CPU: run in a worker
+    process, so the eight members compile side by side."""
+    import tempfile as _tf
+
+    from flink_jpmml_tpu_torch.assets_gen import gen_gbm
+    from flink_jpmml_tpu_torch.compile import compile_pmml, qtrees_cuda
+    from flink_jpmml_tpu_torch.pmml import parse_pmml_file
+
+    d = _tf.mkdtemp(prefix="fjt-pack-")
+    try:
+        path = gen_gbm(d, n_trees=PACK_TREES, depth=6, n_features=32,
+                       seed=seed,
+                       name=f"pack{seed}.pmml")
+        q = compile_pmml(parse_pmml_file(path), batch_size=PACK_ROWS,
+                         device="cpu").quantized_scorer()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    X = features(np.random.default_rng(seed), PACK_ROWS, 32)
+    return ({k: q.params[k].numpy() for k in qtrees_cuda.TABLE_KEYS},
+            q.wire.encode(X))
+
+
+def check_packed(label: str, members: list, rows: list) -> dict:
+    """The packed launch against each member's solo launch and against
+    its plain version on the card, bit for bit. ``members`` are (tables on
+    the card, codes u8[n, F] on the card)."""
+    import torch
+
+    from flink_jpmml_tpu_torch.compile import qtrees_cuda
+
+    B = max(max(rows), 1)
+    F = max(c.shape[1] for _, c in members)
+    codes = torch.zeros((len(members), B, F), dtype=torch.uint8,
+                        device=members[0][1].device)
+    for m, (_, c) in enumerate(members):
+        codes[m, : rows[m], : c.shape[1]] = c[: rows[m]]
+    tables = [t for t, _ in members]
+    fields = [c.shape[1] for _, c in members]
+    got = qtrees_cuda.leaf_rows_packed(codes, rows, tables, fields)
+    ref = qtrees_cuda.leaf_rows_packed_reference(codes, rows, tables, fields)
+    solo = [qtrees_cuda.leaf_rows(c[: rows[m]].contiguous(), tables[m],
+                                  fields[m]) if rows[m] else None
+            for m, (_, c) in enumerate(members)]
+    torch.cuda.synchronize()
+    err, ok = 0.0, True
+    for m in range(len(members)):
+        if rows[m]:
+            ok &= bool(torch.equal(got[m], solo[m]))
+            err = max(err, float((got[m] - ref[m]).abs().max()))
+        ok &= bool(torch.equal(got[m], ref[m]))
+        ok &= got[m].shape == (rows[m], tables[m]["rows"].shape[2])
+    row = {"case": label, "members": len(members), "rows": list(rows),
+           "classes": sorted({int(t["rows"].shape[2]) for t in tables}),
+           "max_abs_err": err, "ok": ok}
+    if not ok:
+        emit({"phase": "zoo_state", "packed_kernel": row})
+        raise RuntimeError(f"{label}: the packed launch differs from a "
+                           f"member's solo launch or its plain version")
+    return row
+
+
+def packed_kernel(workdir: str, zoo_paths: list) -> dict:
+    """The packed launch on the card: 16 zoo members at 256 rows, a
+    mixed-C pack with a 3-class vote member, ragged row counts, and eight
+    members of the main path's shape at 16,384 rows each, which it also
+    times against the eight solo launches."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from flink_jpmml_tpu_torch.assets_gen import gen_vote_forest
+    from flink_jpmml_tpu_torch.compile import compile_pmml, qtrees_cuda
+    from flink_jpmml_tpu_torch.pmml import parse_pmml_file
+
+    t0 = time.perf_counter()
+    # the eight main-path-shaped members compile on the host, side by side
+    pool = ProcessPoolExecutor(
+        max_workers=min(len(PACK_SEEDS), os.cpu_count() or 1),
+        mp_context=multiprocessing.get_context("spawn"))
+    try:
+        futures = [pool.submit(_main_member, s) for s in PACK_SEEDS]
+        rng = np.random.default_rng(41)
+
+        def small(path, n):
+            q = compile_pmml(parse_pmml_file(path),
+                             batch_size=ZOO_BATCH).quantized_scorer()
+            if q.backend != ("cuda" if q.device.type == "cuda"
+                             else "cuda_plain"):
+                raise RuntimeError(f"{path}: backend {q.backend}")
+            tables = {k: q.params[k] for k in qtrees_cuda.TABLE_KEYS}
+            codes = torch.from_numpy(q.wire.encode(
+                features(rng, n, len(q.wire.fields)))).cuda()
+            return tables, codes
+
+        zoo = [small(p, ZOO_BATCH) for p in zoo_paths]
+        vote = small(gen_vote_forest(workdir, n_trees=8, depth=3,
+                                     n_features=4, n_classes=3, seed=42,
+                                     name="zoo_votes.pmml"), ZOO_BATCH)
+        cases = [
+            check_packed("zoo16_256", [zoo[i % ZOO_DOCS] for i in range(16)],
+                         [ZOO_BATCH] * 16),
+            check_packed("mixed_c_votes3", [zoo[0], vote, zoo[1], vote],
+                         [ZOO_BATCH] * 4),
+            check_packed("ragged", zoo[:8],
+                         [1, 255, 0, 256, 129, 7, 256, 64]),
+        ]
+        mains = [f.result() for f in futures]
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    members = [({k: torch.from_numpy(v).cuda() for k, v in t.items()},
+                torch.from_numpy(c).cuda()) for t, c in mains]
+    rows = [PACK_ROWS] * len(members)
+    cases.append(check_packed("main8_16384", members, rows))
+    # time the eight-member pack against its members' solo launches
+    F = 32
+    codes = torch.stack([c for _, c in members]).contiguous()
+    tables = [t for t, _ in members]
+    fields = [F] * len(members)
+
+    def packed():
+        qtrees_cuda.leaf_rows_packed(codes, rows, tables, fields)
+
+    def solos():
+        for m in range(len(members)):
+            qtrees_cuda.leaf_rows(codes[m], tables[m], F)
+
+    packed_ms = cuda_ms(packed, 3, 20)
+    solo_seq_ms = cuda_ms(solos, 3, 20)
+    solo_each_ms = [cuda_ms(lambda m=m: qtrees_cuda.leaf_rows(
+        codes[m], tables[m], F), 3, 20) for m in range(len(members))]
+    plain_ms = cuda_ms(lambda: qtrees_cuda.leaf_rows_packed_reference(
+        codes, rows, tables, fields), 1, 3)
+    threads, _, smem = qtrees_cuda.packed_shape([
+        (F, t["walk"].shape[0], t["walk"].shape[1], None, None)
+        for t in tables])
+    per_block = threads * qtrees_cuda.RECORDS_PER_THREAD
+    blocks = sum(-(-r // per_block) for r in rows)
+    steps = adds = 0
+    for m in range(len(members)):
+        ops = needed_ops(codes[m], tables[m])
+        steps += ops["int_steps"]
+        adds += ops["f32_adds"]
+    n_bytes = codes.numel() + 4 * sum(rows) + sum(
+        t["walk"].numel() * t["walk"].element_size() for t in tables)
+    bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
+    ops_ms = max(steps / PEAK_INT32_OPS_S, adds / PEAK_F32_FLOP_S) * 1e3
+    return {
+        "seconds": time.perf_counter() - t0,
+        "cases": cases,
+        "timing": {
+            "members": len(members), "rows_per_member": PACK_ROWS,
+            "threads": threads, "smem_bytes": smem, "blocks": blocks,
+            "launches_packed": 1, "launches_solo": len(members),
+            "packed_ms": packed_ms, "solo_sequence_ms": solo_seq_ms,
+            "solo_sum_ms": sum(solo_each_ms), "solo_each_ms": solo_each_ms,
+            "packed_vs_solo_sequence": solo_seq_ms / packed_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "ops": {"int_steps": steps, "f32_adds": adds},
+            "bytes": n_bytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "library_ms": None,
+        },
+    }
+
+
+def _zoo_events(data: np.ndarray, fields: list, name: str, lo: int,
+                n: int) -> list:
+    return [(name, dict(zip(fields, data[i % len(data)].tolist()),
+                        _key=f"k{i}")) for i in range(lo, lo + n)]
+
+
+def zoo_drill(workdir: str, zoo_paths: list) -> dict:
+    """The JAX zoo drill's geometry (bench.py run_zoo_bench) on the card:
+    1,000 registered tenants cycling 10 documents, 100 hot with 1,024
+    records each (1% missing), batch 256; a one-tenant baseline, the solo
+    oracle (zoo off) and ``zoo=True`` over the same stream; every
+    (tenant, record) equal to the oracle's; then a device fault injected
+    at a pack's readback."""
+    import gc
+
+    from flink_jpmml_tpu_torch.compile import qtrees_cuda
+    from flink_jpmml_tpu_torch.models.control import AddMessage
+    from flink_jpmml_tpu_torch.models.core import ModelId
+    from flink_jpmml_tpu_torch.runtime import faults
+    from flink_jpmml_tpu_torch.runtime.sources import ControlSource
+    from flink_jpmml_tpu_torch.serving.scorer import DynamicScorer
+
+    t0 = time.perf_counter()
+    fields = [f"f{j}" for j in range(4)]
+    names = [f"t{i:04d}" for i in range(ZOO_REGISTERED)]
+    hot = names[:ZOO_HOT]
+    rng = np.random.default_rng(23)
+    data = rng.normal(0.0, 1.5, (ZOO_HOT * ZOO_PER_HOT, 4)).astype(
+        np.float32)
+    data[rng.random(size=data.shape) < 0.01] = np.nan
+    rounds = []
+    cursor = 0
+    for _ in range(ZOO_PER_HOT // ZOO_PER_ROUND):
+        ev = []
+        for name in hot:
+            ev.extend(_zoo_events(data, fields, name, cursor, ZOO_PER_ROUND))
+            cursor += ZOO_PER_ROUND
+        rounds.append(ev)
+    total = sum(len(ev) for ev in rounds)
+
+    def scorer(tenants, zoo):
+        ctrl = ControlSource()
+        sc = DynamicScorer(control=ctrl, batch_size=ZOO_BATCH, zoo=zoo)
+        for name, path in tenants:
+            ctrl.push(AddMessage(name, 1, path, timestamp=time.time()))
+        sc._drain_control()
+        return sc
+
+    def wait_warm(sc, keys):
+        for name in keys:
+            wait_for(lambda: sc.registry.model_if_warm(ModelId(name, 1))
+                     is not None, f"{name} warm", timeout=600.0)
+
+    def sig(p):
+        if p.is_empty:
+            return None
+        return (p.score.value, None if p.target is None else repr(p.target))
+
+    def run(sc, batches):
+        out = []
+        for ev in batches:
+            out.extend(sig(p) for p, _ in sc.finish(sc.submit(ev)))
+        return out
+
+    sc_b = scorer([("base", zoo_paths[ZOO_DOCS // 2])], False)
+    sc_s = scorer([(n, zoo_paths[i % ZOO_DOCS])
+                   for i, n in enumerate(hot)], False)
+    sc_z = scorer([(n, zoo_paths[i % ZOO_DOCS])
+                   for i, n in enumerate(names)], True)
+    wait_warm(sc_b, ["base"])
+    wait_warm(sc_s, hot)
+    wait_warm(sc_z, names)
+    t_warm = time.perf_counter() - t0
+
+    def settle():
+        gc.collect()
+        gc.freeze()
+
+    base_batches = [_zoo_events(data, fields, "base", i, ZOO_BATCH)
+                    for i in range(0, total, ZOO_BATCH)]
+    run(sc_b, base_batches[:4])
+    settle()
+    tb = time.perf_counter()
+    run(sc_b, base_batches)
+    base_rps = total / (time.perf_counter() - tb)
+
+    run(sc_s, rounds[:1])
+    settle()
+    ts = time.perf_counter()
+    solo = run(sc_s, rounds)
+    solo_rps = total / (time.perf_counter() - ts)
+
+    run(sc_z, rounds[:1])  # plan, pack builds and warm launches
+    settle()
+    packed0 = qtrees_cuda.leaf_rows_packed.launches
+    solo0 = qtrees_cuda.leaf_rows.launches_by_classes.get(1, 0)
+    # the main path of this phase: counts zeroed just before it
+    qtrees_cuda.leaf_rows_packed.launches = 0
+    qtrees_cuda.leaf_rows_packed.launches_by_classes = {}
+    qtrees_cuda.leaf_rows.launches = 0
+    qtrees_cuda.leaf_rows.launches_by_classes = {}
+    tz = time.perf_counter()
+    zoo = run(sc_z, rounds)
+    zoo_rps = total / (time.perf_counter() - tz)
+    packed_launches = qtrees_cuda.leaf_rows_packed.launches
+    solo_launches = qtrees_cuda.leaf_rows.launches_by_classes.get(1, 0)
+    c = sc_z.metrics.struct_snapshot()["counters"]
+    if len(zoo) != total or len(solo) != total:
+        raise RuntimeError(f"zoo drill lost records: {len(zoo)}, "
+                           f"{len(solo)} of {total}")
+    mismatches = sum(1 for a, b in zip(zoo, solo) if a != b)
+    empties = sum(1 for a in zoo if a is None)
+    if mismatches or not c.get("pack_dispatches") or not packed_launches:
+        raise RuntimeError(f"zoo drill: {mismatches} of {total} differ from "
+                           f"the solo oracle, pack_dispatches "
+                           f"{c.get('pack_dispatches')}, packed launches "
+                           f"{packed_launches}")
+    # a device fault at a pack's readback: every member re-dispatches
+    # and the round still equals the oracle
+    before = c.get("redispatch_records", 0)
+    faults.inject("device_error", site="device_readback", n=1)
+    try:
+        fault_sigs = run(sc_z, rounds[:1])
+        fired = faults.stats()
+    finally:
+        faults.clear()
+    after = sc_z.metrics.struct_snapshot()["counters"].get(
+        "redispatch_records", 0)
+    n0 = len(rounds[0])
+    if fired != {"device_error": 1} or after <= before or \
+            fault_sigs != solo[:n0]:
+        raise RuntimeError(f"zoo drill fault: fired {fired}, redispatched "
+                           f"{after - before}, parity "
+                           f"{fault_sigs == solo[:n0]}")
+    gauges = sc_z.metrics.struct_snapshot().get("gauges") or {}
+    snap = sc_z._zoo.snapshot()
+    return {
+        "seconds": time.perf_counter() - t0, "warm_seconds": t_warm,
+        "registered": ZOO_REGISTERED, "hot": ZOO_HOT,
+        "distinct_documents": ZOO_DOCS, "records": total,
+        "batch": ZOO_BATCH,
+        "baseline_rps": base_rps, "solo_multi_rps": solo_rps,
+        "zoo_rps": zoo_rps, "zoo_vs_baseline": zoo_rps / base_rps,
+        # the JAX drill asserts >= 0.75; printed beside it, not a gate
+        "jax_gate_zoo_vs_baseline": 0.75,
+        "parity_mismatches": mismatches, "empty_predictions": empties,
+        "pack_dispatches": int(c.get("pack_dispatches", 0)),
+        "launches_packed": packed_launches,
+        "launches_solo_c1": solo_launches,
+        "launches_before_drill": {"packed": packed0, "solo_c1": solo0},
+        "pack_occupancy": (gauges.get("pack_occupancy") or {}).get("value"),
+        "pack_pad_waste": (gauges.get("pack_pad_waste") or {}).get("value"),
+        "resident_packs": snap["resident_packs"],
+        "zoo_tenants": snap["tenants"],
+        "fault_redispatched": after - before,
+    }
+
+
+STATE_WORKER = r"""
+import os, sys, time
+import numpy as np
+from flink_jpmml_tpu_torch.compile import compile_pmml
+from flink_jpmml_tpu_torch.pmml import parse_pmml_file
+from flink_jpmml_tpu_torch.runtime.block import BlockPipeline, FiniteBlockSource
+from flink_jpmml_tpu_torch.runtime.checkpoint import CheckpointManager
+from flink_jpmml_tpu_torch.runtime.state import StateSpec
+from flink_jpmml_tpu_torch.utils.config import BatchConfig, RuntimeConfig
+
+pmml, ckdir, outpath = sys.argv[1:4]
+seed, records, keys, capacity, B, feats = map(int, sys.argv[4:10])
+# every incarnation makes the same stream from the seed
+rng = np.random.default_rng(seed)
+data = rng.normal(0.0, 1.0, size=(records, feats)).astype(np.float32)
+data[:, 0] = ((rng.zipf(1.3, size=records) - 1) % keys).astype(np.float32)
+cm = compile_pmml(parse_pmml_file(pmml), batch_size=B)
+pipe = BlockPipeline(
+    # one B-record block a dispatch: a restore at a committed offset
+    # replays the batches of the single life
+    FiniteBlockSource(data, block_size=B), cm, lambda out, n, off: None,
+    RuntimeConfig(batch=BatchConfig(size=B, deadline_us=5_000_000),
+                  checkpoint_interval_s=0.05),
+    checkpoint=CheckpointManager(ckdir), max_dispatch_chunks=1,
+    state=StateSpec(capacity=capacity, key_col=0))
+pipe.restore()
+pipe.start()
+while pipe.committed_offset < records and pipe.error is None:
+    time.sleep(0.02)
+pipe.stop()
+pipe.join(timeout=60.0)
+tbl = pipe._state
+np.savez(outpath + ".tmp", values=tbl.host_values(),
+         applied_hi=np.int64(tbl.applied_hi), device=str(tbl.device))
+os.replace(outpath + ".tmp.npz", outpath)
+"""
+
+
+def kill_parity(workdir: str, pmml: str, seed: int) -> dict:
+    """The JAX ``_stateful_kill_parity`` at its sizes, with the workers on
+    the card: the same keyed stream through a checkpointed, state-armed
+    ``BlockPipeline`` once uninterrupted and once SIGKILLed twice, each
+    incarnation restoring from the newest checkpoint; the two final tables
+    must be the same bytes. A 20 ms ``dispatch_delay`` a dispatch keeps
+    the stream long enough for the kills to land mid-stream."""
+    import signal
+
+    from flink_jpmml_tpu_torch.runtime.checkpoint import CheckpointManager
+
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def committed(ckdir) -> int:
+        try:
+            st = CheckpointManager(ckdir).load_latest()
+            return int(st["source_offset"]) if st else 0
+        except Exception:
+            return 0
+
+    def spawn(tag):
+        ckdir = os.path.join(workdir, f"ck-{tag}")
+        out = os.path.join(workdir, f"state-{tag}.npz")
+        env = dict(os.environ, FJT_FAULTS="dispatch_delay:delay_ms=20")
+        argv = [sys.executable, "-c", STATE_WORKER, pmml, ckdir, out,
+                str(seed), str(KILL_RECORDS), str(KILL_KEYS),
+                str(KILL_CAPACITY), str(KILL_BATCH), "8"]
+        err = os.path.join(workdir, f"worker-{tag}.err")
+
+        def start():
+            # stderr to a file: a pipe left unread could fill and stall
+            # the worker
+            with open(err, "ab") as f:
+                return subprocess.Popen(argv, cwd=here, env=env,
+                                        stdout=subprocess.DEVNULL, stderr=f)
+        return ckdir, out, start
+
+    procs = []
+    try:
+        ref_ck, ref_out, ref_start = spawn("ref")
+        ref = ref_start()
+        procs.append(ref)
+        kill_ck, kill_out, kill_start = spawn("kill")
+        targets = [KILL_RECORDS * (i + 1) // (KILLS + 1)
+                   for i in range(KILLS)]
+        incarnations = kills = 0
+        deadline = time.monotonic() + 300.0
+        while True:
+            proc = kill_start()
+            procs.append(proc)
+            incarnations += 1
+            if targets:
+                while (proc.poll() is None
+                       and committed(kill_ck) < targets[0]
+                       and time.monotonic() < deadline):
+                    time.sleep(0.01)
+                if proc.poll() is None and time.monotonic() < deadline:
+                    os.kill(proc.pid, signal.SIGKILL)
+                    proc.wait(timeout=30)
+                    kills += 1
+                    targets.pop(0)
+                    continue
+            proc.wait(timeout=max(deadline - time.monotonic(), 5.0))
+            break
+        ref.wait(timeout=max(deadline - time.monotonic(), 5.0))
+        for p, tag in ((ref, "ref"), (proc, "kill")):
+            if p.returncode != 0:
+                with open(os.path.join(workdir, f"worker-{tag}.err")) as f:
+                    tail = f.read()[-1500:]
+                raise RuntimeError(f"stateful worker ({tag}) rc "
+                                   f"{p.returncode}: {tail}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    a, b = np.load(ref_out), np.load(kill_out)
+    same = a["values"].tobytes() == b["values"].tobytes()
+    if (kills != KILLS or not same or int(a["applied_hi"]) != KILL_RECORDS
+            or int(b["applied_hi"]) != KILL_RECORDS
+            or not str(a["device"]).startswith("cuda")):
+        raise RuntimeError(f"kill parity: kills {kills}, same bytes {same}, "
+                           f"applied_hi {int(a['applied_hi'])} / "
+                           f"{int(b['applied_hi'])}, device {a['device']}")
+    return {"records": KILL_RECORDS, "keys": KILL_KEYS,
+            "capacity": KILL_CAPACITY, "batch": KILL_BATCH, "kills": kills,
+            "incarnations": incarnations, "device": str(a["device"]),
+            "parity_mismatch_bytes": 0}
+
+
+def stateful_drill(workdir: str) -> dict:
+    """The JAX stateful drill's geometry (bench.py run_stateful_bench) on
+    the card: gen_gbm(20, depth=4, 8 features, seed 29), batch 8,192, a
+    2^21-row table (64 MiB on the card), 10,000,000 keys, a sweep and a
+    zipf a = 1.1 mix of 10,485,760 records each through
+    ``dispatch_quantized(state=)``, against the stateless loop; the zipf
+    stream twice more, the two tables the same bytes; a 2,048-key sample
+    of a 262,144-record prefix held to the CPU port; then the SIGKILL
+    replay."""
+    import torch
+
+    from flink_jpmml_tpu_torch.assets_gen import gen_gbm
+    from flink_jpmml_tpu_torch.compile import compile_pmml
+    from flink_jpmml_tpu_torch.pmml import parse_pmml_file
+    from flink_jpmml_tpu_torch.runtime.engine import new_staging
+    from flink_jpmml_tpu_torch.runtime.pipeline import dispatch_quantized
+    from flink_jpmml_tpu_torch.runtime.state import (
+        COL_COUNT,
+        COL_DCOUNT,
+        COL_DSUM,
+        COL_LAST_T,
+        COL_MAX,
+        COL_MIN,
+        COL_SQSUM,
+        COL_SUM,
+        KeyedStateTable,
+        StateSpec,
+    )
+    from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry
+
+    t0 = time.perf_counter()
+    pmml = gen_gbm(workdir, n_trees=20, depth=4, n_features=8, seed=29,
+                   name="stateful.pmml")
+    doc = parse_pmml_file(pmml)
+    q = compile_pmml(doc, batch_size=STATE_BATCH).quantized_scorer()
+    rng = np.random.default_rng(29)
+    pool_n = 64 * STATE_BATCH
+    pool = rng.normal(0.0, 1.0, (pool_n, 8)).astype(np.float32)
+    n_batches = STATE_RECORDS // STATE_BATCH
+    zipf = ((rng.zipf(1.1, size=STATE_RECORDS) - 1) % STATE_KEYS).astype(
+        np.int64)
+
+    def sweep(off):
+        return (np.arange(off, off + STATE_BATCH, dtype=np.int64)
+                * _PERM) % STATE_KEYS
+
+    spec = StateSpec(capacity=STATE_CAPACITY, key_col=0)
+    stream = torch.cuda.Stream()
+    staging = new_staging(q.device)
+
+    def run_mix(key_fn, table, batches=n_batches) -> float:
+        with torch.cuda.stream(stream):
+            window = []
+            t = time.perf_counter()
+            for b in range(batches):
+                off = b * STATE_BATCH
+                X = pool[off % pool_n: off % pool_n + STATE_BATCH]
+                kw = {} if table is None else {
+                    "state": table, "state_keys": key_fn(off),
+                    "offsets": np.arange(off, off + STATE_BATCH,
+                                         dtype=np.int64)}
+                window.append(dispatch_quantized(q, X, staging=staging, **kw))
+                if len(window) > 2:  # two batches in flight
+                    window.pop(0).synchronize()
+            for w in window:
+                w.synchronize()
+            return batches * STATE_BATCH / (time.perf_counter() - t)
+
+    warm = KeyedStateTable(spec)
+    run_mix(sweep, warm, 2)
+    run_mix(None, None, 2)
+    del warm
+    stateless = run_mix(None, None)
+    reg_s, reg_z = MetricsRegistry(), MetricsRegistry()
+    t_sweep = KeyedStateTable(spec, metrics=reg_s)
+    sweep_rps = run_mix(sweep, t_sweep)
+    t_zipf = KeyedStateTable(spec, metrics=reg_z)
+    zipf_rps = run_mix(lambda off: zipf[off: off + STATE_BATCH], t_zipf)
+    del t_sweep
+    # the determinism check on the card: the zipf stream again, the same
+    # bytes (every key repeats within its batches, so the sums' order
+    # of adds is exercised)
+    t_again = KeyedStateTable(spec)
+    run_mix(lambda off: zipf[off: off + STATE_BATCH], t_again)
+    first, again = t_zipf.host_values(), t_again.host_values()
+    deterministic = (first.tobytes() == again.tobytes()
+                     and np.array_equal(t_zipf._keys, t_again._keys))
+    del t_again
+    if not deterministic:
+        raise RuntimeError("the zipf stream run twice on the card gave "
+                           "two different tables")
+    cs = reg_s.struct_snapshot()
+    cz = reg_z.struct_snapshot()
+    if (cs["counters"].get("state_records") != STATE_RECORDS
+            or cz["counters"].get("state_records") != STATE_RECORDS
+            or cs["gauges"]["state_occupancy_frac"]["value"] <= 0.95
+            or not cs["counters"].get("state_evictions")):
+        raise RuntimeError(f"stateful mixes: {cs['counters']} / "
+                           f"{cz['counters']}")
+    # the CPU port over a prefix of the zipf stream, against the card
+    q_cpu = compile_pmml(doc, batch_size=STATE_BATCH,
+                         device="cpu").quantized_scorer()
+    card = KeyedStateTable(spec)
+    cpu = KeyedStateTable(spec, device="cpu")
+    run_mix(lambda off: zipf[off: off + STATE_BATCH], card,
+            STATE_CPU_BATCHES)
+    for b in range(STATE_CPU_BATCHES):
+        off = b * STATE_BATCH
+        dispatch_quantized(
+            q_cpu, pool[off % pool_n: off % pool_n + STATE_BATCH],
+            state=cpu, state_keys=zipf[off: off + STATE_BATCH],
+            offsets=np.arange(off, off + STATE_BATCH, dtype=np.int64))
+    cv, pv = card.host_values(), cpu.host_values()
+    occ = np.flatnonzero(card._occ)
+    sample = np.random.default_rng(7).choice(
+        occ, size=min(STATE_SAMPLE_KEYS, occ.size), replace=False)
+    exact = [COL_COUNT, COL_LAST_T, COL_MIN, COL_MAX]
+    summed = [COL_SUM, COL_SQSUM, COL_DCOUNT, COL_DSUM]
+    cpu_ok = (np.array_equal(card._keys, cpu._keys)
+              and np.array_equal(card._occ, cpu._occ)
+              and np.array_equal(cv[sample][:, exact], pv[sample][:, exact])
+              and np.allclose(cv[sample][:, summed], pv[sample][:, summed],
+                              rtol=1e-5, atol=1e-6))
+    cpu_err = float(np.abs(cv[sample] - pv[sample]).max())
+    if not cpu_ok:
+        raise RuntimeError(f"the card's table disagrees with the CPU port's "
+                           f"on the sampled keys: {cpu_err}")
+    # where a state-armed batch's time goes: the host's slot routing of
+    # one zipf batch, and one step on the card at the table's full size
+    # (its operands' copies included), issued alone
+    from flink_jpmml_tpu_torch.compile import statekernel
+
+    probe = KeyedStateTable(spec)
+    n_route = min(64, n_batches)
+    t = time.perf_counter()
+    for b in range(n_route):
+        off = b * STATE_BATCH
+        routed = probe.assign_slots(
+            zipf[off: off + STATE_BATCH].astype(np.uint32),
+            np.arange(off, off + STATE_BATCH, dtype=np.int64))
+    route_ms = 1e3 * (time.perf_counter() - t) / n_route
+    score = torch.zeros(STATE_BATCH, device=q.device)
+    slots, reset, rel, w = routed
+    step_ms = cuda_ms(lambda: statekernel._state_step(
+        probe.values, score, slots, rel, w, reset, probe.scratch,
+        spec.decay), 3, 20)
+    del probe
+    kill = kill_parity(workdir, pmml, 30)
+    gs = {k: v.get("value") for k, v in cs["gauges"].items()}
+    gz = {k: v.get("value") for k, v in cz["gauges"].items()}
+    return {
+        "seconds": time.perf_counter() - t0,
+        "records_per_mix": STATE_RECORDS, "key_domain": STATE_KEYS,
+        "capacity": STATE_CAPACITY, "table_bytes": STATE_CAPACITY * 32,
+        "batch": STATE_BATCH, "trees": 20,
+        "stateless_rps": stateless, "sweep_rps": sweep_rps,
+        "zipf_rps": zipf_rps,
+        "state_overhead_frac": max(0.0, 1.0 - zipf_rps / stateless),
+        "sweep_overhead_frac": max(0.0, 1.0 - sweep_rps / stateless),
+        "occupancy_frac": gs.get("state_occupancy_frac"),
+        "zipf_hit_ratio": gz.get("state_hit_ratio"),
+        "sweep_evictions": int(cs["counters"].get("state_evictions", 0)),
+        "zipf_collisions": int(cz["counters"].get("state_collisions", 0)),
+        "deterministic_bytes": deterministic,
+        "split": {"host_route_ms_per_batch": route_ms,
+                  "card_step_ms_per_batch": step_ms,
+                  "stateless_ms_per_batch": 1e3 * STATE_BATCH / stateless,
+                  "zipf_ms_per_batch": 1e3 * STATE_BATCH / zipf_rps},
+        "cpu_check": {"records": STATE_CPU_BATCHES * STATE_BATCH,
+                      "sampled_keys": int(sample.size),
+                      "max_abs_diff": cpu_err},
+        "kill_parity": kill,
+    }
+
+
+def zoo_state(workdir: str, smi: str) -> dict:
+    """The ``zoo_state`` phase: the packed launch, the zoo drill and the
+    stateful drill."""
+    t0 = time.perf_counter()
+    paths = zoo_doc_paths(workdir)
+    pk = packed_kernel(workdir, paths)
+    zoo = zoo_drill(workdir, paths)
+    st = stateful_drill(workdir)
+    return {"nvidia_smi": smi, "seconds": time.perf_counter() - t0,
+            "packed_kernel": pk, "zoo": zoo, "stateful": st}
+
+
 # -- A/B of the fused block path against another checkout ---------------
 
 AB_CHILD = r"""
@@ -4952,6 +5700,9 @@ def run_phase_alone(workdir: str, phase: str) -> int:
     elif phase == "kernel_search":
         ks = kernel_search(workdir, qtrees_cuda.leaf_rows, smi)
         emit({"phase": "kernel_search", **ks})
+    elif phase == "zoo_state":
+        zs = zoo_state(workdir, smi)
+        emit({"phase": "zoo_state", **zs})
     else:
         raise ValueError(f"no phase {phase!r} runs alone")
     print(smi, flush=True)
@@ -5268,6 +6019,13 @@ def run_phases(workdir: str) -> int:
     ks = kernel_search(workdir, qtrees_cuda.leaf_rows, smi)
     emit({"phase": "kernel_search", **ks})
 
+    # -- multi-tenant and stateful scoring: packs, the zoo, keyed state -----
+    zs = zoo_state(workdir, smi)
+    emit({"phase": "zoo_state", **zs})
+    zoo_launches = zs["zoo"]["launches_solo_c1"]
+    packed_checked = zs["packed_kernel"]["cases"]
+    pt = zs["packed_kernel"]["timing"]
+
     def kernel_entry(name, replaces, runs, checked, t):
         return {
             "name": name, "route": "cuda",
@@ -5296,7 +6054,8 @@ def run_phases(workdir: str) -> int:
                       "record_kafka": rec["kafka"],
                       "recovery": {"launches": rcv["launches_c1"]},
                       "serving_edge": {"launches": edge["launches_c1"]},
-                      "kernel_search": {"launches": ks["launches_c1"]}},
+                      "kernel_search": {"launches": ks["launches_c1"]},
+                      "zoo_state": {"launches": zoo_launches}},
                      rows + [r for r in wrows if r["classes"] == 1], timing),
         kernel_entry("qtrees_leaf_rows (vote shares)",
                      "flink_jpmml_tpu/compile/qtrees_pallas.py:187 and :238",
@@ -5307,6 +6066,22 @@ def run_phases(workdir: str) -> int:
                       "serving_edge": {"launches": edge["launches_c3"]},
                       "kernel_search": {"launches": ks["launches_c3"]}},
                      vrows + [r for r in wrows if r["classes"] > 1], vtiming),
+        {
+            "name": "qtrees_leaf_rows_packed (cross-model pack)",
+            "route": "cuda",
+            "source": "flink_jpmml_tpu_torch/csrc/qtrees_ensemble.cu",
+            "replaces": "flink_jpmml_tpu/compile/qtrees_pallas.py:170 and "
+                        ":218 (each member; flink_jpmml_tpu/compile/"
+                        "packs.py:150 packs them in one program)",
+            "launches": zs["zoo"]["launches_packed"],
+            "launches_by_path": {"zoo_state": zs["zoo"]["launches_packed"]},
+            "max_abs_err": max(r["max_abs_err"] for r in packed_checked),
+            "ms": pt["packed_ms"], "plain_ms": pt["plain_ms"],
+            "bound_ms": pt["bound_ms"], "bound_by": pt["bound_by"],
+            "library_ms": None, "ops": pt["ops"],
+            "solo_sequence_ms": pt["solo_sequence_ms"],
+            "blocks": pt["blocks"],
+        },
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -63,7 +63,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import hashlib
 import json
 import math
 import os
@@ -369,17 +368,6 @@ def platform_key() -> str:
     return _device_key("cuda" if torch.cuda.is_available() else "cpu")
 
 
-def model_set_hash(hashes: Sequence[str]) -> str:
-    """Stable identity of a model multiset: the pack-plan cache key half
-    (a copy of the JAX package's ``packs.model_set_hash``). Sorted, so
-    tenant arrival order cannot split the cache."""
-    h = hashlib.sha256()
-    for mh in sorted(str(x) for x in hashes):
-        h.update(mh.encode())
-        h.update(b"|")
-    return h.hexdigest()[:16]
-
-
 def _pack_key(set_hash: str, plat: str) -> str:
     return f"packset:{set_hash}|{plat}"
 
@@ -436,7 +424,9 @@ def ensure_pack_plan(
     from flink_jpmml_tpu_torch.obs import recorder as flight
 
     plat = plat or platform_key()
-    set_hash = model_set_hash(list(metas))
+    from flink_jpmml_tpu_torch.compile import packs
+
+    set_hash = packs.model_set_hash(list(metas))
     cached = lookup_pack_plan(set_hash, plat)
     if cached is not None:
         members = {h for g in cached.groups for h in g}

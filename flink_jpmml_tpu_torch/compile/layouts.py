@@ -321,12 +321,8 @@ def plan_wire_pack(wire) -> Optional[WirePack]:
 PACK_SPACE_TAG = "packspace-v1"
 
 # candidate pack widths for the bucketed-greedy family; each is capped
-# by PACK_MAX at enumeration time
+# by packs.pack_max() at enumeration time
 _PACK_WIDTHS = (4, 8, 16)
-# members a pack may hold: the JAX package's ``packs.pack_max()`` at its
-# default (its ``FJT_PACK_MAX`` knob is not ported; the port's packs come
-# with the multi-tenant slice)
-PACK_MAX = 16
 
 
 def pack_partitions(
@@ -346,7 +342,7 @@ def pack_partitions(
       (wire dtype rank, classification, field count, hash) so lookalike
       shapes land in the same bucket (minimal padded waste), chunked
       into groups of ≤ k,
-    - **single-bucket** — one pack per ``PACK_MAX`` chunk over the whole
+    - **single-bucket** — one pack per ``packs.pack_max()`` chunk over the whole
       sorted set (maximal launch amortization, maximal padding).
 
     Deterministic: same meta set → same candidate list, so the adopted
@@ -375,7 +371,9 @@ def pack_partitions(
         )
 
     ordered = sorted(hashes, key=shape_key)
-    cap = PACK_MAX
+    from flink_jpmml_tpu_torch.compile import packs
+
+    cap = packs.pack_max()
     cands: List[Tuple[Tuple[str, ...], ...]] = [solo]
     seen = {solo}
     for k in tuple(w for w in _PACK_WIDTHS if w <= cap) + (cap,):

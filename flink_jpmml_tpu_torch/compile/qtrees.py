@@ -325,6 +325,11 @@ class QuantizedScorer:
     _cost_feat: object = None
     _cost_variant: object = None
     _pred_s_per_record: object = None
+    # cross-model packing (compile/packs.py): what a pack needs to score
+    # this member in its shared launch. "cuda" members: the kernel's
+    # tables, launch shape and epilogue (kept current by adopt_variant);
+    # "torch" members: the qfn (as the JAX package's _pack_info)
+    _pack_info: dict = field(default_factory=dict)
 
     @property
     def is_classification(self) -> bool:
@@ -385,6 +390,10 @@ class QuantizedScorer:
         self._wire_pack = built.get("wire_pack")
         self.launch = built.get("launch", (None, None))
         self.layout = layout
+        if self._pack_info.get("route") == "cuda":
+            self._pack_info["tables"] = {
+                k: self.params[k] for k in qtrees_cuda.TABLE_KEYS}
+            self._pack_info["launch"] = self.launch
 
     def pad_wire(self, Xq: np.ndarray) -> Tuple[np.ndarray, int]:
         """Host-side batch alignment → ``(Xq_padded, K)``: a batch whose
@@ -435,6 +444,31 @@ class QuantizedScorer:
     def predict_wire(self, Xq) -> Output:
         Xq, K = self.pad_wire(Xq)
         return self.predict_padded(Xq, K)
+
+    # -- state-armed entries (compile/statekernel.py) ----------------------
+
+    def predict_padded_state(self, Xq, K: int, table, slots, rel, w,
+                             reset):
+        """State-armed twin of :meth:`predict_padded`: the aligned wire
+        batch is scored and folded through the keyed state table in one
+        dispatch, the state step queued right after the scorer on the
+        current stream → ``(out, derived[B, 8], S')``; the caller commits
+        ``S'`` to the table. ``out`` is byte-identical to the stateless
+        dispatch's. Slot and decay operands come from
+        ``KeyedStateTable.assign_slots``."""
+        from flink_jpmml_tpu_torch.compile import statekernel
+
+        return statekernel.entry_for(self, "wire")(
+            Xq, K, table, slots, rel, w, reset)
+
+    def predict_fused_padded_state(self, X, K: int, table, slots, rel, w,
+                                   reset):
+        """Fused-encode twin of :meth:`predict_padded_state` (raw f32
+        in, encode + score + state on the current stream)."""
+        from flink_jpmml_tpu_torch.compile import statekernel
+
+        return statekernel.entry_for(self, "fused")(
+            X, K, table, slots, rel, w, reset)
 
     # -- fused encode + score ---------------------------------------------
 
@@ -794,15 +828,18 @@ def build_quantized_scorer(
         ))
         C = params["rows"].shape[2]
 
+        def epilogue(rows):
+            """f32[N, C] kernel sums → the scorer's output."""
+            if classification:
+                return _vote_epilogue(rows, targets)
+            return apply_targets_value(rows[:, 0], targets).float()
+
         def make_fn(threads=None, chunk_bytes=None):
             def fn(pp, Xq):
-                rows = qtrees_cuda.leaf_rows(
+                return epilogue(qtrees_cuda.leaf_rows(
                     Xq, {k: pp[k] for k in qtrees_cuda.TABLE_KEYS}, F,
                     threads, chunk_bytes,
-                )
-                if classification:
-                    return _vote_epilogue(rows, targets)
-                return apply_targets_value(rows[:, 0], targets).float()
+                ))
             return fn
 
         fn = make_fn()
@@ -897,6 +934,17 @@ def build_quantized_scorer(
                if kernel_fits else {}),
         },
     )
+    scorer._pack_info = {
+        "fields": F, "dtype": dtype, "sentinel": sentinel,
+        "classification": classification,
+    }
+    if kernel_fits:
+        scorer._pack_info.update(
+            route="cuda", epilogue=epilogue,
+            tables={k: dev_params[k] for k in qtrees_cuda.TABLE_KEYS},
+            launch=scorer.launch)
+    else:
+        scorer._pack_info.update(route="torch", qfn=qfn)
     _consult_autotune(scorer)
     return scorer
 

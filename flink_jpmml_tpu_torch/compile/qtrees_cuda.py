@@ -411,6 +411,9 @@ def build() -> ctypes.CDLL:
         lib.qtrees_leaf_rows.argtypes = [
             p, i64, i32, p, i32, i32, i32, i32, i32, i32, i32, i32, p, p]
         lib.qtrees_leaf_rows.restype = ctypes.c_int
+        lib.qtrees_leaf_rows_packed.argtypes = [
+            p, p, i32, i64, i32, i64, i32, i32, p, p]
+        lib.qtrees_leaf_rows_packed.restype = ctypes.c_int
         _LIB = lib
         return lib
 
@@ -598,3 +601,152 @@ def leaf_rows(codes: torch.Tensor, tables: Dict[str, torch.Tensor],
 
 leaf_rows.launches = 0
 leaf_rows.launches_by_classes = {}
+
+
+# ---------------------------------------------------------------------------
+# The packed launch: many members' walks in one launch
+# ---------------------------------------------------------------------------
+
+# words of one member's descriptor (DescWord in the .cu source)
+DESC_WORDS = 16
+(_D_CODES_OFF, _D_ROWS, _D_SRC_STRIDE, _D_FIELDS, _D_WALK, _D_TREES,
+ _D_TREE_WORDS, _D_CHUNK_TREES, _D_LEAF_BASE, _D_ROW_WORD, _D_CLASSES,
+ _D_OUT_OFF, _D_BLOCK_BEGIN, _D_ROW_STRIDE) = range(14)
+
+
+def packed_shape(members) -> Tuple[int, list, int]:
+    """The launch shape of a packed launch over ``members``, each
+    ``(n_fields, n_trees, tree_words, threads, chunk_bytes)`` as its solo
+    launch takes them (:func:`launch_shape`; None: the default) →
+    ``(threads, [chunk_trees per member], smem_bytes)``.
+
+    The pack's block is the smallest of the members' own blocks, each
+    member keeps its own chunk of trees, and the launch's shared memory is
+    the largest need among the members at that block; the class bucket is
+    the largest (the .cu source). The sums do not depend on the block or
+    the chunk (trees are added in ascending order whatever the shape), so
+    each member's rows are its solo launch's bit for bit. Raises
+    ValueError when a member's shape is one the card cannot take or the
+    largest need exceeds ``SMEM_MAX``: the pack plan refuses that mix."""
+    if not members:
+        raise ValueError("a packed launch needs at least one member")
+    shapes = [launch_shape(f, t, w, th, cb) for f, t, w, th, cb in members]
+    threads = min(sh[0] for sh in shapes)
+    chunks = [sh[1] for sh in shapes]
+    smem = max(
+        BAR_BYTES + 2 * c * w * 8
+        + threads * RECORDS_PER_THREAD * staged_row_stride(f)
+        for (f, _t, w, _th, _cb), c in zip(members, chunks))
+    if smem > SMEM_MAX:
+        raise ValueError(f"a packed launch needs {smem} bytes of shared "
+                         f"memory, over the block's {SMEM_MAX}")
+    return threads, chunks, smem
+
+
+def _packed_members(codes, rows, tables, n_fields, launches):
+    """Checks of a packed launch's operands → per member (T, S, L, C)."""
+    if codes.dim() != 3 or codes.dtype != torch.uint8:
+        raise ValueError(f"packed codes must be u8[N, B, F], got "
+                         f"{codes.dtype}{tuple(codes.shape)}")
+    N, B, F = codes.shape
+    if not (len(rows) == len(tables) == len(n_fields) == N):
+        raise ValueError(f"{N} member slots but {len(rows)} row counts, "
+                         f"{len(tables)} tables, {len(n_fields)} widths")
+    if launches is not None and len(launches) != N:
+        raise ValueError(f"{N} members but {len(launches)} launch shapes")
+    if codes.device.type == "cuda" and not codes.is_contiguous():
+        raise ValueError("packed codes must be contiguous")
+    dims = []
+    for m in range(N):
+        if not 0 <= rows[m] <= B:
+            raise ValueError(f"member {m}: {rows[m]} rows outside [0, {B}]")
+        if not 0 < n_fields[m] <= min(F, MAX_FIELDS):
+            raise ValueError(f"member {m}: {n_fields[m]} fields outside "
+                             f"(0, {min(F, MAX_FIELDS)}]")
+        dims.append(_check_tables(tables[m], codes.device))
+    return dims
+
+
+def leaf_rows_packed_reference(codes: torch.Tensor, rows, tables, n_fields):
+    """Plain version of the packed launch: :func:`leaf_rows_reference` over
+    each member's rows ``codes[m, :rows[m], :n_fields[m]]`` and its own
+    tables → a list of f32[rows[m], C_m]. Used by the tests and on the
+    CPU; nothing on the card calls it."""
+    return [
+        leaf_rows_reference(codes[m, : rows[m], : n_fields[m]], tables[m])
+        for m in range(codes.shape[0])
+    ]
+
+
+def leaf_rows_packed(codes: torch.Tensor, rows, tables, n_fields,
+                     launches=None):
+    """One launch over many members → a list of f32[rows[m], C_m]: member
+    m's rows are :func:`leaf_rows` of ``codes[m, :rows[m], :n_fields[m]]``
+    over ``tables[m]`` at its launch shape ``launches[m]`` (``(threads,
+    chunk_bytes)``; None: the default), bit for bit.
+
+    ``codes`` is the packed buffer u8[N, B, F_max]: member m's records in
+    slot m, its fields first, the rest of a row ignored. On a CUDA tensor:
+    one launch of ``walk_packed_kernel`` on the current stream, a block of
+    the grid a (member, row block) pair (counted in
+    ``leaf_rows_packed.launches`` and, by the largest class count, in
+    ``leaf_rows_packed.launches_by_classes``), or a raise: on a shape the
+    pack cannot take (:func:`packed_shape`), a table not on the card, or
+    a launch the runtime refused (:class:`KernelLaunchError`). There is no
+    fall-back to launches a member. On a CPU tensor: the plain version."""
+    dims = _packed_members(codes, rows, tables, n_fields, launches)
+    N, B, F = codes.shape
+    launches = launches or [(None, None)] * N
+    threads, chunks, smem = packed_shape([
+        (n_fields[m], d[0], walk_words(*d[1:]), *launches[m])
+        for m, d in enumerate(dims)])
+    if codes.device.type == "cpu":
+        return leaf_rows_packed_reference(codes, rows, tables, n_fields)
+    lib = build()
+    per_block = threads * RECORDS_PER_THREAD
+    desc = np.zeros((N, DESC_WORDS), np.int64)
+    out_off = blocks = 0
+    for m, (T, S, L, C) in enumerate(dims):
+        d = desc[m]
+        d[_D_CODES_OFF] = m * B * F
+        d[_D_ROWS] = rows[m]
+        d[_D_SRC_STRIDE] = F
+        d[_D_FIELDS] = n_fields[m]
+        d[_D_WALK] = tables[m]["walk"].data_ptr()
+        d[_D_TREES] = T
+        d[_D_TREE_WORDS] = tables[m]["walk"].shape[1]
+        d[_D_CHUNK_TREES] = chunks[m]
+        d[_D_LEAF_BASE] = 1 + S
+        d[_D_ROW_WORD] = 1 + S + L
+        d[_D_CLASSES] = C
+        d[_D_OUT_OFF] = out_off
+        d[_D_BLOCK_BEGIN] = blocks
+        d[_D_ROW_STRIDE] = staged_row_stride(n_fields[m])
+        out_off += rows[m] * C
+        blocks += -(-rows[m] // per_block)
+    out = torch.empty(out_off, dtype=torch.float32, device=codes.device)
+    dev_desc = torch.from_numpy(desc).pin_memory().to(
+        codes.device, non_blocking=True)
+    max_c = max(d[3] for d in dims)
+    stream = torch.cuda.current_stream(codes.device).cuda_stream
+    rc = lib.qtrees_leaf_rows_packed(
+        codes.data_ptr(), dev_desc.data_ptr(), N, blocks, threads, smem,
+        max_c, SENTINEL, out.data_ptr(), stream)
+    if rc != 0:
+        raise KernelLaunchError(f"qtrees_leaf_rows_packed launch failed: "
+                                f"cudaError {rc}", cuda_error=rc)
+    if blocks:
+        with _COUNT_LOCK:
+            leaf_rows_packed.launches += 1
+            by_c = leaf_rows_packed.launches_by_classes
+            by_c[max_c] = by_c.get(max_c, 0) + 1
+    outs, at = [], 0
+    for m, d in enumerate(dims):
+        n = rows[m] * d[3]
+        outs.append(out[at: at + n].view(rows[m], d[3]))
+        at += n
+    return outs
+
+
+leaf_rows_packed.launches = 0
+leaf_rows_packed.launches_by_classes = {}

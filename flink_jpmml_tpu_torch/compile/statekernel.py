@@ -1,0 +1,243 @@
+"""The fused state stage: lookup → derive → score → update, one dispatch.
+
+The port of ``flink_jpmml_tpu/compile/statekernel.py``. The JAX module is
+plain XLA gather and scatter, no Pallas kernel, so the port's stage is
+plain PyTorch ops queued on the scorer's stream right after the kernel
+of the same dispatch:
+
+    out            = member scorer(params, X)        # unchanged
+    derived[B, 8]  = gather(S, slots) → session features
+    S'             = S + scatter-add / -min / -max over the batch
+
+Batch-consistent reads, as in the JAX module: every record's derived
+features see the table as of the batch start; the updates are sums with
+product-form decay weights, a max of the last-seen stride, and min / max
+of the score.
+
+**Deterministic sums.** ``index_add_`` and ``index_put_(accumulate=True)``
+use float atomics on CUDA, so the order of the adds into a slot that
+appears twice in a batch would change from run to run, and a replayed
+table would not be byte-identical (the JAX acceptance: ``bench.py``
+``_stateful_kill_parity``). The step therefore sorts the batch by slot
+with a stable sort, sums each slot's run of records in record order
+(``torch.segment_reduce`` over the sorted rows: one sequential loop per
+slot, no atomics), and adds the sum to the slot's row once, through an
+index write whose indices are unique apart from the scratch row (which
+the step zeroes). Min and max are order-free (``scatter_reduce_``
+``amin`` / ``amax``). On the same inputs the result is the same bytes on
+every run and on either device.
+
+How that order differs from the JAX CPU scatter: XLA adds a slot's
+records into the row one at a time, ``((S + a1) + a2) + a3``; the port
+adds ``S + ((a1 + a2) + a3)``. A slot that appears once in the batch gets
+``S + a1`` either way, so a batch without a repeated key gives the same
+bytes as the JAX package; a repeated key may differ in the last bits of
+the sum, sqsum and decayed columns (held at rtol 1e-5 / atol 1e-6 in the
+tests). Count, last-seen, min and max are exact either way (integer
+counts stay exact in f32 far past any batch).
+
+The step writes a new tensor (out of place, see ``runtime/state.py``):
+the port never donates, and the committed tensor is never written after
+a snapshot may have started to read it.
+
+Bypassed records (replay below the exactly-once high-water, pad rows)
+arrive with ``slot == scratch`` and weight 0: they read the scratch row
+(derived zeros) and their contributions land on the scratch row, which
+the step zeroes before it returns.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from flink_jpmml_tpu_torch.runtime.state import (
+    COL_COUNT,
+    COL_DSUM,
+    COL_LAST_T,
+    COL_MAX,
+    COL_MIN,
+    COL_SQSUM,
+    COL_SUM,
+    COL_DCOUNT,
+    STATE_WIDTH,
+)
+from flink_jpmml_tpu_torch.utils.exceptions import ModelCompilationException
+
+# row written into freshly claimed slots before the batch gather: zero
+# counts, ±inf extrema so the first min/max lands exactly
+_INIT_ROW = (0.0, 0.0, 0.0, 0.0, 0.0, 0.0, float("inf"), float("-inf"))
+# floor on the decayed-count denominator (a key whose decayed mass fully
+# evaporated reads mean 0, not inf)
+_DCOUNT_FLOOR = 1e-30
+
+
+def _as_tensor(x, dtype, device) -> torch.Tensor:
+    """A host operand (numpy or tensor) on ``device`` as ``dtype``. On the
+    card a numpy operand crosses through pinned memory without a host
+    wait (a pageable copy would synchronize the stream)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return t.to(device=device, dtype=dtype)
+
+
+_INIT_ROWS = {}
+
+
+def _init_row(device) -> torch.Tensor:
+    """``_INIT_ROW`` on ``device``, made once."""
+    row = _INIT_ROWS.get(device)
+    if row is None:
+        row = _INIT_ROWS[device] = torch.tensor(
+            _INIT_ROW, dtype=torch.float32, device=device)
+    return row
+
+
+def _segment_sums(slots: torch.Tensor, adds: torch.Tensor):
+    """Per distinct slot, the sum of its records' ``adds`` rows in record
+    order → ``(seg_slot i64[B], seg_sum f32[B, K])``: segment j's slot
+    and sum, for j below the number of distinct slots; the rest are
+    empty segments (slot -1, sum 0). No host sync: the shapes are the
+    batch's."""
+    B = slots.shape[0]
+    order = torch.sort(slots, stable=True).indices
+    ss = slots[order]
+    first = torch.ones(B, dtype=torch.bool, device=slots.device)
+    first[1:] = ss[1:] != ss[:-1]
+    seg = torch.cumsum(first.long(), 0) - 1  # segment of each sorted row
+    pos = torch.arange(B, device=slots.device)
+    # each segment's start; unused segments start (and end) at B
+    offsets = torch.full((B + 1,), B, dtype=torch.long, device=slots.device)
+    offsets.scatter_reduce_(0, seg, pos, "amin")
+    seg_sum = torch.segment_reduce(
+        adds[order], "sum", offsets=offsets, axis=0, unsafe=True)
+    seg_slot = torch.full((B,), -1, dtype=torch.long, device=slots.device)
+    seg_slot.scatter_(0, seg, ss)
+    return seg_slot, seg_sum
+
+
+def _state_step(S, score, slots, rel, w, reset, scratch, decay):
+    """One batch's state transition.
+
+    ``S[rows, 8]`` table · ``score[B]`` model outputs · ``slots[B]`` row
+    per record (``scratch`` = bypass) · ``rel[B]`` decay stride relative
+    to the table epoch · ``w[B]`` product-form decay weight λ^-rel (0 for
+    bypassed rows) · ``reset[B]`` fresh-slot marks → ``(derived[B, 8],
+    S')`` with ``S'`` a new tensor. The host-side operands may be numpy
+    arrays or tensors; they move to ``S``'s device."""
+    dev = S.device
+    f32 = torch.float32
+    score = _as_tensor(score, f32, dev)
+    slots = _as_tensor(slots, torch.long, dev)
+    rel = _as_tensor(rel, f32, dev)
+    w = _as_tensor(w, f32, dev)
+    reset = _as_tensor(reset, torch.bool, dev)
+    S = S.clone()
+    # fresh slots re-initialize; rows with nothing to reset aim the write
+    # at the scratch row (re-zeroed at the end regardless)
+    sel = torch.where(reset, slots, scratch)
+    S[sel] = _init_row(dev)
+    pre = S[slots]
+    count = pre[:, COL_COUNT]
+    seen = count > 0
+    safe = torch.clamp(count, min=1.0)
+    mean = pre[:, COL_SUM] / safe
+    var = torch.clamp(pre[:, COL_SQSUM] / safe - mean * mean, min=0.0)
+    # product form: stored U = Σ λ^-rel_i, decayed count as of this
+    # record's stride = U · λ^rel (≤ U); the decayed mean is the ratio,
+    # where λ^rel cancels
+    dcount = pre[:, COL_DCOUNT] * torch.pow(float(np.float32(decay)), rel)
+    dmean = pre[:, COL_DSUM] / torch.clamp(pre[:, COL_DCOUNT],
+                                           min=_DCOUNT_FLOOR)
+    gap = rel - pre[:, COL_LAST_T]
+    derived = torch.stack(
+        [count, mean, var, dcount, dmean, gap,
+         pre[:, COL_MIN], pre[:, COL_MAX]], dim=1)
+    derived = torch.where(seen[:, None], derived,
+                          torch.zeros((), dtype=f32, device=dev))
+    # the five accumulator columns are contiguous: one segmented sum
+    adds = torch.stack(
+        [torch.ones_like(score), score, score * score, w, w * score], dim=1)
+    seg_slot, seg_sum = _segment_sums(slots, adds)
+    # empty segments write +0 into the scratch row, zeroed below
+    dst = torch.where(seg_slot >= 0, seg_slot, scratch)
+    acc = S[dst, COL_COUNT:COL_DSUM + 1] + seg_sum
+    S[dst, COL_COUNT:COL_DSUM + 1] = acc
+    S[:, COL_LAST_T].scatter_reduce_(0, slots, rel, "amax")
+    S[:, COL_MIN].scatter_reduce_(0, slots, score, "amin")
+    S[:, COL_MAX].scatter_reduce_(0, slots, score, "amax")
+    # bypass / pad contributions all landed on the scratch row: zero it
+    # so snapshots stay clean and the next batch's bypass reads zeros
+    S[scratch].zero_()
+    return derived, S
+
+
+def _score_of(out):
+    """The scalar signal the state accumulates: the f32 value stream
+    (classification outputs carry it as the triple's first element)."""
+    return out[0] if isinstance(out, tuple) else out
+
+
+def step_after(out, table, slots, rel, w, reset):
+    """Queue the state step behind a dispatch's scoring output ``out`` (on
+    the current stream) → ``(out, derived, S')``; the caller commits
+    ``S'``. Every byte of ``out`` is what the stateless dispatch returns:
+    the step only reads it."""
+    table.wait_ready()
+    derived, S2 = _state_step(
+        table.values, _score_of(out), slots, rel, w, reset, table.scratch,
+        table.spec.decay)
+    return out, derived, S2
+
+
+def entry_for(q, kind: str):
+    """The state-armed entry for one ``QuantizedScorer`` →
+    ``fn(X, K, table, slots, rel, w, reset) → (out, derived, S')``:
+    ``kind`` ``"wire"`` scores an aligned code batch
+    (``predict_padded``), ``"fused"`` an aligned raw f32 batch through
+    the device encode stage (``predict_fused_padded``); the state step
+    follows on the same stream."""
+    if kind == "fused":
+        if not q.supports_fused:
+            raise ModelCompilationException(
+                "fused encode unavailable for this model; state dispatch "
+                "needs the host-encode path")
+        predict = q.predict_fused_padded
+    elif kind == "wire":
+        predict = q.predict_padded
+    else:
+        raise ValueError(f"state entry kind {kind!r}: 'wire' or 'fused'")
+
+    def state_fn(X, K, table, slots, rel, w, reset):
+        out = predict(X, K)
+        with torch.no_grad():
+            return step_after(out, table, slots, rel, w, reset)
+
+    return state_fn
+
+
+def packed_entry(pack, member: int = 0):
+    """``PackedScorer`` twin: one packed dispatch scores all members and
+    folds the designated ``member``'s value stream into the shared table
+    → ``fn(Xp, table, slots, rel, w, reset) → (outs, derived, S')``, every
+    member's output byte-identical to the stateless ``dispatch``."""
+
+    def state_fn(Xp, table, slots, rel, w, reset):
+        outs = pack.dispatch(Xp)
+        with torch.no_grad():
+            _, derived, S2 = step_after(
+                outs[member], table, slots, rel, w, reset)
+        return outs, derived, S2
+
+    return state_fn
+
+
+def renorm(S, mul, add):
+    """Epoch renormalization: ``S · mul + add`` broadcast over rows (one
+    rare O(capacity) column op — see KeyedStateTable.maybe_renorm)."""
+    mul = _as_tensor(mul, torch.float32, S.device)
+    add = _as_tensor(add, torch.float32, S.device)
+    return S * mul[None, :] + add[None, :]

@@ -89,6 +89,22 @@
 // cost for complete trees); a batch below ~132 x 2048 records leaves SMs
 // idle; with F near 256 the staged codes cut a block to one or two warps.
 // The main paths are bound by host encode, not by this kernel.
+//
+// The packed launch (qtrees_leaf_rows_packed, walk_packed_kernel): one
+// launch scores the members of a cross-model pack (compile/packs.py), each
+// member its own codes through its own table. A block of the grid is a
+// (member, row block) pair: it finds its member in an i64 descriptor table
+// on the card and runs the same body (walk_block) a block of the member's
+// solo launch runs, with the member's own chunk of trees and tile stride,
+// so a member's sums are its solo launch's bit for bit (the sums do not
+// depend on the launch shape: trees are added in ascending order whatever
+// the chunking). The launch takes the members' smallest block, the
+// largest class bucket and the largest shared-memory need, so every
+// member's block fits. It exists for launch-bound packs: a member of
+// 16,384 rows fills 16 blocks of the 132 SMs' 264 resident slots, and
+// one block's serial walk over all its trees sets the time of such a
+// launch, so N members launched alone take about N times as long as N
+// members whose blocks run side by side.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -143,57 +159,60 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // Copies the block's rows of codes into the shared tile (row_stride bytes
-// per row); rows past the batch's end are zeroed.
+// per row); rows past the batch's end are zeroed. Row r of the codes starts
+// src_stride bytes after row r - 1 (n_fields for a solo launch, the packed
+// buffer's width for a member of a packed one); the first n_fields bytes of
+// a row are the record's codes.
 __device__ __forceinline__ void stage_codes(const uint8_t* __restrict__ codes,
                                             long long n_rows, int n_fields,
-                                            int row_stride, long long row0,
-                                            int records, uint8_t* tile) {
+                                            int src_stride, int row_stride,
+                                            long long row0, int records,
+                                            uint8_t* tile) {
   const long long left_rows = n_rows - row0;
   const int rows = left_rows < records ? (int)left_rows : records;
-  if ((n_fields & 3) == 0 && (reinterpret_cast<uintptr_t>(codes) & 3) == 0) {
+  if ((n_fields & 3) == 0 && (src_stride & 3) == 0 &&
+      (reinterpret_cast<uintptr_t>(codes) & 3) == 0) {
     const int wpr = n_fields >> 2;
+    const int swords = src_stride >> 2;
     const int stride = row_stride >> 2;
     const uint32_t* src =
-        reinterpret_cast<const uint32_t*>(codes + row0 * n_fields);
+        reinterpret_cast<const uint32_t*>(codes + row0 * src_stride);
     uint32_t* dst = reinterpret_cast<uint32_t*>(tile);
     for (int i = threadIdx.x; i < records * wpr; i += blockDim.x) {
       const int r = i / wpr;
-      dst[r * stride + (i - r * wpr)] = r < rows ? __ldg(src + i) : 0u;
+      const int c = i - r * wpr;
+      dst[r * stride + c] = r < rows ? __ldg(src + r * swords + c) : 0u;
     }
   } else {
-    const uint8_t* src = codes + row0 * n_fields;
+    const uint8_t* src = codes + row0 * src_stride;
     for (int i = threadIdx.x; i < records * n_fields; i += blockDim.x) {
       const int r = i / n_fields;
-      tile[r * row_stride + (i - r * n_fields)] =
-          r < rows ? __ldg(src + i) : (uint8_t)0;
+      const int c = i - r * n_fields;
+      tile[r * row_stride + c] =
+          r < rows ? __ldg(src + r * src_stride + c) : (uint8_t)0;
     }
   }
   __syncthreads();
 }
 
+// One block's walk: rows row0 .. row0 + blockDim.x * kRecordsPerThread of
+// the codes through every tree of `walk`, sums into out[rec * n_classes].
+// The body of both kernels below: a block of a packed launch runs exactly
+// what a block of a solo launch over its member runs.
 template <int kC>
-__global__ void __launch_bounds__(kMaxThreads, 2)
-walk_kernel(const uint8_t* __restrict__ codes,
-            long long n_rows,
-            int n_fields,
-            int row_stride,
-            const unsigned long long* __restrict__ walk,  // [T, tree_words]
-            int n_trees,
-            int tree_words,
-            int chunk_trees,
-            int leaf_base,  // node number of leaf slot 0: 1 + S
-            int row_word,   // word of a slice where its rows start
-            int n_classes,
-            unsigned sentinel,
-            float* __restrict__ out) {  // [N, C]
-  extern __shared__ __align__(128) unsigned char smem[];
+__device__ __forceinline__ void walk_block(
+    const uint8_t* __restrict__ codes, long long n_rows, int n_fields,
+    int src_stride, int row_stride,
+    const unsigned long long* __restrict__ walk, int n_trees, int tree_words,
+    int chunk_trees, int leaf_base, int row_word, int n_classes,
+    unsigned sentinel, float* __restrict__ out, long long row0,
+    unsigned char* smem) {
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
   const int chunk_bytes = chunk_trees * tree_words * 8;
   unsigned char* buf = smem + kBarBytes;     // [2][chunk_bytes] tables
   uint8_t* tile = buf + 2 * chunk_bytes;     // [records][row_stride] codes
   const int n_chunks = (n_trees + chunk_trees - 1) / chunk_trees;
   const int records = blockDim.x * kRecordsPerThread;
-  const long long row0 = (long long)blockIdx.x * records;
 
   // chunk k of trees → buffer k & 1, completing on bar[k & 1]
   auto load_chunk = [&](int k) {
@@ -212,7 +231,8 @@ walk_kernel(const uint8_t* __restrict__ codes,
     load_chunk(0);
     if (n_chunks > 1) load_chunk(1);
   }
-  stage_codes(codes, n_rows, n_fields, row_stride, row0, records, tile);
+  stage_codes(codes, n_rows, n_fields, src_stride, row_stride, row0,
+              records, tile);
 
   unsigned xoff[kRecordsPerThread];
   float acc[kRecordsPerThread][kC];
@@ -278,6 +298,67 @@ walk_kernel(const uint8_t* __restrict__ codes,
   }
 }
 
+template <int kC>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+walk_kernel(const uint8_t* __restrict__ codes,
+            long long n_rows,
+            int n_fields,
+            int row_stride,
+            const unsigned long long* __restrict__ walk,  // [T, tree_words]
+            int n_trees,
+            int tree_words,
+            int chunk_trees,
+            int leaf_base,  // node number of leaf slot 0: 1 + S
+            int row_word,   // word of a slice where its rows start
+            int n_classes,
+            unsigned sentinel,
+            float* __restrict__ out) {  // [N, C]
+  extern __shared__ __align__(128) unsigned char smem[];
+  const long long row0 =
+      (long long)blockIdx.x * blockDim.x * kRecordsPerThread;
+  walk_block<kC>(codes, n_rows, n_fields, n_fields, row_stride, walk,
+                 n_trees, tree_words, chunk_trees, leaf_base, row_word,
+                 n_classes, sentinel, out, row0, smem);
+}
+
+// One member of a packed launch (qtrees_cuda.leaf_rows_packed): words of
+// an i64[n_members, kDescWords] table on the card. Its codes start
+// codes_off bytes into the launch's codes, rows src_stride bytes apart;
+// its sums start out_off floats into the launch's output; its blocks are
+// block_begin .. the next member's block_begin.
+enum DescWord {
+  kCodesOff = 0, kRows, kSrcStride, kFields, kWalk, kTrees, kTreeWords,
+  kChunkTrees, kLeafBase, kRowWord, kClasses, kOutOff, kBlockBegin,
+  kRowStride, kDescWords = 16
+};
+
+// A block of a packed launch: find its member (the last whose block_begin
+// is at most blockIdx.x) and walk that member's rows through that member's
+// own table, with that member's own chunking and tile stride. Each member's
+// sums are therefore what its solo launch computes, bit for bit.
+template <int kC>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+walk_packed_kernel(const uint8_t* __restrict__ codes,
+                   const long long* __restrict__ desc, int n_members,
+                   unsigned sentinel, float* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  int m = 0;
+  while (m + 1 < n_members &&
+         desc[(m + 1) * kDescWords + kBlockBegin] <= (long long)blockIdx.x) {
+    ++m;
+  }
+  const long long* d = desc + m * kDescWords;
+  const long long row0 = ((long long)blockIdx.x - d[kBlockBegin]) *
+                         blockDim.x * kRecordsPerThread;
+  walk_block<kC>(codes + d[kCodesOff], d[kRows], (int)d[kFields],
+                 (int)d[kSrcStride], (int)d[kRowStride],
+                 reinterpret_cast<const unsigned long long*>(d[kWalk]),
+                 (int)d[kTrees], (int)d[kTreeWords], (int)d[kChunkTrees],
+                 (int)d[kLeafBase], (int)d[kRowWord], (int)d[kClasses],
+                 sentinel, out + d[kOutOff], row0, smem);
+}
+
+
 // Odd number of 4-byte words per staged row: rows of neighbouring threads
 // start in different shared-memory banks.
 int staged_row_stride(int n_fields) {
@@ -318,6 +399,32 @@ cudaError_t launch(const void* codes, long long n_rows, int n_fields,
       (const uint8_t*)codes, n_rows, n_fields, row_stride,
       (const unsigned long long*)walk, n_trees, tree_words, chunk_trees,
       leaf_base, row_word, n_classes, sentinel, (float*)out);
+  return cudaGetLastError();
+}
+
+// A packed launch: n_blocks blocks of `threads` threads over the members
+// of `desc` (on the card), `smem` bytes of dynamic shared memory each (the
+// largest need among the members, checked on the host). Refused shapes
+// return cudaErrorInvalidValue and launch nothing.
+template <int kC>
+cudaError_t launch_packed(const void* codes, const void* desc, int n_members,
+                          long long n_blocks, int threads, long long smem,
+                          unsigned sentinel, void* out, cudaStream_t stream) {
+  if (threads < 32 || threads % 32 != 0 || threads > kMaxThreads ||
+      smem < kBarBytes || smem > kSmemMax || n_members < 1 ||
+      n_blocks > 0x7FFFFFFFLL) {
+    return cudaErrorInvalidValue;
+  }
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        walk_packed_kernel<kC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  walk_packed_kernel<kC><<<(unsigned)n_blocks, threads, (size_t)smem,
+                           stream>>>((const uint8_t*)codes,
+                                     (const long long*)desc, n_members,
+                                     sentinel, (float*)out);
   return cudaGetLastError();
 }
 
@@ -369,6 +476,47 @@ extern "C" int qtrees_leaf_rows(const void* codes,
     err = launch<kMaxClasses>(codes, n_rows, n_fields, walk, n_trees,
                               tree_words, leaf_base, row_word, n_classes,
                               sent, threads, chunk_trees, out, s);
+  }
+  return (int)err;
+}
+
+// C interface of the packed launch (qtrees_cuda.leaf_rows_packed): one
+// launch over the n_members members of `desc`, an i64[n_members, 16]
+// table on the card (DescWord above: each member's codes offset, rows, row
+// stride, fields, walk table, T, tree_words, chunk, leaf base, row word, C,
+// output offset, first block and tile stride), all checked on the host.
+// `max_classes` picks the accumulator bucket, the largest among the
+// members. Launches on `stream` and returns cudaGetLastError(), or the
+// error of a refused argument or attribute.
+extern "C" int qtrees_leaf_rows_packed(const void* codes,
+                                       const void* desc,
+                                       int n_members,
+                                       long long n_blocks,
+                                       int threads,
+                                       long long smem,
+                                       int max_classes,
+                                       int sentinel,
+                                       void* out,
+                                       void* stream) {
+  if (max_classes < 1 || max_classes > kMaxClasses) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (reinterpret_cast<uintptr_t>(desc) % 8 != 0) {
+    return (int)cudaErrorMisalignedAddress;
+  }
+  if (n_blocks <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  const unsigned sent = (unsigned)sentinel;
+  cudaError_t err;
+  if (max_classes == 1) {
+    err = launch_packed<1>(codes, desc, n_members, n_blocks, threads, smem,
+                           sent, out, s);
+  } else if (max_classes <= 4) {
+    err = launch_packed<4>(codes, desc, n_members, n_blocks, threads, smem,
+                           sent, out, s);
+  } else {
+    err = launch_packed<kMaxClasses>(codes, desc, n_members, n_blocks,
+                                     threads, smem, sent, out, s);
   }
   return (int)err;
 }

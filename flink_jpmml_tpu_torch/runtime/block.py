@@ -88,10 +88,23 @@ Where it differs: the JAX package's Python ring (its fall-back when the
 C++ library cannot be built) is not ported — the ring raises
 ``NativeBuildError`` instead. The f32 path (``_dispatch_f32``) books the
 bytes it ships in ``h2d_bytes``, as the rank-wire path does. Not ported
-(each raises :class:`NotPortedError` and names itself): ``state=`` (keyed
-state) waits for the multi-tenant and stateful slice, ``mesh=`` and
-``donate=`` for the parallel slice; with the mesh goes the ladder's mesh
-rebuild (a ``chip_loss`` always escalates — one card, no mesh).
+(each raises :class:`NotPortedError` and names itself): ``mesh=`` and
+``donate=`` wait for the parallel slice; with the mesh goes the ladder's
+mesh rebuild (a ``chip_loss`` always escalates — one card, no mesh).
+
+Keyed state (``state=``, runtime/state.py), as in the JAX package: a
+``StateSpec`` builds the table on the pipeline's device in its registry;
+each rank-wire dispatch routes its keys on the host and runs the state
+step after the kernel on the pipeline's stream, with the batch's offsets
+as the decay clock. The table rides each checkpoint (an ``.npz`` sidecar
+beside the snapshots, or an inline payload without a directory) and
+``restore()`` brings it back, its ``applied_hi`` making replayed records
+bypass it. The recovery ladder and the suspect scan score with the table
+disarmed (``_state_bypass``), after it rolled back to its last snapshot,
+so a DLQ'd or re-dispatched record never folds into it twice. The sink
+sees the stateless output; the derived features feed no drift plane yet
+(the observability slice). ``tenant=`` / :meth:`set_tenant` book
+delivered records under ``tenant_records{model=...}``.
 
 The sink receives host tensors (the pinned buffer the D2H copy filled)
 once their dispatch has completed; :meth:`BlockPipeline.decode` turns one
@@ -118,6 +131,7 @@ from flink_jpmml_tpu_torch.obs import trace as trace_mod
 from flink_jpmml_tpu_torch.runtime import devfault
 from flink_jpmml_tpu_torch.runtime import faults
 from flink_jpmml_tpu_torch.runtime import prefetch as prefetch_mod
+from flink_jpmml_tpu_torch.runtime import state as state_mod
 from flink_jpmml_tpu_torch.runtime.checkpoint import CheckpointPolicy
 from flink_jpmml_tpu_torch.runtime.dlq import (
     REASON_CRASH_LOOP,
@@ -290,7 +304,13 @@ class BlockPipelineBase:
         batcher=None,
         admission=None,
         shed_lane: str = "block",
+        tenant: Optional[str] = None,
+        state=None,
     ):
+        # per-tenant delivery label (serving/zoo.py plane): records_out
+        # stays the total, tenant_records{model=...} adds the tenant axis;
+        # the dynamic pipeline re-labels it on a served-model swap
+        self._tenant = tenant
         self._source = source
         self._sink = sink
         # optional obs/slo.SLOTracker: ticked from the completion path
@@ -408,6 +428,20 @@ class BlockPipelineBase:
         # thread's first batch
         self._stream = None
         self._staging = None
+        # -- keyed per-record state (runtime/state.py) --------------------
+        # a StateSpec builds the table in THIS pipeline's registry on its
+        # device; a prebuilt KeyedStateTable passes through
+        if isinstance(state, state_mod.StateSpec):
+            state = state_mod.KeyedStateTable(
+                state, metrics=self.metrics, device=device)
+        self._state = state
+        # >0 while a recovery / isolation path dispatches: those
+        # re-dispatches (and bisection probes, which score records MORE
+        # THAN ONCE) must never mutate the table
+        self._state_bypass = 0
+        # the offsets of the dispatch being launched (the state stage's
+        # decay clock and replay guard; the score loop is single-threaded)
+        self._cur_offsets = None
 
     @property
     def error(self) -> Optional[BaseException]:
@@ -431,6 +465,25 @@ class BlockPipelineBase:
             extra = snap(self.committed_offset)
             if extra is not None:
                 state["source_state"] = extra
+        if self._state is not None:
+            # the keyed state table rides the checkpoint: an npz sidecar
+            # beside the snapshots referenced by name, or an inline payload
+            # for a small dirless table. Saved at the same instant as the
+            # offsets, on the score thread; the table's own applied_hi
+            # makes replayed records below it bypass after restore
+            ref = (
+                self._state.save_sidecar(self._ckpt_dir)
+                if self._ckpt_dir is not None else None
+            )
+            if ref is not None:
+                state["state_sidecar"] = ref
+            else:
+                try:
+                    state["state"] = self._state.to_payload()
+                except Exception:
+                    # a large table with no checkpoint directory: state
+                    # is not durable, offsets stay correct
+                    pass
         return state
 
     def restore(self) -> bool:
@@ -509,8 +562,15 @@ class BlockPipelineBase:
             )
 
     def _restore_extra(self, state: dict) -> None:
-        """Subclass hook: restore what the subclass's ``_ckpt_state``
-        added (keyed state is not ported, so the base has nothing)."""
+        """Restore what ``_ckpt_state`` added past the offsets: the keyed
+        state table (subclasses extend it)."""
+        if self._state is None:
+            return
+        ref = state.get("state_sidecar")
+        if ref and self._ckpt_dir is not None:
+            self._state.restore_sidecar(self._ckpt_dir, ref)
+        elif state.get("state"):
+            self._state.from_payload(state["state"])
 
     # -- lifecycle -------------------------------------------------------------
 
@@ -662,8 +722,19 @@ class BlockPipelineBase:
         reused drain buffer: both paths are done with it when this
         returns."""
         if bound.q is not None:
+            # keyed state arms here and only here: the recovery ladder and
+            # bisection probes raise _state_bypass
+            st = (self._state if self._state is not None
+                  and not self._state_bypass else None)
             return dispatch_quantized(
-                bound.q, X, metrics=self.metrics, staging=self._staging
+                bound.q, X, metrics=self.metrics, staging=self._staging,
+                state=st,
+                offsets=self._cur_offsets if st is not None else None,
+            )
+        if self._state is not None and not self._state_bypass:
+            raise InputValidationException(
+                "stateful scoring requires the rank-wire scorer (the f32 "
+                "dispatch cannot carry the state stage)"
             )
         return self._dispatch_f32(bound.model, X)
 
@@ -681,6 +752,7 @@ class BlockPipelineBase:
         range being scored, so bisection isolates an injected poison the
         same way it isolates a real one."""
         faults.fire("score_batch", offsets=offsets)
+        self._cur_offsets = offsets  # state decay clock + replay guard
         res, decode = self._dispatch(handle, X, n)
         return _Dispatched(res, decode)
 
@@ -694,6 +766,12 @@ class BlockPipelineBase:
         n, first_off, t_start, shed, handle, X, offsets, ctx = meta
         if shed or X is None or offsets is None:
             return False
+        if self._state is not None and not self._state_bypass:
+            # the failed dispatch may have committed a poisoned update,
+            # and later in-flight batches chained on it: restore the last
+            # snapshot before any recovery re-dispatch (bounded, counted
+            # loss: state_rollbacks); the recovery paths score statelessly
+            self._state.rollback()
         kind = devfault.classify(error)
         if kind is not None:
             if self._failover is None:
@@ -711,7 +789,11 @@ class BlockPipelineBase:
         persistent fault keeps failing here exactly like a real one) →
         the completed dispatch."""
         faults.fire("device_dispatch")
-        d = self._dispatch_checked(handle, X, n, offsets)
+        self._state_bypass += 1  # recovery re-scores: never re-fold state
+        try:
+            d = self._dispatch_checked(handle, X, n, offsets)
+        finally:
+            self._state_bypass -= 1
         self._redispatches.inc()
         faults.fire("device_readback")
         d.synchronize()
@@ -727,6 +809,7 @@ class BlockPipelineBase:
         first = int(offsets[lo])
         self._emit(d.res.result(), n_run, first, d.decode)
         self.metrics.counter("records_out").inc(n_run)
+        self._book_tenant(n_run)
         fresh_mod.freshness_for(self.metrics).observe_sink(first, n_run)
         jstore = trace_mod.store_for(self.metrics)
         if jstore is not None:
@@ -811,6 +894,18 @@ class BlockPipelineBase:
             self._serve_fallback(handle, X, offsets, jctx=ctx)
             return
         raise error
+
+    def set_tenant(self, tenant) -> None:
+        """Re-label delivered records (the dynamic block pipeline calls
+        this on a served-model swap, so tenant_records follows the key
+        actually serving)."""
+        self._tenant = tenant
+
+    def _book_tenant(self, n: int) -> None:
+        if self._tenant is not None:
+            self.metrics.counter(
+                f'tenant_records{{model="{self._tenant}"}}'
+            ).inc(n)
 
     def _lost_recover(self, handle, X, offsets, error) -> None:
         """The ``chip_loss`` rung: one card and no mesh, so escalate to
@@ -954,6 +1049,18 @@ class BlockPipelineBase:
         dispatch = dispatch if dispatch is not None else (
             self._dispatch_checked
         )
+        if self._state is not None:
+            # bisection probes score records MORE THAN ONCE (and DLQ'd
+            # records must never land at all): every sub-dispatch of the
+            # scan runs with the state stage disarmed
+            inner_dispatch = dispatch
+
+            def dispatch(h, Xs, ns, os_, _inner=inner_dispatch):
+                self._state_bypass += 1
+                try:
+                    return _inner(h, Xs, ns, os_)
+                finally:
+                    self._state_bypass -= 1
         n = int(X.shape[0])
         if n == 0:
             return
@@ -1013,6 +1120,7 @@ class BlockPipelineBase:
             first = int(offsets[lo])
             self._emit(d.res.result(), n_run, first, d.decode)
             records_out.inc(n_run)
+            self._book_tenant(n_run)
             if jstore is not None:
                 jstore.hop(
                     "sink", ctx.child(), first, n_run, durable=True,
@@ -1191,6 +1299,10 @@ class BlockPipelineBase:
                 monitor.maybe_tick()
                 return
             out = d.res.result()  # the event wait is booked by the window
+            # a state-armed dispatch returns (score_out, derived): the sink
+            # sees exactly the stateless output shape (the derived session
+            # features wait for the drift plane of the observability slice)
+            out, _derived = state_mod.split_output(out)
             t_sink = time.monotonic()
             # the completing batch's OWN context wraps the sink: its span
             # (and any exemplar the sink stage captures) carries THIS
@@ -1212,6 +1324,7 @@ class BlockPipelineBase:
                 )
             lat.observe(t_done - t_start)
             records_out.inc(n)
+            self._book_tenant(n)
             if self._failover is not None:
                 # green completion: clears strike streaks / counts a
                 # half-open probe
@@ -1397,6 +1510,12 @@ class BlockPipelineBase:
                             "dispatch", jctx, first_off, n,
                             model=getattr(handle, "key", None),
                         )
+                        if self._state is not None and not self._state_bypass:
+                            # the state read / update rides THIS dispatch
+                            jstore.hop(
+                                "state", jctx, first_off, n,
+                                resident=self._state.resident,
+                            )
                     try:
                         with trace_mod.use(jctx):
                             disp.launch(
@@ -1427,6 +1546,17 @@ class BlockPipelineBase:
                         # errors of OLDER entries were handled inside
                         # launch's trim, so this one is THIS batch's
                         kind = devfault.classify(e)
+                        if (
+                            self._state is not None
+                            and not self._state_bypass
+                            and (kind is not None and self._failover
+                                 is not None
+                                 or kind is None and self._dlq is not None)
+                        ):
+                            # a recoverable launch failure may have half-
+                            # applied this batch (host mirror mutated, the
+                            # step never queued): restore the snapshot
+                            self._state.rollback()
                         if kind is not None and self._failover is not None:
                             # older in-flight batches commit first
                             disp.flush()
@@ -1492,8 +1622,9 @@ class BlockPipeline(BlockPipelineBase):
         state=None,
         mesh=None,
         donate: Optional[bool] = None,
+        tenant: Optional[str] = None,
     ):
-        refuse(state=state, mesh=mesh, donate=donate)
+        refuse(mesh=mesh, donate=donate)
         if model.batch_size is None:
             raise InputValidationException(
                 "BlockPipeline needs a fixed-batch compiled model "
@@ -1517,6 +1648,8 @@ class BlockPipeline(BlockPipelineBase):
             batcher=batcher,
             admission=admission,
             shed_lane=shed_lane,
+            tenant=tenant,
+            state=state,
         )
         self._bound = BoundScorer("static", model, use_quantized)
         self.backend = self._bound.backend

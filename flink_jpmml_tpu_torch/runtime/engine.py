@@ -58,13 +58,18 @@ terminals, and the ``sink`` hop that closes the micro-batch's journey;
 the batch's context is active around submit, readback and sink, so the
 scorer's ``score_finish`` span and any exemplar carry its ids.
 
-Not ported (each raises :class:`NotPortedError` and names itself): keyed
-state (``StaticScorer(state=)``) and the zoo's ``tenant=``, which wait
-for the multi-tenant and stateful slice.
+Keyed state (``StaticScorer(state=)``, runtime/state.py) rides the rank
+wire as in the JAX package: the engine hands a state-armed scorer the
+records' offsets (its decay clock and exactly-once replay guard), the
+table's values ride each checkpoint as an inline payload, and every
+isolation or recovery replay scores statelessly, after the table rolls
+back to its last snapshot. ``Pipeline(tenant=)`` books delivered records
+under ``tenant_records{model=...}`` beside ``records_out``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -106,7 +111,8 @@ from flink_jpmml_tpu_torch.runtime.queues import BoundedQueue, Closed
 from flink_jpmml_tpu_torch.runtime.sinks import Sink
 from flink_jpmml_tpu_torch.runtime.sources import Source, batch_event_range
 from flink_jpmml_tpu_torch.utils.config import RuntimeConfig
-from flink_jpmml_tpu_torch.utils.exceptions import refuse
+from flink_jpmml_tpu_torch.runtime import state as state_mod
+from flink_jpmml_tpu_torch.utils.exceptions import InputValidationException
 from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry
 from flink_jpmml_tpu_torch.utils.profiling import StageTimer
 
@@ -195,12 +201,27 @@ class StaticScorer(Scorer):
         use_quantized: bool = True,
         state=None,
     ):
-        refuse(state=state)
         self._model = model
         self._replace_nan = replace_nan
         self._extract = extract or self._extract_records
         self._emit = emit or (lambda recs, preds: list(preds))
         self._q = model.quantized_scorer() if use_quantized else None
+        # keyed session state (runtime/state.py): a StateSpec builds a
+        # private table on the model's device (pass a KeyedStateTable
+        # built with the pipeline's registry to surface its state_*
+        # family); state rides the rank-wire dispatch, so the f32 path
+        # cannot carry it
+        if isinstance(state, state_mod.StateSpec):
+            state = state_mod.KeyedStateTable(state, device=model.device)
+        if state is not None and self._q is None:
+            raise InputValidationException(
+                "keyed state needs the rank-wire scorer (this model "
+                "has no quantized path)"
+            )
+        self.state_table = state
+        # the engine passes per-record source offsets (the state decay
+        # clock + exactly-once replay guard) only to scorers that ask
+        self.accepts_offsets = state is not None
         self._stream = ScoringStream(model.device)
         self._staging = new_staging(model.device)
         # which scoring backend this scorer engages (surfaced in the
@@ -218,15 +239,22 @@ class StaticScorer(Scorer):
             self._model.field_space, arr, self._replace_nan
         )
 
-    def submit(self, records: Sequence[Any]):
+    def submit(self, records: Sequence[Any], offsets=None):
         X, M = self._extract(records)
         n = X.shape[0]
         with self._stream.context():
             if self._q is not None:
+                table = self.state_table
+                armed = table is not None and not table.bypassed
                 # dispatch_quantized owns batch alignment (K compile
-                # batches, one launch)
+                # batches, one launch) and, armed, the host slot routing
+                # and the state step after the scorer
                 out = dispatch_quantized(
-                    self._q, X, M, staging=self._staging
+                    self._q, X, M, staging=self._staging,
+                    state=table if armed else None,
+                    state_keys=(table.hash_records(records) if armed
+                                else None),
+                    offsets=offsets if armed else None,
                 )
                 return ("q", out, records, n)
             out = dispatch_f32(self._model, X, M)
@@ -235,11 +263,27 @@ class StaticScorer(Scorer):
     def finish(self, ticket) -> List[Any]:
         kind, out, records, n = ticket
         host = out.result()  # waits for the D2H copy
+        host, _derived = state_mod.split_output(host)
         if kind == "q":
             preds = self._q.decode(host, n)
         else:
             preds = self._model.decode(host, n)
         return self._emit(records, preds)
+
+    def state(self) -> dict:
+        if self.state_table is None:
+            return {}
+        try:
+            # inline payload (small tables); beyond the inline cap the
+            # record path degrades to stateless restore (as the JAX one)
+            return {"keyed_state": self.state_table.to_payload()}
+        except InputValidationException:
+            return {}
+
+    def restore(self, state: dict) -> None:
+        payload = state.get("keyed_state")
+        if payload and self.state_table is not None:
+            self.state_table.from_payload(payload)
 
 
 class Pipeline:
@@ -258,7 +302,11 @@ class Pipeline:
         prefetch: Optional[bool] = None,
         tenant: Optional[str] = None,
     ):
-        refuse(tenant=tenant)
+        # ``tenant`` labels this pipeline's delivered records for the
+        # multi-tenant zoo plane (serving/zoo.py): records_out stays the
+        # unlabelled total, tenant_records{model=...} adds the per-tenant
+        # axis
+        self._tenant = tenant
         self._source = source
         self._scorer = scorer
         self._sink = sink
@@ -467,14 +515,39 @@ class Pipeline:
         faults.fire(
             "score_batch", offsets=[self._record_off(s) for s in seq]
         )
-        faults.fire("device_dispatch")
-        ticket = self._scorer.submit([s.record for s in seq])
-        faults.fire("device_readback")
-        return self._scorer.finish(ticket)
+        # isolation / recovery replays score STATELESSLY: these records
+        # may already be folded into the keyed state table (the failed
+        # dispatch committed before the error surfaced)
+        table = getattr(self._scorer, "state_table", None)
+        ctx = table.bypass() if table is not None else (
+            contextlib.nullcontext()
+        )
+        with ctx:
+            faults.fire("device_dispatch")
+            ticket = self._scorer.submit([s.record for s in seq])
+            faults.fire("device_readback")
+            return self._scorer.finish(ticket)
+
+    def _roll_back_state(self) -> None:
+        """A failed dispatch may have committed a partial or poisoned
+        state update (and later in-flight batches chained on it): restore
+        the last snapshot before recovery or isolation replays the range
+        — bounded, counted loss (``state_rollbacks``); the replayed
+        records then score statelessly via ``_score_seq``'s bypass."""
+        table = getattr(self._scorer, "state_table", None)
+        if table is not None and not table.bypassed:
+            table.rollback()
+
+    def _book_tenant(self, n: int) -> None:
+        if self._tenant is not None:
+            self.metrics.counter(
+                f'tenant_records{{model="{self._tenant}"}}'
+            ).inc(n)
 
     def _deliver_seq(self, seq, outputs) -> None:
         self._sink.emit(outputs)
         self.metrics.counter("records_out").inc(len(seq))
+        self._book_tenant(len(seq))
         event_time_fn = getattr(self._source, "event_time_fn", None)
         if event_time_fn is not None:
             freshness = fresh_mod.freshness_for(self.metrics)
@@ -800,10 +873,12 @@ class Pipeline:
                 if kind is not None:
                     if not self._devfault_armed:
                         raise  # fail fast: restart instead
+                    self._roll_back_state()
                     self._recover_device(stamped, e, kind, ctx=jctx)
                     return
                 if self._dlq is None:
                     raise
+                self._roll_back_state()
                 self._isolate(stamped, e, ctx=jctx)
                 return
             with trace_mod.use(jctx):
@@ -819,6 +894,7 @@ class Pipeline:
             for s in stamped[:: max(1, len(stamped) // 8)]:
                 lat.observe(now - s.t_enq)
             records_out.inc(len(stamped))
+            self._book_tenant(len(stamped))
             if stamped[0].offset <= self._replay_until:
                 replayed.inc(sum(
                     1 for s in stamped if s.offset <= self._replay_until
@@ -885,9 +961,18 @@ class Pipeline:
                             offsets=[self._record_off(s) for s in stamped],
                         )
                         faults.fire("device_dispatch")
-                        ticket = self._scorer.submit(
-                            [s.record for s in stamped]
-                        )
+                        if getattr(self._scorer, "accepts_offsets", False):
+                            # keyed-state scorers get the record offsets:
+                            # the decay clock + the exactly-once guard
+                            ticket = self._scorer.submit(
+                                [s.record for s in stamped],
+                                offsets=[self._record_off(s)
+                                         for s in stamped],
+                            )
+                        else:
+                            ticket = self._scorer.submit(
+                                [s.record for s in stamped]
+                            )
                 except PoisonIsolationOverflow:
                     raise
                 except Exception as e:
@@ -902,6 +987,7 @@ class Pipeline:
                         raise
                     while in_flight:
                         _finish_one()
+                    self._roll_back_state()
                     if kind is not None:
                         self._recover_device(stamped, e, kind, ctx=jctx)
                     else:

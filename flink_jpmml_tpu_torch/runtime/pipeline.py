@@ -210,6 +210,9 @@ def dispatch_quantized(
     *,
     metrics: Optional[MetricsRegistry] = None,
     staging: Optional[HostStaging] = None,
+    state=None,
+    state_keys=None,
+    offsets=None,
 ) -> DeviceOutput:
     """Encode + stage + dispatch one raw f32 batch through a
     :class:`~flink_jpmml_tpu_torch.compile.qtrees.QuantizedScorer`: the one
@@ -234,6 +237,16 @@ def dispatch_quantized(
     A batch that is not whole compile batches is aligned with zero rows
     up to K of them (``pad_f32`` / ``pad_wire`` on the CPU); on the card
     only its live rows are staged and the zero rows are written there.
+
+    ``state`` (a ``runtime/state.KeyedStateTable``) arms the keyed state
+    stage, as in the JAX package: the host routes the batch's keys to
+    slots (``state_keys``: precomputed uint32 key hashes; default: hash
+    the table's key column of ``X``; ``offsets``: the records' offsets,
+    the decay clock and the exactly-once replay guard), the state step
+    follows the scorer on the same stream, the table commits the new
+    values, and the result becomes ``(out, derived[rows, 8])`` (callers
+    unwrap it with ``state.split_output``). Alignment rows route to the
+    scratch slot with weight 0.
 
     ``metrics`` books ``encode_s`` (host encode time, ≈ 0 fused),
     ``h2d_bytes`` (bytes staged per dispatch: F codes of the wire dtype a
@@ -270,6 +283,9 @@ def dispatch_quantized(
     marks = prof_mod.active_sample()
     if marks is not None and torch_twin and placement == "fused":
         marks.sweep_region = False
+    if state is not None:
+        predict = _state_armed(q, X, n, rows, placement, state, state_keys,
+                               offsets)
     if q.device.type != "cuda":
         out = device_output(predict(*pad(payload)))
     elif staging is None:
@@ -283,6 +299,41 @@ def dispatch_quantized(
     if ledger is not None:
         ledger.observe("h2d", t2 - t1)
     return out
+
+
+def _state_armed(q, X, n: int, rows: int, placement: str, state,
+                 state_keys, offsets):
+    """Host slot routing for one state-armed dispatch (one vectorized
+    pass, as the JAX package's) → the dispatch's ``predict`` in its
+    state-armed form, which scores, steps the table and commits."""
+    khash = (
+        np.asarray(state_keys, np.uint32) if state_keys is not None
+        else state.hash_keys(state.extract_keys(X))
+    )
+    offs = np.asarray(offsets, np.int64) if offsets is not None else None
+    first = (int(offs[0]) if offs is not None and offs.size
+             else state.applied_hi)
+    state.maybe_renorm(first)
+    slots, reset, rel, w = state.assign_slots(khash, offs)
+    pad = rows - n
+    if pad > 0:
+        # alignment rows ride the scratch slot with zero weight: by
+        # construction they cannot touch any key's state
+        slots = np.concatenate(
+            [slots, np.full(pad, state.scratch, np.int32)])
+        reset = np.concatenate([reset, np.zeros(pad, bool)])
+        rel = np.concatenate([rel, np.zeros(pad, np.float32)])
+        w = np.concatenate([w, np.zeros(pad, np.float32)])
+    predict_state = (q.predict_fused_padded_state if placement == "fused"
+                     else q.predict_padded_state)
+
+    def predict(payload, K):
+        out, derived, S2 = predict_state(payload, K, state, slots, rel, w,
+                                         reset)
+        state.commit(S2)
+        return out, derived
+
+    return predict
 
 
 def dispatch_f32(model, X, M, *, metrics: Optional[MetricsRegistry] = None

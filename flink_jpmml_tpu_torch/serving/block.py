@@ -233,6 +233,8 @@ class DynamicBlockPipeline(BlockPipelineBase):
             return  # already serving exactly this compiled instance
         bound = BoundScorer(best_mid.key(), best_model, self._use_quantized)
         self._current = bound
+        # tenant_records follows the key actually serving
+        self.set_tenant(best_mid.key())
         self.swaps.inc()
         self.metrics.counter(f"scorer_backend_{bound.backend}").inc()
 

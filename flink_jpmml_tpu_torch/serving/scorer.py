@@ -52,12 +52,30 @@ CUDA event wait; ``self.slo`` is always an ``SLOTracker`` over
 ``score_latency_s`` (inert without ``FJT_SLO_TARGET_MS``), ticked every
 ``finish``; and ``finish`` emits the ``score_finish`` span.
 
+The multi-tenant zoo is the JAX scorer's: ``zoo=True`` (or a
+``serving/zoo.ZooManager``) collapses the pack-eligible per-model groups
+of a micro-batch into one dispatch per planned pack
+(``compile/packs.PackedScorer``: one launch of the walk kernel over every
+``"cuda"`` member, then each member's epilogue; each ``"torch"`` member's
+own ``qfn``), host-encoded and staged through the pack's own pinned
+buffers, each member's output byte-identical to its solo dispatch. Before
+packing, a tenant over the zoo's quota (``FJT_TENANT_QUOTA_FRAC`` of the
+batch) sheds its excess as empty predictions
+(``tenant_shed_records{model=*}``); every delivered group books
+``tenant_records`` and ``tenant_latency_s`` under its served key. A
+device fault on a pack re-dispatches each member's group solo, as any
+faulted group does.
+
+Sampled launches: every group's launch, solo or packed, carries
+``attr.dispatch_profile`` when the profiler is on, and the scorer marks
+the sweep's region (the kernel and its epilogue on codes on the card), as
+the block pipelines' launches do.
+
 Not ported (each raises :class:`NotPortedError` and names itself):
 staged rollouts (``RolloutMessage``, ``guardrails=``, ``key_fn=``,
 ``auto_rollout=False``, another ``rollout_interval_s``) wait for the
-observability and control slice, the zoo (``zoo=``) for the multi-tenant
-slice and ``mesh=`` for the parallel slice. The drift plane waits for the
-observability and control slice.
+observability and control slice and ``mesh=`` for the parallel slice. The
+drift plane waits for the observability and control slice.
 """
 
 from __future__ import annotations
@@ -72,6 +90,7 @@ from flink_jpmml_tpu_torch.api.reader import ModelReader
 from flink_jpmml_tpu_torch.compile import prepare
 from flink_jpmml_tpu_torch.models.control import from_wire
 from flink_jpmml_tpu_torch.models.prediction import Prediction
+from flink_jpmml_tpu_torch.obs import attr as attr_mod
 from flink_jpmml_tpu_torch.obs import freshness as fresh_mod
 from flink_jpmml_tpu_torch.obs import pressure as pressure_mod
 from flink_jpmml_tpu_torch.obs import recorder as flight
@@ -84,7 +103,9 @@ from flink_jpmml_tpu_torch.runtime.engine import (
     new_staging,
 )
 from flink_jpmml_tpu_torch.runtime.pipeline import (
+    DeviceOutput,
     OverlappedDispatcher,
+    device_output,
     dispatch_f32,
     dispatch_quantized,
 )
@@ -168,8 +189,11 @@ class DynamicScorer(Scorer):
         scorer into the freshness plane: each finished micro-batch books
         ``record_staleness_s`` and advances the event-time watermark.
         ``device`` picks the card (None, the default) or ``"cpu"`` for
-        every model this scorer serves."""
-        refuse(mesh=mesh, key_fn=key_fn, guardrails=guardrails, zoo=zoo)
+        every model this scorer serves.
+
+        ``zoo=True`` (or a ``ZooManager``) turns on cross-model packed
+        dispatch (module docstring)."""
+        refuse(mesh=mesh, key_fn=key_fn, guardrails=guardrails)
         if auto_rollout is not True or rollout_interval_s != 0.5:
             raise NotPortedError("auto_rollout= / rollout_interval_s= "
                                  "(staged rollouts) are not ported")
@@ -182,6 +206,16 @@ class DynamicScorer(Scorer):
             device=device,
         )
         self.device = self.registry.device
+        self._batch_size = batch_size
+        if zoo is True:
+            from flink_jpmml_tpu_torch.serving.zoo import ZooManager
+
+            zoo = ZooManager(metrics=self.metrics)
+        self._zoo = zoo or None
+        self._zoo_sync_needed = False
+        # pinned staging per planned pack (its member keys), made on the
+        # pack's first dispatch and dropped with the pack's membership
+        self._pack_staging: Dict[Tuple[str, ...], Any] = {}
         self._control = control
         self._route = route or default_route
         self._default_model = (
@@ -249,6 +283,13 @@ class DynamicScorer(Scorer):
                     for key in list(self._staging):
                         if key != _DEFAULT_KEY and key not in served:
                             del self._staging[key]
+                    for gk in list(self._pack_staging):
+                        if not set(gk) <= served:
+                            del self._pack_staging[gk]
+                    # a Del changes the zoo's membership multiset: the
+                    # manager drops the dead tenant (and re-plans) before
+                    # the next pack dispatch
+                    self._zoo_sync_needed = True
 
     def _resolve(self, name: str, version: Optional[int]):
         """→ (model, group key) for a named event; the model is None when
@@ -337,47 +378,153 @@ class DynamicScorer(Scorer):
                 g[2].append(payload)
         tickets = []
         with self._stream.context():
+            if self._zoo is not None:
+                self._submit_packed(groups, tickets, shed)
             for key, (model, idxs, payloads) in groups.items():
                 tickets.append(self._launch_group(key, model, idxs, payloads))
         return n, records, tickets, unserved, shed, time.monotonic()
+
+    def _submit_packed(self, groups, tickets, shed) -> None:
+        """Zoo fast path for one micro-batch (the JAX scorer's): quota-shed
+        oversize tenants, then collapse pack-eligible per-model groups into
+        one dispatch per planned pack (serving/zoo.py decides which models
+        share a buffer). Packed groups are POPPED from ``groups``; the rest
+        launch solo."""
+        from flink_jpmml_tpu_torch.compile import packs
+
+        zoo = self._zoo
+        if self._zoo_sync_needed:
+            zoo.sync({m.key() for m in self.registry.served})
+            self._zoo_sync_needed = False
+        quota = zoo.quota_rows(self._batch_size) if self._batch_size else None
+        if quota is not None:
+            for key, g in groups.items():
+                if len(g[1]) > quota:
+                    # fairness over the shared slots: the excess rows shed
+                    # exactly like admission shedding — an explicit empty
+                    # prediction, never dispatched
+                    excess = g[1][quota:]
+                    g[1] = g[1][:quota]
+                    g[2] = g[2][:quota]
+                    shed.extend(excess)
+                    self.metrics.counter(
+                        f'tenant_shed_records{{model="{key}"}}'
+                    ).inc(len(excess))
+        eligible = {}
+        for key, (model, _idxs, payloads) in groups.items():
+            if key == _DEFAULT_KEY:
+                continue
+            q = model.quantized_scorer()
+            if (
+                q is not None
+                and packs.pack_eligible(q)
+                and len(payloads) <= (q.batch_size or 0)
+            ):
+                eligible[key] = q
+        if not eligible:
+            return
+        for unit in zoo.batch_plan(eligible):
+            rows = {}
+            live = [0] * unit.pack.n_members
+            t0 = time.monotonic()
+            for slot, key in unit.slots:
+                model, _idxs, payloads = groups[key]
+                X, M = self._featurize(model, payloads)
+                # the pack stages host-encoded rank codes — the byte-parity
+                # oracle every other encode path is held to — so a member's
+                # slot holds exactly its solo host dispatch's codes
+                rows[slot] = eligible[key].wire.encode(X, M)
+                live[slot] = rows[slot].shape[0]
+            Xp, total = unit.pack.assemble(rows)
+            t1 = time.monotonic()
+            self.metrics.counter("encode_s").inc(t1 - t0)
+            self.metrics.counter("h2d_bytes").inc(Xp.nbytes)
+            attr_mod.ledger_for(self.metrics).observe("encode", t1 - t0)
+            gk = tuple(unit.pack.keys)
+            staging = self._pack_staging.get(gk)
+            if staging is None and self.device.type == "cuda":
+                staging = self._pack_staging[gk] = new_staging(self.device)
+            pack = unit.pack
+            handle = self._dispatcher.launch(
+                lambda p=pack, Xp=Xp, st=staging, r=live: _dispatch_pack(
+                    p, Xp, st, r),
+                profile=(
+                    attr_mod.dispatch_profile(pack, total)
+                    if self._dispatcher.profiling else None
+                ),
+            )
+            shared = _PackFetch(self._dispatcher, handle)
+            zoo.book_dispatch(unit, total)
+            t_launch = time.monotonic()
+            for slot, key in unit.slots:
+                model, idxs, payloads = groups.pop(key)
+                tickets.append((
+                    eligible[key], idxs, _PackSlice(shared, slot), model,
+                    staging, key, payloads, key, t_launch,
+                ))
+
+    def _featurize(self, model, payloads):
+        first = payloads[0]
+        if isinstance(first, dict):
+            return prepare.from_records(model.field_space, payloads)
+        return prepare.from_dense(
+            model.field_space,
+            np.asarray(payloads, np.float32),
+            self._replace_nan,
+        )
 
     def _launch_group(self, key: str, model, idxs, payloads):
         """Featurize + dispatch one per-model group through the shared
         window → its ticket entry: (the object whose ``decode`` matches the
         dispatch, indices, handle, model, staging, key, payloads — the
-        last two let a device-faulted group re-dispatch)."""
-        first = payloads[0]
-        if isinstance(first, dict):
-            X, M = prepare.from_records(model.field_space, payloads)
-        else:
-            X, M = prepare.from_dense(
-                model.field_space,
-                np.asarray(payloads, np.float32),
-                self._replace_nan,
-            )
+        two last let a device-faulted group re-dispatch —, the tenant label
+        (the served key in zoo mode, else None) and the launch time).
+        With the profiler on, the launch carries its dispatch profile and
+        the scorer marks the sampled region, as the block pipelines'
+        launches do."""
+        X, M = self._featurize(model, payloads)
+        n = len(payloads)
+        tenant = key if self._zoo is not None else None
         q = model.quantized_scorer()
         if q is None:
             handle = self._dispatcher.launch(
-                lambda: dispatch_f32(model, X, M)
+                lambda: dispatch_f32(model, X, M),
+                profile=(
+                    attr_mod.dispatch_profile(model, n)
+                    if self._dispatcher.profiling else None
+                ),
             )
-            return model, idxs, handle, model, None, key, payloads
+            return (model, idxs, handle, model, None, key, payloads, tenant,
+                    time.monotonic())
         staging = self._staging.get(key)
         if staging is None and self.device.type == "cuda":
             staging = self._staging[key] = new_staging(self.device)
         handle = self._dispatcher.launch(
             lambda: dispatch_quantized(
                 q, X, M, metrics=self.metrics, staging=staging
-            )
+            ),
+            profile=(
+                attr_mod.dispatch_profile(q, n)
+                if self._dispatcher.profiling else None
+            ),
         )
-        return q, idxs, handle, model, staging, key, payloads
+        return (q, idxs, handle, model, staging, key, payloads, tenant,
+                time.monotonic())
+
+    def _wait_handle(self, handle):
+        """The host output of one ticket's dispatch: the FIFO wait for a
+        solo handle, the memoized slot of a packed member's."""
+        if isinstance(handle, _PackSlice):
+            return handle.fetch()
+        return self._dispatcher.wait(handle).result()
 
     def finish(self, ticket) -> List[Any]:
         n, records, tickets, unserved, shed, t_submit = ticket
         preds: List[Optional[Prediction]] = [None] * n
-        for scorer, idxs, handle, model, _staging, key, payloads in tickets:
+        for (scorer, idxs, handle, model, _staging, key, payloads, tenant,
+             t_launch) in tickets:
             try:
-                out = self._dispatcher.wait(handle)
-                decoded = scorer.decode(out.result(), len(idxs))
+                decoded = scorer.decode(self._wait_handle(handle), len(idxs))
             except Exception as e:
                 kind = devfault.classify(e)
                 decoded = None
@@ -394,6 +541,14 @@ class DynamicScorer(Scorer):
                     )
                 if decoded is None:
                     raise e
+            if tenant is not None:
+                # per-tenant telemetry (zoo mode), labelled by served key
+                self.metrics.counter(
+                    f'tenant_records{{model="{tenant}"}}'
+                ).inc(len(idxs))
+                self.metrics.histogram(
+                    f'tenant_latency_s{{model="{tenant}"}}'
+                ).observe(time.monotonic() - t_launch)
             for i, p in zip(idxs, decoded):
                 preds[i] = p
         for i in unserved:
@@ -456,12 +611,11 @@ class DynamicScorer(Scorer):
             bo.sleep()
             try:
                 with self._stream.context():
-                    scorer, _, handle, _, _, _, _ = self._launch_group(
+                    scorer, _, handle = self._launch_group(
                         key, model, idxs, payloads
-                    )
+                    )[:3]
                 self.metrics.counter("redispatches").inc()
-                out = self._dispatcher.wait(handle)
-                decoded = scorer.decode(out.result(), n_idxs)
+                decoded = scorer.decode(self._wait_handle(handle), n_idxs)
             except Exception as e2:
                 error = e2
                 k2 = devfault.classify(e2)
@@ -480,3 +634,56 @@ class DynamicScorer(Scorer):
 
     def restore(self, state: dict) -> None:
         self.registry.restore(state)
+
+
+def _dispatch_pack(pack, Xp: np.ndarray, staging, rows) -> DeviceOutput:
+    """One packed dispatch: on the card the buffer is copied into the
+    pack's pinned staging and the launch, the epilogues and the D2H copy
+    of every member's output queue on the current stream; on the CPU the
+    work is done when this returns."""
+    if pack.device.type != "cuda":
+        return device_output(pack.dispatch(Xp, rows))
+    staged = staging.stage(Xp, Xp.shape[0])
+    return device_output(pack.dispatch(staged, rows), staged)
+
+
+class _PackFetch:
+    """Memoized fetch of one packed dispatch, shared by the member tickets
+    riding it: the first member's ``finish`` pays the FIFO wait, the rest
+    read the cached tuple (or re-raise the cached failure, so each member
+    runs its OWN solo device-fault recovery)."""
+
+    __slots__ = ("_dispatcher", "handle", "_done", "_out", "_err")
+
+    def __init__(self, dispatcher, handle):
+        self._dispatcher = dispatcher
+        self.handle = handle
+        self._done = False
+        self._out = None
+        self._err: Optional[BaseException] = None
+
+    def result(self):
+        if not self._done:
+            try:
+                self._out = self._dispatcher.wait(self.handle).result()
+            except Exception as e:
+                self._err = e
+            self._done = True
+        if self._err is not None:
+            raise self._err
+        return self._out
+
+
+class _PackSlice:
+    """One member's view of a packed dispatch: its fetch de-multiplexes
+    the member's slot from the pack's output tuple (byte-identical to the
+    member's solo dispatch)."""
+
+    __slots__ = ("_shared", "slot")
+
+    def __init__(self, shared: _PackFetch, slot: int):
+        self._shared = shared
+        self.slot = slot
+
+    def fetch(self):
+        return self._shared.result()[self.slot]

@@ -967,3 +967,108 @@ def test_profiled_pipeline_on_the_card(card, tmp_path, monkeypatch):
     band = profiler._PRED_BAND
     assert min(alone) / band <= sampled <= min(alone) * band, (sampled,
                                                                alone)
+
+
+# -- multi-tenant and stateful scoring on the card --------------------------
+
+
+def _pack_members(tmp_path, card, specs, rows, seed=3):
+    """(tables on the card, codes u8[B, F] on the card) a member."""
+    rng = np.random.default_rng(seed)
+    members = []
+    for i, kw in enumerate(specs):
+        gen = gen_vote_forest if kw.pop("votes", False) else gen_gbm
+        doc = parse_pmml_file(gen(str(tmp_path), name=f"m{i}.pmml", **kw))
+        q = compile_pmml(doc, batch_size=max(rows)).quantized_scorer()
+        assert q.backend == "cuda"
+        tables = {k: q.params[k] for k in qtrees_cuda.TABLE_KEYS}
+        codes = torch.from_numpy(q.wire.encode(
+            _X(rng, max(rows), len(q.wire.fields)))).to(card)
+        members.append((tables, codes))
+    return members
+
+
+@pytest.mark.parametrize("rows", [(256, 256, 256), (1, 0, 255), (1024, 7, 300)])
+def test_packed_launch_equals_solo_launches_on_the_card(card, tmp_path, rows):
+    members = _pack_members(tmp_path, card, [
+        dict(n_trees=6, depth=3, n_features=4, seed=100),
+        dict(n_trees=8, depth=3, n_features=4, n_classes=3, seed=5,
+             votes=True),
+        dict(n_trees=19, depth=6, n_features=32, seed=11),
+    ], rows)
+    F = max(c.shape[1] for _, c in members)
+    codes = torch.zeros((3, max(rows), F), dtype=torch.uint8, device=card)
+    for m, (_, c) in enumerate(members):
+        codes[m, :, : c.shape[1]] = c
+    tables = [t for t, _ in members]
+    fields = [c.shape[1] for _, c in members]
+    n0 = qtrees_cuda.leaf_rows_packed.launches
+    got = qtrees_cuda.leaf_rows_packed(codes, list(rows), tables, fields)
+    assert qtrees_cuda.leaf_rows_packed.launches == n0 + 1
+    ref = qtrees_cuda.leaf_rows_packed_reference(codes, list(rows), tables,
+                                                 fields)
+    for m, (t, c) in enumerate(members):
+        assert torch.equal(got[m], ref[m])
+        if rows[m]:
+            solo = qtrees_cuda.leaf_rows(c[: rows[m]].contiguous(), t,
+                                         c.shape[1])
+            assert torch.equal(got[m], solo)
+
+
+def test_pack_and_zoo_on_the_card_equal_solo(card, tmp_path):
+    from flink_jpmml_tpu_torch.compile import packs
+    from flink_jpmml_tpu_torch.models.control import AddMessage
+    from flink_jpmml_tpu_torch.models.core import ModelId
+    from flink_jpmml_tpu_torch.runtime.sources import ControlSource
+    from flink_jpmml_tpu_torch.serving.scorer import DynamicScorer
+
+    paths = [gen_gbm(str(tmp_path), n_trees=6 + d, depth=3, n_features=4,
+                     seed=100 + d, name=f"z{d}.pmml") for d in range(4)]
+
+    def scorer(zoo):
+        ctrl = ControlSource()
+        sc = DynamicScorer(control=ctrl, batch_size=64, zoo=zoo)
+        for d, p in enumerate(paths):
+            ctrl.push(AddMessage(f"t{d}", 1, p, timestamp=1.0))
+        sc._drain_control()
+        for d in range(len(paths)):
+            while sc.registry.model_if_warm(ModelId(f"t{d}", 1)) is None:
+                time.sleep(0.01)
+        return sc
+
+    rng = np.random.default_rng(9)
+    events = [(f"t{i % 4}", {f"f{j}": float(v) for j, v in
+                              enumerate(rng.normal(size=4))})
+              for i in range(256)]
+    zoo, solo = scorer(True), scorer(False)
+    n0 = qtrees_cuda.leaf_rows_packed.launches
+    got = [p.score.value for p, _ in zoo.finish(zoo.submit(events))]
+    want = [p.score.value for p, _ in solo.finish(solo.submit(events))]
+    assert got == want
+    assert qtrees_cuda.leaf_rows_packed.launches > n0
+    qs = [zoo.registry.model_if_warm(ModelId(f"t{d}", 1)).quantized_scorer()
+          for d in range(4)]
+    assert all(packs.pack_eligible(q) for q in qs)
+
+
+def test_state_step_on_the_card_is_deterministic_and_the_cpu_one(card):
+    from flink_jpmml_tpu_torch.compile import statekernel
+
+    rng = np.random.default_rng(4)
+    S = np.zeros((4096, 8), np.float32)
+    n = 8192
+    slots = (rng.zipf(1.2, n) % 4095).astype(np.int32)  # heavy repeats
+    reset = np.zeros(n, bool)
+    rel = rng.integers(0, 5, n).astype(np.float32)
+    w = np.power(np.float32(0.99), -rel).astype(np.float32)
+    score = rng.normal(0, 2, n).astype(np.float32)
+    outs = [statekernel._state_step(torch.from_numpy(S).to(card), score,
+                                    slots, rel, w, reset, 4095, 0.99)
+            for _ in range(3)]
+    tables = [o[1].cpu().numpy().tobytes() for o in outs]
+    assert tables[0] == tables[1] == tables[2]
+    cd, cS = statekernel._state_step(torch.from_numpy(S), score, slots, rel,
+                                     w, reset, 4095, 0.99)
+    gS = outs[0][1].cpu().numpy()
+    assert np.array_equal(gS[:, [0, 5, 6, 7]], cS.numpy()[:, [0, 5, 6, 7]])
+    np.testing.assert_allclose(gS, cS.numpy(), rtol=1e-5, atol=1e-6)

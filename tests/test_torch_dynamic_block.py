@@ -213,10 +213,15 @@ def test_poison_isolates_through_the_served_model(paths, tmp_path):
 
 
 def _edge_option(option, metrics):
-    """A real serving-edge object of the port for ``option`` (the
-    serving-edge slice lifted these three), or None for an option that
-    still raises."""
+    """A real object of the port for ``option`` (the serving-edge slice
+    lifted ``slo``, ``batcher`` and ``admission``; the multi-tenant and
+    stateful slice lifted the block pipeline's ``state``: a keyed state
+    table on the CPU), or None for an option that still raises."""
     from flink_jpmml_tpu_torch.obs.slo import SLOTracker
+    from flink_jpmml_tpu_torch.runtime.state import (
+        KeyedStateTable,
+        StateSpec,
+    )
     from flink_jpmml_tpu_torch.serving.overload import (
         AdaptiveBatcher,
         AdmissionController,
@@ -227,6 +232,8 @@ def _edge_option(option, metrics):
         "batcher": lambda: AdaptiveBatcher(metrics, deadline_s=0.05,
                                            path="/nonexistent/cap.json"),
         "admission": lambda: AdmissionController(metrics, lanes=("block",)),
+        "state": lambda: KeyedStateTable(StateSpec(capacity=8),
+                                         metrics=metrics, device="cpu"),
     }.get(option, lambda: None)()
 
 

@@ -87,6 +87,12 @@ TUNING_SLICE = {
     "compile.layouts", "compile.costmodel", "compile.autotune",
     "obs.profiler",
 }
+# multi-tenant and stateful scoring: the keyed state table and its step,
+# cross-model packs, the zoo manager and the partitioner they route by
+ZOO_STATE_SLICE = {
+    "parallel.partitioner", "runtime.state", "compile.statekernel",
+    "compile.packs", "serving.zoo",
+}
 
 
 def test_every_port_module_imports_without_jax():
@@ -96,11 +102,11 @@ def test_every_port_module_imports_without_jax():
     )
     assert res.returncode == 0, res.stderr
     count, names = res.stdout.split(maxsplit=1)
-    assert int(count) >= 90  # every module ported so far
+    assert int(count) >= 96  # every module ported so far
     names = set(names.split())
     for slice_ in (KAFKA_SLICE, DENSE_SLICE, TREE_SHAPES_SLICE,
                    MORE_FAMILIES_SLICE, API_SLICE, RECOVERY_SLICE,
-                   EDGE_SLICE, TUNING_SLICE):
+                   EDGE_SLICE, TUNING_SLICE, ZOO_STATE_SLICE):
         assert {f"flink_jpmml_tpu_torch.{m}" for m in slice_} <= names
     assert {f"flink_jpmml_tpu_torch.{m}" for m in DENSE_SLICE} <= names
 

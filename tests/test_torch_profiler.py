@@ -48,11 +48,11 @@ def _profile(records=1000):
             "bytes_per_record": 6.0, "model": "m", "backend": "cuda"}
 
 
-def _prof(tmp_path, interval=0.0):
+def _prof(tmp_path, interval=0.0, clock=time.monotonic):
     m = MetricsRegistry()
     return m, profiler.DeviceProfiler(
-        m, interval_s=interval, cost_ledger=profiler.KernelCostLedger(
-            path=str(tmp_path / "kc.json")))
+        m, interval_s=interval, clock=clock,
+        cost_ledger=profiler.KernelCostLedger(path=str(tmp_path / "kc.json")))
 
 
 class TestPeaksAndRoofline:
@@ -149,9 +149,37 @@ class TestSampler:
         assert not OverlappedDispatcher(metrics=m, profiler=prof).profiling
 
     def test_rate_limited(self, tmp_path):
-        m, prof = _prof(tmp_path, interval=3600.0)
+        # an injected clock two intervals in: the limit holds whatever the
+        # host's own uptime (time.monotonic starts near boot)
+        now = [7200.0]
+        m, prof = _prof(tmp_path, interval=3600.0, clock=lambda: now[0])
         assert prof.should_sample()
         assert not prof.should_sample()
+        now[0] += 3599.0
+        assert not prof.should_sample()
+        now[0] += 1.0
+        assert prof.should_sample()
+
+    @pytest.mark.parametrize("start", [0.0, 1800.0, 3599.0, 3600.0])
+    def test_first_claim_on_a_fresh_clock_is_the_jax_one(self, tmp_path,
+                                                         start):
+        """The first claim counts from a last sample at 0 on the
+        profiler's clock, in both packages: a clock that starts below one
+        interval claims nothing until it reaches it."""
+        from flink_jpmml_tpu.obs import profiler as jprofiler
+        from flink_jpmml_tpu.utils.metrics import MetricsRegistry as JReg
+
+        now = [start]
+        _, prof = _prof(tmp_path, interval=3600.0, clock=lambda: now[0])
+        jprof = jprofiler.DeviceProfiler(
+            JReg(), interval_s=3600.0, clock=lambda: now[0],
+            cost_ledger=jprofiler.KernelCostLedger(
+                path=str(tmp_path / "jkc.json")))
+        first = [prof.should_sample(), jprof.should_sample()]
+        assert first == [start >= 3600.0] * 2
+        now[0] = 3600.0
+        assert prof.should_sample() == jprof.should_sample() == (
+            start < 3600.0)
 
 
 class _Event:
@@ -405,3 +433,66 @@ class TestLedgerWrites:
         assert not os.path.exists(path)
         disp.close()
         assert "m|cuda" in profiler.read_ledger(path)
+
+
+def _timed_plain_kernel(monkeypatch, clock):
+    """The kernel's plain version, booked at 1 µs a record on ``clock``."""
+    from flink_jpmml_tpu_torch.compile import qtrees_cuda
+
+    reference = qtrees_cuda.leaf_rows_reference
+
+    def timed_reference(codes, tables):
+        clock.advance(1e-6 * codes.shape[0])
+        return reference(codes, tables)
+
+    monkeypatch.setattr(qtrees_cuda, "leaf_rows_reference", timed_reference)
+
+
+@pytest.mark.parametrize("zoo", [False, True])
+def test_dynamic_scorer_samples_its_launches_like_the_block_path(
+        tmp_path, monkeypatch, zoo):
+    """The dynamic scorer's launches (a group's solo launch, and with the
+    zoo a pack's) carry their dispatch profile, and the sample times the
+    region the scorer marks — the kernel on codes on the device — not the
+    host encode around it: the clock moves 1 µs a record scored and 1 s
+    an encode, so a whole-dispatch sample would read some 10^4 times
+    more."""
+    from flink_jpmml_tpu_torch.compile.qtrees import QuantizedWire
+    from flink_jpmml_tpu_torch.models.control import AddMessage
+    from flink_jpmml_tpu_torch.runtime.sources import ControlSource
+    from flink_jpmml_tpu_torch.serving.scorer import DynamicScorer
+
+    clock = _FakeClock()
+    monkeypatch.setattr(time, "perf_counter", clock)
+    _timed_plain_kernel(monkeypatch, clock)
+    encode = QuantizedWire.encode
+
+    def slow_encode(self, X, M=None):
+        clock.advance(1.0)  # host work of the dispatch
+        return encode(self, X, M)
+
+    monkeypatch.setattr(QuantizedWire, "encode", slow_encode)
+    monkeypatch.setenv("FJT_PROF_SAMPLE", "1e-9")
+    ctrl = ControlSource()
+    m = MetricsRegistry()
+    sc = DynamicScorer(control=ctrl, batch_size=64, device="cpu", metrics=m,
+                       async_warmup=False, zoo=zoo)
+    assert sc._dispatcher.profiling
+    names = ("g0", "g1")
+    for i, name in enumerate(names):
+        path = gen_gbm(str(tmp_path), n_trees=4 + i, depth=3, n_features=4,
+                       seed=i, name=name)
+        ctrl.push(AddMessage(name, 1, path, timestamp=1.0))
+    rng = np.random.default_rng(2)
+    events = [(names[i % 2], {f"f{j}": float(v) for j, v in
+                              enumerate(rng.normal(size=4))})
+              for i in range(128)]  # a whole batch a model: no pad rows
+    out = sc.finish(sc.submit(events))
+    assert not any(p.is_empty for p, _ in out)
+    snap = m.struct_snapshot()
+    launches = 1 if zoo else 2
+    assert snap["counters"]["device_samples"] == launches
+    assert snap["counters"].get("pack_dispatches", 0) == (1 if zoo else 0)
+    # 1 µs a record scored: the sample is the kernel region alone
+    assert snap["gauges"]["device_ns_per_record"]["value"] == \
+        pytest.approx(1e3)

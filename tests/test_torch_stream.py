@@ -397,6 +397,8 @@ LIFTED = frozenset((
     "checkpoint_dir", "scorer_device_retry",
     # the serving edge
     "reader_remote", "scorer_admission", "scorer_lane_fn", "scorer_batcher",
+    # multi-tenant and stateful scoring
+    "pipeline_tenant", "static_state", "scorer_zoo",
 ))
 
 
@@ -434,6 +436,25 @@ def _cut_cases(tmp="."):
     def registry_apply(p):
         ModelRegistry(device="cpu").apply(RolloutMessage(
             "m", 2, "canary", 1.0, path=p))
+
+    def pipeline_tenant(p):
+        assert pipe(tenant="t")(p)._tenant == "t"
+
+    def static_state(p):
+        # keyed state rides the rank wire, which the f32 iris model lacks
+        from flink_jpmml_tpu_torch.runtime.state import StateSpec
+        from flink_jpmml_tpu_torch.utils.exceptions import (
+            InputValidationException,
+        )
+
+        with pytest.raises(InputValidationException):
+            StaticScorer(ModelReader(p).load(device="cpu"),
+                         state=StateSpec(capacity=8))
+
+    def scorer_zoo(p):
+        from flink_jpmml_tpu_torch.serving.zoo import ZooManager
+
+        assert isinstance(dyn(zoo=True)(p)._zoo, ZooManager)
 
     def pipeline_checkpoint(p):
         pipe(checkpoint=CheckpointManager(tmp))(p).run_until_exhausted(10)
@@ -508,14 +529,13 @@ def _cut_cases(tmp="."):
     return {
         "pipeline_checkpoint": pipeline_checkpoint,
         "pipeline_dlq": pipeline_dlq,
-        "pipeline_tenant": pipe(tenant="t"),
+        "pipeline_tenant": pipeline_tenant,
         "pipeline_restore": pipeline_restore,
         "with_checkpointing": with_checkpointing,
         "execute_restore": execute_restore,
         "start_restore": start_restore,
         "checkpoint_dir": checkpoint_dir,
-        "static_state": lambda p: StaticScorer(
-            ModelReader(p).load(device="cpu"), state=object()),
+        "static_state": static_state,
         "evaluate_guardrails": lambda p: env().from_collection([]).evaluate(
             ModelReader(p), guardrails=object()),
         "evaluate_key_fn": lambda p: env().from_collection([]).evaluate(
@@ -531,7 +551,7 @@ def _cut_cases(tmp="."):
         "scorer_admission": scorer_admission,
         "scorer_lane_fn": scorer_lane_fn,
         "scorer_batcher": scorer_batcher,
-        "scorer_zoo": dyn(zoo=True),
+        "scorer_zoo": scorer_zoo,
         "scorer_device_retry": scorer_device_retry,
     }
 
