@@ -312,6 +312,27 @@ JAX package, and prints one JSON line per phase:
     sizes (49,152 records, 16,384 keys, capacity 32,768, batch 1,024, two
     SIGKILLs) with the workers on the card: the final table the same bytes
     as an uninterrupted life's.
+25. mesh — the parallel plane on the card's 1×1 mesh (``make_mesh()``
+    over every card; the line prints ``torch.cuda.device_count()``; no
+    kernel runs here: a sharded model scores on the f32 path). BASELINE
+    config 5 at its published widths (``gen_stacked(n_trees=50, depth=4,
+    n_features=10_000, wide_lr=True)``, batch 2,048, 131,072 records, as
+    ``family_configs`` builds it) compiled with ``mesh=`` and driven
+    through ``BlockPipeline(mesh=)`` beside the unsharded model on the
+    same data, in turns (unsharded, sharded, sharded, unsharded): every
+    head equal to the unsharded runs' (the same ops on the same batch),
+    within rtol 1e-4 / atol 1e-5 of the CPU port, no model-axis leaf at
+    1×1, records/s, batch p50 / p99 and peak allocated bytes of each run
+    printed. The main-path GBM (``gen_gbm(500)``) on
+    the f32 path through ``BlockPipeline(mesh=)`` held to the CPU port.
+    ``TpLinearScorer`` (10,000 × 2) and ``mp_gp`` (the 2,000-row GP) at
+    1×1 against the plain product on the card with TF32 off.
+    ``DynamicBlockPipeline(mesh=)`` warms config 5 sharded and delivers
+    outputs equal to the direct sharded run. An injected ``chip_loss`` on
+    the 1×1 mesh escalates with the raise: no mesh rebuild, no record
+    delivered twice. A keyed state table sharded on the 1×1 mesh stays
+    one tensor and gives the unsharded table's bytes after the same
+    stream.
 
 Every main path runs the C++ ring, and its line carries the stage ledger
 of its registry (``attribution``: per stage the count, total ms, p50 /
@@ -332,8 +353,8 @@ line ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --ab
 OTHER_CHECKOUT`` instead times the fused GBM's block path in child
 processes alternating between another checkout and this one
 (``ab_main``), and ``python3 chip_smoke.py --phase NAME`` runs one
-phase alone (``serving_edge``, ``kernel_search`` or ``zoo_state``) with
-what it needs built (``run_phase_alone``). Any failed phase raises, and the
+phase alone (``serving_edge``, ``kernel_search``, ``zoo_state`` or
+``mesh``) with what it needs built (``run_phase_alone``). Any failed phase raises, and the
 script exits non-zero without printing the last line. Without a CUDA
 device, or without the port beside it, it exits 1 at once. The flight
 recorder's directory and the generated model files live in a temporary
@@ -352,6 +373,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1325,7 +1347,7 @@ def check_decoded(cm, cm_cpu, X: np.ndarray, label: str) -> dict:
 
 
 def drive_f32(cm, data: np.ndarray, target: int, sample: int,
-              chunks=None) -> tuple:
+              chunks=None, mesh=None) -> tuple:
     """BlockPipeline on the f32 backend over a ``CyclingBlockSource`` of
     ``data`` until ``target`` records reached the sink; dispatches of
     ``chunks`` compile batches, by default up to 16, fewer where a
@@ -1333,7 +1355,9 @@ def drive_f32(cm, data: np.ndarray, target: int, sample: int,
     function's (on the data's first rows) and the H2D copy's CUDA-event ms
     at the dispatch shape and, from them, an estimate of the card's idle
     share (not a trace), the card's peak allocated memory over the run
-    and the timing, and the stage ledger.
+    and the timing, and the stage ledger. ``mesh`` drives
+    ``BlockPipeline(mesh=)``, and the model function timed is the sharded
+    model's ``predict``.
     → (the run's line, the head's outputs)."""
     import torch
 
@@ -1363,9 +1387,11 @@ def drive_f32(cm, data: np.ndarray, target: int, sample: int,
         RuntimeConfig(batch=BatchConfig(size=batch, deadline_us=5000,
                                         queue_capacity=4 * batch * chunks)),
         max_dispatch_chunks=chunks,
+        mesh=mesh,
     )
     if pipe.backend != "f32":
         raise RuntimeError(f"dense pipeline backend {pipe.backend}")
+    scorer = pipe._bound.model
     metrics = pipe.metrics
     torch.cuda.reset_peak_memory_stats(cm.device)
     t0 = time.perf_counter()
@@ -1393,7 +1419,9 @@ def drive_f32(cm, data: np.ndarray, target: int, sample: int,
     Xd = torch.from_numpy(Xh).to(cm.device)
     Md = torch.from_numpy(Mh).to(cm.device)
     with torch.no_grad():
-        model_ms = cuda_ms(lambda: cm._fn(cm.params, Xd, Md), 2, 10)
+        model_ms = cuda_ms(
+            (lambda: scorer.predict(Xd, Md)) if mesh is not None
+            else (lambda: cm._fn(cm.params, Xd, Md)), 2, 10)
     h2d_ms = cuda_ms(lambda: (torch.from_numpy(Xh).to(cm.device),
                               torch.from_numpy(Mh).to(cm.device)), 2, 10)
     return {
@@ -5569,6 +5597,313 @@ def zoo_state(workdir: str, smi: str) -> dict:
             "packed_kernel": pk, "zoo": zoo, "stateful": st}
 
 
+# -- the parallel plane on the card's 1x1 mesh (no kernel on these paths) ----
+
+MESH_GBM_RECORDS = 16 * BATCH  # the main-path GBM on the f32 path
+MESH_DYN_BATCHES = 8  # config 5 batches through the dynamic pipeline
+MESH_STATE_BATCHES = 32
+MESH_STATE_CAPACITY = 1 << 20
+
+
+def _same_outputs(a, b) -> bool:
+    """Two ModelOutputs with the same fields, tensor for tensor equal."""
+    import torch
+
+    return all((x is None) == (y is None)
+               and (x is None or torch.equal(x.cpu(), y.cpu()))
+               for x, y in zip(a, b))
+
+
+def mesh_config5(workdir: str, mesh) -> dict:
+    """BASELINE config 5 through ``BlockPipeline`` unsharded and with
+    ``mesh=`` on the same data (``family_paths``' records): heads equal,
+    both held to the CPU port."""
+    from flink_jpmml_tpu_torch import assets_gen as ag
+    from flink_jpmml_tpu_torch.compile.compiler import compile_pmml
+    from flink_jpmml_tpu_torch.parallel.sharding import ShardedModel
+    from flink_jpmml_tpu_torch.pmml import parse_pmml_file
+
+    name, path, batch, target = next(
+        c for c in family_configs(workdir) if c[0] == "stacked")
+    t0 = time.perf_counter()
+    doc = parse_pmml_file(path)
+    cm = compile_pmml(doc, batch_size=batch)
+    sm = compile_pmml(doc, batch_size=batch, mesh=mesh)
+    cm_cpu = compile_pmml(doc, batch_size=batch, device="cpu")
+    setup_s = time.perf_counter() - t0
+    if not isinstance(sm, ShardedModel) or sm.tp_sharded_leaves != ():
+        raise RuntimeError(f"config 5 on the 1x1 mesh: {type(sm).__name__}, "
+                           f"TP leaves {sm.tp_sharded_leaves}")
+    if sm.quantized_scorer() is not None or sm.batch_divisor != 1:
+        raise RuntimeError("config 5 sharded: a rank wire or a data axis")
+    F = cm.field_space.arity
+    rng = np.random.default_rng(6)
+    rows = max(batch, min(DISPATCH, 2 ** 26 // (4 * F)) // batch * batch)
+    data = rng.standard_normal(size=(rows, F), dtype=np.float32) * 1.5
+    miss = rng.random(size=data.shape, dtype=np.float32) < MISSING
+    miss &= (rng.random(size=(rows, 1)) < MISSING)
+    data[miss] = np.nan
+    sample = min(4096, batch)
+    Z = (np.zeros((batch, F), np.float32), np.zeros((batch, F), bool))
+    cm.predict(*Z)  # warm the card's path
+    sm.predict(*Z)
+    # in turns (unsharded, sharded, sharded, unsharded): one call's
+    # host moves from run to run, so the pairs bracket each other
+    runs = {"unsharded": [], "sharded": []}
+    heads = []
+    for key in ("unsharded", "sharded", "sharded", "unsharded"):
+        run, head = (drive_f32(cm, data, target, sample) if key ==
+                     "unsharded" else drive_f32(sm, data, target, sample,
+                                                mesh=mesh))
+        runs[key].append(run)
+        heads.append(head)
+    if not all(_same_outputs(h, heads[0]) for h in heads[1:]):
+        raise RuntimeError("config 5 on the 1x1 mesh differs from the "
+                           "unsharded model on the card")
+    head = heads[1]
+    Xh = data[:sample]
+    Mh = np.isnan(Xh)
+    ref = cm_cpu.predict(np.where(Mh, 0.0, Xh).astype(np.float32), Mh)
+    return {"config": name, "parse_compile_s": setup_s,
+            "tp_sharded_leaves": list(sm.tp_sharded_leaves),
+            "heads_equal_unsharded": True,
+            "cpu_check": check_outputs(head, ref, name), **runs}
+
+
+def mesh_gbm(workdir: str, mesh) -> dict:
+    """The main-path GBM on the f32 path through ``BlockPipeline(mesh=)``,
+    its head held to the CPU port."""
+    from flink_jpmml_tpu_torch.assets_gen import gen_gbm
+    from flink_jpmml_tpu_torch.compile.compiler import compile_pmml
+    from flink_jpmml_tpu_torch.pmml import parse_pmml_file
+
+    doc = parse_pmml_file(gen_gbm(workdir, n_trees=500,
+                                  name="gbm_500_mesh.pmml"))
+    cm = compile_pmml(doc, batch_size=BATCH)
+    cm_cpu = compile_pmml(doc, batch_size=BATCH, device="cpu")
+    F = cm.field_space.arity
+    data = features(np.random.default_rng(0), 4 * BATCH, F)
+    sample = 2048
+    run, head = drive_f32(cm, data, MESH_GBM_RECORDS, sample, chunks=1,
+                          mesh=mesh)
+    Xh = data[:sample]
+    Mh = np.isnan(Xh)
+    ref = cm_cpu.predict(np.where(Mh, 0.0, Xh).astype(np.float32), Mh)
+    return {"config": "gbm_500_f32", **run,
+            "cpu_check": check_outputs(head, ref, "gbm_500 on the mesh")}
+
+
+def mesh_tp(workdir: str, mesh) -> dict:
+    """``TpLinearScorer`` and ``mp_gp`` at 1x1 against the plain product on
+    the card (TF32 off)."""
+    import torch
+
+    from flink_jpmml_tpu_torch.compile.compiler import compile_pmml
+    from flink_jpmml_tpu_torch.parallel.sharding import TpLinearScorer, mp_gp
+    from flink_jpmml_tpu_torch.pmml import parse_pmml
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("TF32 is on for float32 matmuls")
+    rng = np.random.default_rng(21)
+    W = rng.normal(0, 0.01, size=(10_000, 2)).astype(np.float32)
+    b = rng.normal(0, 0.1, size=2).astype(np.float32)
+    X = rng.normal(size=(2048, 10_000)).astype(np.float32)
+    dev = mesh.primary
+    Xd = torch.from_numpy(X).to(dev)
+    plain = Xd @ torch.from_numpy(W).to(dev) + torch.from_numpy(b).to(dev)
+    got = TpLinearScorer(mesh=mesh, W=W, b=b, link="identity").predict(X)
+    if not torch.equal(got, plain):
+        raise RuntimeError("TpLinearScorer at 1x1 differs from the plain "
+                           "product on the card")
+    logit = TpLinearScorer(mesh=mesh, W=W, b=b).predict(X).cpu().numpy()
+    ref = 1.0 / (1.0 + np.exp(-(X.astype(np.float64) @ W + b)))
+    if not np.allclose(logit, ref, rtol=RTOL, atol=ATOL):
+        raise RuntimeError("TpLinearScorer logit differs from float64")
+    doc = parse_pmml(gp_xml())
+    cm = compile_pmml(doc, batch_size=2048)
+    Xg = rng.normal(0.0, 1.5, size=(2048, 8)).astype(np.float32)
+    gp = mp_gp(mesh, doc.model)(Xg)
+    want = cm.predict(Xg, np.zeros_like(Xg, bool)).value
+    gp_err = float((gp - want).abs().max())
+    if not torch.allclose(gp, want, rtol=RTOL, atol=ATOL):
+        raise RuntimeError(f"mp_gp at 1x1 differs from the GP on the card: "
+                           f"{gp_err}")
+    return {"tp_linear_equal_plain": True,
+            "tp_linear_logit_max_abs_err_f64":
+                float(np.abs(logit - ref).max()),
+            "mp_gp_max_abs_err": gp_err, "tf32": False}
+
+
+def mesh_dynamic(workdir: str, mesh) -> dict:
+    """``DynamicBlockPipeline(mesh=)`` warms config 5 sharded; every
+    delivered batch equals the direct sharded run on the same rows."""
+    import torch
+
+    from flink_jpmml_tpu_torch.compile.compiler import compile_pmml
+    from flink_jpmml_tpu_torch.models.control import AddMessage
+    from flink_jpmml_tpu_torch.parallel.sharding import ShardedModel
+    from flink_jpmml_tpu_torch.pmml import parse_pmml_file
+    from flink_jpmml_tpu_torch.runtime.block import CyclingBlockSource
+    from flink_jpmml_tpu_torch.runtime.sources import ControlSource
+    from flink_jpmml_tpu_torch.serving.block import DynamicBlockPipeline
+    from flink_jpmml_tpu_torch.utils.config import BatchConfig, RuntimeConfig
+
+    _, path, batch, _ = next(
+        c for c in family_configs(workdir) if c[0] == "stacked")
+    sm = compile_pmml(parse_pmml_file(path), batch_size=batch, mesh=mesh)
+    F = sm.field_space.arity
+    X = np.random.default_rng(31).normal(
+        0.0, 1.5, size=(batch, F)).astype(np.float32)
+    direct = sm.predict(X, np.zeros_like(X, bool))
+    got, lock = [], threading.Lock()
+
+    def sink(out, n, first_off, decode):
+        with lock:
+            got.append((first_off, n, decode.model_key, out))
+
+    ctrl = ControlSource()
+    pipe = DynamicBlockPipeline(
+        CyclingBlockSource(X, block_size=batch), ctrl, sink, name="c5",
+        arity=F, batch_size=batch,
+        config=RuntimeConfig(batch=BatchConfig(
+            size=batch, deadline_us=5_000_000, queue_capacity=4 * batch)),
+        max_dispatch_chunks=1, mesh=mesh)
+    t0 = time.perf_counter()
+    ctrl.push(AddMessage("c5", 1, path, timestamp=1.0))
+    pipe.start()
+    try:
+        wait_for(lambda: len(got) >= MESH_DYN_BATCHES or pipe.error,
+                 "the dynamic pipeline's batches", timeout=300.0)
+    finally:
+        pipe.stop()
+        pipe.join(timeout=60)
+    dt = time.perf_counter() - t0
+    if pipe.error is not None:
+        raise pipe.error
+    served = pipe._current.model
+    if not isinstance(served, ShardedModel) or pipe.backend != "f32":
+        raise RuntimeError(f"dynamic pipeline served {type(served)} on "
+                           f"{pipe.backend}")
+    for first_off, n, key, out in got:
+        if first_off % batch or n != batch or key != "c5_1":
+            raise RuntimeError(f"dynamic batch at {first_off} of {n} ({key})")
+        if not _same_outputs(out, direct):
+            raise RuntimeError(f"dynamic batch at {first_off} differs from "
+                               "the direct sharded run")
+    return {"batches": len(got), "records": sum(n for _, n, _, _ in got),
+            "seconds_with_warm": dt, "served": type(served).__name__,
+            "equal_direct": True,
+            "cold_start_s": pipe.metrics.snapshot().get("cold_start_s_p50")}
+
+
+def mesh_chip_loss(workdir: str, mesh) -> dict:
+    """An injected ``chip_loss`` on the 1x1 mesh escalates with the raise:
+    one data row, nothing to shrink onto (the single-chip contract)."""
+    from flink_jpmml_tpu_torch.assets_gen import gen_gbm
+    from flink_jpmml_tpu_torch.compile.compiler import compile_pmml
+    from flink_jpmml_tpu_torch.pmml import parse_pmml_file
+    from flink_jpmml_tpu_torch.runtime import faults
+    from flink_jpmml_tpu_torch.runtime.block import (
+        BlockPipeline,
+        FiniteBlockSource,
+    )
+    from flink_jpmml_tpu_torch.runtime.checkpoint import CheckpointManager
+    from flink_jpmml_tpu_torch.utils.config import BatchConfig, RuntimeConfig
+
+    doc = parse_pmml_file(gen_gbm(workdir, n_trees=20, depth=4,
+                                  name="gbm_20_mesh.pmml"))
+    cm = compile_pmml(doc, batch_size=1024)
+    X = features(np.random.default_rng(41), 16 * 1024,
+                 cm.field_space.arity)
+    delivered = []
+    pipe = BlockPipeline(
+        FiniteBlockSource(X, 1024), cm,
+        lambda out, n, off: delivered.append((off, n)),
+        RuntimeConfig(batch=BatchConfig(size=1024, deadline_us=5000),
+                      checkpoint_interval_s=0.05),
+        checkpoint=CheckpointManager(os.path.join(workdir, "mesh_ck")),
+        max_dispatch_chunks=1, mesh=mesh)
+    faults.clear()
+    faults.inject("chip_loss", n=1)
+    raised = None
+    try:
+        pipe.run_until_exhausted(timeout=120)
+    except faults.InjectedChipLoss as e:
+        raised = e
+    finally:
+        faults.clear()
+    if raised is None:
+        raise RuntimeError("chip_loss on the 1x1 mesh did not escalate")
+    counters = pipe.metrics.struct_snapshot()["counters"]
+    rebuilds = counters.get("mesh_rebuilds", 0)
+    offs = [o + i for o, n in delivered for i in range(n)]
+    if rebuilds != 0 or len(offs) != len(set(offs)):
+        raise RuntimeError(f"chip_loss on the 1x1 mesh: {rebuilds} rebuilds, "
+                           f"{len(offs) - len(set(offs))} duplicates")
+    return {"escalated": type(raised).__name__, "mesh_rebuilds": rebuilds,
+            "delivered_records": len(offs), "duplicates": 0}
+
+
+def mesh_state(mesh) -> dict:
+    """A keyed state table sharded on the 1x1 mesh against an unsharded
+    one over the same stream: one tensor, the same bytes."""
+    import torch
+
+    from flink_jpmml_tpu_torch.compile import statekernel
+    from flink_jpmml_tpu_torch.runtime.state import KeyedStateTable, StateSpec
+
+    spec = StateSpec(capacity=MESH_STATE_CAPACITY)
+    plain = KeyedStateTable(spec)
+    sharded = KeyedStateTable(spec)
+    sharded.shard(mesh)
+    if not isinstance(sharded.values, torch.Tensor):
+        raise RuntimeError("the 1x1 mesh split the state table")
+    for t, seed in ((plain, 51), (sharded, 51)):
+        rng = np.random.default_rng(seed)
+        for b in range(MESH_STATE_BATCHES):
+            keys = rng.zipf(1.1, STATE_BATCH) % (4 * MESH_STATE_CAPACITY)
+            offs = np.arange(b * STATE_BATCH, (b + 1) * STATE_BATCH)
+            slots, reset, rel, w = t.assign_slots(t.hash_keys(keys), offs)
+            score = torch.from_numpy(rng.normal(
+                size=STATE_BATCH).astype(np.float32)).to(t.device)
+            _, _, S2 = statekernel.step_after(score, t, slots, rel, w, reset)
+            t.commit(S2)
+    a, b = plain.host_values(), sharded.host_values()
+    if a.tobytes() != b.tobytes():
+        raise RuntimeError("the sharded state table differs from the "
+                           "unsharded one")
+    return {"capacity": spec.capacity, "rows": int(a.shape[0]),
+            "batches": MESH_STATE_BATCHES, "batch": STATE_BATCH,
+            "resident": sharded.resident, "same_bytes": True}
+
+
+def mesh_phase(workdir: str, smi: str) -> dict:
+    """The ``mesh`` phase (module docstring, 25)."""
+    import torch
+
+    from flink_jpmml_tpu_torch.parallel.mesh import make_mesh
+    from flink_jpmml_tpu_torch.utils.config import MeshConfig
+
+    t0 = time.perf_counter()
+    count = torch.cuda.device_count()
+    mesh = (make_mesh() if count == 1
+            else make_mesh(MeshConfig(1, 1), allow_subset=True))
+    if (mesh.shape != {"data": 1, "model": 1}
+            or mesh.devices[0, 0] != torch.device("cuda", 0)):
+        raise RuntimeError(f"the card's mesh is {mesh}")
+    out = {"nvidia_smi": smi, "device_count": count,
+           "mesh": dict(mesh.shape),
+           "devices": [str(d) for d in mesh.devices.flat]}
+    out["config5"] = mesh_config5(workdir, mesh)
+    out["gbm_f32"] = mesh_gbm(workdir, mesh)
+    out["tp"] = mesh_tp(workdir, mesh)
+    out["dynamic"] = mesh_dynamic(workdir, mesh)
+    out["chip_loss"] = mesh_chip_loss(workdir, mesh)
+    out["state"] = mesh_state(mesh)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 # -- A/B of the fused block path against another checkout ---------------
 
 AB_CHILD = r"""
@@ -5686,6 +6021,10 @@ def run_phase_alone(workdir: str, phase: str) -> int:
     emit({"phase": "card", "nvidia_smi": smi,
           "torch_device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    if phase == "mesh":  # no kernel runs on the mesh's f32 paths
+        emit({"phase": "mesh", **mesh_phase(workdir, smi)})
+        print(smi, flush=True)
+        return 0
     qtrees_cuda.build()
     _, cm, q = model_tables(workdir, 500, "gbm_500.pmml")
     _, _, vq = model_tables(workdir, 500, "votes_500.pmml", votes=dict(
@@ -6022,6 +6361,9 @@ def run_phases(workdir: str) -> int:
     # -- multi-tenant and stateful scoring: packs, the zoo, keyed state -----
     zs = zoo_state(workdir, smi)
     emit({"phase": "zoo_state", **zs})
+
+    # -- the parallel plane on the card's 1x1 mesh (no kernel here) ---------
+    emit({"phase": "mesh", **mesh_phase(workdir, smi)})
     zoo_launches = zs["zoo"]["launches_solo_c1"]
     packed_checked = zs["packed_kernel"]["cases"]
     pt = zs["packed_kernel"]["timing"]

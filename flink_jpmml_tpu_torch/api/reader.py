@@ -15,7 +15,9 @@ Where it differs from the JAX package:
 - ``load`` takes ``device=`` (``utils/device.resolve_device``: the card by
   default, the CPU only on request), and the cache key holds the resolved
   device, so a CPU load and a card load of one path never share a model;
-- ``mesh=`` raises :class:`NotPortedError`.
+- ``mesh=`` (a ``parallel/mesh.Mesh``) loads the model mesh-sharded
+  (``compile_pmml(mesh=)``) on the mesh's primary device; the mesh joins
+  the cache key, as the JAX reader keys on its ``jax.sharding.Mesh``.
 
 Remote paths (``http(s)://``, ``gs://``, ``s3://``, ``hdfs://``,
 ``alluxio://``) resolve through ``api/remote.py`` as in the JAX package:
@@ -43,7 +45,6 @@ from flink_jpmml_tpu_torch.utils.config import CompileConfig
 from flink_jpmml_tpu_torch.utils.device import resolve_device
 from flink_jpmml_tpu_torch.utils.exceptions import (
     ModelVerificationException,
-    NotPortedError,
 )
 
 _cache_lock = threading.Lock()
@@ -70,10 +71,13 @@ class ModelReader:
         whose own test vectors fail must not serve (JPMML's
         ``Evaluator.verify()`` contract). Documents without embedded
         vectors load unconditionally. ``device`` picks the card (None,
-        the default) or ``"cpu"``."""
-        if mesh is not None:
-            raise NotPortedError("ModelReader.load(mesh=...)")
+        the default) or ``"cpu"``; ``mesh`` loads the model mesh-aware —
+        batch-sharded over the data axis, wide linear stages
+        feature-sharded over the model axis — on the mesh's primary
+        device."""
         local_path, token = remote.fetch(self.path)
+        if mesh is not None and device is None:
+            device = mesh.primary
         dev = resolve_device(device)
         key = (
             self.path if remote.is_remote(self.path)
@@ -82,6 +86,7 @@ class ModelReader:
             batch_size,
             config,
             dev,
+            mesh,  # hashable; None = single-device
         )
         with _cache_lock:
             cached = _cache.get(key)
@@ -97,7 +102,7 @@ class ModelReader:
             return cached
         doc = parse_pmml_file(local_path)
         model = compile_pmml(
-            doc, batch_size=batch_size, config=config, device=dev
+            doc, batch_size=batch_size, config=config, device=dev, mesh=mesh
         )
         if verify and model.has_verification:
             self._verify(model)

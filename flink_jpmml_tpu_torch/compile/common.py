@@ -140,6 +140,54 @@ class DeviceConst:
         return t
 
 
+class TpLeaf:
+    """A wide parameter leaf split into model-axis row slices, one on each
+    of a mesh row's devices (``parallel/sharding.mesh_sharded`` places it
+    where the unsharded tree holds a tensor). Its consumer computes one
+    partial product per slice on the slice's device and adds the partials
+    in slice order (:meth:`partial_sum`), where the JAX package lets GSPMD
+    partition the contracting dot and ``psum`` the partials."""
+
+    __slots__ = ("name", "parts", "bounds", "shape")
+
+    def __init__(self, name: str, host: torch.Tensor, devices):
+        m = len(devices)
+        rows = host.shape[0]
+        if m < 1 or rows % m:
+            raise ModelCompilationException(
+                f"{name}: {rows} rows do not split over {m} devices")
+        step = rows // m
+        self.name = name
+        self.shape = tuple(host.shape)
+        self.bounds = tuple((k * step, (k + 1) * step) for k in range(m))
+        self.parts = tuple(
+            host[lo:hi].to(dev) for (lo, hi), dev in zip(self.bounds, devices)
+        )
+
+    def partial_sum(self, fn, device: torch.device, *paired: "TpLeaf"
+                    ) -> torch.Tensor:
+        """Σ over the slices, in slice order, of ``fn(lo, hi, part,
+        *paired_parts)`` (run on the part's device; ``paired`` leaves are
+        split alike, as a table's codes and coefficients are), added on
+        ``device``."""
+        total = None
+        for k, ((lo, hi), part) in enumerate(zip(self.bounds, self.parts)):
+            p = fn(lo, hi, part, *(o.parts[k] for o in paired)).to(device)
+            total = p if total is None else total + p
+        return total
+
+
+def tp_matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` for a plain weight tensor, or the slice-ordered sum of
+    the per-slice partials ``x[:, lo:hi] @ part`` for a :class:`TpLeaf`."""
+    if isinstance(w, TpLeaf):
+        return w.partial_sum(
+            lambda lo, hi, part: torch.matmul(x[:, lo:hi].to(part.device),
+                                              part),
+            x.device)
+    return torch.matmul(x, w)
+
+
 def build_codecs(dd: ir.DataDictionary) -> Dict[str, Dict[str, float]]:
     """value→code tables for string-typed categorical fields: the code of a
     category is its index in the DataField's declared value list."""

@@ -23,9 +23,12 @@ the association rules' ``ruleValue`` ranking and the selectAll
 per-segment map.
 
 An IR class without a lowering raises :class:`NotPortedError` and names
-itself. Not ported: the JAX package's ``mesh=`` sharding. Unlike the JAX
-package, a failure while building the rank-wire scorer is never caught
-and turned into a silent fall-back to the f32 path: it propagates.
+itself. ``compile_pmml(mesh=)`` compiles on the mesh's primary device and
+returns ``parallel/sharding.mesh_sharded(...)`` with
+``config.tp_wide_threshold``, as the JAX package does; a sharded model
+scores on the f32 path (its ``quantized_scorer()`` is None). Unlike the
+JAX package, a failure while building the rank-wire scorer is never
+caught and turned into a silent fall-back to the f32 path: it propagates.
 """
 
 from __future__ import annotations
@@ -384,13 +387,22 @@ def compile_pmml(
     batch_size: Optional[int] = None,
     config: Optional[CompileConfig] = None,
     device: Optional[Union[str, torch.device]] = None,
+    mesh=None,
 ) -> CompiledModel:
     """Parse tree → scorer on ``device`` (default: the CUDA card; raises
     DeviceUnavailableError without one — pass ``device="cpu"`` for the
     CPU).
 
     ``batch_size`` is the compile batch: the block pipeline drains to it
-    and the rank wire aligns dispatches to multiples of it."""
+    and the rank wire aligns dispatches to multiples of it. ``mesh`` (a
+    ``parallel/mesh.Mesh``) compiles on the mesh's primary device and
+    returns the mesh-sharded model (``ShardedModel``)."""
+    if mesh is not None:
+        if device is not None and torch.device(device) != mesh.primary:
+            raise ModelCompilationException(
+                f"device={device} is not the mesh's primary device "
+                f"{mesh.primary}")
+        device = mesh.primary
     dev = resolve_device(device)
     config = config or CompileConfig()
     fields = doc.active_fields
@@ -535,7 +547,7 @@ def compile_pmml(
             doc.model.n_neighbors,
             len(lowered.labels),
         )
-    return CompiledModel(
+    compiled = CompiledModel(
         field_space=prepare.FieldSpace(fields=fields, codecs=ctx.codecs),
         labels=lowered.labels,
         params=to_device(host_params, dev),
@@ -556,3 +568,10 @@ def compile_pmml(
         _entity_order=entity_order,
         _neighbor_meta=neighbor_meta,
     )
+    if mesh is not None:
+        from flink_jpmml_tpu_torch.parallel.sharding import mesh_sharded
+
+        return mesh_sharded(
+            compiled, mesh, wide_threshold=config.tp_wide_threshold
+        )
+    return compiled

@@ -11,6 +11,13 @@ Missing semantics (matching the JAX package): a missing *numeric*
 predictor makes that table's value missing (lane invalid); a missing
 *categorical* predictor contributes 0.
 
+On a mesh whose model axis is wider than one device
+(``parallel/sharding.mesh_sharded``), a wide table's ``num_coefs`` and
+``cat_codes`` / ``cat_coefs`` arrive as ``TpLeaf`` row slices, and the
+table sums one partial product a slice in slice order
+(``common.tp_matmul``); these are the only leaves whose consumer the port
+splits.
+
 Deliberate differences: ``label_idx`` is int64 (torch's index dtype), not
 int32; the column indices and exponents are device constants kept beside
 the function (``common.DeviceConst``), as the JAX package closes over them.
@@ -28,6 +35,8 @@ from flink_jpmml_tpu_torch.compile.common import (
     Lowered,
     LowerCtx,
     ModelOutput,
+    TpLeaf,
+    tp_matmul,
 )
 from flink_jpmml_tpu_torch.pmml import ir
 from flink_jpmml_tpu_torch.utils.exceptions import ModelCompilationException
@@ -70,16 +79,39 @@ def _lower_table(table: ir.RegressionTable, ctx: LowerCtx):
             xs = X[:, nc]  # [B, P]
             if not all_exp_one:
                 xs = xs ** exps.on(X.device)
-            y = y + torch.matmul(xs, p["num_coefs"])
+            y = y + tp_matmul(xs, p["num_coefs"])
             missing = missing | M[:, nc].any(dim=1)
         if cat_cols.array.size:
             cc = cat_cols.on(X.device)
             xc = X[:, cc]  # [B, Q]
-            ind = (xc == p["cat_codes"][None, :]) & ~M[:, cc]
-            y = y + torch.matmul(ind.to(torch.float32), p["cat_coefs"])
+            codes = p["cat_codes"]
+            if isinstance(codes, TpLeaf):
+                # a model-axis sharded table: one partial a slice, on the
+                # slice's device, the partials added in slice order
+                mc = M[:, cc]
+                y = y + codes.partial_sum(
+                    lambda lo, hi, code, coef: torch.matmul(
+                        ((xc[:, lo:hi].to(code.device) == code[None, :])
+                         & ~mc[:, lo:hi].to(code.device)).to(torch.float32),
+                        coef),
+                    X.device, p["cat_coefs"])
+            else:
+                ind = (xc == codes[None, :]) & ~M[:, cc]
+                y = y + torch.matmul(ind.to(torch.float32), p["cat_coefs"])
         return y, missing
 
     return params, fn
+
+
+# the table leaves the model-axis split may slice (``mesh_sharded``): a
+# RegressionTable's params dict holds "intercept" beside them
+TP_LEAVES = ("num_coefs", "cat_codes", "cat_coefs")
+
+
+def is_tp_leaf(parent: dict, key: str) -> bool:
+    """Is ``parent[key]`` a regression table's coefficient vector, whose
+    consumer above computes per-slice partials?"""
+    return key in TP_LEAVES and set(parent) == {"intercept", *TP_LEAVES}
 
 
 def lower_regression(model: ir.RegressionModelIR, ctx: LowerCtx) -> Lowered:

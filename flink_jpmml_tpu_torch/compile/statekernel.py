@@ -36,6 +36,11 @@ the sum, sqsum and decayed columns (held at rtol 1e-5 / atol 1e-6 in the
 tests). Count, last-seen, min and max are exact either way (integer
 counts stay exact in f32 far past any batch).
 
+A table held in data-axis row blocks over several cards
+(``runtime/state.RowBlocks``, ``KeyedStateTable.shard``) steps block by
+block, each on its own device (``_state_step_blocks``), to the same
+bytes.
+
 The step writes a new tensor (out of place, see ``runtime/state.py``):
 the port never donates, and the committed tensor is never written after
 a snapshot may have started to read it.
@@ -175,6 +180,38 @@ def _state_step(S, score, slots, rel, w, reset, scratch, decay):
     return derived, S
 
 
+def _state_step_blocks(V, score, slots, rel, w, reset, scratch, decay):
+    """:func:`_state_step` over a table held in data-axis row blocks
+    (``runtime/state.RowBlocks``): each block steps on its own device
+    with one extra local scratch row, the records whose slot it does not
+    hold (and the table's scratch slot) aimed at that row. A slot's
+    records all fall in one block, in record order, so each block's rows
+    and each record's derived features are the bytes the one-tensor step
+    gives. → ``(derived[B, 8], V')`` with the derived features on the
+    score's device."""
+    from flink_jpmml_tpu_torch.runtime.state import RowBlocks
+
+    out_dev = score.device if isinstance(score, torch.Tensor) else (
+        V.blocks[0].device)
+    slots_h = _as_tensor(slots, torch.long, torch.device("cpu"))
+    derived = None
+    blocks = []
+    for (lo, hi), S in zip(V.bounds, V.blocks):
+        dev = S.device
+        own = (slots_h >= lo) & (slots_h < hi) & (slots_h != scratch)
+        local = torch.where(own, slots_h - lo, hi - lo)
+        Sx = torch.cat([S, torch.zeros((1, STATE_WIDTH), dtype=S.dtype,
+                                       device=dev)])
+        d_b, S2 = _state_step(Sx, score, local, rel, w, reset, hi - lo,
+                              decay)
+        blocks.append(S2[: hi - lo])
+        d_b = d_b.to(out_dev)
+        own_d = own.to(out_dev)[:, None]
+        derived = d_b if derived is None else torch.where(own_d, d_b,
+                                                          derived)
+    return derived, RowBlocks(V.bounds, blocks)
+
+
 def _score_of(out):
     """The scalar signal the state accumulates: the f32 value stream
     (classification outputs carry it as the triple's first element)."""
@@ -187,7 +224,9 @@ def step_after(out, table, slots, rel, w, reset):
     ``S'``. Every byte of ``out`` is what the stateless dispatch returns:
     the step only reads it."""
     table.wait_ready()
-    derived, S2 = _state_step(
+    step = (_state_step_blocks if hasattr(table.values, "blocks")
+            else _state_step)
+    derived, S2 = step(
         table.values, _score_of(out), slots, rel, w, reset, table.scratch,
         table.spec.decay)
     return out, derived, S2
@@ -238,6 +277,10 @@ def packed_entry(pack, member: int = 0):
 def renorm(S, mul, add):
     """Epoch renormalization: ``S · mul + add`` broadcast over rows (one
     rare O(capacity) column op — see KeyedStateTable.maybe_renorm)."""
+    if hasattr(S, "blocks"):
+        from flink_jpmml_tpu_torch.runtime.state import RowBlocks
+
+        return RowBlocks(S.bounds, [renorm(b, mul, add) for b in S.blocks])
     mul = _as_tensor(mul, torch.float32, S.device)
     add = _as_tensor(add, torch.float32, S.device)
     return S * mul[None, :] + add[None, :]

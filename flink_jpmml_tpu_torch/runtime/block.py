@@ -84,13 +84,30 @@ The serving edge, as in the JAX package:
   (``FJT_PROF_SAMPLE``), so a sampled dispatch books the ``device``
   stage, the roofline gauges and the kernel cost ledger.
 
+The mesh (``mesh=``, ``parallel/mesh.Mesh``), as in the JAX package:
+the compiled model is promoted to ``parallel/sharding.mesh_sharded``
+(the compile batch must divide by the data axis), so it scores on the
+f32 path; the in-flight window deepens to cover the data rows
+(``parallel/assignment.mesh_in_flight``) and rides the model as carried
+``dispatch_state`` with its ``ChipAssignment``; per-chip telemetry
+(``obs/mesh.py``) books every delivered batch when there are two or more
+data rows. The ``chip_loss`` rung is mesh-aware (``_lost_recover``): a
+sharded model rebuilds over the surviving devices
+(``ShardedModel.without_devices``), the pipeline adopts the rebuild and
+redispatches the retained batch synchronously on the degraded mesh; with
+one data row left (a single card's 1×1 mesh included) it escalates with
+the raise. CUDA's errors do not name the device, and a sticky error
+stays ``chip_loss`` (``runtime/devfault.py``), so on a multi-card mesh
+the rung retires the LAST data row, the choice the JAX package makes when
+its runtime names no chip. The f32 dispatch pads a batch up to the data
+axis after such a rebuild (``runtime/pipeline.dispatch_f32``).
+
 Where it differs: the JAX package's Python ring (its fall-back when the
 C++ library cannot be built) is not ported — the ring raises
 ``NativeBuildError`` instead. The f32 path (``_dispatch_f32``) books the
-bytes it ships in ``h2d_bytes``, as the rank-wire path does. Not ported
-(each raises :class:`NotPortedError` and names itself): ``mesh=`` and
-``donate=`` wait for the parallel slice; with the mesh goes the ladder's
-mesh rebuild (a ``chip_loss`` always escalates — one card, no mesh).
+bytes it ships in ``h2d_bytes``, as the rank-wire path does. ``donate=``
+raises :class:`NotPortedError`: the port already reuses its staging
+buffers once their H2D copy's event has passed.
 
 Keyed state (``state=``, runtime/state.py), as in the JAX package: a
 ``StateSpec`` builds the table on the pipeline's device in its registry;
@@ -151,6 +168,7 @@ from flink_jpmml_tpu_torch.runtime.pipeline import (
 )
 from flink_jpmml_tpu_torch.utils.config import RuntimeConfig
 from flink_jpmml_tpu_torch.utils.exceptions import (
+    FlinkJpmmlTpuError,
     InputValidationException,
     refuse,
 )
@@ -442,6 +460,10 @@ class BlockPipelineBase:
         # the offsets of the dispatch being launched (the state stage's
         # decay clock and replay guard; the score loop is single-threaded)
         self._cur_offsets = None
+        # per-chip mesh telemetry (obs/mesh.MeshTelemetry), attached by
+        # the subclass when the bound model is mesh-sharded; None keeps
+        # the single-chip completion path one None test
+        self._mesh_obs = None
 
     @property
     def error(self) -> Optional[BaseException]:
@@ -741,7 +763,8 @@ class BlockPipelineBase:
     def _dispatch_f32(self, model, X) -> DeviceOutput:
         """f32 path: NaN cells are the missing convention. The mask and the
         zeroed, padded values are made on the host and both cross the bus
-        (``h2d_bytes``: 5 bytes a cell, padding rows included)."""
+        (``h2d_bytes``: 5 bytes a cell, padding rows included;
+        ``dispatch_f32`` pads up to a mesh-sharded model's data axis)."""
         M = np.isnan(X)
         Xb = np.where(M, 0.0, X).astype(np.float32)
         return dispatch_f32(model, Xb, M, metrics=self.metrics)
@@ -844,7 +867,7 @@ class BlockPipelineBase:
         key = getattr(handle, "key", None) or "default"
         plane.note_fault(kind, key, first_off=first, n=n, error=error)
         if kind == devfault.KIND_LOST:
-            self._lost_recover(handle, X, offsets, error)
+            self._lost_recover(handle, X, offsets, error, ctx=ctx)
             return
         breaker = plane.breaker_for(key)
         breaker.record_failure(kind)
@@ -872,7 +895,7 @@ class BlockPipelineBase:
                     raise
                 plane.note_fault(k2, key, first_off=first, n=n, error=e2)
                 if k2 == devfault.KIND_LOST:
-                    self._lost_recover(handle, X, offsets, e2)
+                    self._lost_recover(handle, X, offsets, e2, ctx=ctx)
                     return
                 breaker.record_failure(k2)
                 if k2 == devfault.KIND_OOM:
@@ -907,17 +930,123 @@ class BlockPipelineBase:
                 f'tenant_records{{model="{self._tenant}"}}'
             ).inc(n)
 
-    def _lost_recover(self, handle, X, offsets, error) -> None:
-        """The ``chip_loss`` rung: one card and no mesh, so escalate to
-        the supervisor with the raise (the JAX package's single-chip
-        contract). A sticky CUDA error leaves the context unusable, so an
-        in-process retry could not succeed anyway."""
+    def _lost_recover(self, handle, X, offsets, error, ctx=None) -> None:
+        """The ``chip_loss`` rung of the ladder, mesh-aware: a sharded
+        model rebuilds over the surviving devices in place
+        (``ShardedModel.without_devices`` — dispatcher state and the
+        partition/key assignment carry through) and the retained batch
+        redispatches synchronously on the degraded mesh: zero loss,
+        (N−1)/N capacity, no process restart. A single-device model (or
+        an unsurvivable mesh, or one data row left) keeps the single-chip
+        contract — escalate to the supervisor with the raise. A sticky
+        CUDA error leaves that device's context unusable, so an
+        in-process retry on it could not succeed anyway."""
+        plane = self._failover
+        n = int(X.shape[0])
+        first = int(offsets[0])
+        key = getattr(handle, "key", None) or "default"
+        rebuilt = self._mesh_rebuild(handle, error)
+        if rebuilt is None:
+            flight.record(
+                "device_lost_escalate", model=key, first=first, n=n,
+                error=repr(error),
+            )
+            raise error
+        try:
+            d = self._redispatch_sync(handle, X, n, offsets)
+        except Exception as e2:
+            k2 = devfault.classify(e2)
+            if k2 is None:
+                # the chip loss cleared and a RECORD error surfaced
+                # underneath: poison's jurisdiction
+                if self._dlq is not None:
+                    self._suspect_scan(
+                        handle, X, offsets, error=e2, ctx=ctx
+                    )
+                    return
+                raise
+            # the degraded mesh is live but THIS dispatch failed again:
+            # re-enter the ladder from the top (another chip_loss shrinks
+            # once more — bounded, without_devices raises once no full
+            # data row survives)
+            self._device_recover(handle, X, offsets, e2, k2, ctx=ctx)
+            return
+        plane.redispatch_records.inc(n)
         flight.record(
-            "device_lost_escalate",
-            model=getattr(handle, "key", None) or "default",
-            first=int(offsets[0]), n=int(X.shape[0]), error=repr(error),
+            "mesh_rebuild_redispatch", model=key, first=first, n=n,
+            data=rebuilt.batch_divisor,
         )
-        raise error
+        self._emit_recovered(d, offsets, 0, n, ctx=ctx)
+
+    def _mesh_rebuild(self, handle, error):
+        """Chip loss on a mesh-sharded model: rebuild over the survivors
+        and adopt the rebuilt model into the live scoring handle → the
+        rebuilt ``ShardedModel``, or None when there is no mesh to shrink
+        (single-device model, one data row left) or no survivable
+        rebuild."""
+        model = getattr(handle, "model", None)
+        if not hasattr(model, "without_devices"):
+            return None
+        lost = self._lost_devices(model, error)
+        if not lost:
+            return None
+        try:
+            rebuilt = model.without_devices(lost)
+        except FlinkJpmmlTpuError:
+            return None  # unsurvivable: escalate like a single chip
+        self._adopt_rebuilt(handle, rebuilt)
+        self.metrics.counter("mesh_rebuilds").inc()
+        self.metrics.gauge("mesh_lost_devices").set(float(len(lost)))
+        if self._mesh_obs is not None:
+            self._mesh_obs.note_rebuild(rebuilt, lost)
+        from flink_jpmml_tpu_torch.parallel.mesh import device_id
+
+        flight.record(
+            "mesh_rebuild",
+            lost=[str(device_id(d)) for d in lost],
+            data=rebuilt.batch_divisor,
+        )
+        return rebuilt
+
+    def _lost_devices(self, model, error) -> list:
+        """Which device(s) died. CUDA's errors do not name the device, so
+        an explicit ``error.devices`` / ``error.device`` attribute wins;
+        otherwise the LAST data row of the mesh is retired — retiring any
+        one full row restores (N−1)/N capacity with the model axis
+        intact, and last-row is the choice every process derives
+        identically with no coordination (row identity — the first
+        device of each surviving row — is what the carried
+        ChipAssignment's rendezvous weights key on, so survivor rows keep
+        their partitions and keys)."""
+        dev = getattr(error, "devices", None)
+        if dev is None:
+            dev = getattr(error, "device", None)
+        if dev is not None:
+            if isinstance(dev, (list, tuple, set, frozenset)):
+                return list(dev)
+            return [dev]
+        mesh = getattr(model, "mesh", None)
+        if mesh is None:
+            return []
+        from flink_jpmml_tpu_torch.parallel.mesh import DATA_AXIS
+
+        rows = mesh.devices.reshape(mesh.shape[DATA_AXIS], -1)
+        if rows.shape[0] <= 1:
+            return []  # one data row left: nothing to shrink onto
+        return list(rows[-1])
+
+    def _adopt_rebuilt(self, handle, rebuilt) -> None:
+        """Swap the rebuilt model into the live scoring handle (the
+        BoundScorer's decode closure follows ``handle.model``, so the
+        sink path needs no rebind)."""
+        handle.model = rebuilt
+        if self._state is not None:
+            # chip loss moves state WITH its keys: slot = hash % capacity
+            # is mesh-independent, so re-placing the value rows over the
+            # survivors preserves every key's state
+            mesh = getattr(rebuilt, "mesh", None)
+            if mesh is not None:
+                self._state.migrate(mesh)
 
     def _oom_recover(self, handle, X, offsets, error, ctx=None) -> None:
         """Device-OOM ladder step: bisect the BATCH SIZE until runs fit
@@ -952,7 +1081,7 @@ class BlockPipelineBase:
                 )
                 if k2 == devfault.KIND_LOST:
                     self._lost_recover(
-                        handle, X[lo:hi], offsets[lo:hi], e2
+                        handle, X[lo:hi], offsets[lo:hi], e2, ctx=ctx
                     )
                     return
                 plane.breaker_for(key).record_failure(k2)
@@ -1325,6 +1454,11 @@ class BlockPipelineBase:
             lat.observe(t_done - t_start)
             records_out.inc(n)
             self._book_tenant(n)
+            if self._mesh_obs is not None:
+                # per-chip accounting (obs/mesh.py): one call per BATCH
+                # — a data-parallel dispatch spans every chip equally,
+                # so the split is arithmetic, not a per-record loop
+                self._mesh_obs.note_batch(n, len(disp))
             if self._failover is not None:
                 # green completion: clears strike streaks / counts a
                 # half-open probe
@@ -1624,12 +1758,43 @@ class BlockPipeline(BlockPipelineBase):
         donate: Optional[bool] = None,
         tenant: Optional[str] = None,
     ):
-        refuse(mesh=mesh, donate=donate)
+        refuse(donate=donate)
         if model.batch_size is None:
             raise InputValidationException(
                 "BlockPipeline needs a fixed-batch compiled model "
                 "(compile_pmml(batch_size=...))"
             )
+        if mesh is not None and not hasattr(model, "without_devices"):
+            # promote the compiled model onto the mesh: batch split over
+            # the data axis, wide params TP-sharded over the model axis —
+            # the scoring contract and the sink shape are unchanged
+            # (ShardedModel proxies the CompiledModel surface). An
+            # already-sharded model passes through untouched.
+            from flink_jpmml_tpu_torch.parallel.mesh import DATA_AXIS
+            from flink_jpmml_tpu_torch.parallel.sharding import mesh_sharded
+
+            n_data = int(mesh.shape.get(DATA_AXIS, 1))
+            if model.batch_size % max(n_data, 1) != 0:
+                raise InputValidationException(
+                    f"batch_size {model.batch_size} must divide by the "
+                    f"mesh data-axis size {n_data}"
+                )
+            model = mesh_sharded(model, mesh)
+        if hasattr(model, "in_flight_depth"):
+            # mesh-aware in-flight window: deep enough to cover the data
+            # rows (parallel/assignment.mesh_in_flight), recorded as
+            # carried dispatch state so a degraded-mesh rebuild keeps the
+            # window geometry without re-derivation
+            in_flight = model.in_flight_depth(in_flight)
+            model.with_dispatch_state(in_flight=in_flight)
+            if getattr(model, "assignment", None) is None:
+                from flink_jpmml_tpu_torch.parallel.assignment import (
+                    assignment_for,
+                )
+
+                model.assignment = assignment_for(
+                    model.mesh, getattr(source, "partitions", ()) or ()
+                )
         super().__init__(
             source=source,
             sink=sink,
@@ -1654,6 +1819,14 @@ class BlockPipeline(BlockPipelineBase):
         self._bound = BoundScorer("static", model, use_quantized)
         self.backend = self._bound.backend
         self.metrics.counter(f"scorer_backend_{self.backend}").inc()
+        if self._state is not None:
+            # shard the table over the mesh data axis alongside the model
+            # it rides with (None: a single-device model, a no-op)
+            self._state.shard(getattr(model, "mesh", None))
+        if hasattr(model, "batch_divisor"):
+            from flink_jpmml_tpu_torch.obs import mesh as mesh_obs
+
+            self._mesh_obs = mesh_obs.telemetry_for(self.metrics, model)
 
     def decode(self, out, n: int):
         """Sink-received host output → ``Prediction`` list."""

@@ -1,8 +1,9 @@
 """Kafka wire-protocol streaming: real binary-protocol consumer + broker.
 
 The port's copy of ``flink_jpmml_tpu/runtime/kafka.py``, with the import
-lines renamed and its notes on the project's history cut. Where it
-differs: ``chip_block_sources`` waits for the mesh. ``KafkaRecordSource``
+lines renamed and its notes on the project's history cut, and with
+``chip_block_sources`` (one source a mesh chip, over the partitions a
+``parallel/assignment.ChipAssignment`` gives it). ``KafkaRecordSource``
 (and the record-path helpers only it calls: ``_fetch``, ``_pump``,
 ``_fetch_part``) feeds the record engine (``runtime/engine.py``). The
 journey plane (``obs/trace.py``) is the JAX package's: with
@@ -1929,6 +1930,42 @@ class KafkaBlockSource(_KafkaSourceBase, BlockSource):
         self._stamp_ingest(first, rows.shape[0])
         self._journey_ingest(first, rows.shape[0])
         return first, rows
+
+
+def chip_block_sources(
+    assignment,
+    host: str,
+    port: int,
+    topic: str,
+    *,
+    n_cols: int,
+    metrics=None,
+    **kw,
+) -> dict:
+    """One :class:`KafkaBlockSource` per mesh chip, each draining
+    exactly the partitions the rendezvous assignment
+    (parallel/assignment.ChipAssignment) owns it — the mesh ingest
+    split: each chip's pipeline fetches only its own partitions, so
+    ingest bandwidth scales with the data width instead of funneling
+    every partition through one consumer. Chips owning no partition
+    are omitted (fewer partitions than chips). Ownership is key-stable:
+    after a degraded-mesh resize only the dead chip's partitions
+    re-home (``assignment.without``), so the surviving chips' sources —
+    and their per-partition checkpoint cursors — remain valid as-is.
+
+    → ``{chip: KafkaBlockSource}``; extra kwargs pass through to the
+    source (``dlq=``, ``interleave=``, ...)."""
+    sources = {}
+    for chip in assignment.chips:
+        parts = assignment.partitions_for(chip)
+        if not parts:
+            continue
+        sources[chip] = KafkaBlockSource(
+            host, port, topic,
+            partitions=list(parts),
+            n_cols=n_cols, metrics=metrics, **kw,
+        )
+    return sources
 
 
 # ---------------------------------------------------------------------------

@@ -339,14 +339,20 @@ def _state_armed(q, X, n: int, rows: int, placement: str, state,
 def dispatch_f32(model, X, M, *, metrics: Optional[MetricsRegistry] = None
                  ) -> DeviceOutput:
     """The f32 path's dispatch of one ``(X, M)`` batch through a
-    :class:`~flink_jpmml_tpu_torch.compile.compiler.CompiledModel`: pad
-    it to the compile batch when shorter, copy X and M to the model's
-    device and queue the model there; on the card a D2H copy of the
-    result is queued behind it on the current stream. ``metrics`` books
-    the bytes shipped (``h2d_bytes``: X and M, padding rows included)."""
-    bs = model.batch_size
-    if bs is not None and X.shape[0] < bs:
-        X, M, _ = prepare.pad_batch(X, M, bs)
+    :class:`~flink_jpmml_tpu_torch.compile.compiler.CompiledModel` (or a
+    mesh-sharded ``parallel/sharding.ShardedModel``): pad it to the
+    compile batch when shorter, copy X and M to the model's device and
+    queue the model there; on the card a D2H copy of the result is queued
+    behind it on the current stream. A sharded model's data axis must
+    divide the dispatch, and a degraded-mesh rebuild can leave a divisor
+    that no longer divides the batch, so the pad target rounds up to it
+    (a single-device model, divisor 1, keeps the pad-to-batch geometry).
+    ``metrics`` books the bytes shipped (``h2d_bytes``: X and M, padding
+    rows included)."""
+    target = max(model.batch_size or 0, X.shape[0])
+    target += (-target) % getattr(model, "batch_divisor", 1)
+    if X.shape[0] < target:
+        X, M, _ = prepare.pad_batch(X, M, target)
     if metrics is not None:
         metrics.counter("h2d_bytes").inc(X.nbytes + M.nbytes)
     Xs = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(

@@ -5,8 +5,8 @@ import lines renamed: ``_PrefetchedSourceBase``, the block half
 (``PrefetchedBlockSource``, ``maybe_wrap_block``) and the record half
 (``PrefetchedRecordSource``, ``maybe_wrap_records``, which the record
 engine ``runtime/engine.py`` wraps its source with), ``env_depth`` and
-``env_disabled``, with the same knobs. ``maybe_wrap_chips`` waits for the
-mesh.
+``env_disabled``, with the same knobs, and ``maybe_wrap_chips`` (a
+sidecar a mesh chip's source, chip-tagged in its thread name).
 
 Without it the pipelines' ingest thread runs fetch RPC and wire decode
 *serially*: while a fetch long-polls the broker nothing decodes, and
@@ -425,6 +425,25 @@ def maybe_wrap_block(
     ):
         return source
     return PrefetchedBlockSource(source, depth=depth, metrics=metrics)
+
+
+def maybe_wrap_chips(
+    sources: dict, metrics=None, enable: Optional[bool] = None,
+    depth: Optional[int] = None,
+) -> dict:
+    """Per-chip prefetch wrap for the mesh ingest split (one kafka
+    source per chip — runtime/kafka.chip_block_sources): each chip's
+    source gets its OWN sidecar, chip-tagged in the thread name, so a
+    stalled partition set shows up in thread dumps as the chip it
+    starves and never blocks another chip's fetch loop. Same
+    auto/enable/kill-switch rules as :func:`maybe_wrap_block`."""
+    out = {}
+    for chip, src in sources.items():
+        w = maybe_wrap_block(src, metrics=metrics, enable=enable, depth=depth)
+        if w is not src:
+            w._THREAD_NAME = f"fjt-prefetch-blk-c{chip}"
+        out[chip] = w
+    return out
 
 
 def maybe_wrap_records(

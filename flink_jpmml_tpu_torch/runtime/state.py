@@ -21,8 +21,15 @@ differs:
   so a snapshot never holds a batch that ``applied_hi`` does not count
   (an in-place update racing a snapshot's copy with two batches in
   flight would).
-- **No mesh.** ``shard`` and ``migrate`` raise ``NotPortedError`` until
-  the parallel slice; a table lives on one device.
+- **The mesh** (``shard`` / ``migrate``, ``parallel/mesh.Mesh``). On a
+  mesh whose data rows sit on one physical device (a card's 1×1 mesh,
+  the logical ``cpu:i`` meshes) the table stays one tensor with the same
+  bytes, on that device. Across several cards the value rows are placed
+  in data-axis row blocks (:class:`RowBlocks`, one block a data row's
+  first device) and the state step reads and writes each block on its
+  own device (``compile/statekernel.py``). ``migrate`` re-places every
+  row from the host copy over the surviving rows, so no key loses its
+  vector.
 
 Keyed per-record session state, device-resident and dispatch-fused.
 
@@ -111,10 +118,7 @@ from flink_jpmml_tpu_torch.parallel.partitioner import (
     stable_hash_vec,
 )
 from flink_jpmml_tpu_torch.utils.device import resolve_device
-from flink_jpmml_tpu_torch.utils.exceptions import (
-    InputValidationException,
-    NotPortedError,
-)
+from flink_jpmml_tpu_torch.utils.exceptions import InputValidationException
 from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry
 
 # one fixed-width state vector per key; the column layout is the
@@ -263,6 +267,8 @@ class KeyedStateTable:
         self.values = torch.zeros((self.rows, STATE_WIDTH),
                                   dtype=torch.float32, device=self.device)
         self._ready = _event_behind(self.values)
+        # the mesh the value rows are placed over (None: one device)
+        self._mesh = None
         self._bypass_depth = 0
         # in-memory rollback point (init = empty table)
         self._snap: Dict[str, Any] = self._host_snapshot()
@@ -487,37 +493,70 @@ class KeyedStateTable:
     # -- sharding / migration ---------------------------------------------
 
     def shard(self, mesh) -> None:
-        """Not ported: a table lives on one device until the parallel
-        slice. ``mesh=None`` is the no-op it is in the JAX package."""
+        """Place the value rows over the mesh data axis (module
+        docstring); ``mesh=None`` is a no-op."""
         if mesh is None:
             return
-        raise NotPortedError("KeyedStateTable.shard (a mesh) is not ported")
+        host = self.host_values()
+        self._mesh = mesh
+        self._set_values(host)
 
     def migrate(self, new_mesh) -> None:
-        """Not ported (the degraded-mesh rebuild of the parallel slice);
-        ``None`` is a no-op."""
+        """Degraded-rebuild hook: re-place every row across the surviving
+        chips from the host copy (the old placement may reference lost
+        devices). Slot = hash % capacity is mesh-independent, so chip
+        loss moves state WITH its keys — no key loses its state
+        vector."""
         if new_mesh is None:
             return
-        raise NotPortedError("KeyedStateTable.migrate is not ported")
+        from flink_jpmml_tpu_torch.parallel.mesh import DATA_AXIS
+
+        self.shard(new_mesh)
+        flight.record(
+            "state_migrate",
+            data=int(new_mesh.shape.get(DATA_AXIS, 1)),
+            resident=self.resident,
+        )
+
+    def _block_devices(self):
+        """The data rows' first devices, one a block, when the mesh's data
+        rows span more than one physical device; else None (one tensor)."""
+        if self._mesh is None:
+            return None
+        from flink_jpmml_tpu_torch.parallel.mesh import DATA_AXIS, physical
+
+        devs = [physical(self._mesh.devices[r, 0])
+                for r in range(self._mesh.shape[DATA_AXIS])]
+        if len(set(devs)) > 1:
+            return devs
+        self.device = devs[0]
+        return None
 
     def _set_values(self, host: np.ndarray) -> None:
-        """Host f32 rows → the value tensor on the table's device."""
-        self.values = torch.from_numpy(
-            np.ascontiguousarray(host, np.float32)).to(self.device)
+        """Host f32 rows → the values on the table's device, or in row
+        blocks over the mesh's data devices."""
+        host = np.ascontiguousarray(host, np.float32)
+        devs = self._block_devices()
+        if devs is None:
+            self.values = torch.from_numpy(host).to(self.device)
+        else:
+            self.values = RowBlocks.place(host, devs)
         self._ready = _event_behind(self.values)
 
     def wait_ready(self) -> None:
-        """Order the current stream after the work that wrote the values
+        """Order the current streams after the work that wrote the values
         (they may have been written on another stream: the constructor's,
         a restore's); no host wait, and a no-op on the CPU."""
-        if self._ready is not None:
-            torch.cuda.current_stream(self.device).wait_event(self._ready)
+        for dev, ev in self._ready or ():
+            torch.cuda.current_stream(dev).wait_event(ev)
 
     def host_values(self) -> np.ndarray:
         """The committed values on the host, after the step that wrote
         them has finished."""
-        if self._ready is not None:
-            self._ready.synchronize()
+        for _, ev in self._ready or ():
+            ev.synchronize()
+        if isinstance(self.values, RowBlocks):
+            return self.values.host()
         return self.values.detach().cpu().numpy()
 
     # -- snapshots ---------------------------------------------------------
@@ -696,14 +735,47 @@ class _DriftShim:
         self.wire = _DerivedWire()
 
 
+class RowBlocks:
+    """The value rows in data-axis row blocks: block ``b`` holds rows
+    ``bounds[b]`` on its data row's first device (the last block may be
+    shorter, so any data width divides)."""
+
+    __slots__ = ("bounds", "blocks")
+
+    def __init__(self, bounds, blocks):
+        self.bounds = tuple(bounds)
+        self.blocks = list(blocks)
+
+    @classmethod
+    def place(cls, host: np.ndarray, devices) -> "RowBlocks":
+        step = -(-host.shape[0] // len(devices))
+        bounds = [(min(b * step, host.shape[0]),
+                   min((b + 1) * step, host.shape[0]))
+                  for b in range(len(devices))]
+        return cls(bounds, [torch.from_numpy(host[lo:hi]).to(d)
+                            for (lo, hi), d in zip(bounds, devices)])
+
+    @property
+    def shape(self):
+        return (self.bounds[-1][1], STATE_WIDTH)
+
+    def host(self) -> np.ndarray:
+        return np.concatenate(
+            [b.detach().cpu().numpy() for b in self.blocks])
+
+
 def _event_behind(values):
-    """An event recorded on the current stream behind the work that
-    writes ``values`` (None on the CPU, where that work is done)."""
-    if values.device.type != "cuda":
-        return None
-    ev = torch.cuda.Event()
-    ev.record(torch.cuda.current_stream(values.device))
-    return ev
+    """(device, event) pairs recorded on each CUDA device's current stream
+    behind the work that writes ``values`` (None on the CPU, where that
+    work is done)."""
+    tensors = values.blocks if isinstance(values, RowBlocks) else [values]
+    evs = []
+    for t in tensors:
+        if t.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(t.device))
+            evs.append((t.device, ev))
+    return evs or None
 
 
 def _npz_payload(snap: Dict[str, Any]) -> Dict[str, np.ndarray]:

@@ -47,11 +47,21 @@ path, ``batcher=`` caps aggregation and learns from completions,
 that launch nothing, and the journey hops of an armed
 ``FJT_JOURNEY_DIR`` ride every dispatch, as in the JAX package.
 
+The mesh, as in the JAX package: ``mesh=`` (a ``parallel/mesh.Mesh``)
+makes the registry warm every version as a mesh-sharded model (the f32
+path), the compile batch must divide by the data axis, and the in-flight
+window deepens to cover the data rows. An adopted sharded model carries
+the window depth and a ``ChipAssignment`` over the source's partitions,
+and arms per-chip telemetry; a degraded-mesh rebuild on the ladder's
+``chip_loss`` rung is adopted into the registry too (``_adopt_rebuilt``),
+so the next latest-wins pass cannot swap the dead mesh back in.
+
 Where it differs: models come from the port's ``ModelRegistry`` on the
-pipeline's ``device`` (the card by default, ``"cpu"`` on request).
-``mesh=`` and ``donate=`` raise :class:`NotPortedError` until the
-parallel slice; staged rollouts are not ported, so no candidate is ever
-excluded from latest-wins adoption.
+pipeline's ``device`` (the card by default, ``"cpu"`` on request; the
+mesh's primary device with ``mesh=``). ``donate=`` raises
+:class:`NotPortedError` (the port reuses its staging once the H2D copy's
+event has passed); staged rollouts are not ported, so no candidate is
+ever excluded from latest-wins adoption.
 """
 
 from __future__ import annotations
@@ -120,18 +130,34 @@ class DynamicBlockPipeline(BlockPipelineBase):
         shed_lane: str = "block",
         donate: Optional[bool] = None,
     ):
-        refuse(mesh=mesh, donate=donate)
+        refuse(donate=donate)
         if batch_size <= 0:
             raise InputValidationException(
                 f"batch_size must be positive: {batch_size}"
             )
+        if mesh is not None:
+            n_data = mesh.shape.get("data", 1)
+            if batch_size % max(n_data, 1) != 0:
+                raise InputValidationException(
+                    f"batch_size {batch_size} must divide by the mesh "
+                    f"data-axis size {n_data} (sharded dispatch pads to "
+                    "the batch, which must split evenly across devices)"
+                )
+            # mesh-aware in-flight window: deep enough to cover the data
+            # rows (parallel/assignment.mesh_in_flight); the single-chip
+            # depth is untouched when data=1
+            from flink_jpmml_tpu_torch.parallel.assignment import (
+                mesh_in_flight,
+            )
+
+            in_flight = mesh_in_flight(mesh, in_flight)
         # the registry resolves the device (the card unless "cpu") and
         # books its warms (cold_start_s, one launch each on the rank
         # wire) in the pipeline's registry — the JAX one books none
         metrics = metrics or MetricsRegistry()
         registry = ModelRegistry(
             batch_size=batch_size, compile_config=compile_config,
-            device=device, metrics=metrics,
+            device=device, metrics=metrics, mesh=mesh,
         )
         super().__init__(
             source=source,
@@ -232,6 +258,26 @@ class DynamicBlockPipeline(BlockPipelineBase):
         if cur is not None and cur.model is best_model:
             return  # already serving exactly this compiled instance
         bound = BoundScorer(best_mid.key(), best_model, self._use_quantized)
+        if hasattr(best_model, "with_dispatch_state"):
+            # sharded serving: record the window geometry + partition
+            # ownership on the adopted model so a degraded-mesh rebuild
+            # carries both (ShardedModel.without_devices), and arm the
+            # per-chip telemetry for the adopted mesh
+            best_model.with_dispatch_state(in_flight=self._in_flight_max)
+            if getattr(best_model, "assignment", None) is None:
+                from flink_jpmml_tpu_torch.parallel.assignment import (
+                    assignment_for,
+                )
+
+                best_model.assignment = assignment_for(
+                    best_model.mesh,
+                    getattr(self._source, "partitions", None) or (),
+                )
+            from flink_jpmml_tpu_torch.obs import mesh as mesh_obs
+
+            self._mesh_obs = mesh_obs.telemetry_for(
+                self.metrics, best_model
+            )
         self._current = bound
         # tenant_records follows the key actually serving
         self.set_tenant(best_mid.key())
@@ -266,6 +312,13 @@ class DynamicBlockPipeline(BlockPipelineBase):
 
     def _dispatch(self, bound, X, n):
         return self._dispatch_bound(bound, X, n), bound.decode
+
+    def _adopt_rebuilt(self, handle, rebuilt) -> None:
+        # degraded-mesh rebuild (runtime/block.py chip_loss rung): the
+        # registry's compiled instance must follow, or the next
+        # latest-wins re-adoption would swap the dead mesh back in
+        super()._adopt_rebuilt(handle, rebuilt)
+        self.registry.adopt_rebuilt(handle.key, rebuilt)
 
     def _fallback_dispatch(self, bound, X, n):
         # host-tier output decodes through the SAME bound decode

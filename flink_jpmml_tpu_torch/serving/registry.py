@@ -29,12 +29,19 @@ State for checkpointing is the metadata map alone, as
 ``{"name_version": path}`` — JSON-shaped, tiny, resumable (C7). Restore
 re-kicks background warming for every served id.
 
+``mesh=`` (a ``parallel/mesh.Mesh``) makes every load and warm produce a
+mesh-sharded ``ShardedModel`` on the mesh's primary device, so the swap
+itself stays compile-free on a mesh; ``adopt_rebuilt`` replaces a served
+id's instance after a degraded-mesh rebuild (``runtime/block.py``'s
+``chip_loss`` rung), so latest-wins re-adoption never swaps the dead
+mesh back in.
+
 Where it differs: ``ModelRegistry(device=None)`` resolves its device at
-construction (the card by default, ``"cpu"`` on request); ``mesh=``
-raises :class:`NotPortedError`, as does applying a ``RolloutMessage``
-(staged rollouts are not ported), and ``rollouts()`` is always empty, so
-latest-wins routing never excludes a candidate. ``adopt_rebuilt`` (the
-degraded-mesh rebuild) is not ported.
+construction (the card by default, ``"cpu"`` on request; the mesh's
+primary device with ``mesh=``); applying a ``RolloutMessage`` raises
+:class:`NotPortedError` (staged rollouts are not ported), and
+``rollouts()`` is always empty, so latest-wins routing never excludes a
+candidate.
 """
 
 from __future__ import annotations
@@ -62,7 +69,6 @@ from flink_jpmml_tpu_torch.utils.exceptions import (
     FlinkJpmmlTpuError,
     ModelLoadingException,
     NotPortedError,
-    refuse,
 )
 
 
@@ -93,8 +99,16 @@ class ModelRegistry:
         metrics=None,
         device: Optional[Union[str, torch.device]] = None,
     ):
-        refuse(mesh=mesh)
+        """``mesh`` (a ``parallel/mesh.Mesh``) makes every load/warm
+        produce a mesh-aware ``ShardedModel`` (same predict/decode
+        contract; batch split over the data axis, wide linear stages
+        feature-sharded over the model axis). Background warming shards
+        the incoming version for the mesh, so the swap itself stays
+        compile-free (C6 on a mesh)."""
+        if mesh is not None and device is None:
+            device = mesh.primary
         self.device = resolve_device(device)
+        self._mesh = mesh
         self._meta: managers.Metadata = {}
         # name -> served versions, rebuilt on every _meta change: the
         # per-event resolve() must not scan the whole map under the lock
@@ -268,6 +282,7 @@ class ModelRegistry:
             batch_size=self._batch_size,
             config=self._compile_config,
             device=self.device,
+            mesh=self._mesh,
         )
         self._synchronize()
         return model
@@ -288,6 +303,21 @@ class ModelRegistry:
             b = q.batch_size or 1
             q.predict_padded(np.zeros((b, len(q.wire.fields)), q.wire.dtype))
         self._synchronize()
+
+    def adopt_rebuilt(self, mid_key: str, rebuilt) -> None:
+        """Replace the compiled instance for a served id in place — the
+        degraded-mesh rebuild path (runtime/block.py's ``chip_loss`` rung
+        rebuilt the serving ``ShardedModel`` over the surviving devices).
+        Without this, the next latest-wins re-adoption would compare
+        against the pre-loss instance and swap the dead mesh back into
+        service."""
+        try:
+            mid = ModelId.from_key(mid_key)
+        except (ValueError, TypeError):
+            return
+        with self._lock:
+            if mid in self._compiled:
+                self._compiled[mid] = rebuilt
 
     def model(self, mid: ModelId) -> Optional[CompiledModel]:
         """The compiled model for a served id, compiling if needed (C6

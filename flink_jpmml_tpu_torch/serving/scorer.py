@@ -74,8 +74,10 @@ the block pipelines' launches do.
 Not ported (each raises :class:`NotPortedError` and names itself):
 staged rollouts (``RolloutMessage``, ``guardrails=``, ``key_fn=``,
 ``auto_rollout=False``, another ``rollout_interval_s``) wait for the
-observability and control slice and ``mesh=`` for the parallel slice. The
-drift plane waits for the observability and control slice.
+observability and control slice, as does the drift plane. ``mesh=``
+serves every model (the default included) mesh-sharded, on the f32 path
+(``ModelRegistry``); a group pads up to the mesh's data axis
+(``runtime/pipeline.dispatch_f32``).
 """
 
 from __future__ import annotations
@@ -192,8 +194,9 @@ class DynamicScorer(Scorer):
         every model this scorer serves.
 
         ``zoo=True`` (or a ``ZooManager``) turns on cross-model packed
-        dispatch (module docstring)."""
-        refuse(mesh=mesh, key_fn=key_fn, guardrails=guardrails)
+        dispatch (module docstring). ``mesh`` serves every model (default
+        included) mesh-aware — see :class:`ModelRegistry`."""
+        refuse(key_fn=key_fn, guardrails=guardrails)
         if auto_rollout is not True or rollout_interval_s != 0.5:
             raise NotPortedError("auto_rollout= / rollout_interval_s= "
                                  "(staged rollouts) are not ported")
@@ -202,6 +205,7 @@ class DynamicScorer(Scorer):
             batch_size=batch_size,
             compile_config=compile_config,
             async_warmup=async_warmup,
+            mesh=mesh,
             metrics=self.metrics,
             device=device,
         )
@@ -221,7 +225,7 @@ class DynamicScorer(Scorer):
         self._default_model = (
             default_reader.load(
                 batch_size=batch_size, config=compile_config,
-                device=self.device,
+                device=self.device, mesh=mesh,
             )
             if default_reader is not None
             else None

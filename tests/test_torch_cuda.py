@@ -1072,3 +1072,192 @@ def test_state_step_on_the_card_is_deterministic_and_the_cpu_one(card):
     gS = outs[0][1].cpu().numpy()
     assert np.array_equal(gS[:, [0, 5, 6, 7]], cS.numpy()[:, [0, 5, 6, 7]])
     np.testing.assert_allclose(gS, cS.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def _one_by_one():
+    from flink_jpmml_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh()  # every card, all-DP: one card is the 1×1 mesh
+    if mesh.size != 1:
+        pytest.skip("the 1×1 card mesh needs exactly one card")
+    return mesh
+
+
+def test_one_by_one_mesh_pipeline_equals_the_unsharded_model(card, tmp_path):
+    """BlockPipeline(mesh=) on the card's 1×1 mesh runs the same ops on
+    the same batches as the unsharded model: equal outputs."""
+    from flink_jpmml_tpu_torch.assets_gen import gen_stacked
+
+    mesh = _one_by_one()
+    assert mesh.shape == {"data": 1, "model": 1}
+    doc = parse_pmml_file(gen_stacked(str(tmp_path), n_trees=10, depth=3,
+                                      n_features=512, wide_lr=True))
+    cm = compile_pmml(doc, batch_size=256)
+    X = _X(np.random.default_rng(8), 1024, 512, missing=0.0)
+    heads = {}
+    for key, kw in (("plain", {}), ("mesh", {"mesh": mesh})):
+        got = {}
+        pipe = BlockPipeline(
+            FiniteBlockSource(X, 256), cm,
+            lambda out, n, off, got=got: got.setdefault(
+                off, out.value[:n].clone()),
+            RuntimeConfig(batch=BatchConfig(size=256, deadline_us=2000)),
+            max_dispatch_chunks=1, **kw)
+        assert pipe.backend == "f32" and pipe.device.type == "cuda"
+        pipe.run_until_exhausted(timeout=120)
+        heads[key] = torch.cat([got[k] for k in sorted(got)])
+    assert heads["mesh"].shape == (1024,)
+    assert torch.equal(heads["mesh"], heads["plain"])
+
+
+def test_tp_linear_scorer_on_the_card_equals_the_plain_product(card):
+    from flink_jpmml_tpu_torch.parallel.sharding import TpLinearScorer
+
+    mesh = _one_by_one()
+    rng = np.random.default_rng(9)
+    W = rng.normal(0, 0.1, size=(4096, 3)).astype(np.float32)
+    b = rng.normal(0, 0.1, size=3).astype(np.float32)
+    X = rng.normal(size=(512, 4096)).astype(np.float32)
+    got = TpLinearScorer(mesh=mesh, W=W, b=b, link="identity").predict(X)
+    assert got.device.type == "cuda"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    want = torch.from_numpy(X).to(card) @ torch.from_numpy(W).to(card)
+    want = want + torch.from_numpy(b).to(card)
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               X.astype(np.float64) @ W + b,
+                               rtol=2e-5, atol=1e-5)
+
+
+def _cards(n_min=2):
+    n = torch.cuda.device_count()
+    if n < n_min:
+        pytest.skip(f"needs {n_min} or more cards (a machine has {n})")
+    return n
+
+
+def _wide_stacked(tmp_path, F=512):
+    from flink_jpmml_tpu_torch.assets_gen import gen_stacked
+
+    return parse_pmml_file(gen_stacked(str(tmp_path), n_trees=10, depth=3,
+                                       n_features=F, wide_lr=True))
+
+
+def test_multi_card_mesh_scores_as_one_card(card, tmp_path):
+    """DP rows on their own cards and the wide stage's TP slices across
+    cards: every mesh shape of the machine's cards against the unsharded
+    model on one card."""
+    from flink_jpmml_tpu_torch.parallel.mesh import make_mesh
+    from flink_jpmml_tpu_torch.utils.config import CompileConfig, MeshConfig
+
+    n = _cards()
+    doc = _wide_stacked(tmp_path)
+    cfg = CompileConfig(tp_wide_threshold=64)
+    cm = compile_pmml(doc, batch_size=256, config=cfg)
+    X = _X(np.random.default_rng(12), 256, 512, missing=0.02)
+    M = np.isnan(X)
+    X = np.where(M, 0.0, X).astype(np.float32)
+    want = cm.predict(X, M)
+    for data, model in ((n, 1), (n // 2, 2), (1, n)):
+        sm = compile_pmml(doc, batch_size=256, config=cfg,
+                          mesh=make_mesh(MeshConfig(data, model),
+                                         allow_subset=True))
+        assert bool(sm.tp_sharded_leaves) == (model > 1)
+        if model > 1:
+            leaf = sm._row_params[-1]["model"]["s1"]["t0"]["num_coefs"]
+            assert len({p.device for p in leaf.parts}) == model
+        got = sm.predict(X, M)
+        assert got.value.device == want.value.device
+        assert torch.equal(got.valid, want.valid)
+        np.testing.assert_allclose(got.value.cpu().numpy(),
+                                   want.value.cpu().numpy(),
+                                   rtol=RTOL, atol=ATOL)
+
+
+def test_multi_card_chip_loss_rebuilds_over_the_survivors(card, tmp_path,
+                                                          monkeypatch):
+    """Chip loss on an all-DP mesh of the machine's cards: the pipeline
+    retires the last card, redispatches, and delivers every record once,
+    each score the one-card model's."""
+    from flink_jpmml_tpu_torch.parallel.mesh import make_mesh
+    from flink_jpmml_tpu_torch.runtime import faults
+    from flink_jpmml_tpu_torch.runtime.checkpoint import CheckpointManager
+
+    n = _cards()
+    monkeypatch.setenv("FJT_RETRY_BASE_S", "0.005")
+    cm = _gbm(tmp_path, 256 * n, n_trees=20, depth=4, n_features=8)
+    X = _X(np.random.default_rng(13), 16 * 256 * n, 8)
+    got = []
+    metrics = MetricsRegistry()
+    faults.clear()
+    faults.inject("chip_loss", n=1)
+    try:
+        pipe = BlockPipeline(
+            FiniteBlockSource(X, 256 * n), cm,
+            lambda out, k, off: got.append((off, k, out.value[:k].clone())),
+            RuntimeConfig(batch=BatchConfig(size=256 * n, deadline_us=5000),
+                          checkpoint_interval_s=0.05),
+            metrics=metrics,
+            checkpoint=CheckpointManager(str(tmp_path / "ck")),
+            max_dispatch_chunks=1, mesh=make_mesh())
+        pipe.run_until_exhausted(timeout=120)
+    finally:
+        faults.clear()
+    cover = np.zeros(len(X), np.int64)
+    for off, k, _ in got:
+        cover[off:off + k] += 1
+    assert (cover == 1).all()
+    snap = metrics.struct_snapshot()
+    assert snap["counters"]["mesh_rebuilds"] == 1
+    assert snap["gauges"]["mesh_data_width"]["value"] == n - 1
+    M = np.isnan(X)
+    ref = cm.predict(np.where(M, 0.0, X).astype(np.float32),
+                     M).value.cpu().numpy()
+    for off, k, vals in got:
+        np.testing.assert_allclose(vals.numpy(), ref[off:off + k],
+                                   rtol=RTOL, atol=ATOL)
+
+
+def test_multi_card_state_blocks_step_to_one_card_bytes(card):
+    """A state table over an all-DP mesh of the machine's cards holds its
+    rows in one block a card; a stream through it gives the one-card
+    table's bytes, and so does a migrate over the survivors."""
+    from flink_jpmml_tpu_torch.compile import statekernel
+    from flink_jpmml_tpu_torch.parallel.mesh import make_mesh
+    from flink_jpmml_tpu_torch.parallel.sharding import degraded_mesh
+    from flink_jpmml_tpu_torch.runtime.state import (
+        KeyedStateTable,
+        RowBlocks,
+        StateSpec,
+    )
+
+    n = _cards()
+    spec = StateSpec(capacity=1 << 16)
+    one = KeyedStateTable(spec)
+    mesh = make_mesh()
+    blk = KeyedStateTable(spec)
+    blk.shard(mesh)
+    assert isinstance(blk.values, RowBlocks)
+    assert len({b.device for b in blk.values.blocks}) == n
+
+    def stream(t, seed, batches):
+        rng = np.random.default_rng(seed)
+        for b in range(batches):
+            keys = rng.zipf(1.1, 4096) % (1 << 18)
+            offs = np.arange(b * 4096, (b + 1) * 4096)
+            slots, reset, rel, w = t.assign_slots(t.hash_keys(keys), offs)
+            score = torch.from_numpy(
+                rng.normal(size=4096).astype(np.float32)).to(card)
+            _, derived, S2 = statekernel.step_after(score, t, slots, rel, w,
+                                                    reset)
+            t.commit(S2)
+            yield derived
+
+    for d1, d2 in zip(stream(one, 3, 8), stream(blk, 3, 8)):
+        assert torch.equal(d1.cpu(), d2.cpu())
+    assert one.host_values().tobytes() == blk.host_values().tobytes()
+    blk.migrate(degraded_mesh(mesh, [n - 1]))
+    assert len(blk.values.blocks) == n - 1
+    for d1, d2 in zip(stream(one, 4, 4), stream(blk, 4, 4)):
+        assert torch.equal(d1.cpu(), d2.cpu())
+    assert one.host_values().tobytes() == blk.host_values().tobytes()

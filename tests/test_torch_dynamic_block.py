@@ -29,6 +29,7 @@ from test_torch_checkpoint import (  # noqa: F401  (fixtures)
     data,
     twin,
 )
+from flink_jpmml_tpu_torch.parallel.mesh import cpu_devices, make_mesh
 from flink_jpmml_tpu_torch.utils.exceptions import NotPortedError
 
 
@@ -234,7 +235,19 @@ def _edge_option(option, metrics):
         "admission": lambda: AdmissionController(metrics, lanes=("block",)),
         "state": lambda: KeyedStateTable(StateSpec(capacity=8),
                                          metrics=metrics, device="cpu"),
+        "mesh": lambda: make_mesh(devices=cpu_devices(2)),
     }.get(option, lambda: None)()
+
+
+def _wired(pipe, option):
+    """The object a lifted option was wired to: the mesh the served model
+    is sharded over (the dynamic pipeline's registry warms onto it), or
+    the pipeline's own ``_<option>``."""
+    if option != "mesh":
+        return getattr(pipe, f"_{option}")
+    if hasattr(pipe, "_bound"):
+        return pipe._bound.model.mesh
+    return pipe.registry._mesh
 
 
 @pytest.mark.parametrize("option", ["mesh", "slo", "batcher", "admission",
@@ -247,7 +260,7 @@ def test_options_of_later_slices_raise_not_ported(option):
         pipe = dyn(pk, pk.block.FiniteBlockSource(data(B), B),
                    pk.sources.ControlSource(), lambda *a: None,
                    metrics=reg, **{option: edge})
-        assert getattr(pipe, f"_{option}") is edge
+        assert _wired(pipe, option) is edge
         return
     with pytest.raises(NotPortedError, match=f"{option}="):
         dyn(pk, pk.block.FiniteBlockSource(data(B), B),
@@ -266,7 +279,7 @@ def test_block_pipeline_options_of_later_slices_raise_not_ported(paths,
         pipe = pk.block.BlockPipeline(
             pk.block.FiniteBlockSource(data(B), B), pk.compile(paths["v1"]),
             lambda *a: None, metrics=reg, **{option: edge})
-        assert getattr(pipe, f"_{option}") is edge
+        assert _wired(pipe, option) is edge
         return
     with pytest.raises(NotPortedError, match=f"{option}="):
         pk.block.BlockPipeline(pk.block.FiniteBlockSource(data(B), B),

@@ -93,6 +93,12 @@ ZOO_STATE_SLICE = {
     "parallel.partitioner", "runtime.state", "compile.statekernel",
     "compile.packs", "serving.zoo",
 }
+# the parallel plane: the mesh, sharded models, chip assignment, the
+# process group, worker health, per-chip telemetry and the canary split
+PARALLEL_SLICE = {
+    "parallel.mesh", "parallel.sharding", "parallel.assignment",
+    "parallel.distributed", "parallel.health", "obs.mesh", "rollout.split",
+}
 
 
 def test_every_port_module_imports_without_jax():
@@ -102,11 +108,12 @@ def test_every_port_module_imports_without_jax():
     )
     assert res.returncode == 0, res.stderr
     count, names = res.stdout.split(maxsplit=1)
-    assert int(count) >= 96  # every module ported so far
+    assert int(count) >= 103  # every module ported so far
     names = set(names.split())
     for slice_ in (KAFKA_SLICE, DENSE_SLICE, TREE_SHAPES_SLICE,
                    MORE_FAMILIES_SLICE, API_SLICE, RECOVERY_SLICE,
-                   EDGE_SLICE, TUNING_SLICE, ZOO_STATE_SLICE):
+                   EDGE_SLICE, TUNING_SLICE, ZOO_STATE_SLICE,
+                   PARALLEL_SLICE):
         assert {f"flink_jpmml_tpu_torch.{m}" for m in slice_} <= names
     assert {f"flink_jpmml_tpu_torch.{m}" for m in DENSE_SLICE} <= names
 
@@ -129,6 +136,33 @@ def test_entry_points_default_to_the_card(no_card, gbm_doc):
         compile_pmml(gbm_doc, device="cuda")
     with pytest.raises(DeviceUnavailableError):
         tq.build_quantized_scorer(gbm_doc)
+
+
+def test_mesh_defaults_to_the_card(no_card, gbm_doc):
+    from flink_jpmml_tpu_torch.parallel.mesh import cpu_devices, make_mesh
+
+    # no card and no devices: a mesh raises, it never spans the CPU
+    with pytest.raises(DeviceUnavailableError):
+        make_mesh()
+    with pytest.raises(DeviceUnavailableError):
+        make_mesh(devices=["cuda:0"])
+    # a mesh over the card compiles there, or raises without one
+    import numpy as np
+
+    from flink_jpmml_tpu_torch.parallel.mesh import Mesh
+
+    card = np.empty((1, 1), dtype=object)
+    card[0, 0] = torch.device("cuda", 0)
+    with pytest.raises(DeviceUnavailableError):
+        compile_pmml(gbm_doc, batch_size=8, mesh=Mesh(card))
+    # a CPU mesh only from an explicit list of cpu:i devices
+    mesh = make_mesh(devices=cpu_devices(2))
+    sm = compile_pmml(gbm_doc, batch_size=8, mesh=mesh)
+    assert sm.device.type == "cpu" and sm.quantized_scorer() is None
+    pipe = BlockPipeline(FiniteBlockSource(torch.zeros(4, 4).numpy(), 4),
+                         compile_pmml(gbm_doc, batch_size=8, device="cpu"),
+                         lambda out, n, off: None, mesh=mesh)
+    assert pipe.device.type == "cpu" and pipe.backend == "f32"
 
 
 def test_dense_families_default_to_the_card(no_card, tmp_path):

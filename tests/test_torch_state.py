@@ -81,10 +81,13 @@ def test_stable_hashes_equal_the_jax_partitioner():
 
 
 def test_parallel_package_pulls_in_no_mesh_code():
+    # the parallel slice lifted this cut: the package now re-exports what
+    # the JAX package's does, the partitioner's hash unchanged among them
     import flink_jpmml_tpu_torch.parallel as par
+    from flink_jpmml_tpu_torch.parallel import mesh as tmesh
 
     assert par.stable_hash is tpart.stable_hash
-    assert not hasattr(par, "make_mesh")
+    assert par.make_mesh is tmesh.make_mesh
 
 
 # -- slot routing ---------------------------------------------------------------
@@ -136,13 +139,23 @@ def test_replay_below_skip_until_bypasses_like_the_jax_table():
 
 
 def test_mesh_hooks_stay_cut():
+    # lifted by the parallel slice: on a mesh whose data rows share one
+    # physical device the table stays one tensor with the same bytes
+    from flink_jpmml_tpu_torch.parallel.mesh import cpu_devices, make_mesh
+    from flink_jpmml_tpu_torch.parallel.sharding import degraded_mesh
+    from flink_jpmml_tpu_torch.utils.config import MeshConfig
+
     t = KeyedStateTable(StateSpec(capacity=8), device="cpu")
     t.shard(None)
     t.migrate(None)
-    with pytest.raises(NotPortedError):
-        t.shard(object())
-    with pytest.raises(NotPortedError):
-        t.migrate(object())
+    t.values = torch.arange(t.rows * 8, dtype=torch.float32).reshape(-1, 8)
+    before = t.host_values().copy()
+    mesh = make_mesh(MeshConfig(data=4, model=2), devices=cpu_devices(8))
+    t.shard(mesh)
+    assert isinstance(t.values, torch.Tensor)
+    np.testing.assert_array_equal(t.host_values(), before)
+    t.migrate(degraded_mesh(mesh, list(mesh.devices[-1])))
+    np.testing.assert_array_equal(t.host_values(), before)
 
 
 # -- the state step ------------------------------------------------------------
@@ -625,7 +638,14 @@ def test_block_pipeline_mesh_and_donate_stay_cut(gbm):
         FiniteBlockSource,
     )
 
-    for kw in ({"mesh": object()}, {"donate": True}):
-        with pytest.raises(NotPortedError):
-            BlockPipeline(FiniteBlockSource(np.zeros((B, 4), np.float32), B),
-                          gbm[0], lambda out, n, off: None, **kw)
+    from flink_jpmml_tpu_torch.parallel.mesh import cpu_devices, make_mesh
+
+    with pytest.raises(NotPortedError):
+        BlockPipeline(FiniteBlockSource(np.zeros((B, 4), np.float32), B),
+                      gbm[0], lambda out, n, off: None, donate=True)
+    # mesh= is lifted by the parallel slice: the model is sharded and
+    # scores on the f32 path, so the state stage cannot ride it
+    pipe = BlockPipeline(
+        FiniteBlockSource(np.zeros((B, 4), np.float32), B), gbm[0],
+        lambda out, n, off: None, mesh=make_mesh(devices=cpu_devices(2)))
+    assert pipe.backend == "f32" and pipe._bound.model.batch_divisor == 2

@@ -399,6 +399,8 @@ LIFTED = frozenset((
     "reader_remote", "scorer_admission", "scorer_lane_fn", "scorer_batcher",
     # multi-tenant and stateful scoring
     "pipeline_tenant", "static_state", "scorer_zoo",
+    # the parallel plane
+    "reader_mesh", "registry_mesh", "scorer_mesh",
 ))
 
 
@@ -432,6 +434,30 @@ def _cut_cases(tmp="."):
     def dyn(**kw):
         return lambda p: DynamicScorer(ControlSource(), batch_size=8,
                                        device="cpu", **kw)
+
+    def cpu_mesh():
+        from flink_jpmml_tpu_torch.parallel.mesh import cpu_devices, make_mesh
+
+        return make_mesh(devices=cpu_devices(2))
+
+    def reader_mesh(p):
+        m = ModelReader(p).load(batch_size=8, mesh=cpu_mesh())
+        assert m.batch_divisor == 2 and m.quantized_scorer() is None
+
+    def registry_mesh(p):
+        from flink_jpmml_tpu_torch.models.control import AddMessage
+        from flink_jpmml_tpu_torch.models.core import ModelId
+
+        reg = ModelRegistry(batch_size=8, mesh=cpu_mesh())
+        reg.apply(AddMessage("m", 1, p, 1.0))
+        assert reg.device.type == "cpu"
+        assert reg.model(ModelId("m", 1)).mesh == cpu_mesh()
+
+    def scorer_mesh(p):
+        s = DynamicScorer(ControlSource(), batch_size=8, mesh=cpu_mesh(),
+                          default_reader=ModelReader(p))
+        assert s.device.type == "cpu"
+        assert s._default_model.mesh == cpu_mesh()
 
     def registry_apply(p):
         ModelRegistry(device="cpu").apply(RolloutMessage(
@@ -540,11 +566,11 @@ def _cut_cases(tmp="."):
             ModelReader(p), guardrails=object()),
         "evaluate_key_fn": lambda p: env().from_collection([]).evaluate(
             ModelReader(p), key_fn=str),
-        "reader_mesh": lambda p: ModelReader(p).load(mesh=object()),
+        "reader_mesh": reader_mesh,
         "reader_remote": reader_remote,
-        "registry_mesh": lambda p: ModelRegistry(mesh=object()),
+        "registry_mesh": registry_mesh,
         "registry_rollout": registry_apply,
-        "scorer_mesh": dyn(mesh=object()),
+        "scorer_mesh": scorer_mesh,
         "scorer_key_fn": dyn(key_fn=str),
         "scorer_guardrails": dyn(guardrails=object()),
         "scorer_auto_rollout": dyn(auto_rollout=False),
