@@ -7,7 +7,11 @@ over its copy of ``fjt_native.cpp``) against the JAX package's
   ``missingValueReplacement``, ±inf, exact cut values and ±0.0
   (``chip_smoke.edge_cells``), at several batch lengths and thread counts;
 - the ring (the JAX package's four ring behaviours,
-  tests/test_native_block.py, on ``NativeRing``);
+  tests/test_native_block.py, on ``NativeRing``), and four more: a wrap,
+  a block larger than the ring drained while it is pushed, two producers
+  whose blocks stay whole, and a block that fits drainable only whole
+  (the block pipeline's dispatches, and the overload drill's latency
+  samples in ``chip_smoke.py``, are aligned to blocks by it);
 - the fixed-width Kafka codec, byte for byte;
 - no fall-back: a plane that cannot be built raises ``NativeBuildError``
   where the JAX package would drop to the Python ring or to numpy;
@@ -190,6 +194,119 @@ def test_ring_threaded_producer_consumer_conserves_records():
     assert not t.is_alive()
     all_offs = np.concatenate(offsets_seen)
     assert np.array_equal(np.sort(all_offs), np.arange(N, dtype=np.uint64))
+
+
+def test_ring_wraps_in_order():
+    ring = native.NativeRing(capacity=10, arity=3, batch_size=10)
+    data = np.arange(13 * 3, dtype=np.float32).reshape(13, 3)
+    assert ring.push_block(data[:7], 0) == 7
+    out, offs = ring.drain(deadline_us=100)
+    got, got_offs = [out.copy()], [offs.copy()]
+    assert ring.push_block(data[7:], 7) == 6  # slots 7..9, then 0..2
+    assert len(ring) == 6
+    out, offs = ring.drain(deadline_us=100)
+    got.append(out.copy())
+    got_offs.append(offs.copy())
+    np.testing.assert_array_equal(np.concatenate(got), data)
+    assert np.concatenate(got_offs).tolist() == list(range(13))
+    assert len(ring) == 0
+
+
+def test_ring_block_larger_than_the_ring_drains_in_order():
+    # the block goes in as several takes, each as much as there is room
+    # for, and the consumer drains while it is still being pushed
+    N = 1_000_003
+    ring = native.NativeRing(capacity=300_000, arity=1, batch_size=65_536)
+    data = np.arange(N, dtype=np.float32).reshape(N, 1)
+    pushed = []
+
+    def produce():
+        got = 0
+        while got < N:
+            got += ring.push_block(data[got:], 5 + got, timeout_us=1_000_000)
+        pushed.append(got)
+        ring.close()
+
+    t = threading.Thread(target=produce)
+    t.start()
+    outs, offs_seen = [], []
+    while True:
+        out, offs = ring.drain(deadline_us=2000)
+        if out.shape[0] == 0:
+            break
+        outs.append(out.copy())
+        offs_seen.append(offs.copy())
+    t.join(timeout=60)
+    assert not t.is_alive() and pushed == [N]
+    np.testing.assert_array_equal(np.concatenate(outs), data)
+    assert np.array_equal(np.concatenate(offs_seen),
+                          np.arange(5, N + 5, dtype=np.uint64))
+
+
+def test_ring_two_producers_keep_each_block_whole():
+    # room for every block, so no block is split by backpressure (a
+    # producer that finds less room than its block pushes what fits)
+    BLK, PER = 100, 200
+    ring = native.NativeRing(capacity=2 * PER * BLK, arity=2, batch_size=256)
+
+    def produce(p):
+        for b in range(PER):
+            first = (p * PER + b) * BLK
+            blk = np.full((BLK, 2), first, np.float32)
+            got = 0
+            while got < BLK:
+                got += ring.push_block(blk[got:], first + got,
+                                       timeout_us=1_000_000)
+
+    ts = [threading.Thread(target=produce, args=(p,)) for p in range(2)]
+    for t in ts:
+        t.start()
+    outs, offs_seen = [], []
+    while sum(o.shape[0] for o in outs) < 2 * PER * BLK:
+        out, offs = ring.drain(deadline_us=2000, idle_timeout_us=5_000_000)
+        assert out.shape[0] > 0
+        outs.append(out.copy())
+        offs_seen.append(offs.copy())
+    for t in ts:
+        t.join(timeout=60)
+    vals = np.concatenate(outs)[:, 0].astype(np.uint64)
+    offs = np.concatenate(offs_seen)
+    # every record carries its block's first offset, each block's records
+    # arrive together and in order, and every block arrives once
+    np.testing.assert_array_equal(vals, offs - offs % BLK)
+    starts = np.flatnonzero(offs % BLK == 0)
+    assert np.array_equal(starts, np.arange(0, 2 * PER * BLK, BLK))
+    for s in starts:
+        assert np.array_equal(offs[s:s + BLK], offs[s] + np.arange(BLK))
+    assert np.array_equal(np.sort(offs),
+                          np.arange(2 * PER * BLK, dtype=np.uint64))
+
+
+def test_a_block_that_fits_is_drained_whole():
+    # a drain never sees part of a block that fits (the JAX ring's
+    # visibility): each drain returns whole blocks, as a dispatch of the
+    # block pipeline aggregates them
+    BLK = 65_536
+    ring = native.NativeRing(capacity=4 * BLK, arity=8, batch_size=BLK)
+    data = np.random.default_rng(0).random((BLK, 8), dtype=np.float32)
+
+    def produce():
+        for b in range(40):
+            ring.push_block(data, b * BLK)
+        ring.close()
+
+    t = threading.Thread(target=produce)
+    t.start()
+    n = 0
+    while True:
+        out, offs = ring.drain(deadline_us=0)
+        if out.shape[0] == 0:
+            break
+        assert out.shape[0] == BLK and offs[0] == n
+        np.testing.assert_array_equal(out, data)
+        n += BLK
+    t.join(timeout=60)
+    assert n == 40 * BLK
 
 
 def test_close_wakes_a_blocked_producer():
