@@ -312,7 +312,40 @@ JAX package, and prints one JSON line per phase:
     sizes (49,152 records, 16,384 keys, capacity 32,768, batch 1,024, two
     SIGKILLs) with the workers on the card: the final table the same bytes
     as an uninterrupted life's.
-25. mesh — the parallel plane on the card's 1×1 mesh (``make_mesh()``
+25. rollout_drift — the data-drift plane and staged rollouts, with the
+    main path's GBM (BASELINE config 2: ``gen_gbm(500, depth=6,
+    n_features=32, seed=11, hist_bins=254)``) on the fused placement over
+    N(0, 1.5) records with 20% missing cells. ``drift_drill``: the JAX
+    drift drill (``bench.run_drift_drill``) at this width: two registries
+    share the scorer and score alternating batches of 16,384 through
+    ``dispatch_quantized`` with the plane armed at interval 0; 262,144
+    records (seed 31) snapshotted as the baseline through a
+    ``BaselineStore`` on disk, then 262,144 more (seed 32) with feature 1
+    shifted by 4 sigmas: a fleet ``DriftMonitor`` over the merged structs
+    alarms on feature 1 and no other feature, the merged sketch's
+    quantiles equal those of merging the worker states directly, and
+    every armed batch gives the same bytes as the same batch unarmed.
+    ``drift_cost``: the fused GBM's ``drive`` (19 dispatches of 262,144)
+    unarmed and armed (interval 0, the 2% ``FJT_DRIFT_BUDGET``), three
+    alternating pairs: outputs sampled every 4,096 records equal in all
+    six, records/s, the plane's ``overhead_fraction`` (within its budget
+    plus one sample's cost, the most its gate admits) and its claimed
+    batches. ``rollout``: the JAX rollout drill and the
+    tests/test_rollout.py scenarios through ``DynamicScorer`` (batch
+    16,384, 131,072 keyed dict events a run, seed 33): v1 alone; a byte
+    copy as v2 in shadow (two launches a batch, nothing of it emitted,
+    0 disagreements), promoted to canary by a controller tick; the canary
+    split at 0.2 within 1% absolute, a scorer restored from the
+    checkpoint mid-canary resuming the stage and giving the same bytes,
+    promoted to full; then on a fresh scorer ``gen_gbm(seed=12)`` as v3 in
+    canary beside v1, every emitted prediction within rtol 1e-4 / atol
+    1e-5 of its serving version's direct launch, rolled back for
+    disagreement. ``state``: one stateful
+    fused ``BlockPipeline`` run (8 batches of 16,384, a 2^16-slot table)
+    unarmed and armed: the armed run sketches ``<model_hash>#state``,
+    and outputs and table bytes are equal. The zoo drill of 24 also runs
+    the JAX zoo bench's rollout and drift parts.
+26. mesh — the parallel plane on the card's 1×1 mesh (``make_mesh()``
     over every card; the line prints ``torch.cuda.device_count()``; no
     kernel runs here: a sharded model scores on the f32 path). BASELINE
     config 5 at its published widths (``gen_stacked(n_trees=50, depth=4,
@@ -353,8 +386,10 @@ line ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --ab
 OTHER_CHECKOUT`` instead times the fused GBM's block path in child
 processes alternating between another checkout and this one
 (``ab_main``), and ``python3 chip_smoke.py --phase NAME`` runs one
-phase alone (``serving_edge``, ``kernel_search``, ``zoo_state`` or
-``mesh``) with what it needs built (``run_phase_alone``). Any failed phase raises, and the
+phase alone (``serving_edge``, ``kernel_search``, ``zoo_state``,
+``rollout_drift`` or ``mesh``) with what it needs built
+(``run_phase_alone``). After the last phase a ``run`` line prints the
+whole run's seconds. Any failed phase raises, and the
 script exits non-zero without printing the last line. Without a CUDA
 device, or without the port beside it, it exits 1 at once. The flight
 recorder's directory and the generated model files live in a temporary
@@ -5136,12 +5171,16 @@ def zoo_drill(workdir: str, zoo_paths: list) -> dict:
     records each (1% missing), batch 256; a one-tenant baseline, the solo
     oracle (zoo off) and ``zoo=True`` over the same stream; every
     (tenant, record) equal to the oracle's; then a device fault injected
-    at a pack's readback."""
+    at a pack's readback; then the JAX drill's rollout and drift parts:
+    a hot tenant's canary (a byte copy of its document at 30%) books
+    candidate records, and with the drift plane installed one round
+    sketches the predictions of at least two served documents."""
     import gc
 
     from flink_jpmml_tpu_torch.compile import qtrees_cuda
-    from flink_jpmml_tpu_torch.models.control import AddMessage
+    from flink_jpmml_tpu_torch.models.control import AddMessage, RolloutMessage
     from flink_jpmml_tpu_torch.models.core import ModelId
+    from flink_jpmml_tpu_torch.obs import drift
     from flink_jpmml_tpu_torch.runtime import faults
     from flink_jpmml_tpu_torch.runtime.sources import ControlSource
     from flink_jpmml_tpu_torch.serving.scorer import DynamicScorer
@@ -5258,6 +5297,32 @@ def zoo_drill(workdir: str, zoo_paths: list) -> dict:
         raise RuntimeError(f"zoo drill fault: fired {fired}, redispatched "
                            f"{after - before}, parity "
                            f"{fault_sigs == solo[:n0]}")
+    # the rollout plane keyed per tenant: one hot tenant's canary (a byte
+    # copy of its document, 30% of its keys) books candidate records
+    rt = hot[0]
+    cand = os.path.join(workdir, "zoo_canary.pmml")
+    shutil.copyfile(zoo_paths[0], cand)
+    sc_z._control.push(RolloutMessage(rt, 2, "canary", time.time(),
+                                      path=cand, fraction=0.3))
+    sc_z._drain_control()
+    wait_for(lambda: sc_z.registry.model_if_warm(ModelId(rt, 2)) is not None,
+             f"{rt} v2 warm", timeout=600.0)
+    canary_sigs = run(sc_z, [_zoo_events(data, fields, rt, i * ZOO_BATCH,
+                                         ZOO_BATCH) for i in range(4)])
+    cand_records = sc_z.metrics.struct_snapshot()["counters"].get(
+        f'rollout_candidate_records{{model="{rt}"}}', 0)
+    if not cand_records or any(v is None for v in canary_sigs):
+        raise RuntimeError(f"zoo canary: {cand_records} candidate records")
+    sc_z._control.push(RolloutMessage(rt, 2, "rollback", time.time()))
+    sc_z._drain_control()
+    # the drift plane keyed per served document, on the same scorer
+    drift.install(sc_z.metrics, interval_s=0.0, budget_frac=0)
+    run(sc_z, rounds[:1])
+    sketches = sc_z.metrics.struct_snapshot().get("sketches") or {}
+    drift_docs = {m.group(1) for m in (drift._PRED_SKETCH.match(k)
+                                       for k in sketches) if m}
+    if len(drift_docs) < 2:
+        raise RuntimeError(f"zoo drift: {len(drift_docs)} documents sketched")
     gauges = sc_z.metrics.struct_snapshot().get("gauges") or {}
     snap = sc_z._zoo.snapshot()
     return {
@@ -5279,6 +5344,8 @@ def zoo_drill(workdir: str, zoo_paths: list) -> dict:
         "resident_packs": snap["resident_packs"],
         "zoo_tenants": snap["tenants"],
         "fault_redispatched": after - before,
+        "rollout_candidate_records": cand_records,
+        "drift_documents": len(drift_docs),
     }
 
 
@@ -5595,6 +5662,553 @@ def zoo_state(workdir: str, smi: str) -> dict:
     st = stateful_drill(workdir)
     return {"nvidia_smi": smi, "seconds": time.perf_counter() - t0,
             "packed_kernel": pk, "zoo": zoo, "stateful": st}
+
+
+# -- the data-drift plane and staged rollouts (the kernel on both scorers) ----
+
+RD_PHASE_RECORDS = 262_144  # records a drift-drill phase, in BATCH batches
+RD_SHIFT_SIGMAS = 4.0  # the drift drill's shift of feature 1, in sigmas
+RD_SIGMA = 1.5  # the records' N(0, 1.5)
+RD_MIN_N = 500  # the fleet monitor's sample floor (the JAX drill's)
+RD_PSI_ALARM = 0.25
+RD_COST_DISPATCHES = 19  # the drift-cost drives' dispatches of DISPATCH
+RD_COST_PAIRS = 3  # unarmed / armed pairs, alternating
+RD_EVENTS = 131_072  # keyed events a rollout run
+RD_FRACTION = 0.2  # the canary's share
+RD_STATE_BATCHES = 8  # batches of BATCH through the stateful pipeline
+RD_STATE_CAPACITY = 1 << 16
+RD_STATE_KEYS = 50_000
+# the guardrails of the rollout drill: every window the whole run, the
+# spec's default sample floor (100: met by the records of a run; a run's 8
+# to 24 latency observations a role stay under it, so the latency
+# guardrail, a max of a few device spans, does not vote), no dwell (the
+# drill ticks the controller by hand after each run)
+RD_MIN_SAMPLES = 100
+RD_WINDOW_S = 600.0
+
+
+def rd_records(seed: int, n: int, F: int) -> np.ndarray:
+    """N(0, 1.5) records with 20% missing cells (``features``), seeded."""
+    return features(np.random.default_rng(seed), n, F)
+
+
+def drift_drill(q, workdir: str) -> dict:
+    """The JAX drift drill (bench.py run_drift_drill) at the main path's
+    width on the card: two registries share the fused GBM scorer and
+    score alternating batches of BATCH records through
+    ``dispatch_quantized`` with the plane armed at interval 0 (budget
+    off); phase 1 (262,144 records, seed 31) is snapshotted as the
+    baseline through a ``BaselineStore`` on disk; phase 2 (262,144 more,
+    seed 32) shifts feature 1 by 4 sigmas while a fleet ``DriftMonitor``
+    windows the merged worker structs after every batch. Every armed
+    batch is dispatched again unarmed and must give the same bytes."""
+    import torch
+
+    from flink_jpmml_tpu_torch.obs import drift
+    from flink_jpmml_tpu_torch.runtime.engine import new_staging
+    from flink_jpmml_tpu_torch.runtime.pipeline import dispatch_quantized
+    from flink_jpmml_tpu_torch.utils.metrics import (
+        MetricsRegistry,
+        QuantileSketch,
+        merge_structs,
+    )
+
+    t0 = time.perf_counter()
+    if q.encode_placement != "fused":
+        raise RuntimeError(f"drift drill on {q.encode_placement}, not fused")
+    F = len(q.wire.fields)
+    label = q.model_hash
+    f_perturb, f_control = q.wire.fields[1], q.wire.fields[0]
+    store = drift.BaselineStore(os.path.join(workdir, "drift_baselines"))
+    regs = [MetricsRegistry(), MetricsRegistry()]
+    planes = [drift.install(r, interval_s=0.0, budget_frac=0, store=store)
+              for r in regs]
+    for p in planes:
+        p.monitor.min_n = RD_MIN_N
+
+    def fleet_struct() -> dict:
+        return merge_structs([r.struct_snapshot() for r in regs])
+
+    fleet_gauges = MetricsRegistry()
+    monitor = drift.DriftMonitor(
+        struct_fn=fleet_struct, store=store, psi_alarm=RD_PSI_ALARM,
+        psi_clear=RD_PSI_ALARM / 2.0, min_n=RD_MIN_N, window_s=300.0,
+        dwell_s=0.0, interval_s=0.0, gauge_metrics=fleet_gauges)
+    staging = new_staging(q.device)
+    stream = torch.cuda.Stream()
+    n_batches = RD_PHASE_RECORDS // BATCH
+    compared = [0]
+
+    def score_phase(seed: int, perturbed: bool, tick: bool):
+        data = rd_records(seed, RD_PHASE_RECORDS, F)
+        if perturbed:
+            data[:, 1] += RD_SHIFT_SIGMAS * RD_SIGMA
+        alarm_at = None
+        with torch.cuda.stream(stream):
+            for b in range(n_batches):
+                reg = regs[b % len(regs)]
+                X = data[b * BATCH:(b + 1) * BATCH]
+                armed = dispatch_quantized(q, X, metrics=reg,
+                                           staging=staging).result()
+                armed = armed.numpy().copy()
+                plain = dispatch_quantized(q, X, staging=staging).result()
+                if armed.tobytes() != plain.numpy().tobytes():
+                    raise RuntimeError(f"drift drill: armed batch {b} "
+                                       "differs from the unarmed dispatch")
+                compared[0] += 1
+                # sink-side prediction sketching, as the pipelines do it
+                drift.plane_for(reg).record_predictions(q, armed, BATCH)
+                if tick:
+                    for tr in monitor.tick():
+                        if (alarm_at is None and tr["transition"] == "alarm"
+                                and tr["feature"] == f_perturb):
+                            alarm_at = b
+        return alarm_at
+
+    score_phase(31, False, tick=False)
+    fleet = fleet_struct()
+    payloads = drift.snapshot_from_struct(fleet)
+    if label not in payloads or len(payloads[label]["features"]) != F:
+        raise RuntimeError(f"drift drill: baseline incomplete {list(payloads)}")
+    path = store.save(label, payloads[label])
+    loaded = store.load(label)
+    if loaded is None:
+        raise RuntimeError("drift drill: baseline save / load failed")
+    monitor.set_baseline(label, loaded)
+    # the fleet merge equals merging the workers' states directly, bit
+    # for bit
+    states = [r.struct_snapshot().get("sketches") or {} for r in regs]
+    checked = 0
+    for name in sorted(set().union(*states)):
+        per_worker = [s[name] for s in states if name in s]
+        direct = QuantileSketch.from_state(per_worker[0])
+        for st in per_worker[1:]:
+            direct.merge(QuantileSketch.from_state(st))
+        merged = QuantileSketch.from_state(fleet["sketches"][name])
+        for qq in (0.01, 0.1, 0.25, 0.5, 0.75, 0.9, 0.99):
+            if merged.quantile(qq) != direct.quantile(qq):
+                raise RuntimeError(f"drift drill: fleet merge inexact for "
+                                   f"{name} at q={qq}")
+        checked += 1
+    if checked < F + 1:
+        raise RuntimeError(f"drift drill: {checked} sketches merged")
+
+    alarm_batch = score_phase(32, True, tick=True)
+    alarmed = {(a["model"], a["feature"]) for a in monitor.alarms()}
+    feature_alarms = {f for (_, f) in alarmed if f is not None}
+    scores = {f: s for (lbl, f), s in monitor.scores().items()
+              if lbl == label}
+    quiet = {f: scores.get(f) for f in q.wire.fields if f != f_perturb}
+    if (label, f_perturb) not in alarmed or feature_alarms != {f_perturb}:
+        raise RuntimeError(f"drift drill: alarms {sorted(feature_alarms)}, "
+                           f"expected only {f_perturb}; scores {scores}")
+    if any(s is None or s >= RD_PSI_ALARM for s in quiet.values()):
+        raise RuntimeError(f"drift drill: an unshifted feature drifted "
+                           f"{quiet}")
+    return {
+        "seconds": time.perf_counter() - t0, "model": label,
+        "records_per_phase": RD_PHASE_RECORDS, "batch": BATCH,
+        "shift": f"{RD_SHIFT_SIGMAS} sigma of feature {f_perturb}",
+        "perturbed_feature": f_perturb, "control_feature": f_control,
+        "alarm_batch": alarm_batch, "psi_perturbed": scores[f_perturb],
+        "psi_control": scores[f_control],
+        "psi_quiet_max": max(quiet.values()),
+        "merge_exact": True, "sketches_checked": checked,
+        "armed_batches_byte_equal": compared[0],
+        "baseline_file": os.path.basename(path),
+        "drift": drift.artifact_fields(fleet_gauges),
+    }
+
+
+def drift_cost(cm, q) -> dict:
+    """The fused GBM's ``drive`` (19 dispatches of DISPATCH records, the
+    main path's data) unarmed and with the drift plane installed on its
+    registry (interval 0, the ``FJT_DRIFT_BUDGET`` budget: 2% unless set),
+    in RD_COST_PAIRS alternating pairs. Each run samples its outputs at
+    every 4,096th record offset below the target; every run's samples
+    must be equal. The rate gap is a reading, not a gate; the plane's
+    overhead must stay within its budget plus the one sample the gate can
+    let through past it (the budget is checked before a sample, charged
+    after)."""
+    from flink_jpmml_tpu_torch.compile import qtrees_cuda
+    from flink_jpmml_tpu_torch.obs import drift
+    from flink_jpmml_tpu_torch.runtime.block import CyclingBlockSource
+    from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry
+
+    F = len(q.wire.fields)
+    data = rd_records(0, 4 * DISPATCH, F)
+    target = RD_COST_DISPATCHES * DISPATCH
+    step = 4096
+    runs, samples = [], []
+    for i in range(2 * RD_COST_PAIRS):
+        armed = i % 2 == 1
+        reg = MetricsRegistry()
+        plane = None
+        costs = []
+        if armed:
+            plane = drift.install(reg, interval_s=0.0)
+            charge = plane._charge
+
+            def _charge(cost, charge=charge):
+                costs.append(cost)
+                charge(cost)
+
+            plane._charge = _charge
+        seen = {}
+        count = [0]
+
+        def sink(out, n, first_off, seen=seen, count=count):
+            vals = np.asarray(out)
+            lo = -(-first_off // step) * step
+            for off in range(lo, min(first_off + n, target), step):
+                seen[off] = vals[off - first_off]
+            count[0] += n
+
+        run = drive(cm, CyclingBlockSource(data, block_size=DISPATCH), sink,
+                    count, qtrees_cuda.leaf_rows, metrics=reg, target=target)
+        row = {"armed": armed, "records": run["records"],
+               "records_per_s": run["records_per_s"],
+               "dispatches": run["dispatches"], "launches": run["launches"],
+               "encode_ms_per_dispatch": run["encode_ms_per_dispatch"]}
+        if armed:
+            st = plane.stats()
+            frac = plane.overhead_fraction()
+            budget = plane.budget_frac
+            elapsed = st["spent_s"] / frac if frac else float("inf")
+            slack = max(costs) / elapsed if costs else 0.0
+            row.update(overhead_fraction=frac, budget=budget,
+                       claimed_batches=st["sampled"], skipped=st["skipped"],
+                       spent_s=st["spent_s"],
+                       max_sample_ms=1e3 * max(costs) if costs else None,
+                       one_sample_slack=slack)
+            if not st["sampled"] or frac > budget + slack:
+                raise RuntimeError(f"drift cost: overhead {frac} over the "
+                                   f"budget {budget} + one sample {slack}")
+        runs.append(row)
+        samples.append(seen)
+    want = set(range(0, target, step))
+    for i, s in enumerate(samples):
+        if set(s) != want:
+            raise RuntimeError(f"drift cost: run {i} sampled "
+                               f"{len(s)} of {len(want)} offsets")
+        if any(s[k].tobytes() != samples[0][k].tobytes() for k in want):
+            raise RuntimeError(f"drift cost: run {i} outputs differ")
+    plain = [r["records_per_s"] for r in runs if not r["armed"]]
+    armed = [r["records_per_s"] for r in runs if r["armed"]]
+    return {"runs": runs, "sampled_offsets": len(want),
+            "plain_records_per_s_median": statistics.median(plain),
+            "armed_records_per_s_median": statistics.median(armed),
+            "armed_over_plain": statistics.median(armed)
+            / statistics.median(plain)}
+
+
+def rollout_drill(workdir: str, gbm: str, q1, counter) -> dict:
+    """The JAX rollout drill (bench.py run_rollout_drill) and the
+    tests/test_rollout.py scenarios through ``DynamicScorer`` on the card
+    at batch BATCH, each run RD_EVENTS keyed dict events (the main path's
+    32 fields, N(0, 1.5), 20% missing left out, seed 33). ``v2`` is a
+    byte copy of the served GBM (bit-identical outputs), ``v3`` the same
+    generator at seed 12. Runs: ``plain`` (v1 alone), ``shadow`` (v2 in
+    shadow: one more launch a batch, nothing emitted from it), then a
+    controller tick must promote to canary; ``canary`` (the split at
+    RD_FRACTION within 1% absolute), then a fresh scorer restored from
+    the checkpoint mid-canary must resume the stage and give the same
+    bytes; a tick promotes to full; ``rollback``, on a fresh scorer
+    serving v1 (the controller's counters are per model name, and a
+    window still holding v2's canary would judge v3 on them): v3 in
+    canary, every emitted prediction equal to its serving version's
+    direct launch, then a tick rolls it back for disagreement, and one
+    more batch is all v1. The controller is ticked by hand
+    (``auto_rollout=False``) where a live one would tick: once when a
+    rollout starts (the window's baseline) and after each run (the
+    verdict), on the guardrails RD_MIN_SAMPLES / RD_WINDOW_S with no
+    dwell, so each verdict reads its own run. In shadow the two roles'
+    median latency spans must agree within 2x: the mirror is the same
+    document on the same rows."""
+    import torch
+
+    from flink_jpmml_tpu_torch.assets_gen import gen_gbm
+    from flink_jpmml_tpu_torch.compile import compile_pmml
+    from flink_jpmml_tpu_torch.models.control import (
+        AddMessage,
+        RolloutMessage,
+    )
+    from flink_jpmml_tpu_torch.models.core import ModelId
+    from flink_jpmml_tpu_torch.pmml import parse_pmml_file
+    from flink_jpmml_tpu_torch.rollout import split as rsplit
+    from flink_jpmml_tpu_torch.rollout.state import GuardrailSpec
+    from flink_jpmml_tpu_torch.runtime.sources import ControlSource
+    from flink_jpmml_tpu_torch.serving.scorer import DynamicScorer
+
+    t0 = time.perf_counter()
+    v2 = os.path.join(workdir, "rollout_v2.pmml")
+    shutil.copyfile(gbm, v2)
+    v3 = gen_gbm(workdir, n_trees=500, seed=12, name="rollout_v3.pmml")
+    q3 = compile_pmml(parse_pmml_file(v3), batch_size=BATCH).quantized_scorer()
+    spec = GuardrailSpec(min_samples=RD_MIN_SAMPLES, window_s=RD_WINDOW_S,
+                         promote_after_s=0.0, canary_fraction=RD_FRACTION)
+    fields = [f"f{j}" for j in range(32)]
+    X = rd_records(33, RD_EVENTS, 32)
+    events = [("gbm", dict(r, _key=f"k{i}"))
+              for i, r in enumerate(dict_rows(X, fields))]
+    keys = [e[1]["_key"] for e in events]
+
+    def scorer():
+        ctrl = ControlSource()
+        return ctrl, DynamicScorer(control=ctrl, batch_size=BATCH,
+                                   auto_rollout=False, guardrails=spec)
+
+    def warm(sc, version):
+        wait_for(lambda: sc.registry.model_if_warm(ModelId("gbm", version))
+                 is not None, f"gbm v{version} warm")
+
+    def run(sc, evs=events):
+        t = time.perf_counter()
+        vals = []
+        for off in range(0, len(evs), BATCH):
+            out = sc.finish(sc.submit(evs[off:off + BATCH]))
+            vals.extend(np.nan if p.is_empty else p.score.value
+                        for p, _ in out)
+        dt = time.perf_counter() - t
+        vals = np.asarray(vals, np.float32)
+        if vals.shape != (len(evs),) or not np.isfinite(vals).all():
+            raise RuntimeError(f"rollout drill: {vals.shape} outputs for "
+                               f"{len(evs)} events, or empty lanes")
+        return vals, len(evs) / dt
+
+    def counters(sc):
+        c = sc.metrics.struct_snapshot()["counters"]
+        return {k: c.get(f'rollout_{k}{{model="gbm"}}', 0.0) for k in (
+            "candidate_records", "incumbent_records", "shadow_compared",
+            "shadow_disagree", "candidate_errors")}
+
+    def baseline_tick(sc):
+        # the tick a live controller makes at the next submit: no verdict
+        # on an empty window, its frame the baseline of the next one
+        d = sc.rollout_controller.tick()
+        if d:
+            raise RuntimeError(f"rollout drill: a verdict on no traffic {d}")
+
+    def latencies(sc):
+        h = sc.metrics.snapshot()
+        return {f"{r}_{t}": h.get(f'rollout_{r}_latency_s{{model="gbm"}}_{t}')
+                for r in ("candidate", "incumbent") for t in ("p50", "p99")}
+
+    # the serving versions' direct launches on the card (host encode, one
+    # launch per DISPATCH records), before the counted runs
+    direct1 = direct_rows(q1, X).astype(np.float32)
+    direct3 = direct_rows(q3, X).astype(np.float32)
+
+    def held(vals, ref, label):
+        err = float(np.abs(vals - ref).max())
+        if not np.allclose(vals, ref, rtol=RTOL, atol=ATOL):
+            raise RuntimeError(f"rollout drill {label}: outputs differ from "
+                               f"the direct launch by {err}")
+        return err
+
+    ctrl, sc = scorer()
+    ctrl.push(AddMessage("gbm", 1, gbm, timestamp=time.time()))
+    sc.finish(sc.submit([]))
+    warm(sc, 1)
+    run(sc, events[:BATCH])  # first launches outside the timed runs
+    out = {}
+    base = counter.launches_by_classes.get(1, 0)
+
+    # -- plain: v1 alone ------------------------------------------------
+    l0 = counter.launches
+    vals, rate = run(sc)
+    out["plain"] = {"records_per_s": rate,
+                    "launches": counter.launches - l0,
+                    "max_abs_err": held(vals, direct1, "plain")}
+
+    # -- shadow: v2 mirrored, never emitted -----------------------------
+    ctrl.push(RolloutMessage("gbm", 2, "shadow", time.time(), path=v2))
+    sc.finish(sc.submit([]))
+    warm(sc, 2)
+    baseline_tick(sc)
+    c0, l0 = counters(sc), counter.launches
+    vals, rate = run(sc)
+    c1 = counters(sc)
+    launches = counter.launches - l0
+    batches = RD_EVENTS // BATCH
+    if (c1["candidate_records"] != c0["candidate_records"]
+            or c1["shadow_compared"] - c0["shadow_compared"] != RD_EVENTS
+            or c1["shadow_disagree"] or launches != 2 * batches):
+        raise RuntimeError(f"rollout drill shadow: {c0} -> {c1}, "
+                           f"{launches} launches for {batches} batches")
+    d1 = sc.rollout_controller.tick()
+    if [d["stage"] for d in d1] != ["canary"]:
+        raise RuntimeError(f"rollout drill: shadow did not promote: {d1}")
+    # both roles on one bracket: the mirror is the same document on the
+    # same rows, so the two roles' median spans read the same device work
+    lat = latencies(sc)
+    if not (0.5 <= lat["candidate_p50"] / lat["incumbent_p50"] <= 2.0):
+        raise RuntimeError(f"rollout drill: the roles' spans disagree {lat}")
+    out["shadow"] = {"records_per_s": rate, "launches": launches,
+                     "shadow_compared": c1["shadow_compared"]
+                     - c0["shadow_compared"], "shadow_disagree": 0,
+                     "leakage": 0, "latency_s": latencies(sc),
+                     "max_abs_err": held(vals, direct1, "shadow"),
+                     "decision": d1[0]["reason"]}
+
+    # -- canary: the split, then a restore mid-canary --------------------
+    st = sc.registry.rollout("gbm")
+    c0 = counters(sc)
+    vals, rate = run(sc)
+    c1 = counters(sc)
+    cand = c1["candidate_records"] - c0["candidate_records"]
+    share = cand / RD_EVENTS
+    expect = sum(rsplit.assign_candidate("gbm", 2, RD_FRACTION, k)
+                 for k in keys)
+    if abs(share - RD_FRACTION) > 0.01 or cand != expect:
+        raise RuntimeError(f"rollout drill canary: share {share}, "
+                           f"{cand} candidate records, {expect} expected")
+    if c1["shadow_disagree"] != c0["shadow_disagree"]:
+        raise RuntimeError("rollout drill canary: a byte copy disagreed")
+    canary_err = held(vals, direct1, "canary")
+    state = sc.state()
+    ctrl2, sc2 = scorer()
+    sc2.restore(state)
+    st2 = sc2.registry.rollout("gbm")
+    if (st2 is None or st2.stage != "canary" or st2.fraction != st.fraction
+            or st2.stage_since != st.stage_since):
+        raise RuntimeError(f"rollout drill restore: {st2} vs {st}")
+    warm(sc2, 1)
+    warm(sc2, 2)
+    vals2, _ = run(sc2)
+    if (vals2.tobytes() != vals.tobytes()
+            or counters(sc2)["candidate_records"] != cand):
+        raise RuntimeError("rollout drill restore: the restored scorer "
+                           "routed or scored differently")
+    del sc2
+    d2 = sc.rollout_controller.tick()
+    if ([d["stage"] for d in d2] != ["full"]
+            or sc.registry.resolve("gbm") != ModelId("gbm", 2)):
+        raise RuntimeError(f"rollout drill: canary did not promote: {d2}")
+
+    out["canary"] = {"records_per_s": rate, "fraction": RD_FRACTION,
+                     "candidate_records": cand, "share": share,
+                     "latency_s": latencies(sc), "max_abs_err": canary_err,
+                     "restored_stage_since": st2.stage_since,
+                     "restored_byte_equal": True,
+                     "decision": d2[0]["reason"]}
+
+    # -- rollback: a disagreeing candidate under canary, on a fresh scorer:
+    # the controller's counters are per model name, so a window that
+    # still held v2's canary records would judge v3 on them
+    ctrl, sc = scorer()
+    ctrl.push(AddMessage("gbm", 1, gbm, timestamp=time.time()))
+    sc.finish(sc.submit([]))
+    warm(sc, 1)
+    ctrl.push(RolloutMessage("gbm", 3, "canary", time.time(), path=v3,
+                             fraction=RD_FRACTION))
+    sc.finish(sc.submit([]))
+    warm(sc, 3)
+    baseline_tick(sc)
+    vals, rate = run(sc)
+    side = np.array([rsplit.assign_candidate("gbm", 3, RD_FRACTION, k)
+                     for k in keys])
+    err = held(vals, np.where(side, direct3, direct1), "rollback canary")
+    d3 = sc.rollout_controller.tick()
+    if ([d["action"] for d in d3] != ["rollback"]
+            or "disagreement" not in d3[0]["reason"]
+            or sc.registry.resolve("gbm") != ModelId("gbm", 1)
+            or sc.registry.resolve("gbm", 3) is not None):
+        raise RuntimeError(f"rollout drill: v3 not rolled back: {d3}")
+    after, _ = run(sc, events[:BATCH])
+    held(after, direct1[:BATCH], "after rollback")
+    out["rollback"] = {"records_per_s": rate, "max_abs_err": err,
+                       "candidate_share": float(side.mean()),
+                       "latency_s": latencies(sc),
+                       "decision": d3[0]["reason"]}
+    torch.cuda.synchronize()
+    out.update(seconds=time.perf_counter() - t0, events_per_run=RD_EVENTS,
+               launches=counter.launches_by_classes.get(1, 0) - base,
+               guardrails={"min_samples": RD_MIN_SAMPLES,
+                           "window_s": RD_WINDOW_S, "promote_after_s": 0.0,
+                           "max_disagree_rate": spec.max_disagree_rate,
+                           "max_latency_ratio": spec.max_latency_ratio})
+    return out
+
+
+def drift_state(q, cm) -> dict:
+    """One stateful fused GBM ``BlockPipeline`` run (RD_STATE_BATCHES
+    batches of BATCH records, a 2^16-slot table keyed by feature 0, which
+    holds integer keys) unarmed and again with the drift plane armed: the
+    armed run sketches ``<model_hash>#state`` and both leave the same
+    table bytes and outputs."""
+    from flink_jpmml_tpu_torch.obs import drift
+    from flink_jpmml_tpu_torch.runtime.block import (
+        BlockPipeline,
+        FiniteBlockSource,
+    )
+    from flink_jpmml_tpu_torch.runtime.state import StateSpec
+    from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry
+
+    F = len(q.wire.fields)
+    rng = np.random.default_rng(34)
+    data = rd_records(34, RD_STATE_BATCHES * BATCH, F)
+    data[:, 0] = rng.integers(0, RD_STATE_KEYS, len(data)).astype(np.float32)
+    label = f"{q.model_hash}#state"
+
+    def one(armed: bool):
+        reg = MetricsRegistry()
+        if armed:
+            drift.install(reg, interval_s=0.0, budget_frac=0)
+        outs = []
+        pipe = BlockPipeline(
+            FiniteBlockSource(data, block_size=BATCH), cm,
+            lambda out, n, off: outs.append(np.asarray(out)[:n].copy()),
+            metrics=reg, max_dispatch_chunks=1,
+            state=StateSpec(capacity=RD_STATE_CAPACITY, key_col=0))
+        pipe.run_until_exhausted(timeout=120.0)
+        if pipe.error is not None:
+            raise RuntimeError(f"stateful run failed: {pipe.error!r}")
+        return (np.concatenate(outs), pipe._state.host_values(),
+                reg.struct_snapshot().get("sketches") or {})
+
+    out0, table0, sk0 = one(False)
+    out1, table1, sk1 = one(True)
+    series = sorted(k for k in sk1 if f'model="{label}"' in k)
+    if (out0.tobytes() != out1.tobytes()
+            or table0.tobytes() != table1.tobytes()):
+        raise RuntimeError("stateful run: the armed plane changed the "
+                           "outputs or the table")
+    if len(series) != 8 or sk0:
+        raise RuntimeError(f"stateful run: {len(series)} #state sketches, "
+                           f"{len(sk0)} unarmed")
+    return {"records": len(data), "batches": RD_STATE_BATCHES,
+            "capacity": RD_STATE_CAPACITY, "label": label,
+            "state_sketches": len(series),
+            "state_count_n": sk1[series[0]]["n"],
+            "table_bytes_equal": True, "outputs_byte_equal": True}
+
+
+def rollout_drift(workdir: str, cm, q, smi: str) -> dict:
+    """The ``rollout_drift`` phase: the drift drill, its cost on the fused
+    main path, the rollout drill and the stateful run. The launches of
+    ``qtrees_leaf_rows`` (C = 1) are counted from zero over the drills'
+    dispatches, the reference launches they are held to left out."""
+    from flink_jpmml_tpu_torch.compile import qtrees_cuda
+
+    t0 = time.perf_counter()
+    counter = qtrees_cuda.leaf_rows
+    reset(counter)
+    dd = drift_drill(q, workdir)
+    dd["launches"] = counter.launches_by_classes.get(1, 0)
+    dc = drift_cost(cm, q)
+    rd = rollout_drill(workdir, os.path.join(workdir, "gbm_500.pmml"), q,
+                       counter)
+    before = counter.launches_by_classes.get(1, 0)
+    ds = drift_state(q, cm)
+    ds["launches"] = counter.launches_by_classes.get(1, 0) - before
+    launches = (dd["launches"] + sum(r["launches"] for r in dc["runs"])
+                + rd["launches"] + ds["launches"])
+    if not (dd["launches"] and rd["launches"] and ds["launches"]):
+        raise RuntimeError("rollout_drift: a part launched no kernel")
+    return {"nvidia_smi": smi, "seconds": time.perf_counter() - t0,
+            "drift_drill": dd, "drift_cost": dc, "rollout": rd,
+            "state": ds, "launches_c1": launches}
 
 
 # -- the parallel plane on the card's 1x1 mesh (no kernel on these paths) ----
@@ -6042,6 +6656,9 @@ def run_phase_alone(workdir: str, phase: str) -> int:
     elif phase == "zoo_state":
         zs = zoo_state(workdir, smi)
         emit({"phase": "zoo_state", **zs})
+    elif phase == "rollout_drift":
+        rd = rollout_drift(workdir, cm, q, smi)
+        emit({"phase": "rollout_drift", **rd})
     else:
         raise ValueError(f"no phase {phase!r} runs alone")
     print(smi, flush=True)
@@ -6061,7 +6678,7 @@ def run_phases(workdir: str) -> int:
     emit({"phase": "card", "nvidia_smi": smi, "torch_device": kind,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    t0 = time.perf_counter()
+    t_run = t0 = time.perf_counter()
     qtrees_cuda.build()
     ptxas = qtrees_cuda.ptxas_report()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -6362,6 +6979,10 @@ def run_phases(workdir: str) -> int:
     zs = zoo_state(workdir, smi)
     emit({"phase": "zoo_state", **zs})
 
+    # -- the drift plane and staged rollouts (the kernel on both scorers) ---
+    rdp = rollout_drift(workdir, cm, q, smi)
+    emit({"phase": "rollout_drift", **rdp})
+
     # -- the parallel plane on the card's 1x1 mesh (no kernel here) ---------
     emit({"phase": "mesh", **mesh_phase(workdir, smi)})
     zoo_launches = zs["zoo"]["launches_solo_c1"]
@@ -6381,6 +7002,7 @@ def run_phases(workdir: str) -> int:
             "library_ms": None, "ops": t["ops"],
         }
 
+    emit({"phase": "run", "seconds": time.perf_counter() - t_run})
     # one kernel, four paths: each entry reads its own paths' launches
     emit({"kernels": [
         kernel_entry("qtrees_leaf_rows (regression sum, C=1)",
@@ -6397,7 +7019,8 @@ def run_phases(workdir: str) -> int:
                       "recovery": {"launches": rcv["launches_c1"]},
                       "serving_edge": {"launches": edge["launches_c1"]},
                       "kernel_search": {"launches": ks["launches_c1"]},
-                      "zoo_state": {"launches": zoo_launches}},
+                      "zoo_state": {"launches": zoo_launches},
+                      "rollout_drift": {"launches": rdp["launches_c1"]}},
                      rows + [r for r in wrows if r["classes"] == 1], timing),
         kernel_entry("qtrees_leaf_rows (vote shares)",
                      "flink_jpmml_tpu/compile/qtrees_pallas.py:187 and :238",

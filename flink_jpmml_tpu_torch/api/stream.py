@@ -26,7 +26,8 @@ the JAX package's: ``with_checkpointing(dir)`` or
 (and with it the DLQ beside the snapshots and the device-fault ladder),
 and ``execute(restore=True)`` / ``start(restore=True)`` resume each
 pipeline from its newest snapshot. ``evaluate``'s rollout options
-(``guardrails=``, ``key_fn=``) raise :class:`NotPortedError`.
+(``guardrails=``, ``key_fn=``) pass through to the dynamic scorer, as in
+the JAX package; without a control stream they do nothing, as there.
 """
 
 from __future__ import annotations
@@ -54,7 +55,6 @@ from flink_jpmml_tpu_torch.runtime.sources import (
 )
 from flink_jpmml_tpu_torch.utils.config import RuntimeConfig
 from flink_jpmml_tpu_torch.utils.device import resolve_device
-from flink_jpmml_tpu_torch.utils.exceptions import refuse
 from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry
 
 
@@ -146,9 +146,12 @@ class Stream:
         ``emit`` shapes sink items from (records, predictions). With a
         control stream attached, ``reader`` is the default model (events
         that name no model), and the rest route by name (the
-        :class:`~flink_jpmml_tpu_torch.serving.scorer.DynamicScorer`).
+        :class:`~flink_jpmml_tpu_torch.serving.scorer.DynamicScorer`);
+        ``guardrails`` (a :class:`~flink_jpmml_tpu_torch.rollout
+        .GuardrailSpec`) sets the default health spec for staged rollouts
+        pushed on it, and ``key_fn`` derives the canary-split routing key
+        per event payload.
         """
-        refuse(guardrails=guardrails, key_fn=key_fn)
         env = self.env
         if self._control is not None:
             from flink_jpmml_tpu_torch.serving.scorer import DynamicScorer
@@ -167,6 +170,8 @@ class Stream:
                 replace_nan=replace_nan,
                 emit=emit,
                 metrics=env.metrics,
+                guardrails=guardrails,
+                key_fn=key_fn,
                 device=env.device,
             )
         else:

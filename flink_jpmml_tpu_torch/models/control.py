@@ -1,9 +1,9 @@
 """Control-stream protocol for dynamic model serving (capability C6).
 
 The port's copy of ``flink_jpmml_tpu/models/control.py``, with the import
-lines renamed. ``RolloutMessage`` and its wire form stay whole, but the
-port's registry refuses one with ``NotPortedError``: staged rollouts wait
-for their own slice.
+lines renamed. The port's registry applies a ``RolloutMessage`` as the JAX
+registry does, and the dynamic scorer and its guardrail controller
+(``rollout/controller.py``) act on it.
 
 Reference parity: ``ServingMessage`` / ``AddMessage`` / ``DelMessage`` in the
 reference's ``…/models/control/`` (SURVEY.md §3 row C2, §4.3 [UNVERIFIED]).

@@ -1,10 +1,9 @@
 """Deterministic per-key traffic assignment for canary splits.
 
 A copy of ``flink_jpmml_tpu/rollout/split.py`` with the import lines
-renamed; nothing else differs. The staged-rollout controller that reads
-it is not ported yet (ROADMAP Queue 1 item 7); the mesh hot path's
-canary-per-shard contract (``assign_candidate`` is key-pure) holds on
-its own.
+renamed; nothing else differs. The dynamic scorer splits canary traffic
+and samples shadow mirrors with it; the mesh hot path's canary-per-shard
+contract (``assign_candidate`` is key-pure) holds on its own.
 
 The split must satisfy two properties the reference's atomic flip never
 needed:

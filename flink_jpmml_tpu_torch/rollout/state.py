@@ -1,8 +1,9 @@
 """Rollout lifecycle state: stages, guardrail specs, pure transitions.
 
 The port's copy of ``flink_jpmml_tpu/rollout/state.py``, unchanged: the
-control messages need its ``STAGES`` and ``GuardrailSpec``. Nothing else
-of the JAX package's ``rollout/`` is ported yet.
+control messages carry its ``STAGES`` and ``GuardrailSpec``, and the
+registry and the guardrail controller (``rollout/controller.py``) apply
+its transitions.
 
 The reference system's control stream flips traffic atomically on
 ``AddMessage`` — the newest served version takes 100% of events the

@@ -119,9 +119,18 @@ beside the snapshots, or an inline payload without a directory) and
 bypass it. The recovery ladder and the suspect scan score with the table
 disarmed (``_state_bypass``), after it rolled back to its last snapshot,
 so a DLQ'd or re-dispatched record never folds into it twice. The sink
-sees the stateless output; the derived features feed no drift plane yet
-(the observability slice). ``tenant=`` / :meth:`set_tenant` book
+sees the stateless output. ``tenant=`` / :meth:`set_tenant` book
 delivered records under ``tenant_records{model=...}``.
+
+The data-drift plane (``obs/drift.py``; armed by ``FJT_DRIFT_SAMPLE`` or
+``drift.install`` on the pipeline's registry) sees every batch twice, as
+in the JAX package: its features in ``dispatch_quantized`` before the
+encode, and at the sink its predictions (the read-back host output,
+under the decode's ``model_hash``, so only where the dispatch names its
+model: the dynamic pipeline) and, on a state-armed pipeline, the derived
+session features under ``<model_hash>#state``
+(``state.record_derived``). A shed batch never reaches the sink, so it
+cannot skew a sketch.
 
 The sink receives host tensors (the pinned buffer the D2H copy filled)
 once their dispatch has completed; :meth:`BlockPipeline.decode` turns one
@@ -140,6 +149,7 @@ import torch
 
 from flink_jpmml_tpu_torch.compile.compiler import CompiledModel
 from flink_jpmml_tpu_torch.obs import attr as attr_mod
+from flink_jpmml_tpu_torch.obs import drift as drift_mod
 from flink_jpmml_tpu_torch.obs import freshness as fresh_mod
 from flink_jpmml_tpu_torch.obs import pressure as pressure_mod
 from flink_jpmml_tpu_torch.obs import recorder as flight
@@ -262,6 +272,12 @@ class BoundScorer:
             return self.model.decode(out, n)
 
         decode.model_key = key
+        # the drift plane's content-addressed label: the one the feature
+        # profiles of dispatch_quantized are recorded under, so a model's
+        # feature and prediction series share one baseline
+        decode.model_hash = (
+            self.q.model_hash if self.q is not None else None
+        )
         self.decode = decode
 
 
@@ -1406,6 +1422,10 @@ class BlockPipelineBase:
         # FJT_JOURNEY_DIR armed it — one env check at loop start, and
         # with it None every per-batch site below is a None test
         jstore = trace_mod.store_for(self.metrics)
+        # the data-drift plane (obs/drift.py): None unless FJT_DRIFT_SAMPLE
+        # is set or a caller installed one — predictions are sketched at
+        # the sink, features already rode dispatch_quantized
+        dplane = drift_mod.plane_for(self.metrics)
         ring_occ = self.metrics.gauge("ring_occupancy")
         ring_cap = float(max(self._config.batch.queue_capacity, 1))
 
@@ -1429,9 +1449,10 @@ class BlockPipelineBase:
                 return
             out = d.res.result()  # the event wait is booked by the window
             # a state-armed dispatch returns (score_out, derived): the sink
-            # sees exactly the stateless output shape (the derived session
-            # features wait for the drift plane of the observability slice)
-            out, _derived = state_mod.split_output(out)
+            # sees exactly the stateless output shape, and the derived
+            # session features feed the drift plane under the model's
+            # "#state" label (state corruption surfaces as feature drift)
+            out, derived = state_mod.split_output(out)
             t_sink = time.monotonic()
             # the completing batch's OWN context wraps the sink: its span
             # (and any exemplar the sink stage captures) carries THIS
@@ -1444,6 +1465,21 @@ class BlockPipelineBase:
                     first_off=first_off,
                 )
                 ledger.observe("sink", t_done - t_sink)
+            if dplane is not None:
+                # score-distribution sketch at the sink (sampled), on the
+                # read-back host output
+                dplane.record_predictions(
+                    getattr(d.decode, "model_hash", None)
+                    or getattr(d.decode, "model_key", None),
+                    out, n,
+                )
+                if derived is not None:
+                    state_mod.record_derived(
+                        dplane, self._state,
+                        getattr(getattr(handle, "q", None), "model_hash",
+                                None),
+                        derived, n,
+                    )
             if jstore is not None and jctx is not None:
                 # the sink hop closes the journey: tail-sampling keeps
                 # it only if it is interesting (exemplar-marked, head

@@ -89,6 +89,7 @@ import torch
 from flink_jpmml_tpu_torch.compile import prepare
 from flink_jpmml_tpu_torch.compile.layouts import CUDA_BACKENDS
 from flink_jpmml_tpu_torch.obs import attr as attr_mod
+from flink_jpmml_tpu_torch.obs import drift as drift_mod
 from flink_jpmml_tpu_torch.obs import profiler as prof_mod
 from flink_jpmml_tpu_torch.obs import recorder as flight
 from flink_jpmml_tpu_torch.obs import spans
@@ -143,10 +144,12 @@ class HostStaging:
         self._next = 0
 
     def stage(self, payload: np.ndarray, rows: int,
-              mark: bool = False) -> torch.Tensor:
+              mark: bool = False,
+              span: Optional["LaunchSpan"] = None) -> torch.Tensor:
         """→ the device tensor the payload is copied into; ``mark`` opens
-        a sampled dispatch's region (``obs/profiler.mark_start``) just
-        before the H2D copy."""
+        a sampled dispatch's region (``obs/profiler.mark_start``) and
+        ``span`` starts (:meth:`LaunchSpan.start`) just before the H2D
+        copy."""
         i = self._next
         self._next = (i + 1) % len(self._slots)
         held = self._slots[i]
@@ -166,6 +169,8 @@ class HostStaging:
                           device=self._device)
         if mark:
             prof_mod.mark_start(self._device)
+        if span is not None:
+            span.start()
         dev[:n].copy_(buf[:n], non_blocking=True)
         if rows > n:
             dev[n:].zero_()
@@ -173,6 +178,46 @@ class HostStaging:
         ev.record()
         self._slots[i] = (buf, ev)
         return dev
+
+
+class LaunchSpan:
+    """One dispatch's time from its first device operation to its
+    completion, read after the wait the window makes anyway (no
+    synchronize is added). On the card: a pair of timing events on the
+    current stream, the first recorded by :meth:`start` just before the
+    dispatch's H2D copy (``HostStaging.stage``, ``dispatch_f32``), the
+    second by :meth:`close` once the launch has queued its D2H copy — the
+    card's time for the dispatch, without the host work in front of it
+    (featurize, encode on the host, staging) or behind it (the waits and
+    decodes of other groups). On the CPU, where a dispatch completes
+    inside its launch: the host time from the span's creation (just
+    before the launch) to :meth:`close`."""
+
+    __slots__ = ("_device", "_start", "_end")
+
+    def __init__(self, device: torch.device):
+        self._device = device
+        self._start = time.monotonic() if device.type != "cuda" else None
+        self._end = None
+
+    def start(self) -> None:
+        if self._device.type == "cuda" and self._start is None:
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._start.record()
+
+    def close(self) -> None:
+        if self._device.type != "cuda":
+            self._end = time.monotonic()
+            return
+        self.start()  # a dispatch that staged nothing: from here
+        self._end = torch.cuda.Event(enable_timing=True)
+        self._end.record()
+
+    def seconds(self) -> float:
+        if self._device.type != "cuda":
+            return self._end - self._start
+        self._end.synchronize()  # behind the D2H copy the wait saw land
+        return self._start.elapsed_time(self._end) / 1e3
 
 
 def _to_host(out, keep: list):
@@ -213,6 +258,7 @@ def dispatch_quantized(
     state=None,
     state_keys=None,
     offsets=None,
+    span: Optional[LaunchSpan] = None,
 ) -> DeviceOutput:
     """Encode + stage + dispatch one raw f32 batch through a
     :class:`~flink_jpmml_tpu_torch.compile.qtrees.QuantizedScorer`: the one
@@ -252,7 +298,20 @@ def dispatch_quantized(
     ``h2d_bytes`` (bytes staged per dispatch: F codes of the wire dtype a
     live record host-encoded, 4·F fused) and ``encode_<placement>`` (dispatches
     per placement), and the ``encode`` and ``h2d`` stages of its stage
-    ledger (see the module docstring)."""
+    ledger (see the module docstring).
+
+    The data-drift plane (``obs/drift.py``) profiles the caller's raw
+    batch here, as in the JAX package: before either placement encodes
+    or stages it (so the sampled rows are the caller's rows) and outside
+    the encode timing window. Unarmed (``FJT_DRIFT_SAMPLE`` unset and no
+    plane installed on ``metrics``) that is one dict miss and one env
+    lookup.
+
+    ``span`` (a :class:`LaunchSpan`) starts at the H2D copy of the staged
+    payload."""
+    dplane = drift_mod.plane_for(metrics)
+    if dplane is not None:
+        dplane.record_features(q, X, M)
     t0 = time.monotonic()
     placement = q.encode_placement
     if placement == "fused":
@@ -292,7 +351,8 @@ def dispatch_quantized(
         raise ValueError("a CUDA dispatch needs a HostStaging")
     else:
         staged = staging.stage(
-            payload, rows, mark=torch_twin and placement != "fused")
+            payload, rows, mark=torch_twin and placement != "fused",
+            span=span)
         out = device_output(predict(staged, K), staged)
     t2 = time.monotonic()
     spans.emit("h2d_dispatch", t1, t2 - t1, bytes=payload.nbytes)
@@ -336,8 +396,8 @@ def _state_armed(q, X, n: int, rows: int, placement: str, state,
     return predict
 
 
-def dispatch_f32(model, X, M, *, metrics: Optional[MetricsRegistry] = None
-                 ) -> DeviceOutput:
+def dispatch_f32(model, X, M, *, metrics: Optional[MetricsRegistry] = None,
+                 span: Optional[LaunchSpan] = None) -> DeviceOutput:
     """The f32 path's dispatch of one ``(X, M)`` batch through a
     :class:`~flink_jpmml_tpu_torch.compile.compiler.CompiledModel` (or a
     mesh-sharded ``parallel/sharding.ShardedModel``): pad it to the
@@ -348,13 +408,15 @@ def dispatch_f32(model, X, M, *, metrics: Optional[MetricsRegistry] = None
     that no longer divides the batch, so the pad target rounds up to it
     (a single-device model, divisor 1, keeps the pad-to-batch geometry).
     ``metrics`` books the bytes shipped (``h2d_bytes``: X and M, padding
-    rows included)."""
+    rows included); ``span`` starts at the H2D copy of X."""
     target = max(model.batch_size or 0, X.shape[0])
     target += (-target) % getattr(model, "batch_divisor", 1)
     if X.shape[0] < target:
         X, M, _ = prepare.pad_batch(X, M, target)
     if metrics is not None:
         metrics.counter("h2d_bytes").inc(X.nbytes + M.nbytes)
+    if span is not None:
+        span.start()
     Xs = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(
         model.device, non_blocking=True)
     Ms = torch.from_numpy(np.ascontiguousarray(M)).to(

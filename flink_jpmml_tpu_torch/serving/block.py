@@ -60,8 +60,10 @@ Where it differs: models come from the port's ``ModelRegistry`` on the
 pipeline's ``device`` (the card by default, ``"cpu"`` on request; the
 mesh's primary device with ``mesh=``). ``donate=`` raises
 :class:`NotPortedError` (the port reuses its staging once the H2D copy's
-event has passed); staged rollouts are not ported, so no candidate is
-ever excluded from latest-wins adoption.
+event has passed). As in the JAX package, an active rollout's candidate
+is never adopted here: the block path serves whole batches to one model,
+so the candidate reaches it only at promotion to full (the split and the
+shadow mirrors are the record-path ``DynamicScorer``'s).
 """
 
 from __future__ import annotations
@@ -234,6 +236,11 @@ class DynamicBlockPipeline(BlockPipelineBase):
             if self.registry.resolve(mid.name, mid.version) is None:
                 self._current = None
                 cur = None
+        # an active rollout's candidate is NOT adoptable: the block path
+        # serves whole dense batches to one model, so the candidate becomes
+        # visible here only at promotion to full
+        ro = self.registry.rollout(self._name)
+        cand_version = ro.candidate_version if ro is not None else None
         best_mid = None
         best_model = None
         for mid in sorted(
@@ -241,7 +248,7 @@ class DynamicBlockPipeline(BlockPipelineBase):
             key=lambda m: m.version,
             reverse=True,
         ):
-            if mid in self._rejected:
+            if mid in self._rejected or mid.version == cand_version:
                 continue
             model = self.registry.model_if_warm(mid)  # kicks warm if cold
             if model is None:

@@ -38,10 +38,18 @@ mesh back in.
 
 Where it differs: ``ModelRegistry(device=None)`` resolves its device at
 construction (the card by default, ``"cpu"`` on request; the mesh's
-primary device with ``mesh=``); applying a ``RolloutMessage`` raises
-:class:`NotPortedError` (staged rollouts are not ported), and
-``rollouts()`` is always empty, so latest-wins routing never excludes a
-candidate.
+primary device with ``mesh=``).
+
+Staged rollouts are the JAX registry's: ``apply(RolloutMessage)`` moves a
+candidate through shadow → canary → full or rolls it back
+(``rollout/state.apply_rollout``), registering it first when the message
+carries a ``path``; while a rollout is active, latest-wins routing
+(``resolve(name)``, ``resolve_warm``) excludes the candidate, so only the
+scorer's split and shadow mirrors send it traffic. A candidate warms like
+an Add (once: a warm already in flight is joined). Rollouts ride
+``state()``; ``restore`` brings them back with their ``stage_since``, so
+a restore mid-canary resumes the dwell, and a candidate whose path
+changed warms again.
 """
 
 from __future__ import annotations
@@ -62,13 +70,19 @@ from flink_jpmml_tpu_torch.models.control import (
     ServingMessage,
 )
 from flink_jpmml_tpu_torch.models.core import ModelId, ModelInfo
+from flink_jpmml_tpu_torch.obs import recorder as flight
+from flink_jpmml_tpu_torch.rollout.state import (
+    ACTIVE_STAGES,
+    STAGE_ROLLBACK,
+    RolloutState,
+    apply_rollout,
+)
 from flink_jpmml_tpu_torch.serving import managers
 from flink_jpmml_tpu_torch.utils.config import CompileConfig
 from flink_jpmml_tpu_torch.utils.device import resolve_device
 from flink_jpmml_tpu_torch.utils.exceptions import (
     FlinkJpmmlTpuError,
     ModelLoadingException,
-    NotPortedError,
 )
 
 
@@ -116,6 +130,12 @@ class ModelRegistry:
         self._compiled: Dict[ModelId, CompiledModel] = {}
         self._warming: Dict[ModelId, _WarmTask] = {}
         self._warm_failed: Dict[ModelId, BaseException] = {}
+        # in-progress staged rollouts by model name (rollout/state.py):
+        # while an entry is active, latest-wins routing (resolve with
+        # version=None, resolve_warm) EXCLUDES the candidate version —
+        # the split/shadow machinery in the scorer is the only way the
+        # candidate sees traffic before promotion to full
+        self._rollouts: Dict[str, RolloutState] = {}
         self._lock = threading.Lock()
         self._batch_size = batch_size
         self._compile_config = compile_config
@@ -155,8 +175,7 @@ class ModelRegistry:
         An accepted Add immediately starts warming the new version in the
         background so the hot path never pays it."""
         if isinstance(msg, RolloutMessage):
-            raise NotPortedError("RolloutMessage (staged rollouts) is not "
-                                 "ported")
+            return self._apply_rollout(msg)
         with self._lock:
             new_meta, changed = managers.apply_message(self._meta, msg)
             if changed:
@@ -166,9 +185,121 @@ class ModelRegistry:
                 for mid in removed:
                     self._compiled.pop(mid, None)
                     self._warm_failed.pop(mid, None)
+                self._prune_rollouts_locked()
         if changed and self._async and isinstance(msg, AddMessage):
             self.ensure_warming(msg.model_id)
         return changed
+
+    def _apply_rollout(self, msg: RolloutMessage) -> bool:
+        """Rollout transitions, with their serving-metadata side effects:
+        an active stage may register the candidate (``path`` = an Add
+        folded in); ``full`` clears the entry so latest-wins takes over;
+        ``rollback`` drops the candidate from serving entirely. A
+        terminal message for a version that is not the tracked candidate
+        is a no-op (a replayed decision must not cancel a newer rollout
+        or un-serve a promoted model)."""
+        mid = msg.model_id
+        warm = False
+        events = []
+        with self._lock:
+            changed = False
+            if msg.stage in ACTIVE_STAGES:
+                if mid not in self._meta:
+                    if msg.path is None:
+                        events.append((
+                            "rollout_rejected",
+                            dict(model=mid.key(),
+                                 reason="unserved candidate without a path"),
+                        ))
+                        self._flight(events)
+                        return False
+                    meta = dict(self._meta)
+                    meta[mid] = ModelInfo(path=msg.path)
+                    self._meta = meta
+                    self._reindex_locked()
+                    changed = True
+                cur = self._rollouts.get(msg.name)
+                if cur is not None and cur.candidate_version != msg.version:
+                    # a new rollout supersedes the old one: the abandoned
+                    # candidate must NOT fall through to latest-wins
+                    # routing un-promoted — drop it like a rollback
+                    old = ModelId(msg.name, cur.candidate_version)
+                    if old in self._meta:
+                        meta = dict(self._meta)
+                        del meta[old]
+                        self._meta = meta
+                        self._reindex_locked()
+                    self._compiled.pop(old, None)
+                    self._warm_failed.pop(old, None)
+                    events.append((
+                        "rollout_superseded",
+                        dict(model=old.key(), by=mid.key()),
+                    ))
+                others = [
+                    m.version for m in self._meta
+                    if m.name == msg.name and m.version != msg.version
+                ]
+                if not others:
+                    # first deployment of the name: there is no incumbent
+                    # to split against or diff with — the candidate serves
+                    # directly (degenerate promotion to full)
+                    changed |= self._rollouts.pop(msg.name, None) is not None
+                    events.append((
+                        "rollout_degenerate_full", dict(model=mid.key()),
+                    ))
+                else:
+                    self._rollouts, ch = apply_rollout(self._rollouts, msg)
+                    changed |= ch
+                    if ch:
+                        events.append((
+                            "rollout_stage",
+                            dict(model=mid.key(), stage=msg.stage,
+                                 fraction=self._rollouts[msg.name].fraction),
+                        ))
+                warm = changed
+            elif msg.stage == STAGE_ROLLBACK:
+                self._rollouts, ch = apply_rollout(self._rollouts, msg)
+                if ch:
+                    changed = True
+                    if mid in self._meta:
+                        meta = dict(self._meta)
+                        del meta[mid]
+                        self._meta = meta
+                        self._reindex_locked()
+                    self._compiled.pop(mid, None)
+                    self._warm_failed.pop(mid, None)
+                    events.append((
+                        "rollout_rollback", dict(model=mid.key()),
+                    ))
+            else:  # full
+                self._rollouts, ch = apply_rollout(self._rollouts, msg)
+                changed = ch
+                if ch:
+                    events.append((
+                        "rollout_full", dict(model=mid.key()),
+                    ))
+        self._flight(events)
+        if warm and self._async:
+            self.ensure_warming(mid)
+        return changed
+
+    @staticmethod
+    def _flight(events) -> None:
+        for kind, fields in events:  # outside the lock: recorder I/O-free
+            flight.record(kind, **fields)
+
+    def _prune_rollouts_locked(self) -> None:
+        """Drop rollout entries an Add/Del made meaningless: a deleted
+        candidate kills its rollout; a deleted incumbent hands the
+        candidate the traffic (nothing else can serve the name)."""
+        for name, st in list(self._rollouts.items()):
+            cand = ModelId(name, st.candidate_version)
+            if cand not in self._meta or not any(
+                m.name == name and m.version != st.candidate_version
+                for m in self._meta
+            ):
+                del self._rollouts[name]
+
 
     def _reindex_locked(self) -> None:
         by: Dict[str, List[int]] = {}
@@ -179,20 +310,34 @@ class ModelRegistry:
     def resolve(
         self, name: str, version: Optional[int] = None
     ) -> Optional[ModelId]:
-        """Served id for (name, version); version None → newest served."""
+        """Served id for (name, version); version None → newest served,
+        EXCLUDING the candidate of an active rollout (the incumbent —
+        canary/shadow traffic to the candidate is the scorer's explicit
+        decision, never latest-wins fallthrough). A pinned version still
+        resolves the candidate directly."""
         with self._lock:
             if version is not None:
                 mid = ModelId(name, version)
                 return mid if mid in self._meta else None
-            best = max(self._by_name.get(name, ()), default=None)
+            ro = self._rollouts.get(name)
+            cand = ro.candidate_version if ro is not None else None
+            best = max(
+                (v for v in self._by_name.get(name, ()) if v != cand),
+                default=None,
+            )
             return ModelId(name, best) if best is not None else None
 
     def resolve_warm(self, name: str) -> Optional[ModelId]:
         """Newest *compiled-and-ready* version of ``name`` (the
-        double-buffer fallback target), or None."""
+        double-buffer fallback target), or None. An active rollout's
+        candidate is never a fallback target — a cold incumbent must not
+        silently hand the candidate 100% of the traffic."""
         with self._lock:
+            ro = self._rollouts.get(name)
+            cand = ro.candidate_version if ro is not None else None
             versions = [
-                mid.version for mid in self._compiled if mid.name == name
+                mid.version for mid in self._compiled
+                if mid.name == name and mid.version != cand
             ]
         if versions:
             if self._c_warm_hit is not None:
@@ -202,9 +347,16 @@ class ModelRegistry:
             self._c_warm_miss.inc()
         return None
 
-    def rollouts(self) -> dict:
-        """Active staged rollouts: none (not ported)."""
-        return {}
+    # -- rollout views -----------------------------------------------------
+
+    def rollout(self, name: str) -> Optional[RolloutState]:
+        """The active rollout for ``name`` (immutable), or None."""
+        with self._lock:
+            return self._rollouts.get(name)
+
+    def rollouts(self) -> Dict[str, RolloutState]:
+        with self._lock:
+            return dict(self._rollouts)
 
     def model_if_warm(self, mid: ModelId) -> Optional[CompiledModel]:
         """The compiled model iff it is ready *now* — never compiles, never
@@ -372,15 +524,22 @@ class ModelRegistry:
 
     def state(self) -> dict:
         with self._lock:
-            return {
+            out = {
                 "served": {
                     mid.key(): info.path for mid, info in self._meta.items()
                 }
             }
+            if self._rollouts:
+                # staged rollouts are checkpointed state (C7): a restore
+                # mid-canary resumes the same stage / fraction / dwell
+                # clock instead of re-flipping the candidate to full
+                out["rollouts"] = {
+                    name: st.as_dict()
+                    for name, st in self._rollouts.items()
+                }
+            return out
 
     def restore(self, state: dict) -> None:
-        if state.get("rollouts"):
-            raise NotPortedError("restoring staged rollouts is not ported")
         meta: managers.Metadata = {}
         for key, path in state.get("served", {}).items():
             try:
@@ -388,6 +547,14 @@ class ModelRegistry:
             except (ValueError, TypeError) as e:
                 raise ModelLoadingException(
                     f"corrupt registry checkpoint entry {key!r}: {e}"
+                ) from e
+        rollouts: Dict[str, RolloutState] = {}
+        for name, rs in (state.get("rollouts") or {}).items():
+            try:
+                rollouts[name] = RolloutState.from_dict(rs)
+            except (KeyError, TypeError, ValueError) as e:
+                raise ModelLoadingException(
+                    f"corrupt rollout checkpoint entry {name!r}: {e}"
                 ) from e
         with self._lock:
             # re-attribute what survives the restore instead of starting
@@ -411,6 +578,12 @@ class ModelRegistry:
             self._reindex_locked()
             self._compiled = preserved
             self._warm_failed.clear()
+            # a rollout whose candidate vanished from the served map is
+            # checkpoint skew, not a reason to fail the restore
+            self._rollouts = {
+                name: st for name, st in rollouts.items()
+                if ModelId(name, st.candidate_version) in meta
+            }
         if self._async:
             # recovered worker: warm everything served so the first event
             # after resume pays a dispatch, not a compile

@@ -71,17 +71,51 @@ Sampled launches: every group's launch, solo or packed, carries
 the sweep's region (the kernel and its epilogue on codes on the card), as
 the block pipelines' launches do.
 
-Not ported (each raises :class:`NotPortedError` and names itself):
-staged rollouts (``RolloutMessage``, ``guardrails=``, ``key_fn=``,
-``auto_rollout=False``, another ``rollout_interval_s``) wait for the
-observability and control slice, as does the drift plane. ``mesh=``
-serves every model (the default included) mesh-sharded, on the f32 path
-(``ModelRegistry``); a group pads up to the mesh's data axis
+Staged rollouts are the JAX scorer's (``rollout/``): while a name has an
+active rollout, unpinned events split per record key (``key_fn``,
+default ``rollout/split.record_key``: a dict's ``"_key"``, else the
+record's content) — the incumbent serves everything at the shadow stage
+and ``1 − p`` at the canary stage; the candidate serves its slice only
+once warm (a cold candidate's slice stays on the incumbent). Incumbent
+events are also mirrored (sampled per the rollout's guardrail spec) to
+the candidate: one more group, so on the card one more launch of
+``qtrees_leaf_rows`` on the scorer's stream, whose outputs are diffed
+against the incumbent's at ``finish`` (``rollout_shadow_compared`` /
+``_disagree`` / ``_drift``) and never emitted. Rollout groups launch
+solo, never in a zoo pack: their per-role records, latency and errors
+are what the guardrail controller reads. Both roles' latency
+(``rollout_{candidate,incumbent}_latency_s``) is taken over one bracket,
+the group's ``runtime/pipeline.LaunchSpan``: on the card, timing events on
+the scorer's stream at the group's H2D copy and behind its D2H copy, read
+after the wait the window makes anyway, so no role is timed with a
+synchronize the other lacks, and neither is charged the host's featurize
+or another group's wait and decode; on the CPU, the host time of the
+synchronous launch. The JAX scorer takes host time from the launch to
+the decode for both roles instead: on the card that charged whichever
+group the host finished last (a mirror after the incumbent's decode)
+with host work, and a host pause of tens of milliseconds in front of one
+dispatch read as a slow candidate. A candidate whose dispatch
+fails empties its lanes and counts ``rollout_candidate_errors`` instead
+of killing the stream. The attached :class:`RolloutController` ticks from
+``submit`` (every ``rollout_interval_s``) unless ``auto_rollout=False``;
+``guardrails`` is stamped onto a ``RolloutMessage`` that carries none.
+Per-role score sketches (``rollout_score_dist{model,role}``) feed its
+prediction-PSI guardrail.
+
+The data-drift plane (``obs/drift.py``, armed by ``FJT_DRIFT_SAMPLE`` or
+``drift.install`` on the scorer's registry) profiles each rank-wire
+group's raw batch in ``dispatch_quantized`` and sketches each delivered
+group's predictions at ``finish`` under its served document's
+``model_hash`` (zoo members included).
+
+``mesh=`` serves every model (the default included) mesh-sharded, on the
+f32 path (``ModelRegistry``); a group pads up to the mesh's data axis
 (``runtime/pipeline.dispatch_f32``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -90,14 +124,23 @@ import torch
 
 from flink_jpmml_tpu_torch.api.reader import ModelReader
 from flink_jpmml_tpu_torch.compile import prepare
-from flink_jpmml_tpu_torch.models.control import from_wire
+from flink_jpmml_tpu_torch.models.control import RolloutMessage, from_wire
+from flink_jpmml_tpu_torch.models.core import ModelId
 from flink_jpmml_tpu_torch.models.prediction import Prediction
 from flink_jpmml_tpu_torch.obs import attr as attr_mod
+from flink_jpmml_tpu_torch.obs import drift as drift_mod
 from flink_jpmml_tpu_torch.obs import freshness as fresh_mod
 from flink_jpmml_tpu_torch.obs import pressure as pressure_mod
 from flink_jpmml_tpu_torch.obs import recorder as flight
 from flink_jpmml_tpu_torch.obs import spans
 from flink_jpmml_tpu_torch.obs.slo import SLOTracker
+from flink_jpmml_tpu_torch.rollout import split as rsplit
+from flink_jpmml_tpu_torch.rollout.controller import RolloutController
+from flink_jpmml_tpu_torch.rollout.state import (
+    ACTIVE_STAGES,
+    STAGE_CANARY,
+    GuardrailSpec,
+)
 from flink_jpmml_tpu_torch.runtime import devfault
 from flink_jpmml_tpu_torch.runtime.engine import (
     Scorer,
@@ -106,6 +149,7 @@ from flink_jpmml_tpu_torch.runtime.engine import (
 )
 from flink_jpmml_tpu_torch.runtime.pipeline import (
     DeviceOutput,
+    LaunchSpan,
     OverlappedDispatcher,
     device_output,
     dispatch_f32,
@@ -114,11 +158,7 @@ from flink_jpmml_tpu_torch.runtime.pipeline import (
 from flink_jpmml_tpu_torch.runtime.sources import ControlSource, batch_event_range
 from flink_jpmml_tpu_torch.serving.registry import ModelRegistry
 from flink_jpmml_tpu_torch.utils.config import CompileConfig
-from flink_jpmml_tpu_torch.utils.exceptions import (
-    FlinkJpmmlTpuError,
-    NotPortedError,
-    refuse,
-)
+from flink_jpmml_tpu_torch.utils.exceptions import FlinkJpmmlTpuError
 from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry
 
 # route(event) -> (name, version|None, record)
@@ -162,7 +202,7 @@ class DynamicScorer(Scorer):
         metrics: Optional[MetricsRegistry] = None,
         in_flight: Optional[int] = None,
         key_fn: Optional[Callable[[Any], Any]] = None,
-        guardrails=None,
+        guardrails: Optional[GuardrailSpec] = None,
         auto_rollout: bool = True,
         rollout_interval_s: float = 0.5,
         event_time_fn: Optional[Callable[[Any], Optional[float]]] = None,
@@ -195,11 +235,17 @@ class DynamicScorer(Scorer):
 
         ``zoo=True`` (or a ``ZooManager``) turns on cross-model packed
         dispatch (module docstring). ``mesh`` serves every model (default
-        included) mesh-aware — see :class:`ModelRegistry`."""
-        refuse(key_fn=key_fn, guardrails=guardrails)
-        if auto_rollout is not True or rollout_interval_s != 0.5:
-            raise NotPortedError("auto_rollout= / rollout_interval_s= "
-                                 "(staged rollouts) are not ported")
+        included) mesh-aware — see :class:`ModelRegistry`.
+
+        Rollout knobs: ``key_fn`` derives the canary-split routing key
+        from an event payload (default: ``"_key"`` on dict records, else
+        content addressing — ``rollout/split.record_key``);
+        ``guardrails`` is the default spec stamped onto
+        ``RolloutMessage``s that carry none; ``auto_rollout=False``
+        disables the attached controller's batch-loop ticks (manual
+        promote / rollback / ``tick`` through
+        ``scorer.rollout_controller`` only); ``rollout_interval_s`` is
+        the least time between two of its ticks."""
         self.metrics = metrics or MetricsRegistry()
         self.registry = ModelRegistry(
             batch_size=batch_size,
@@ -264,6 +310,18 @@ class DynamicScorer(Scorer):
         self.admission = admission
         self.batcher = batcher
         self._lane_fn = lane_fn or default_lane
+        self._key_fn = key_fn or rsplit.record_key
+        self._default_guardrails = guardrails
+        self._auto_rollout = auto_rollout
+        # the guardrail loop, ticked from the batch loop (between
+        # micro-batches, on the serving thread): promote/rollback
+        # decisions actuate on this registry with no extra thread
+        self.rollout_controller = RolloutController(
+            book=self.registry,
+            struct_fn=self.metrics.struct_snapshot,
+            metrics=self.metrics,
+            interval_s=rollout_interval_s,
+        )
 
     def _drain_control(self) -> None:
         while True:
@@ -281,6 +339,14 @@ class DynamicScorer(Scorer):
                             "control_frame_rejected", error=str(e)
                         )
                         continue
+                if (
+                    isinstance(msg, RolloutMessage)
+                    and msg.guardrails is None
+                    and self._default_guardrails is not None
+                ):
+                    msg = dataclasses.replace(
+                        msg, guardrails=self._default_guardrails
+                    )
                 if self.registry.apply(msg):
                     self._failed.clear()
                     served = {m.key() for m in self.registry.served}
@@ -343,13 +409,22 @@ class DynamicScorer(Scorer):
 
     def submit(self, records: Sequence[Any]):
         self._drain_control()
+        if self._auto_rollout:
+            self.rollout_controller.maybe_tick()
         if self.admission is not None:
             self.admission.maybe_tick()
+        active = self.registry.rollouts()  # name -> RolloutState
         n = len(records)
-        # model key -> [model, [indices], [payloads]]
+        # model key -> [model, [indices], [payloads], rollinfo], where
+        # rollinfo is (rollout name, "candidate"|"incumbent") for groups of
+        # a name with an active rollout, else None
         groups: dict = {}
-        # per-batch (name, version) -> (model, key) memo: the answer cannot
-        # change within one batch
+        # rollout name -> [candidate model, [indices], [payloads], its key]:
+        # mirrored copies of incumbent-served events for shadow diffing
+        mirrors: dict = {}
+        # per-batch memos: the answers cannot change within one batch
+        # (model_if_warm and resolve take the registry lock)
+        cand_models: dict = {}
         resolved: dict = {}
         unserved: List[int] = []
         shed: List[int] = []
@@ -359,12 +434,37 @@ class DynamicScorer(Scorer):
                 self._lane_fn(payload)
             ):
                 # shed BEFORE any model work: the event is never
-                # resolved or dispatched — it leaves finish() as an
-                # explicit empty prediction
+                # resolved, dispatched, mirrored or diffed — it leaves
+                # finish() as an explicit empty prediction
                 shed.append(i)
                 continue
+            ro = active.get(name) if name is not None else None
+            cand_model = rkey = None
+            if ro is not None:
+                # the candidate participates only once warm: its canary
+                # slice keeps scoring on the incumbent (and mirroring
+                # skips) until the background warm lands
+                if name in cand_models:
+                    cand_model = cand_models[name]
+                else:
+                    cand_model = cand_models[name] = (
+                        self.registry.model_if_warm(
+                            ModelId(name, ro.candidate_version)))
+                # one canonicalization per event, shared by the canary
+                # assignment and the shadow sampling below
+                rkey = self._key_fn(payload)
             if name is None:
                 model, key = self._default_model, _DEFAULT_KEY
+            elif (
+                cand_model is not None
+                and version is None
+                and ro.stage == STAGE_CANARY
+                and rsplit.assign_candidate(
+                    name, ro.candidate_version, ro.fraction, rkey)
+            ):
+                # deterministic per-key canary slice → the candidate
+                model = cand_model
+                key = ModelId(name, ro.candidate_version).key()
             else:
                 hit = resolved.get((name, version))
                 if hit is None:
@@ -374,26 +474,57 @@ class DynamicScorer(Scorer):
             if model is None:
                 unserved.append(i)
                 continue
+            rollinfo = None
+            if ro is not None:
+                role = "candidate" if model is cand_model else "incumbent"
+                rollinfo = (name, role)
+                if (
+                    role == "incumbent"
+                    and cand_model is not None
+                    and ro.stage in ACTIVE_STAGES
+                    and rsplit.sample_shadow(
+                        name, ro.candidate_version,
+                        ro.spec.shadow_sample, rkey)
+                ):
+                    # mirror a copy to the candidate, off the emitting
+                    # path: its output is diffed in finish(), never sunk
+                    m = mirrors.get(name)
+                    if m is None:
+                        mirrors[name] = [
+                            cand_model, [i], [payload],
+                            ModelId(name, ro.candidate_version).key()]
+                    else:
+                        m[1].append(i)
+                        m[2].append(payload)
             g = groups.get(key)
             if g is None:
-                groups[key] = [model, [i], [payload]]
+                groups[key] = [model, [i], [payload], rollinfo]
             else:
                 g[1].append(i)
                 g[2].append(payload)
         tickets = []
+        shadows = []
         with self._stream.context():
             if self._zoo is not None:
                 self._submit_packed(groups, tickets, shed)
-            for key, (model, idxs, payloads) in groups.items():
-                tickets.append(self._launch_group(key, model, idxs, payloads))
-        return n, records, tickets, unserved, shed, time.monotonic()
+            for key, (model, idxs, payloads, rollinfo) in groups.items():
+                tickets.append(
+                    self._launch_group(key, model, idxs, payloads,
+                                       timed=rollinfo is not None)
+                    + (rollinfo,))
+            for name, (model, idxs, payloads, key) in mirrors.items():
+                shadows.append((self._launch_group(
+                    key, model, idxs, payloads, timed=True), name))
+        return n, records, tickets, shadows, unserved, shed, time.monotonic()
 
     def _submit_packed(self, groups, tickets, shed) -> None:
         """Zoo fast path for one micro-batch (the JAX scorer's): quota-shed
         oversize tenants, then collapse pack-eligible per-model groups into
         one dispatch per planned pack (serving/zoo.py decides which models
         share a buffer). Packed groups are POPPED from ``groups``; the rest
-        launch solo."""
+        launch solo. Rollout-role groups always stay solo: their per-role
+        latency and error accounting is the guardrail controller's signal
+        and must not blend into a shared launch."""
         from flink_jpmml_tpu_torch.compile import packs
 
         zoo = self._zoo
@@ -415,8 +546,8 @@ class DynamicScorer(Scorer):
                         f'tenant_shed_records{{model="{key}"}}'
                     ).inc(len(excess))
         eligible = {}
-        for key, (model, _idxs, payloads) in groups.items():
-            if key == _DEFAULT_KEY:
+        for key, (model, _idxs, payloads, rollinfo) in groups.items():
+            if key == _DEFAULT_KEY or rollinfo is not None:
                 continue
             q = model.quantized_scorer()
             if (
@@ -432,7 +563,7 @@ class DynamicScorer(Scorer):
             live = [0] * unit.pack.n_members
             t0 = time.monotonic()
             for slot, key in unit.slots:
-                model, _idxs, payloads = groups[key]
+                model, _idxs, payloads, _ = groups[key]
                 X, M = self._featurize(model, payloads)
                 # the pack stages host-encoded rank codes — the byte-parity
                 # oracle every other encode path is held to — so a member's
@@ -461,10 +592,10 @@ class DynamicScorer(Scorer):
             zoo.book_dispatch(unit, total)
             t_launch = time.monotonic()
             for slot, key in unit.slots:
-                model, idxs, payloads = groups.pop(key)
+                model, idxs, payloads, _ = groups.pop(key)
                 tickets.append((
                     eligible[key], idxs, _PackSlice(shared, slot), model,
-                    staging, key, payloads, key, t_launch,
+                    staging, key, payloads, key, t_launch, None, None,
                 ))
 
     def _featurize(self, model, payloads):
@@ -477,43 +608,49 @@ class DynamicScorer(Scorer):
             self._replace_nan,
         )
 
-    def _launch_group(self, key: str, model, idxs, payloads):
+    def _launch_group(self, key: str, model, idxs, payloads,
+                      timed: bool = False):
         """Featurize + dispatch one per-model group through the shared
         window → its ticket entry: (the object whose ``decode`` matches the
         dispatch, indices, handle, model, staging, key, payloads — the
         two last let a device-faulted group re-dispatch —, the tenant label
-        (the served key in zoo mode, else None) and the launch time).
-        With the profiler on, the launch carries its dispatch profile and
-        the scorer marks the sampled region, as the block pipelines'
-        launches do."""
+        (the served key in zoo mode, else None), the launch time and, with
+        ``timed``, the group's :class:`LaunchSpan`, else None). With the profiler on, the launch
+        carries its dispatch profile and the scorer marks the sampled
+        region, as the block pipelines' launches do."""
         X, M = self._featurize(model, payloads)
         n = len(payloads)
         tenant = key if self._zoo is not None else None
         q = model.quantized_scorer()
+        span = LaunchSpan(self.device) if timed else None
         if q is None:
             handle = self._dispatcher.launch(
-                lambda: dispatch_f32(model, X, M),
+                lambda: dispatch_f32(model, X, M, span=span),
                 profile=(
                     attr_mod.dispatch_profile(model, n)
                     if self._dispatcher.profiling else None
                 ),
             )
+            if span is not None:
+                span.close()
             return (model, idxs, handle, model, None, key, payloads, tenant,
-                    time.monotonic())
+                    time.monotonic(), span)
         staging = self._staging.get(key)
         if staging is None and self.device.type == "cuda":
             staging = self._staging[key] = new_staging(self.device)
         handle = self._dispatcher.launch(
             lambda: dispatch_quantized(
-                q, X, M, metrics=self.metrics, staging=staging
+                q, X, M, metrics=self.metrics, staging=staging, span=span
             ),
             profile=(
                 attr_mod.dispatch_profile(q, n)
                 if self._dispatcher.profiling else None
             ),
         )
+        if span is not None:
+            span.close()
         return (q, idxs, handle, model, staging, key, payloads, tenant,
-                time.monotonic())
+                time.monotonic(), span)
 
     def _wait_handle(self, handle):
         """The host output of one ticket's dispatch: the FIFO wait for a
@@ -523,10 +660,16 @@ class DynamicScorer(Scorer):
         return self._dispatcher.wait(handle).result()
 
     def finish(self, ticket) -> List[Any]:
-        n, records, tickets, unserved, shed, t_submit = ticket
+        n, records, tickets, shadows, unserved, shed, t_submit = ticket
         preds: List[Optional[Prediction]] = [None] * n
+        # the data-drift plane: None unless FJT_DRIFT_SAMPLE armed it or a
+        # caller installed one — the record path's sink is this loop, so
+        # score sketches book here, per served document
+        dplane = drift_mod.plane_for(self.metrics)
         for (scorer, idxs, handle, model, _staging, key, payloads, tenant,
-             t_launch) in tickets:
+             t_launch, span, rollinfo) in tickets:
+            role = rollinfo[1] if rollinfo is not None else None
+            failed = False
             try:
                 decoded = scorer.decode(self._wait_handle(handle), len(idxs))
             except Exception as e:
@@ -543,9 +686,27 @@ class DynamicScorer(Scorer):
                     decoded, e = self._redispatch_group(
                         key, model, idxs, payloads, e
                     )
-                if decoded is None:
+                if decoded is None and role != "candidate":
                     raise e
-            if tenant is not None:
+                if decoded is None:
+                    # a poisoned candidate must not kill the stream: its
+                    # lanes go empty and the failure lands where the
+                    # guardrail controller reads it — the rollback signal
+                    failed = True
+                    self.metrics.counter(
+                        f'rollout_candidate_errors{{model="{rollinfo[0]}"}}'
+                    ).inc(len(idxs))
+                    flight.record("rollout_candidate_error",
+                                  model=rollinfo[0], error=repr(e))
+                    decoded = [Prediction.empty()] * len(idxs)
+            if rollinfo is not None and not failed:
+                # failed groups count ONLY as errors: as served records
+                # they would halve the controller's error rate, and their
+                # fail-fast timings would skew the latency histogram
+                self._observe_rollout_group(rollinfo[0], role, len(idxs),
+                                            span.seconds())
+                self._record_score_dist(rollinfo[0], role, decoded)
+            if tenant is not None and not failed:
                 # per-tenant telemetry (zoo mode), labelled by served key
                 self.metrics.counter(
                     f'tenant_records{{model="{tenant}"}}'
@@ -553,8 +714,11 @@ class DynamicScorer(Scorer):
                 self.metrics.histogram(
                     f'tenant_latency_s{{model="{tenant}"}}'
                 ).observe(time.monotonic() - t_launch)
+            if dplane is not None and not failed:
+                dplane.record_predictions(scorer, decoded)
             for i, p in zip(idxs, decoded):
                 preds[i] = p
+        self._diff_shadows(shadows, preds)
         for i in unserved:
             preds[i] = Prediction.empty()
         for i in shed:
@@ -630,6 +794,111 @@ class DynamicScorer(Scorer):
             self.metrics.counter("redispatch_records").inc(n_idxs)
             return decoded, error
         return None, error
+
+    # -- rollout accounting / shadow diffing -------------------------------
+
+    def _observe_rollout_group(
+        self, name: str, role: str, n_records: int, latency: float
+    ) -> None:
+        """Per-role traffic + latency accounting for a rolled-out name:
+        the signals the guardrail controller windows over. Both roles'
+        latency is one bracket, a group's :class:`LaunchSpan`, so the
+        comparison is like-for-like."""
+        if role == "candidate":
+            self.metrics.counter(
+                f'rollout_candidate_records{{model="{name}"}}'
+            ).inc(n_records)
+            self.metrics.histogram(
+                f'rollout_candidate_latency_s{{model="{name}"}}'
+            ).observe(latency)
+        else:
+            self.metrics.counter(
+                f'rollout_incumbent_records{{model="{name}"}}'
+            ).inc(n_records)
+            self.metrics.histogram(
+                f'rollout_incumbent_latency_s{{model="{name}"}}'
+            ).observe(latency)
+
+    def _record_score_dist(self, name: str, role: str, decoded) -> None:
+        """Sketch one rolled-out group's score values per role
+        (``rollout_score_dist{model,role}``): the guardrail controller's
+        prediction-PSI signal reads their windowed divergence."""
+        vals = [
+            float(p.score.value)
+            for p in decoded
+            if p is not None and not p.is_empty and p.score is not None
+        ]
+        if vals:
+            self.metrics.sketch(
+                f'rollout_score_dist{{model="{name}",role="{role}"}}'
+            ).observe_many(np.asarray(vals, np.float64))
+
+    def _diff_shadows(self, shadows, preds) -> None:
+        """Fetch + decode the mirrored candidate dispatches and diff them
+        against the incumbent's emitted predictions: disagreement rate and
+        numeric drift are the shadow stage's health signals. Shadow
+        outputs never reach ``preds`` — zero sink leakage."""
+        for entry, name in shadows:
+            scorer, idxs, handle, span = (
+                entry[0], entry[1], entry[2], entry[9])
+            try:
+                decoded = scorer.decode(self._wait_handle(handle), len(idxs))
+            except Exception as e:
+                self.metrics.counter(
+                    f'rollout_candidate_errors{{model="{name}"}}'
+                ).inc(len(idxs))
+                flight.record(
+                    "rollout_candidate_error", model=name, error=repr(e),
+                    shadow=True,
+                )
+                continue
+            # mirrored dispatches are real candidate work: they feed the
+            # candidate latency histogram (the shadow stage's only latency
+            # signal) and the candidate score sketch, so the prediction-PSI
+            # guardrails evaluate at the shadow stage too
+            self.metrics.histogram(
+                f'rollout_candidate_latency_s{{model="{name}"}}'
+            ).observe(span.seconds())
+            self._record_score_dist(name, "candidate", decoded)
+            disagreements = 0
+            drift = self.metrics.histogram(
+                f'rollout_shadow_drift{{model="{name}"}}'
+            )
+            for i, cp in zip(idxs, decoded):
+                ip = preds[i]
+                if ip is None:
+                    continue
+                if self._disagrees(ip, cp, drift):
+                    disagreements += 1
+            self.metrics.counter(
+                f'rollout_shadow_compared{{model="{name}"}}'
+            ).inc(len(idxs))
+            if disagreements:
+                self.metrics.counter(
+                    f'rollout_shadow_disagree{{model="{name}"}}'
+                ).inc(disagreements)
+
+    @staticmethod
+    def _disagrees(ip: Prediction, cp: Prediction, drift) -> bool:
+        """One mirrored pair's verdict: emptiness or label mismatch is a
+        disagreement outright; numeric values disagree past f32 noise.
+        Every numeric diff (target value + shared numeric output fields)
+        lands in the drift histogram either way."""
+        if ip.is_empty or cp.is_empty:
+            return ip.is_empty != cp.is_empty
+        il = ip.target.label if ip.target is not None else None
+        cl = cp.target.label if cp.target is not None else None
+        iv, cv = ip.score.value, cp.score.value
+        d = abs(cv - iv)
+        drift.observe(d)
+        if ip.outputs and cp.outputs:
+            for k, v in ip.outputs.items():
+                w = cp.outputs.get(k)
+                if isinstance(v, (int, float)) and isinstance(w, (int, float)):
+                    drift.observe(abs(float(w) - float(v)))
+        if il != cl:
+            return True
+        return d > 1e-6 * max(1.0, abs(iv))
 
     # -- checkpointed operator state (C6/C7) ------------------------------
 

@@ -1,19 +1,22 @@
-"""Metrics registry of the port: counters, gauges and latency histograms.
+"""Metrics registry of the port: counters, gauges, latency histograms,
+the drift plane's quantile sketches and reservoirs.
 
-A partial copy of ``flink_jpmml_tpu/utils/metrics.py``: what the block
-pipeline, the Kafka source, the prefetch sidecar and the obs planes
-(``obs/attr``, ``obs/freshness``, ``obs/pressure``, ``obs/slo``) book.
-The histogram is the JAX package's, with its fixed log-spaced buckets
-(so p50/p99 read the same estimator in both packages), its exemplars
-and its ``state`` form; the registry keeps its scrape hooks and its
-structured snapshot (``struct_snapshot``: counters, gauges with their
-high-water ``max``, histogram states), the fleet merge
-(``Histogram.merge``, ``merge_structs``) and the series governor
+A copy of ``flink_jpmml_tpu/utils/metrics.py`` (numpy only): what the
+block pipeline, the Kafka source, the prefetch sidecar and the obs planes
+book. The histogram is the JAX package's, with its fixed log-spaced
+buckets (so p50/p99 read the same estimator in both packages), its
+exemplars and its ``state`` form. :class:`QuantileSketch` is the drift
+plane's value sketch (``obs/drift.py``), copied whole and kept on the
+host in float64: its bucket index ``ceil(log10(|v|)·bpd)`` must be the
+same function of the value in every worker, or the fleet merge of two
+workers' states is no longer exact. :class:`Reservoir` is the
+single-process sample ring (never merged). The registry keeps its scrape
+hooks and its structured snapshot (``struct_snapshot``: counters, gauges
+with their high-water ``max``, histogram states, and a ``sketches``
+section once a sketch exists), the fleet merge (``Histogram.merge``,
+``QuantileSketch.merge``, ``merge_structs``) and the series governor
 (``govern_struct`` / ``govern_limit``), which ``parallel/health.py``
-applies to the heartbeat's piggybacked snapshots. Not ported: the drift
-plane's sketches (``QuantileSketch``) and the reservoirs, so
-``merge_structs`` and ``govern_struct`` carry no ``sketches`` section;
-no port struct has one.
+applies to the heartbeat's piggybacked snapshots.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ import time
 import weakref
 from dataclasses import dataclass, field as dc_field
 from typing import Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
 
 
 @dataclass
@@ -249,15 +254,359 @@ class Histogram:
         return h
 
 
+class QuantileSketch:
+    """Mergeable streaming quantile sketch over ARBITRARY f32 values.
+
+    The data plane's sketch (obs/drift.py): feature columns and model
+    scores have no a-priori range, can be negative, and must merge
+    across workers with the same exactness discipline as
+    :class:`Histogram` — so the state is sign-split sparse log buckets:
+
+    - positive ``v`` lands in bucket ``i = ceil(log10(v) · bpd)``, i.e.
+      ``v ∈ (10^((i-1)/bpd), 10^(i/bpd)]`` — relative-error-bounded
+      like the Histogram's log-spaced edges, but two-sided and
+      unbounded (sparse dict, not a dense table);
+    - negative values mirror into a negative-side dict; ``|v| <= tiny``
+      collapses into one zero bucket.
+
+    Because bucket membership is a pure function of the VALUE, ``merge``
+    is plain count addition — associative and order-independent (the
+    property the fleet view pins), unlike a compaction-scheduled KLL
+    whose merged state depends on merge order. The fixed ``budget``
+    bounds the state: past it, the smallest-magnitude buckets compact
+    deterministically into their nearest larger-magnitude neighbour
+    (resolution degrades near zero; counts are never lost). Welford
+    moments (mean/variance) ride along, merged via Chan's parallel
+    formula. ``state()``/``from_state`` are the heartbeat/varz wire
+    form, sparse like the Histogram's.
+    """
+
+    DEFAULT_BPD = 8      # buckets per decade of |v| (~33% bucket ratio)
+    DEFAULT_TINY = 1e-9  # |v| at/below this is "zero"
+    DEFAULT_BUDGET = 4096  # max non-zero buckets before compaction
+
+    def __init__(
+        self,
+        buckets_per_decade: int = DEFAULT_BPD,
+        tiny: float = DEFAULT_TINY,
+        budget: int = DEFAULT_BUDGET,
+    ):
+        if buckets_per_decade < 1 or tiny <= 0 or budget < 2:
+            raise ValueError(
+                f"bad sketch layout bpd={buckets_per_decade} tiny={tiny} "
+                f"budget={budget}"
+            )
+        self._layout = (int(buckets_per_decade), float(tiny), int(budget))
+        self._bpd = int(buckets_per_decade)
+        self._tiny = float(tiny)
+        self._budget = int(budget)
+        self._pos: Dict[int, int] = {}
+        self._neg: Dict[int, int] = {}
+        self._zero = 0
+        self._n = 0
+        self._sum = 0.0
+        self._mean = 0.0
+        self._m2 = 0.0
+        self._min = math.inf
+        self._max = -math.inf
+        self._lock = threading.Lock()
+
+    @property
+    def layout(self) -> Tuple[int, float, int]:
+        return self._layout
+
+    # -- observation -------------------------------------------------------
+
+    def observe(self, v: float) -> None:
+        self.observe_many(np.asarray([v], np.float64))
+
+    def observe_many(self, values) -> int:
+        """Record a batch of values (one vectorized pass — the sampled
+        drift profile records whole feature columns through this).
+        Non-finite entries are dropped (missing values are the caller's
+        accounting, not the sketch's); → how many were recorded."""
+        v = np.asarray(values, np.float64).ravel()
+        if v.size:
+            v = v[np.isfinite(v)]
+        if v.size == 0:
+            return 0
+        a = np.abs(v)
+        nz = a > self._tiny
+        n_zero = int(v.size - np.count_nonzero(nz))
+        az = a[nz]
+        if az.size:
+            idx = np.ceil(
+                np.round(np.log10(az) * self._bpd, 9)
+            ).astype(np.int64)
+            # one unique pass over (bucket, sign) pairs: sign rides the
+            # low bit so a single sort covers both sides
+            comb = idx * 2 + (v[nz] < 0)
+            uniq, counts = np.unique(comb, return_counts=True)
+            pairs = list(zip(uniq.tolist(), counts.tolist()))
+        else:
+            pairs = []
+        nb = int(v.size)
+        mb = float(v.mean())
+        m2b = float(((v - mb) ** 2).sum())
+        vmin, vmax, vsum = float(v.min()), float(v.max()), float(v.sum())
+        with self._lock:
+            self._zero += n_zero
+            for k, c in pairs:
+                side = self._neg if (k & 1) else self._pos
+                i = k >> 1  # floor shift: exact for negative indices too
+                side[i] = side.get(i, 0) + c
+            self._merge_moments(nb, mb, m2b, vsum, vmin, vmax)
+            self._compact()
+        return nb
+
+    def _merge_moments(self, nb, mb, m2b, vsum, vmin, vmax) -> None:
+        # Chan's parallel Welford merge (caller holds the lock)
+        if nb <= 0:
+            return
+        n = self._n + nb
+        if self._n == 0:
+            self._mean, self._m2 = mb, m2b
+        else:
+            delta = mb - self._mean
+            self._m2 += m2b + delta * delta * self._n * nb / n
+            self._mean += delta * nb / n
+        self._n = n
+        self._sum += vsum
+        if vmin < self._min:
+            self._min = vmin
+        if vmax > self._max:
+            self._max = vmax
+
+    def _compact(self) -> None:
+        # deterministic fixed-budget compaction: fold the
+        # smallest-magnitude bucket into its nearest larger-magnitude
+        # neighbour on the same side (into the zero bucket when the
+        # side empties) — counts are conserved, resolution near zero
+        # degrades first (caller holds the lock)
+        while len(self._pos) + len(self._neg) > self._budget:
+            cand = []
+            if self._pos:
+                cand.append((min(self._pos), self._pos))
+            if self._neg:
+                cand.append((min(self._neg), self._neg))
+            idx, side = min(cand, key=lambda t: t[0])
+            c = side.pop(idx)
+            if side:
+                side[min(side)] = side.get(min(side), 0) + c
+            else:
+                self._zero += c
+
+    # -- stats -------------------------------------------------------------
+
+    def count(self) -> int:
+        with self._lock:
+            return self._n
+
+    def sum(self) -> float:
+        with self._lock:
+            return self._sum
+
+    def mean(self) -> Optional[float]:
+        with self._lock:
+            return self._mean if self._n else None
+
+    def variance(self) -> Optional[float]:
+        with self._lock:
+            return (self._m2 / self._n) if self._n else None
+
+    def _ordered(self) -> List[Tuple[float, int]]:
+        """[(bucket upper edge, count)] in ascending value order
+        (caller holds the lock). Edges are pure functions of the bucket
+        index, so two same-layout sketches produce bitwise-identical
+        edges — the property bin alignment (psi) relies on."""
+        items: List[Tuple[float, int]] = []
+        for i in sorted(self._neg, reverse=True):
+            # neg bucket i holds v ∈ [-10^(i/bpd), -10^((i-1)/bpd)):
+            # the upper (closest-to-zero) edge bounds the bucket above
+            items.append((-(10.0 ** ((i - 1) / self._bpd)), self._neg[i]))
+        if self._zero:
+            items.append((0.0, self._zero))
+        for i in sorted(self._pos):
+            items.append((10.0 ** (i / self._bpd), self._pos[i]))
+        return items
+
+    def _edge_at_rank(self, rank: int) -> float:
+        acc = 0
+        items = self._ordered()
+        for edge, c in items:
+            acc += c
+            if acc > rank:
+                return edge
+        return items[-1][0] if items else 0.0
+
+    def quantile(self, q: float) -> Optional[float]:
+        """Nearest-rank bucket upper edge clamped to the observed
+        min/max — an upper bound with relative error set by the bucket
+        ratio, and (the fleet property) exactly the quantile of the
+        merged bucketing under any merge order."""
+        with self._lock:
+            if self._n == 0:
+                return None
+            edge = self._edge_at_rank(_nearest_rank(q, self._n))
+            return min(max(edge, self._min), self._max)
+
+    def quantile_edge(self, q: float) -> Optional[float]:
+        """The UNCLAMPED bucket edge at quantile ``q`` — the bin-edge
+        form psi/js binning uses, where edges must compare exactly
+        across two same-layout sketches (the observed min/max would
+        break that alignment)."""
+        with self._lock:
+            if self._n == 0:
+                return None
+            return self._edge_at_rank(_nearest_rank(q, self._n))
+
+    def bin_counts(self, edges: List[float]) -> List[int]:
+        """Counts per bin for ascending ``edges`` (length+1 bins:
+        (-inf, e0], (e0, e1], ..., (e_last, +inf)). Edges should be
+        bucket edges (``quantile_edge``) so membership is exact."""
+        with self._lock:
+            items = self._ordered()
+        out = [0] * (len(edges) + 1)
+        for edge, c in items:
+            k = bisect.bisect_left(edges, edge)
+            out[k] += c
+        return out
+
+    # -- merge / wire ------------------------------------------------------
+
+    def merge(self, other: "QuantileSketch") -> "QuantileSketch":
+        """Add ``other``'s buckets + moments into self (in place; →
+        self). Bucket addition is associative/commutative; moments use
+        Chan's merge (associative up to float rounding)."""
+        if other._layout != self._layout:
+            raise ValueError(
+                f"sketch layouts differ: {self._layout} vs {other._layout}"
+            )
+        with other._lock:
+            pos = dict(other._pos)
+            neg = dict(other._neg)
+            zero = other._zero
+            nb, mb, m2b = other._n, other._mean, other._m2
+            vsum = other._sum
+            vmin, vmax = other._min, other._max
+        with self._lock:
+            for i, c in pos.items():
+                self._pos[i] = self._pos.get(i, 0) + c
+            for i, c in neg.items():
+                self._neg[i] = self._neg.get(i, 0) + c
+            self._zero += zero
+            self._merge_moments(nb, mb, m2b, vsum, vmin, vmax)
+            self._compact()
+        return self
+
+    def state(self) -> dict:
+        """Compact JSON-shaped state (sparse non-zero buckets only) —
+        the heartbeat/varz wire form, like :meth:`Histogram.state`."""
+        with self._lock:
+            out = {
+                "layout": list(self._layout),
+                "pos": {str(i): c for i, c in self._pos.items()},
+                "neg": {str(i): c for i, c in self._neg.items()},
+                "zero": self._zero,
+                "n": self._n,
+                "sum": self._sum,
+                "mean": self._mean,
+                "m2": self._m2,
+            }
+            if self._n:
+                out["min"] = self._min
+                out["max"] = self._max
+            return out
+
+    @classmethod
+    def from_state(cls, state: dict) -> "QuantileSketch":
+        bpd, tiny, budget = state["layout"]
+        s = cls(int(bpd), float(tiny), int(budget))
+        for i, c in (state.get("pos") or {}).items():
+            s._pos[int(i)] = int(c)
+        for i, c in (state.get("neg") or {}).items():
+            s._neg[int(i)] = int(c)
+        s._zero = int(state.get("zero", 0))
+        s._n = int(state.get("n", 0))
+        s._sum = float(state.get("sum", 0.0))
+        s._mean = float(state.get("mean", 0.0))
+        s._m2 = float(state.get("m2", 0.0))
+        if s._n:
+            s._min = float(state.get("min", -math.inf))
+            s._max = float(state.get("max", math.inf))
+        return s
+
+
+class Reservoir:
+    """Fixed-size sampling reservoir for latency quantiles.
+
+    Keeps the most recent ``capacity`` observations (ring buffer — streaming
+    latencies are non-stationary, recent beats uniform).
+    """
+
+    def __init__(self, capacity: int = 8192):
+        self._buf: List[float] = []
+        self._capacity = capacity
+        self._idx = 0
+        self._lock = threading.Lock()
+
+    def observe(self, v: float) -> None:
+        with self._lock:
+            if len(self._buf) < self._capacity:
+                self._buf.append(v)
+            else:
+                self._buf[self._idx] = v
+                self._idx = (self._idx + 1) % self._capacity
+
+    def quantile(self, q: float) -> Optional[float]:
+        with self._lock:
+            if not self._buf:
+                return None
+            s = sorted(self._buf)
+        return s[_nearest_rank(q, len(s))]
+
+    def count(self) -> int:
+        with self._lock:
+            return len(self._buf)
+
+    # -- wire format (snapshot parity ONLY — deliberately non-mergeable) ---
+
+    def state(self) -> dict:
+        """Round-trippable snapshot, for parity with
+        :meth:`Histogram.state` (checkpoint/artifact round-trips of a
+        single process's reservoir). There is intentionally NO
+        ``merge``: two ring samples drawn from unequal populations have
+        no correct union, which is exactly why ``struct_snapshot`` /
+        ``merge_structs`` exclude reservoirs from the fleet wire."""
+        with self._lock:
+            return {
+                "capacity": self._capacity,
+                "buf": list(self._buf),
+                "idx": self._idx,
+            }
+
+    @classmethod
+    def from_state(cls, state: dict) -> "Reservoir":
+        r = cls(capacity=int(state.get("capacity", 8192)))
+        buf = [float(v) for v in (state.get("buf") or [])]
+        r._buf = buf[: r._capacity]
+        idx = int(state.get("idx", 0))
+        r._idx = idx % r._capacity if r._buf else 0
+        return r
+
+
 class MetricsRegistry:
-    """Named counters, gauges and histograms with one-call snapshots —
-    flat (``snapshot``) for humans and the chip smoke lines, structured
-    (``struct_snapshot``) for the obs planes' readers."""
+    """Named counters, gauges, histograms, reservoirs and sketches with
+    one-call snapshots — flat (``snapshot``) for humans and the chip smoke
+    lines, structured (``struct_snapshot``) for the obs planes' readers
+    and the fleet merge."""
 
     def __init__(self) -> None:
         self._counters: Dict[str, Counter] = {}
+        self._reservoirs: Dict[str, Reservoir] = {}
         self._gauges: Dict[str, Gauge] = {}
         self._histograms: Dict[str, Histogram] = {}
+        self._sketches: Dict[str, QuantileSketch] = {}
         self._lock = threading.Lock()
         self._t0 = time.monotonic()
         self._scrape_hooks: List[weakref.WeakMethod] = []
@@ -295,6 +644,10 @@ class MetricsRegistry:
         with self._lock:
             return self._counters.setdefault(name, Counter())
 
+    def reservoir(self, name: str) -> Reservoir:
+        with self._lock:
+            return self._reservoirs.setdefault(name, Reservoir())
+
     def gauge(self, name: str) -> Gauge:
         with self._lock:
             return self._gauges.setdefault(name, Gauge())
@@ -306,18 +659,33 @@ class MetricsRegistry:
                 h = self._histograms[name] = Histogram(**layout)
             return h
 
+    def sketch(self, name: str, **layout) -> QuantileSketch:
+        """Named :class:`QuantileSketch` — the drift plane's per-series
+        value sketch; rides ``struct_snapshot`` under ``"sketches"``
+        and fleet-merges by bucket addition like histograms."""
+        with self._lock:
+            s = self._sketches.get(name)
+            if s is None:
+                s = self._sketches[name] = QuantileSketch(**layout)
+            return s
+
+    def sketches(self) -> Dict[str, QuantileSketch]:
+        with self._lock:
+            return dict(self._sketches)
+
     def _views(self):
         with self._lock:
             return (
                 dict(self._counters),
                 dict(self._gauges),
                 dict(self._histograms),
+                dict(self._reservoirs),
             )
 
     def snapshot(self) -> Dict[str, float]:
         elapsed = max(time.monotonic() - self._t0, 1e-9)
         out: Dict[str, float] = {"uptime_s": elapsed}
-        counters, gauges, histograms = self._views()
+        counters, gauges, histograms, reservoirs = self._views()
         for name, c in counters.items():
             v = c.get()
             out[name] = v
@@ -325,9 +693,16 @@ class MetricsRegistry:
         for name, g in gauges.items():
             out[name] = g.get()
             out[name + "_max"] = g.max
-        for name, h in histograms.items():
-            for q, tag in ((0.5, "p50"), (0.99, "p99"), (0.999, "p999")):
-                v = h.quantile(q)
+        for name, sketch in list(reservoirs.items()) + list(
+            histograms.items()
+        ):
+            qs = (
+                ((0.5, "p50"), (0.99, "p99"))
+                if isinstance(sketch, Reservoir)
+                else ((0.5, "p50"), (0.99, "p99"), (0.999, "p999"))
+            )
+            for q, tag in qs:
+                v = sketch.quantile(q)
                 if v is not None:
                     out[f"{name}_{tag}"] = v
         return out
@@ -335,12 +710,15 @@ class MetricsRegistry:
     def struct_snapshot(self, run_hooks: bool = True) -> dict:
         """Typed, JSON-shaped snapshot: ``counters``, ``gauges`` (each
         ``{"value", "max"}``), ``histograms`` (each its ``state``), the
-        uptime and the capture wall-clock ``ts``. ``run_hooks=False``
-        is for collectors that are themselves scrape hooks."""
+        uptime and the capture wall-clock ``ts``, and ``sketches`` (each
+        its ``state``) only when a drift-plane sketch exists, so a struct
+        without one keeps its shape. Reservoirs are absent: they cannot
+        merge. ``run_hooks=False`` is for collectors that are themselves
+        scrape hooks."""
         if run_hooks:
             self._run_scrape_hooks()
-        counters, gauges, histograms = self._views()
-        return {
+        counters, gauges, histograms, _ = self._views()
+        out = {
             "uptime_s": max(time.monotonic() - self._t0, 1e-9),
             "ts": time.time(),
             "counters": {n: c.get() for n, c in counters.items()},
@@ -350,6 +728,10 @@ class MetricsRegistry:
             },
             "histograms": {n: h.state() for n, h in histograms.items()},
         }
+        sketches = self.sketches()
+        if sketches:
+            out["sketches"] = {n: s.state() for n, s in sketches.items()}
+        return out
 
 
 _GAUGE_MERGE_MAX_PREFIXES = (
@@ -437,6 +819,7 @@ def merge_structs(structs: Iterable[dict]) -> dict:
         "uptime_s": 0.0, "counters": {}, "gauges": {}, "histograms": {}
     }
     hists: Dict[str, Histogram] = {}
+    sketches: Dict[str, QuantileSketch] = {}
     for s in structs:
         if not isinstance(s, dict):
             continue
@@ -488,7 +871,20 @@ def merge_structs(structs: Iterable[dict]) -> dict:
                     hists[n] = h
             except (KeyError, IndexError, TypeError, ValueError):
                 continue
+        for n, kstate in _items(s.get("sketches")):
+            try:
+                k = QuantileSketch.from_state(kstate)
+                if n in sketches:
+                    sketches[n].merge(k)  # ValueError on layout skew
+                else:
+                    sketches[n] = k
+            except (KeyError, IndexError, TypeError, ValueError):
+                continue
     out["histograms"] = {n: h.state() for n, h in hists.items()}
+    if sketches:
+        # key present only when drift sketches exist: struct consumers
+        # without the drift plane see unchanged shapes
+        out["sketches"] = {n: k.state() for n, k in sketches.items()}
     return out
 
 
@@ -556,7 +952,7 @@ def govern_struct(
     that family's counter value — heaviest-traffic tenants survive in
     every family; other label keys rank by the series' own magnitude.
     The fold into ``_other`` reuses the fleet merge ops (counter add via
-    ``math.fsum``, histogram bucket-merge, gauge min/max/sum by
+    ``math.fsum``, histogram/sketch bucket-merge, gauge min/max/sum by
     :func:`_gauge_merge_mode`), so the governed family total equals the
     ungoverned one."""
     k = govern_limit() if max_series is None else int(max_series)
@@ -674,6 +1070,7 @@ def govern_struct(
         ("gauges",
          lambda g: float((g or {}).get("value", 0.0)), _fold_gauges),
         ("histograms", _state_weight, _fold_states(Histogram)),
+        ("sketches", _state_weight, _fold_states(QuantileSketch)),
     ):
         sec = struct.get(section)
         if not isinstance(sec, dict):

@@ -19,7 +19,9 @@ or event launches no kernel and reaches no sink, the batcher observes
 completions that include the card's time, the span file holds a pair of
 spans a dispatch, and a TCP-fed pipeline scores as the CPU port; and the
 kernel search: every launch shape and walk layout of its space bit-equal
-to the default launch, and a pipeline's sampled device profile. They
+to the default launch, and a pipeline's sampled device profile; and the
+drift plane armed on the fused path (byte-equal outputs) and a shadow
+rollout through the dynamic scorer (two launches a batch). They
 skip where there is no card. This file
 imports neither jax nor the JAX package, so it runs on a machine that has
 only torch:
@@ -383,7 +385,11 @@ def test_walk_kernel_needs_only_the_walk_table_on_the_card(card):
 def test_ptxas_reports_no_spills(card):
     qtrees_cuda.build()
     report = qtrees_cuda.ptxas_report()
-    assert len(report) == 3  # one instance per class bucket: 1, 4, 16
+    # one instance per class bucket (1, 4, 16) of each kernel: the solo
+    # walk and the packed walk
+    names = sorted(k["kernel"] for k in report)
+    assert len(report) == 6, names
+    assert sum("walk_packed_kernel" in n for n in names) == 3, names
     for kernel in report:
         assert kernel["spill_stores"] == 0 and kernel["spill_loads"] == 0, \
             kernel
@@ -726,6 +732,84 @@ def test_dynamic_scorer_on_the_card_matches_the_cpu_port(card, tmp_path):
     np.testing.assert_array_equal(np.isnan(cv), names == 2)
     np.testing.assert_allclose(cv, pv, rtol=RTOL, atol=ATOL)
     assert cl == pl
+
+
+def test_drift_armed_on_the_fused_path_is_byte_equal_on_the_card(
+        card, tmp_path):
+    from flink_jpmml_tpu_torch.obs import drift
+    from flink_jpmml_tpu_torch.runtime.engine import new_staging
+    from flink_jpmml_tpu_torch.runtime.pipeline import dispatch_quantized
+
+    q = _gbm(tmp_path, 1024, n_trees=19, depth=6,
+             n_features=32).quantized_scorer()
+    assert q.encode_placement == "fused"  # the card's own choice
+    cold, hot = MetricsRegistry(), MetricsRegistry()
+    drift.install(hot, interval_s=0.0, budget_frac=0)
+    staging = new_staging(q.device)
+    rng = np.random.default_rng(5)
+    host = MetricsRegistry()
+    host_plane = drift.install(host, interval_s=0.0, budget_frac=0)
+    for n in (1024, 3000):  # the second is not whole compile batches
+        X = _X(rng, n, 32)
+        plain = dispatch_quantized(q, X, metrics=cold,
+                                   staging=staging).result().clone()
+        armed = dispatch_quantized(q, X, metrics=hot,
+                                   staging=staging).result()
+        assert plain.numpy().tobytes() == armed.numpy().tobytes()
+        host_plane.record_features(q, X)
+    # the sampled rows are the caller's, not the staged or padded ones
+    assert hot.struct_snapshot()["sketches"] == host.struct_snapshot()[
+        "sketches"]
+    assert len(host.sketches()) == 32
+    assert "sketches" not in cold.struct_snapshot()
+
+
+def test_shadow_rollout_launches_the_kernel_twice_on_the_card(
+        card, tmp_path):
+    import shutil
+
+    from flink_jpmml_tpu_torch.models.control import (
+        AddMessage,
+        RolloutMessage,
+    )
+    from flink_jpmml_tpu_torch.models.core import ModelId
+    from flink_jpmml_tpu_torch.runtime.sources import ControlSource
+    from flink_jpmml_tpu_torch.serving import DynamicScorer
+
+    d = str(tmp_path)
+    gbm = gen_gbm(d, n_trees=19, depth=6, n_features=32)
+    v2 = os.path.join(d, "v2.pmml")
+    shutil.copyfile(gbm, v2)
+    X = _X(np.random.default_rng(6), 512, 32)
+    events = [("gbm", x) for x in X]
+    ctrl = ControlSource()
+    sc = DynamicScorer(ctrl, batch_size=256, auto_rollout=False)
+    ctrl.push(AddMessage("gbm", 1, gbm, 1.0))
+    sc._drain_control()
+    assert sc.registry.model(ModelId("gbm", 1)).device.type == "cuda"
+    ctrl.push(RolloutMessage("gbm", 2, "shadow", time.time(), path=v2))
+    sc._drain_control()
+    deadline = time.monotonic() + 120.0
+    while sc.registry.model_if_warm(ModelId("gbm", 2)) is None:
+        assert time.monotonic() < deadline, "candidate never warmed"
+        time.sleep(0.02)
+    before = qtrees_cuda.leaf_rows.launches
+    got = sc.finish(sc.submit(events))
+    assert qtrees_cuda.leaf_rows.launches - before == 2  # served + mirror
+    c = sc.metrics.struct_snapshot()["counters"]
+    assert c['rollout_shadow_compared{model="gbm"}'] == 512
+    assert c.get('rollout_shadow_disagree{model="gbm"}', 0) == 0
+    assert c.get('rollout_candidate_records{model="gbm"}', 0) == 0
+    assert len(got) == 512
+    # both roles timed on the card's clock: a kernel's worth, not host time
+    h = sc.metrics.struct_snapshot()["histograms"]
+    for role in ("candidate", "incumbent"):
+        assert h[f'rollout_{role}_latency_s{{model="gbm"}}']["n"] == 1
+    ref = compile_pmml(parse_pmml_file(gbm), batch_size=256,
+                       device="cpu").quantized_scorer()
+    want = ref.predict_padded(*ref.pad_wire(ref.wire.encode(X))).numpy()
+    vals = np.array([p.score.value for p, _ in got])
+    np.testing.assert_allclose(vals, want[:512], rtol=RTOL, atol=ATOL)
 
 
 def test_real_oom_classifies_as_device_oom_and_the_card_survives(

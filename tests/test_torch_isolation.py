@@ -99,6 +99,8 @@ PARALLEL_SLICE = {
     "parallel.mesh", "parallel.sharding", "parallel.assignment",
     "parallel.distributed", "parallel.health", "obs.mesh", "rollout.split",
 }
+# the data-drift plane and the guardrail controller of staged rollouts
+DRIFT_ROLLOUT_SLICE = {"obs.drift", "rollout.controller"}
 
 
 def test_every_port_module_imports_without_jax():
@@ -108,12 +110,12 @@ def test_every_port_module_imports_without_jax():
     )
     assert res.returncode == 0, res.stderr
     count, names = res.stdout.split(maxsplit=1)
-    assert int(count) >= 103  # every module ported so far
+    assert int(count) >= 105  # every module ported so far
     names = set(names.split())
     for slice_ in (KAFKA_SLICE, DENSE_SLICE, TREE_SHAPES_SLICE,
                    MORE_FAMILIES_SLICE, API_SLICE, RECOVERY_SLICE,
                    EDGE_SLICE, TUNING_SLICE, ZOO_STATE_SLICE,
-                   PARALLEL_SLICE):
+                   PARALLEL_SLICE, DRIFT_ROLLOUT_SLICE):
         assert {f"flink_jpmml_tpu_torch.{m}" for m in slice_} <= names
     assert {f"flink_jpmml_tpu_torch.{m}" for m in DENSE_SLICE} <= names
 

@@ -401,6 +401,9 @@ LIFTED = frozenset((
     "pipeline_tenant", "static_state", "scorer_zoo",
     # the parallel plane
     "reader_mesh", "registry_mesh", "scorer_mesh",
+    # the drift plane and staged rollouts
+    "evaluate_guardrails", "evaluate_key_fn", "registry_rollout",
+    "scorer_key_fn", "scorer_guardrails", "scorer_auto_rollout",
 ))
 
 
@@ -460,8 +463,85 @@ def _cut_cases(tmp="."):
         assert s._default_model.mesh == cpu_mesh()
 
     def registry_apply(p):
-        ModelRegistry(device="cpu").apply(RolloutMessage(
-            "m", 2, "canary", 1.0, path=p))
+        from flink_jpmml_tpu_torch.models.control import AddMessage
+
+        reg = ModelRegistry(device="cpu", async_warmup=False)
+        reg.apply(AddMessage("m", 1, p, 1.0))
+        assert reg.apply(RolloutMessage("m", 2, "canary", 7.0, path=p,
+                                        fraction=0.3))
+        st = reg.rollout("m")
+        assert st.stage == "canary" and st.fraction == 0.3
+        assert reg.resolve("m").version == 1  # latest-wins skips it
+        back = ModelRegistry(device="cpu", async_warmup=False)
+        back.restore(reg.state())
+        assert back.rollout("m") == st  # stage_since rides the restore
+
+    def guardrail_spec():
+        from flink_jpmml_tpu_torch.rollout.state import GuardrailSpec
+
+        return GuardrailSpec(min_samples=7, promote_after_s=5.0)
+
+    def stamped_spec(sc, p):
+        # a RolloutMessage that carries no spec gets the scorer's default
+        from flink_jpmml_tpu_torch.models.control import AddMessage
+
+        sc._control.push(AddMessage("m", 1, p, 1.0))
+        sc._control.push(RolloutMessage("m", 2, "shadow", 2.0, path=p))
+        sc._drain_control()
+        return sc.registry.rollout("m").spec
+
+    def dyn_stream(p, **kw):
+        return env().from_collection([]).with_control_stream(
+            ControlSource()).evaluate(ModelReader(p), **kw).scorer
+
+    def evaluate_guardrails(p):
+        # without a control stream the option has nothing to act on (as
+        # in the JAX package); with one it reaches the dynamic scorer
+        env().from_collection([]).evaluate(ModelReader(p),
+                                           guardrails=guardrail_spec())
+        sc = dyn_stream(p, guardrails=guardrail_spec())
+        assert stamped_spec(sc, p) == guardrail_spec()
+
+    def key_by_user(payload):
+        return "one-key"
+
+    def evaluate_key_fn(p):
+        env().from_collection([]).evaluate(ModelReader(p), key_fn=str)
+        assert dyn_stream(p, key_fn=key_by_user)._key_fn is key_by_user
+
+    def scorer_key_fn(p):
+        from flink_jpmml_tpu_torch.models.control import AddMessage
+        from flink_jpmml_tpu_torch.rollout import split
+
+        sc = DynamicScorer(ControlSource(), batch_size=8, device="cpu",
+                           key_fn=key_by_user, async_warmup=False,
+                           auto_rollout=False)
+        sc._control.push(AddMessage("m", 1, p, 1.0))
+        sc._control.push(RolloutMessage("m", 2, "canary", 2.0, path=p,
+                                        fraction=0.5))
+        sc._drain_control()
+        sc.registry.model(sc.registry.resolve("m", 2))
+        rec = {"sepal_length": 5.0, "sepal_width": 3.0,
+               "petal_length": 1.5, "petal_width": 0.2}
+        sc.finish(sc.submit([("m", dict(rec, _key=f"k{i}"))
+                             for i in range(16)]))
+        served = sc.metrics.snapshot().get(
+            'rollout_candidate_records{model="m"}', 0.0)
+        # one key for every event: the whole batch falls on one side
+        side = split.assign_candidate("m", 2, 0.5, "one-key")
+        assert served == (16.0 if side else 0.0)
+
+    def scorer_guardrails(p):
+        sc = dyn(guardrails=guardrail_spec())(p)
+        assert stamped_spec(sc, p) == guardrail_spec()
+
+    def scorer_auto_rollout(p):
+        for auto in (True, False):
+            sc = dyn(auto_rollout=auto, rollout_interval_s=0.0)(p)
+            stamped_spec(sc, p)
+            sc.finish(sc.submit([]))
+            # only the batch loop ticks the controller, and only if asked
+            assert (sc.rollout_controller._last_tick > 0.0) is auto
 
     def pipeline_tenant(p):
         assert pipe(tenant="t")(p)._tenant == "t"
@@ -562,18 +642,16 @@ def _cut_cases(tmp="."):
         "start_restore": start_restore,
         "checkpoint_dir": checkpoint_dir,
         "static_state": static_state,
-        "evaluate_guardrails": lambda p: env().from_collection([]).evaluate(
-            ModelReader(p), guardrails=object()),
-        "evaluate_key_fn": lambda p: env().from_collection([]).evaluate(
-            ModelReader(p), key_fn=str),
+        "evaluate_guardrails": evaluate_guardrails,
+        "evaluate_key_fn": evaluate_key_fn,
         "reader_mesh": reader_mesh,
         "reader_remote": reader_remote,
         "registry_mesh": registry_mesh,
         "registry_rollout": registry_apply,
         "scorer_mesh": scorer_mesh,
-        "scorer_key_fn": dyn(key_fn=str),
-        "scorer_guardrails": dyn(guardrails=object()),
-        "scorer_auto_rollout": dyn(auto_rollout=False),
+        "scorer_key_fn": scorer_key_fn,
+        "scorer_guardrails": scorer_guardrails,
+        "scorer_auto_rollout": scorer_auto_rollout,
         "scorer_admission": scorer_admission,
         "scorer_lane_fn": scorer_lane_fn,
         "scorer_batcher": scorer_batcher,
