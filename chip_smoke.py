@@ -366,6 +366,30 @@ JAX package, and prints one JSON line per phase:
     delivered twice. A keyed state table sharded on the 1×1 mesh stays
     one tensor and gives the unsharded table's bytes after the same
     stream.
+27. fleet — the supervised fleet (``runtime/supervisor.py``,
+    ``obs/server.py``, ``obs/history.py``) with its workers on the card.
+    ``kill_resume``: the JAX kill -9 drill at config 2 — one supervised
+    worker scores the fused GBM through a checkpointed ``BlockPipeline``
+    (batch 16,384) from a port ``MiniKafkaBroker`` holding 1,048,576 rows
+    of the main paths' generator, is SIGKILLed once a checkpoint has
+    committed a third of the stream and restarted by the supervisor
+    alone: no gap, exactly once below the restore point, at most twice in
+    the replay window, every score within rtol 1e-4 / atol 1e-5 of the
+    direct run. ``rollout``: two workers serve the GBM as v1 through
+    ``DynamicScorer`` with the seed-12 candidate at canary 0.2; the
+    supervisor's ``rollout_controller()`` judges the merged heartbeat
+    structs and ``broadcast_rollout`` carries the rollback; one worker is
+    SIGKILLed and its next incarnation converges on its first beat; every
+    worker's answers after convergence equal v1's direct scores. While
+    both run, the supervisor's obs server is scraped (``/metrics``
+    aggregate = sum of the worker series, ``/varz`` quantiles = the
+    merge, ``/healthz``, ``/history?source=_fleet``), the killed
+    incarnation's history frames are read back, and downsample(merge)
+    equals merge(downsample) as strings on the run's frames. Each
+    incarnation's start seconds (spawn to first beat) and largest beat gap
+    are printed, and no worker pid may be alive at the end. Workers send
+    stdout to ``/dev/null`` and stderr to a file per incarnation, whose
+    tails a failure prints.
 
 Every main path runs the C++ ring, and its line carries the stage ledger
 of its registry (``attribution``: per stage the count, total ms, p50 /
@@ -387,7 +411,7 @@ OTHER_CHECKOUT`` instead times the fused GBM's block path in child
 processes alternating between another checkout and this one
 (``ab_main``), and ``python3 chip_smoke.py --phase NAME`` runs one
 phase alone (``serving_edge``, ``kernel_search``, ``zoo_state``,
-``rollout_drift`` or ``mesh``) with what it needs built
+``rollout_drift``, ``mesh`` or ``fleet``) with what it needs built
 (``run_phase_alone``). After the last phase a ``run`` line prints the
 whole run's seconds. Any failed phase raises, and the
 script exits non-zero without printing the last line. Without a CUDA
@@ -6520,6 +6544,805 @@ def mesh_phase(workdir: str, smi: str) -> dict:
 
 # -- A/B of the fused block path against another checkout ---------------
 
+# -- the supervised fleet: kill -9 restart, the rollout broadcast, obs + history
+
+FLEET_RECORDS = 4 * DISPATCH  # part a: the broker's rows (the main paths' generator, seed 0)
+FLEET_EVENTS = 2 * BATCH  # part b: the keyed events a worker cycles through
+FLEET_EVENT_SEED = 41
+FLEET_FRACTION = 0.2  # the seed-12 candidate's canary share
+FLEET_WORKERS = ("w0", "w1")
+# The supervisor's first-beat deadline for the drill's workers: a card
+# worker imports torch, makes its CUDA context, loads the kernel's library
+# and compiles one or two 500-tree models before its first beat, which took
+# 9.8-18.9 s in this phase on an H100 80GB HBM3 (700 W) host against the
+# 30 s default; 60 s, as the JAX tests give workers that import jax. The
+# 2 s silence deadline stays the default (the largest beat gap read 0.50 s).
+FLEET_FIRST_BEAT_S = 60.0
+# seconds-scale history: a 0.25 s frame every 0.25 s, cascaded into 1 s;
+# the recorder's overhead budget at a quarter of the wall, not 2%: a
+# worker's capture thread waits on the GIL behind its scoring loop, and at
+# 2% the budget drops most of a busy worker's frames (the drops are
+# printed, history_dropped{reason="budget"})
+FLEET_HISTORY_ENV = {"FJT_HISTORY_INTERVAL_S": "0.25",
+                     "FJT_HISTORY_RES": "0.25,1",
+                     "FJT_HISTORY_BUDGET": "0.25"}
+
+# Every worker starts with these lines. Its stdout goes nowhere and its
+# stderr to a file of this incarnation's own, before anything else runs:
+# no byte of a worker reaches this script's standard output. Then the
+# checkout goes on sys.path, the CUDA context is made (no card: the port's
+# DeviceUnavailableError, a non-zero exit) and the kernel's library loaded,
+# so that a slow start falls under the supervisor's first-beat deadline and
+# not under its 2 s silence deadline.
+FLEET_PRELUDE = r"""
+import os, sys
+os.dup2(os.open(os.devnull, os.O_WRONLY), 1)
+os.dup2(os.open(os.path.join(sys.argv[2], "fleet-%s-%d.err" % (
+    os.environ["FJT_WORKER_ID"], os.getpid())),
+    os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644), 2)
+sys.path.insert(0, sys.argv[1])
+import json, threading, time
+import numpy as np
+import torch
+from flink_jpmml_tpu_torch.utils.device import resolve_device
+torch.zeros(1, device=resolve_device(None))
+from flink_jpmml_tpu_torch.compile import qtrees_cuda
+qtrees_cuda.build()
+from flink_jpmml_tpu_torch.runtime.supervisor import reporter_from_env
+OUT, PID = sys.argv[2], os.getpid()
+
+
+def launches():
+    return qtrees_cuda.leaf_rows.launches_by_classes.get(1, 0)
+
+
+def write_json(name, obj):
+    path = os.path.join(OUT, name)
+    with open(path + ".tmp", "w") as f:
+        json.dump(obj, f)
+    os.replace(path + ".tmp", path)
+"""
+
+# Part a: the JAX TestKillResumeDrill's worker at the main path's widths.
+# Each delivery is appended to emit-<pid>.bin as (first offset, count) and
+# the count's float32 scores; restore-<pid>.json holds the offset this
+# incarnation restored from.
+FLEET_KILL_WORKER = FLEET_PRELUDE + r"""
+import struct
+from flink_jpmml_tpu_torch.compile import compile_pmml
+from flink_jpmml_tpu_torch.pmml import parse_pmml_file
+from flink_jpmml_tpu_torch.runtime.block import BlockPipeline
+from flink_jpmml_tpu_torch.runtime.checkpoint import CheckpointManager
+from flink_jpmml_tpu_torch.runtime.kafka import KafkaBlockSource
+from flink_jpmml_tpu_torch.utils.config import BatchConfig, RuntimeConfig
+from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry
+
+pmml, host, port, topic, ckdir = sys.argv[3:8]
+total, B = int(sys.argv[8]), int(sys.argv[9])
+cm = compile_pmml(parse_pmml_file(pmml), batch_size=B)
+F = len(cm.quantized_scorer().wire.fields)
+reg = MetricsRegistry()
+reg.gauge("fleet_pid").set(PID)
+rep = reporter_from_env(metrics=reg)
+assert rep is not None, "not under supervision"
+out = open(os.path.join(OUT, "emit-%d.bin" % PID), "ab")
+
+
+def sink(o, n, first_off):
+    vals = np.asarray(o, np.float32)[:n]
+    out.write(struct.pack("<qq", first_off, n) + vals.tobytes())
+    out.flush()
+
+
+src = KafkaBlockSource(host, int(port), topic, n_cols=F, max_wait_ms=20,
+                       metrics=reg)
+pipe = BlockPipeline(
+    src, cm, sink,
+    RuntimeConfig(batch=BatchConfig(size=B, deadline_us=2000),
+                  checkpoint_interval_s=0.05),
+    checkpoint=CheckpointManager(ckdir), metrics=reg, max_dispatch_chunks=1)
+restored = pipe.restore()
+write_json("restore-%d.json" % PID,
+           {"offset": pipe.committed_offset if restored else 0})
+pipe.start()
+while pipe.committed_offset < total and pipe.error is None:
+    reg.gauge("fleet_leaf_rows_launches").set(launches())
+    time.sleep(0.01)
+pipe.stop()
+pipe.join(timeout=60.0)
+src.close()
+out.close()
+if pipe.error is not None:
+    raise pipe.error
+write_json("done-%d.json" % PID, {"launches": launches()})
+"""
+
+# Part b: a DynamicScorer serving config 2's GBM as v1 with the seed-12
+# candidate at canary from the worker's own control stream (so a restarted
+# incarnation comes back mid-canary, as one restoring a checkpoint taken
+# mid-canary would), beating with reporter_from_env(metrics=,
+# rollout_registry=). It scores keyed dict events in batches of B for as
+# long as it lives. A thread watches the reporter's beat count and the
+# registry: once the rollout is gone the worker scores its first B events
+# once more and writes vals-<pid>.npy and result-<pid>.json (the beat that
+# carried the decision, its time, the beats' times, the registry's state).
+FLEET_ROLLOUT_WORKER = FLEET_PRELUDE + r"""
+from flink_jpmml_tpu_torch.models.control import AddMessage, RolloutMessage
+from flink_jpmml_tpu_torch.models.core import ModelId
+from flink_jpmml_tpu_torch.rollout.state import GuardrailSpec
+from flink_jpmml_tpu_torch.runtime.sources import ControlSource
+from flink_jpmml_tpu_torch.serving.scorer import DynamicScorer
+
+v1, v3 = sys.argv[3:5]
+seed, n, B = map(int, sys.argv[5:8])
+fraction, spec = float(sys.argv[8]), GuardrailSpec.from_dict(
+    json.loads(sys.argv[9]))
+ctrl = ControlSource()
+sc = DynamicScorer(control=ctrl, batch_size=B, auto_rollout=False,
+                   guardrails=spec)
+ctrl.push(AddMessage("gbm", 1, v1, timestamp=1.0))
+ctrl.push(RolloutMessage("gbm", 3, "canary", 2.0, path=v3,
+                         fraction=fraction, guardrails=spec))
+sc.finish(sc.submit([]))
+for v in (1, 3):
+    while sc.registry.model_if_warm(ModelId("gbm", v)) is None:
+        err = sc.registry.warm_error(ModelId("gbm", v))
+        if err is not None:
+            raise err
+        time.sleep(0.005)
+if sc.registry.rollout("gbm") is None:
+    raise RuntimeError("the candidate is not at canary")
+rng = np.random.default_rng(seed)
+X = rng.normal(0.0, 1.5, size=(n, 32)).astype(np.float32)
+X[rng.random(size=X.shape) < 0.2] = np.nan
+fields = ["f%d" % j for j in range(32)]
+events = [("gbm", dict({f: v for f, v in zip(fields, row) if v == v},
+                       _key="k%d" % i)) for i, row in enumerate(X.tolist())]
+sc.metrics.gauge("fleet_pid").set(PID)
+rep = reporter_from_env(metrics=sc.metrics, rollout_registry=sc.registry)
+assert rep is not None, "not under supervision"
+beats, conv = [], {}
+
+
+def watch():
+    seen = 0
+    while True:
+        s = rep._seq
+        if s != seen:
+            seen = s
+            beats.append([time.time(), s])
+            del beats[:-400]
+        if not conv and sc.registry.rollout("gbm") is None:
+            conv.update(t=time.time(), beat=rep._seq)
+        time.sleep(0.002)
+
+
+threading.Thread(target=watch, daemon=True).start()
+i, written = 0, False
+while True:
+    lo = (i % (n // B)) * B
+    sc.finish(sc.submit(events[lo:lo + B]))
+    i += 1
+    sc.metrics.gauge("fleet_leaf_rows_launches").set(launches())
+    if conv and not written:
+        got = [np.nan if p.is_empty else p.score.value
+               for p, _ in sc.finish(sc.submit(events[:B]))]
+        np.save(os.path.join(OUT, "vals-%d.npy" % PID),
+                np.asarray(got, np.float32))
+        r = sc.registry
+        write_json("result-%d.json" % PID, {
+            "t_conv": conv["t"], "beat_conv": conv["beat"],
+            "beats": list(beats), "resolves": str(r.resolve("gbm")),
+            "resolves_v1": r.resolve("gbm") == ModelId("gbm", 1),
+            "no_rollout": r.rollout("gbm") is None,
+            "candidate_dropped": r.resolve("gbm", 3) is None,
+            "batches": i})
+        written = True
+"""
+
+
+class FleetWatch:
+    """Polls a supervisor every 10 ms on a thread of its own. For each
+    incarnation (worker, pid): seconds from spawn to its first beat that
+    the coordinator received, the largest gap between two of its beats,
+    and the largest ``fleet_leaf_rows_launches`` its beats carried (a
+    lower bound for an incarnation killed between two beats). It reads the
+    supervisor's spawn times and its coordinator's receive times, both on
+    the monotonic clock."""
+
+    def __init__(self, sup):
+        self.sup = sup
+        self.inc = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        coord = self.sup._coord
+        while not self._stop.wait(0.01):
+            snaps = self.sup.metrics_snapshots()
+            with self.sup._mu:  # a spawn sets the pid and its time together
+                live = [(wid, st.proc.pid, st.spawned_at)
+                        for wid, st in self.sup._workers.items()
+                        if st.proc is not None]
+            for wid, pid, spawned in live:
+                rec = self.inc.setdefault((wid, pid), {
+                    "worker": wid, "pid": pid, "spawned": spawned,
+                    "first_beat": None, "last_beat": None, "max_gap_s": 0.0,
+                    "launches": 0})
+                last = coord.last_seen(wid)
+                if last is not None and last >= rec["spawned"]:
+                    if rec["first_beat"] is None:
+                        rec["first_beat"] = last
+                    elif last != rec["last_beat"]:
+                        rec["max_gap_s"] = max(rec["max_gap_s"],
+                                               last - rec["last_beat"])
+                    rec["last_beat"] = last
+                g = (snaps.get(wid) or {}).get("gauges") or {}
+                if g.get("fleet_pid", {}).get("value") == pid:
+                    rec["launches"] = max(rec["launches"], int(
+                        g.get("fleet_leaf_rows_launches", {}).get("value",
+                                                                  0)))
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5.0)
+
+    def rows(self) -> list:
+        return [{"worker": r["worker"], "pid": r["pid"],
+                 "start_s": (None if r["first_beat"] is None
+                             else r["first_beat"] - r["spawned"]),
+                 "max_beat_gap_s": r["max_gap_s"],
+                 "launches_seen": r["launches"]}
+                for r in self.inc.values()]
+
+
+def fleet_tails(outdir: str) -> str:
+    """The last 1,500 bytes of every worker incarnation's stderr file."""
+    parts = []
+    for name in sorted(os.listdir(outdir)):
+        if name.startswith("fleet-") and name.endswith(".err"):
+            with open(os.path.join(outdir, name), "rb") as f:
+                tail = f.read()[-1500:].decode(errors="replace")
+            parts.append(f"--- {name}:\n{tail}")
+    return "\n".join(parts) or "(no worker stderr files)"
+
+
+def fleet_extra_restarts(seq0: int, kills: dict) -> list:
+    """Spawns of the workers named in ``kills`` beyond one a worker plus
+    the drill's own kills, each with the supervisor's flight events that
+    say why (deaths, wedge kills)."""
+    from flink_jpmml_tpu_torch.obs import recorder as flight
+
+    evs = [e for e in flight.events() if e.get("seq", 0) > seq0]
+    out = []
+    for wid in sorted(kills):
+        spawns = sum(1 for e in evs if e["kind"] == "worker_spawn"
+                     and e.get("worker") == wid)
+        extra = spawns - 1 - kills.get(wid, 0)
+        if extra > 0:
+            out.append({"worker": wid, "extra_restarts": extra, "causes": [
+                {k: e.get(k) for k in ("kind", "pid", "returncode", "t")}
+                for e in evs if e.get("worker") == wid and e["kind"] in (
+                    "worker_death", "worker_wedged_kill",
+                    "worker_spawn_failed")]})
+    return out
+
+
+def pid_alive(pid: int) -> bool:
+    """A pid that still runs (a zombie does not)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except (FileNotFoundError, ProcessLookupError, IndexError):
+        return False
+
+
+def fleet_wait(pred, what: str, gave_up: list, timeout: float) -> None:
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if gave_up:
+            raise RuntimeError(f"fleet: the supervisor gave up on "
+                               f"{gave_up} waiting for {what}")
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"fleet: timed out waiting for {what}")
+        time.sleep(0.01)
+
+
+def read_emissions(outdir: str):
+    """Every delivery of every part-a incarnation: (first offset,
+    scores). A SIGKILL may tear the last record of the killed
+    incarnation's file; a torn record is left out."""
+    import struct
+
+    got = []
+    for name in sorted(os.listdir(outdir)):
+        if not (name.startswith("emit-") and name.endswith(".bin")):
+            continue
+        with open(os.path.join(outdir, name), "rb") as f:
+            raw = f.read()
+        pos = 0
+        while pos + 16 <= len(raw):
+            off, n = struct.unpack_from("<qq", raw, pos)
+            end = pos + 16 + 4 * n
+            if end > len(raw):
+                break
+            got.append((off, np.frombuffer(raw[pos + 16:end], np.float32)))
+            pos = end
+    return got
+
+
+def fleet_kill_resume(workdir: str, rows: np.ndarray, direct: np.ndarray,
+                      pmml: str, gave_up: list) -> dict:
+    """Part a, the JAX TestKillResumeDrill at config 2: one supervised
+    worker scores the fused 500-tree GBM through a checkpointed
+    ``BlockPipeline`` (batch 16,384, one batch a dispatch) from a port
+    ``MiniKafkaBroker`` holding FLEET_RECORDS rows of the main paths'
+    generator (seed 0), each dispatch delayed 20 ms by ``FJT_FAULTS``.
+    Once a checkpoint has committed a third of the stream the worker is
+    SIGKILLed; from then on nothing is done until the supervisor reports
+    it finished. No gap, exactly once below the restore point, at most
+    twice in the replay window, every delivered score within rtol 1e-4 /
+    atol 1e-5 of the direct run of the same rows on the card. Its worker
+    writes no history (that is part c's)."""
+    import signal
+
+    from flink_jpmml_tpu_torch.obs import recorder as flight
+    from flink_jpmml_tpu_torch.runtime import kafka
+    from flink_jpmml_tpu_torch.runtime.checkpoint import CheckpointManager
+    from flink_jpmml_tpu_torch.runtime.supervisor import (
+        RestartPolicy,
+        Supervisor,
+        WorkerSpec,
+    )
+
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    outdir = os.path.join(workdir, "fleet-a")
+    ckdir = os.path.join(outdir, "ck")
+    os.makedirs(outdir)
+    N = len(rows)
+    broker = kafka.MiniKafkaBroker(topic="fleet")
+    sup = watch = None
+    seq0 = flight.DEFAULT._seq
+    try:
+        broker.append_rows(rows)
+        spec = WorkerSpec("scorer", [
+            sys.executable, "-c", FLEET_KILL_WORKER, here, outdir, pmml,
+            broker.host, str(broker.port), "fleet", ckdir, str(N),
+            str(BATCH)], env={"FJT_FAULTS": "dispatch_delay:delay_ms=20",
+                              "FJT_HISTORY_DIR": ""}, cwd=outdir)
+        sup = Supervisor([spec], policy=RestartPolicy(max_restarts=3,
+                                                      backoff_s=0.05),
+                         first_beat_timeout_s=FLEET_FIRST_BEAT_S,
+                         on_give_up=gave_up.append)
+        sup.start()
+        watch = FleetWatch(sup)
+
+        def committed() -> int:
+            try:
+                st = CheckpointManager(ckdir).load_latest()
+                return int(st["source_offset"]) if st else 0
+            except Exception:
+                return 0
+
+        fleet_wait(lambda: committed() >= N // 3, "a third committed",
+                   gave_up, 120.0)
+        killed_at = committed()
+        if killed_at >= N or sup.status()["scorer"]["finished"]:
+            raise RuntimeError(f"fleet: the stream ended ({killed_at}) "
+                               f"before the kill")
+        killed_pid = sup.status()["scorer"]["pid"]
+        os.kill(killed_pid, signal.SIGKILL)
+        fleet_wait(lambda: sup.status()["scorer"]["finished"],
+                   "the restarted worker to finish", gave_up, 180.0)
+        status = sup.status()["scorer"]
+    finally:
+        if watch is not None:
+            watch.close()
+        if sup is not None:
+            sup.stop()
+        broker.close()
+    if status["restarts"] < 1 or status["gave_up"] or gave_up:
+        raise RuntimeError(f"fleet kill: {status}, gave up {gave_up}")
+    restores = {}
+    for name in os.listdir(outdir):
+        if name.startswith("restore-"):
+            with open(os.path.join(outdir, name)) as f:
+                restores[int(name[8:-5])] = json.load(f)["offset"]
+    c = restores[max(restores, key=lambda p: restores[p])]
+    if restores.get(killed_pid) != 0 or not 0 < c < N:
+        raise RuntimeError(f"fleet kill: restore points {restores}")
+    covered = np.zeros(N, np.int32)
+    err = 0.0
+    for off, vals in read_emissions(outdir):
+        covered[off:off + len(vals)] += 1
+        ref = direct[off:off + len(vals)]
+        if not np.allclose(vals, ref, rtol=RTOL, atol=ATOL):
+            raise RuntimeError(f"fleet kill: scores at {off} differ from the "
+                               f"direct run by {np.abs(vals - ref).max()}")
+        err = max(err, float(np.abs(vals - ref).max()))
+    gaps = np.flatnonzero(covered == 0)
+    dups_below = np.flatnonzero(covered[:c] > 1)
+    if len(gaps) or len(dups_below) or covered.max() > 2:
+        raise RuntimeError(f"fleet kill: gaps {gaps[:5]}, duplicates below "
+                           f"the restore point {dups_below[:5]}, most "
+                           f"deliveries of a record {covered.max()}")
+    incs = watch.rows()
+    done = {}
+    for name in os.listdir(outdir):
+        if name.startswith("done-"):
+            with open(os.path.join(outdir, name)) as f:
+                done[int(name[5:-5])] = json.load(f)["launches"]
+    launches = sum(done.get(r["pid"], r["launches_seen"]) for r in incs)
+    if not all(done.get(r["pid"], r["launches_seen"]) for r in incs):
+        raise RuntimeError(f"fleet kill: an incarnation reported no "
+                           f"launches: {incs}, {done}")
+    return {"seconds": time.perf_counter() - t0, "records": N,
+            "batch": BATCH, "killed_at_committed": killed_at,
+            "restore_point": c, "restarts": status["restarts"],
+            "gave_up": False, "gaps": 0, "dups_below_restore": 0,
+            "replay_window_records": int((covered[c:] == 2).sum()),
+            "max_deliveries": int(covered.max()), "max_abs_err": err,
+            "incarnations": incs, "launches": launches,
+            "launches_exact_pids": sorted(done),
+            "extra_restarts": fleet_extra_restarts(seq0, {"scorer": 1}),
+            "pids": [r["pid"] for r in incs]}
+
+
+def prom_samples(text: str):
+    """/metrics text → ({series: value}, {family: type})."""
+    samples, types = {}, {}
+    for ln in text.splitlines():
+        if ln.startswith("# TYPE "):
+            _, _, name, kind = ln.split(" ", 3)
+            types[name] = kind
+        elif ln and not ln.startswith("#"):
+            key, val = ln.rsplit(" ", 1)
+            samples[key] = float(val)
+    return samples, types
+
+
+def check_fleet_scrape(text: str, varz: dict, sup_before: dict,
+                       sup_after: dict) -> dict:
+    """The JAX TestFleetMetricsDrill contract on one live scrape: every
+    unlabeled counter equals the sum of its ``worker="…"`` series plus
+    the supervisor's own registry (read before and after the scrape;
+    the page renders 10 significant digits), and every aggregate
+    histogram's quantiles and count equal the merge of the workers'."""
+    import re
+
+    from flink_jpmml_tpu_torch.utils.metrics import Histogram
+
+    samples, types = prom_samples(text)
+    per = {}
+    for key, v in samples.items():
+        name = key.split("{", 1)[0]
+        if types.get(name) != "counter":
+            continue
+        m = re.search(r',?worker="([^"]*)"', key)
+        if m is None:
+            per.setdefault(key, [None, 0.0, 0])[0] = v
+            continue
+        base = key[:m.start()] + key[m.end():]
+        base = base.replace("{,", "{").replace("{}", "")
+        row = per.setdefault(base, [None, 0.0, 0])
+        row[1] += v
+        row[2] += 1
+    checked = 0
+    for key, (agg, wsum, nw) in per.items():
+        if not nw:
+            continue
+        raw = key[len("fjt_"):]
+        lo = sup_before.get("counters", {}).get(raw, 0.0)
+        hi = sup_after.get("counters", {}).get(raw, 0.0)
+        tol = 1e-9 * max(abs(agg or 0.0), 1.0)
+        if agg is None or not (wsum + lo - tol <= agg <= wsum + hi + tol):
+            raise RuntimeError(f"fleet /metrics: {key} aggregate {agg} vs "
+                               f"workers {wsum} + supervisor {lo}..{hi}")
+        checked += 1
+    hchecked = 0
+    sup_h = sup_after.get("histograms", {})
+    for name, st in (varz.get("") or {}).get("histograms", {}).items():
+        parts = [Histogram.from_state(varz[w]["histograms"][name])
+                 for w in varz if w and name in varz[w].get("histograms", {})]
+        if name in sup_h:
+            parts.append(Histogram.from_state(sup_h[name]))
+        merged = parts[0]
+        for h in parts[1:]:
+            merged = merged.merge(h)
+        agg = Histogram.from_state(st)
+        if agg.count() != merged.count() or any(
+                agg.quantile(x) != merged.quantile(x)
+                for x in (0.5, 0.99, 0.999)):
+            raise RuntimeError(f"fleet /varz: histogram {name} aggregate "
+                               f"differs from the merge of its workers")
+        hchecked += 1
+    if not checked or not hchecked:
+        raise RuntimeError(f"fleet scrape: {checked} counters, {hchecked} "
+                           f"histograms with worker series")
+    return {"counters_checked": checked, "histograms_checked": hchecked}
+
+
+def fleet_rollout(workdir: str, X: np.ndarray, direct1: np.ndarray,
+                  gbm: str, gave_up: list, started: threading.Event) -> dict:
+    """Parts b and c. Two supervised workers on the card each serve config
+    2's GBM as v1 through a ``DynamicScorer`` with the seed-12 candidate
+    at canary 0.2 (FLEET_ROLLOUT_WORKER). The supervisor's obs server
+    (127.0.0.1, port 0) and its history (``FJT_HISTORY_DIR`` under the
+    run's scratch directory) are live. Once both workers' beats carry
+    candidate records, the canary goes into the supervisor's book, its
+    ``rollout_controller()`` judges the merged heartbeat structs, and
+    ``broadcast_rollout`` carries the rollback. Scraped while both run:
+    ``/metrics`` (aggregate = sum of the workers' series), ``/varz``
+    (quantiles of the merge), ``/healthz`` (200) and
+    ``/history?source=_fleet``. Then w1 is SIGKILLed; its next
+    incarnation comes back mid-canary and must converge on its first
+    beat. Every worker's answers after convergence equal v1's direct
+    scores; the killed incarnation's history frames read back, and on the
+    run's own frames downsample(merge) equals merge(downsample) as
+    strings. ``started`` is set once the supervisor runs and the
+    environment it armed its history from is restored."""
+    import signal
+    import urllib.request
+
+    from flink_jpmml_tpu_torch.assets_gen import gen_gbm
+    from flink_jpmml_tpu_torch.models.control import RolloutMessage
+    from flink_jpmml_tpu_torch.obs import history
+    from flink_jpmml_tpu_torch.obs import recorder as flight
+    from flink_jpmml_tpu_torch.obs.trace import iter_jsonl
+    from flink_jpmml_tpu_torch.rollout.state import GuardrailSpec
+    from flink_jpmml_tpu_torch.runtime.supervisor import (
+        RestartPolicy,
+        Supervisor,
+        WorkerSpec,
+    )
+
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    outdir = os.path.join(workdir, "fleet-b")
+    hdir = os.path.join(workdir, "fleet-history")
+    os.makedirs(outdir)
+    v3 = os.path.join(workdir, "rollout_v3.pmml")
+    if not os.path.exists(v3):
+        gen_gbm(workdir, n_trees=500, seed=12, name="rollout_v3.pmml")
+    # no promotion within the drill: the candidate can only be rolled back
+    spec = GuardrailSpec(min_samples=RD_MIN_SAMPLES, window_s=RD_WINDOW_S,
+                         promote_after_s=3600.0,
+                         canary_fraction=FLEET_FRACTION)
+    argv = [sys.executable, "-c", FLEET_ROLLOUT_WORKER, here, outdir, gbm,
+            v3, str(FLEET_EVENT_SEED), str(FLEET_EVENTS), str(BATCH),
+            str(FLEET_FRACTION), json.dumps(spec.as_dict())]
+    hist_env = dict(FLEET_HISTORY_ENV, FJT_HISTORY_DIR=hdir)
+    seq0 = flight.DEFAULT._seq
+    sup = watch = None
+
+    def get(url):
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return r.status, r.read().decode()
+
+    def results():
+        got = {}
+        for name in os.listdir(outdir):
+            if name.startswith("result-") and name.endswith(".json"):
+                with open(os.path.join(outdir, name)) as f:
+                    got[int(name[7:-5])] = json.load(f)
+        return got
+
+    def cand_records(wid) -> float:
+        s = sup.metrics_snapshots().get(wid) or {}
+        return (s.get("counters") or {}).get(
+            'rollout_candidate_records{model="gbm"}', 0.0)
+
+    try:
+        sup = Supervisor([WorkerSpec(w, argv, env=hist_env, cwd=outdir)
+                          for w in FLEET_WORKERS],
+                         policy=RestartPolicy(max_restarts=3, backoff_s=0.05),
+                         first_beat_timeout_s=FLEET_FIRST_BEAT_S,
+                         on_give_up=gave_up.append)
+        # the supervisor arms its _fleet recorder from the environment in
+        # start(); nothing else of the phase runs until it is restored
+        saved = {k: os.environ.get(k) for k in hist_env}
+        os.environ.update(hist_env)
+        try:
+            sup.start()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            started.set()
+        srv = sup.start_obs_server(host="127.0.0.1", port=0)
+        watch = FleetWatch(sup)
+        fleet_wait(lambda: all(cand_records(w) > 0 for w in FLEET_WORKERS),
+                   "both workers scoring at canary", gave_up, 120.0)
+        ctl = sup.rollout_controller(interval_s=0.25)
+        ctl._book.apply(RolloutMessage(
+            "gbm", 3, "canary", time.time(), path=v3,
+            fraction=FLEET_FRACTION, guardrails=spec))
+        fleet_wait(lambda: not ctl._book.rollouts(), "the rollback",
+                   gave_up, 60.0)
+        evs = [e for e in flight.events() if e.get("seq", 0) > seq0]
+        decision = [e for e in evs if e["kind"] == "rollout_rollback"][-1]
+        t_bc = [e for e in evs if e["kind"] == "rollout_broadcast"
+                and e.get("stage") == "rollback"][-1]["t"]
+
+        # part c: one live scrape of every route while both workers run
+        sup_before = sup.metrics.struct_snapshot()
+        st_m, text = get(srv.url + "/metrics")
+        st_v, varz = get(srv.url + "/varz")
+        sup_after = sup.metrics.struct_snapshot()
+        st_h, health = get(srv.url + "/healthz")
+        st_f, fleet_hist = get(srv.url + "/history?source=_fleet&step=1")
+        varz, health, fleet_hist = (json.loads(varz), json.loads(health),
+                                    json.loads(fleet_hist))
+        if (st_m, st_v, st_h, st_f) != (200,) * 4 or not health["ok"]:
+            raise RuntimeError(f"fleet scrape: {st_m} {st_v} {st_h} {st_f} "
+                               f"{health}")
+        if set(varz) != {"", *FLEET_WORKERS}:
+            raise RuntimeError(f"fleet /varz sources {sorted(varz)}")
+        scrape = check_fleet_scrape(text, varz, sup_before, sup_after)
+        agg = varz[""]["counters"]
+        scrape["history_frames"] = agg.get("history_frames", 0.0)
+        scrape["history_dropped_budget"] = agg.get(
+            'history_dropped{reason="budget"}', 0.0)
+        ff = fleet_hist["frames"]
+        if not ff or any(f["src"] != history.FLEET_SRC for f in ff):
+            raise RuntimeError(f"fleet /history?source=_fleet: "
+                               f"{[f['src'] for f in ff]}")
+
+        fleet_wait(lambda: len(results()) == 2, "both workers converged",
+                   gave_up, 60.0)
+        first = results()
+        victim = sup.status()["w1"]["pid"]
+        os.kill(victim, signal.SIGKILL)
+        fleet_wait(lambda: len(results()) == 3, "the restarted w1 converged",
+                   gave_up, 120.0)
+        status = sup.status()
+        res = results()
+        live = {w: status[w]["pid"] for w in FLEET_WORKERS}
+        if not all(status[w]["alive"] for w in FLEET_WORKERS):
+            raise RuntimeError(f"fleet: a worker is down: {status}")
+        st_h2, _ = get(srv.url + "/healthz")
+    finally:
+        if watch is not None:
+            watch.close()
+        if sup is not None:
+            sup.stop()
+    if gave_up or st_h2 != 200:
+        raise RuntimeError(f"fleet rollout: gave up {gave_up}, /healthz "
+                           f"{st_h2}")
+    converged = []
+    err = 0.0
+    pid2wid = {r["pid"]: r["worker"] for r in watch.rows()}
+    for pid, r in sorted(res.items()):
+        vals = np.load(os.path.join(outdir, f"vals-{pid}.npy"))
+        if not (r["resolves_v1"] and r["no_rollout"]
+                and r["candidate_dropped"]):
+            raise RuntimeError(f"fleet: worker {pid} did not converge on v1:"
+                               f" {r}")
+        if not np.allclose(vals, direct1, rtol=RTOL, atol=ATOL):
+            raise RuntimeError(f"fleet: worker {pid}'s answers after the "
+                               f"rollback differ from v1's by "
+                               f"{np.abs(vals - direct1).max()}")
+        err = max(err, float(np.abs(vals - direct1).max()))
+        restarted = pid not in first
+        row = {"worker": pid2wid[pid], "pid": pid, "restarted": restarted,
+               "beat_of_convergence": r["beat_conv"],
+               "batches_scored": r["batches"]}
+        if restarted:
+            spawn = [e["t"] for e in flight.events()
+                     if e["kind"] == "worker_spawn" and e.get("pid") == pid]
+            row["beats"] = r["beat_conv"]
+            row["seconds_from_spawn"] = r["t_conv"] - spawn[0]
+            if r["beat_conv"] != 1:
+                raise RuntimeError(f"fleet: the restarted worker converged "
+                                   f"on beat {r['beat_conv']}, not its first")
+        else:
+            row["beats"] = sum(1 for t, _ in r["beats"]
+                               if t_bc < t <= r["t_conv"])
+            row["seconds"] = r["t_conv"] - t_bc
+        converged.append(row)
+    # the killed incarnation's frames, read back from its own segments
+    killed_frames = []
+    for name in sorted(os.listdir(hdir)):
+        if name.startswith("frames-") and f"-{victim}-" in name:
+            killed_frames += list(iter_jsonl(os.path.join(hdir, name)))
+    if not killed_frames or any(f["src"] != "w1" for f in killed_frames):
+        raise RuntimeError(f"fleet history: {len(killed_frames)} frames of "
+                           f"the killed incarnation {victim}")
+    fine = history.read_frames(hdir, res=0.25, sources=list(FLEET_WORKERS))
+    direct_ds = [history.canonical(f) for f in history.downsample(fine, 1.0)]
+    per = [f for w in FLEET_WORKERS for f in history.downsample(
+        [f for f in fine if f["src"] == w], 1.0)]
+    merged_ds = [history.canonical(f) for f in history.downsample(per, 1.0)]
+    if direct_ds != merged_ds or not direct_ds:
+        raise RuntimeError("fleet history: downsample(merge) differs from "
+                           "merge(downsample) on the run's frames")
+    incs = watch.rows()
+    return {
+        "seconds": time.perf_counter() - t0, "workers": len(FLEET_WORKERS),
+        "events_per_batch": BATCH, "fraction": FLEET_FRACTION,
+        "decision": {k: decision.get(k) for k in (
+            "action", "reason", "compared", "disagree", "disagree_rate",
+            "candidate_records")},
+        "converged": converged, "max_abs_err": err,
+        "scrape": {**scrape, "healthz": st_h, "healthz_after_kill": st_h2,
+                   "fleet_history_frames": len(ff)},
+        "history": {"killed_pid": victim,
+                    "killed_incarnation_frames": len(killed_frames),
+                    "fine_frames": len(fine), "coarse_slots": len(direct_ds),
+                    "downsample_merge_string_equal": True},
+        "incarnations": incs,
+        "launches": sum(r["launches_seen"] for r in incs),
+        "extra_restarts": fleet_extra_restarts(seq0, {"w0": 0, "w1": 1}),
+        "pids": [r["pid"] for r in incs], "live_pids_at_end": live}
+
+
+def fleet(workdir: str, q, smi: str) -> dict:
+    """The ``fleet`` phase: the supervised fleet on the card (parts a, b
+    and c above). Parts b and c run on a thread of their own beside part
+    a, each under its own supervisor: the workers' cold starts, not the
+    drills, take most of the phase. The direct runs the parts are held to
+    are made first, on this thread. The parent frees its cached card
+    memory before the workers start; every supervisor is stopped in a
+    ``finally``, and no worker pid may be alive when the phase returns.
+    The kernel's launches on this path are the workers' own counts,
+    carried in their beats (a lower bound for an incarnation killed
+    between two beats)."""
+    import torch
+
+    t0 = time.perf_counter()
+    rows = features(np.random.default_rng(0), FLEET_RECORDS,
+                    len(q.wire.fields))
+    direct = direct_rows(q, rows).astype(np.float32)
+    X = features(np.random.default_rng(FLEET_EVENT_SEED), FLEET_EVENTS, 32)
+    direct1 = direct_rows(q, X[:BATCH]).astype(np.float32)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    gbm = os.path.join(workdir, "gbm_500.pmml")
+    got, started = {}, threading.Event()
+
+    def parts_bc():
+        try:
+            got["b"] = fleet_rollout(workdir, X, direct1, gbm, [], started)
+        except BaseException as e:
+            got["b_error"] = e
+        finally:
+            started.set()
+
+    thread = threading.Thread(target=parts_bc, name="fleet-bc", daemon=True)
+    thread.start()
+    started.wait()
+    try:
+        got["a"] = fleet_kill_resume(workdir, rows, direct, gbm, [])
+    except Exception as e:
+        got["a_error"] = e
+    thread.join()
+    errors = [got[k] for k in ("a_error", "b_error") if k in got]
+    if errors:
+        # every worker incarnation's stderr, part by part
+        raise RuntimeError("\n".join(
+            [repr(e) for e in errors]
+            + [fleet_tails(os.path.join(workdir, d))
+               for d in ("fleet-a", "fleet-b")
+               if os.path.isdir(os.path.join(workdir, d))])) from errors[0]
+    a, b = got["a"], got["b"]
+    alive = [p for p in a["pids"] + b["pids"] if pid_alive(p)]
+    if alive:
+        raise RuntimeError(f"fleet: worker pids alive at the end: {alive}")
+    seconds = time.perf_counter() - t0
+    return {"nvidia_smi": smi, "seconds": seconds,
+            "parent_mem_free_bytes": free, "parent_mem_total_bytes": total,
+            "kill_resume": a, "rollout": b, "live_worker_pids": [],
+            "heartbeat_timeout_s": 2.0,
+            "first_beat_timeout_s": FLEET_FIRST_BEAT_S,
+            "launches_c1": a["launches"] + b["launches"],
+            "launches_lower_bound": True}
+
+
 AB_CHILD = r"""
 import json, os, shutil, sys, tempfile
 tree = os.path.abspath(sys.argv[1])
@@ -6640,6 +7463,11 @@ def run_phase_alone(workdir: str, phase: str) -> int:
         print(smi, flush=True)
         return 0
     qtrees_cuda.build()
+    if phase == "fleet":  # the workers compile their own models
+        _, _, q = model_tables(workdir, 500, "gbm_500.pmml")
+        emit({"phase": "fleet", **fleet(workdir, q, smi)})
+        print(smi, flush=True)
+        return 0
     _, cm, q = model_tables(workdir, 500, "gbm_500.pmml")
     _, _, vq = model_tables(workdir, 500, "votes_500.pmml", votes=dict(
         depth=6, n_features=32, n_classes=3, seed=0))
@@ -6985,6 +7813,10 @@ def run_phases(workdir: str) -> int:
 
     # -- the parallel plane on the card's 1x1 mesh (no kernel here) ---------
     emit({"phase": "mesh", **mesh_phase(workdir, smi)})
+
+    # -- the supervised fleet: workers on the card, the rollout broadcast ---
+    flt = fleet(workdir, q, smi)
+    emit({"phase": "fleet", **flt})
     zoo_launches = zs["zoo"]["launches_solo_c1"]
     packed_checked = zs["packed_kernel"]["cases"]
     pt = zs["packed_kernel"]["timing"]
@@ -6996,6 +7828,10 @@ def run_phases(workdir: str) -> int:
             "replaces": replaces,
             "launches": sum(r["launches"] for r in runs.values()),
             "launches_by_path": {k: r["launches"] for k, r in runs.items()},
+            # a path whose count can miss launches (a worker killed
+            # between two of its beats) is named here
+            "launches_lower_bound_paths": [
+                k for k, r in runs.items() if r.get("lower_bound")],
             "max_abs_err": max(r["max_abs_err"] for r in checked),
             "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -7020,7 +7856,9 @@ def run_phases(workdir: str) -> int:
                       "serving_edge": {"launches": edge["launches_c1"]},
                       "kernel_search": {"launches": ks["launches_c1"]},
                       "zoo_state": {"launches": zoo_launches},
-                      "rollout_drift": {"launches": rdp["launches_c1"]}},
+                      "rollout_drift": {"launches": rdp["launches_c1"]},
+                      "fleet": {"launches": flt["launches_c1"],
+                                "lower_bound": True}},
                      rows + [r for r in wrows if r["classes"] == 1], timing),
         kernel_entry("qtrees_leaf_rows (vote shares)",
                      "flink_jpmml_tpu/compile/qtrees_pallas.py:187 and :238",

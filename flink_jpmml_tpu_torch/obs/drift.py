@@ -11,10 +11,10 @@ or beside ``$FJT_AUTOTUNE_CACHE``), never in the JAX package's.
 monitor's knobs mean what they mean there. In the port the features are
 profiled in ``runtime/pipeline.dispatch_quantized`` on the caller's raw
 batch, before either encode placement stages it, and predictions at the
-block pipeline's sink and in ``DynamicScorer.finish``. The ``fjt-top
---drift`` and ``fjt-drift`` surfaces (``cli.py``), the bench drill and
-the ``/healthz`` composition through ``ObsServer`` are not ported;
-:meth:`DriftMonitor.health_fn` is.
+block pipeline's sink and in ``DynamicScorer.finish``. ``/healthz``
+composes :meth:`DriftMonitor.health_fn` through ``ObsServer(health_fn=)``
+(``obs/server.py``), as in JAX. The ``fjt-top --drift`` and
+``fjt-drift`` surfaces (``cli.py``) and the bench drill are not ported.
 
 Every observability plane so far watches the SYSTEM — latency
 attribution (obs/attr.py), freshness (obs/freshness.py), pressure

@@ -7,7 +7,7 @@ events are the JAX module's. What differs: ``DeviceHealth`` keys a device
 by its ``torch.device.index`` (``parallel/mesh.device_id``) where the JAX
 module reads ``Device.id``. The supervisor that
 drives it (``runtime/supervisor.py``) and the fleet ``/metrics`` server
-(``obs/server.py``) are not ported yet (ROADMAP Queue 1 item 7).
+(``obs/server.py``) are ported too.
 
 The reference inherits Flink's runtime heartbeats and restart
 strategies; the library's own contribution was idempotent model reload

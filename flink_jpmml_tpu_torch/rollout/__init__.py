@@ -1,9 +1,9 @@
 """Rollout control plane: staged deployment for dynamically served models.
 
 The port's copy of ``flink_jpmml_tpu/rollout/__init__.py``: the state,
-the split and the guardrail controller are all ported; the controller's
-fleet binding to the supervisor's heartbeat channel is not (no
-supervisor in the port yet), nor the ``fjt-rollout`` CLI. The exports
+the split and the guardrail controller are all ported, and so is the
+controller's fleet binding to the supervisor's heartbeat channel
+(``runtime/supervisor.py``); the ``fjt-rollout`` CLI is not. The exports
 below resolve on first use: ``models/control`` imports ``rollout.state``
 while the compiler is still loading, and the controller and the split
 reach back into it.

@@ -5,11 +5,10 @@ code), with the import lines renamed: it reads the port's metrics structs
 and prediction sketches (``obs/drift``) and applies the pure transitions
 of the port's ``rollout/state``. Local mode is ported whole: the
 :class:`~flink_jpmml_tpu_torch.serving.scorer.DynamicScorer` ticks it
-from its batch loop, with no thread of its own. Fleet mode runs on a
-thread (:meth:`RolloutController.start`) over a :class:`RolloutBook`
-whose ``forward`` is the caller's callable; the supervisor that would
-broadcast its decisions over the heartbeat channel
-(``Supervisor.broadcast_rollout``) is not ported yet.
+from its batch loop, with no thread of its own. Fleet mode is ported
+whole too: ``Supervisor.rollout_controller()`` (``runtime/supervisor.py``)
+runs it on a thread over the merged ``fleet_metrics()`` with a
+:class:`RolloutBook` whose ``forward`` is ``Supervisor.broadcast_rollout``.
 
 The observability plane produces mergeable per-worker measurement
 structs (``MetricsRegistry.struct_snapshot``) and an exact fleet merge

@@ -21,7 +21,8 @@ spans a dispatch, and a TCP-fed pipeline scores as the CPU port; and the
 kernel search: every launch shape and walk layout of its space bit-equal
 to the default launch, and a pipeline's sampled device profile; and the
 drift plane armed on the fused path (byte-equal outputs) and a shadow
-rollout through the dynamic scorer (two launches a batch). They
+rollout through the dynamic scorer (two launches a batch); and a
+supervised worker on the card whose first beat carries its launches. They
 skip where there is no card. This file
 imports neither jax nor the JAX package, so it runs on a machine that has
 only torch:
@@ -1345,3 +1346,65 @@ def test_multi_card_state_blocks_step_to_one_card_bytes(card):
     for d1, d2 in zip(stream(one, 4, 4), stream(blk, 4, 4)):
         assert torch.equal(d1.cpu(), d2.cpu())
     assert one.host_values().tobytes() == blk.host_values().tobytes()
+
+
+_CARD_WORKER = r"""
+import os, sys
+os.dup2(os.open(os.devnull, os.O_WRONLY), 1)
+os.dup2(os.open(sys.argv[3], os.O_WRONLY | os.O_CREAT | os.O_APPEND), 2)
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from flink_jpmml_tpu_torch.compile import compile_pmml, qtrees_cuda
+from flink_jpmml_tpu_torch.pmml import parse_pmml_file
+from flink_jpmml_tpu_torch.runtime.supervisor import reporter_from_env
+from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry
+q = compile_pmml(parse_pmml_file(sys.argv[2]), batch_size=1024).quantized_scorer()
+X = np.random.default_rng(0).normal(0, 1.5, (1024, 8)).astype(np.float32)
+q.predict_fused(X)
+torch.cuda.synchronize()
+reg = MetricsRegistry()
+reg.gauge("card_launches").set(qtrees_cuda.leaf_rows.launches)
+reg.gauge("on_card").set(float(q.backend == "cuda"))
+rep = reporter_from_env(metrics=reg)
+import time
+time.sleep(120)
+"""
+
+
+def test_a_supervised_card_worker_beats_with_its_launches(card, tmp_path):
+    """One supervised worker on the card (the fleet phase's start order:
+    its CUDA context and its kernel launch before its first beat): the
+    first beat the supervisor reads carries the worker's launch count, and
+    no worker outlives ``stop()``."""
+    import sys
+
+    from flink_jpmml_tpu_torch.runtime.supervisor import (
+        RestartPolicy,
+        Supervisor,
+        WorkerSpec,
+    )
+
+    qtrees_cuda.build()
+    pmml = gen_gbm(str(tmp_path), n_trees=20, depth=4, n_features=8)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    err = str(tmp_path / "worker.err")
+    sup = Supervisor([WorkerSpec("card", [sys.executable, "-c", _CARD_WORKER,
+                                          repo, pmml, err],
+                                 cwd=str(tmp_path))],
+                     policy=RestartPolicy(max_restarts=0))
+    sup.start()
+    try:
+        deadline = time.monotonic() + 120.0
+        while "card" not in sup.metrics_snapshots():
+            assert not sup.status()["card"]["gave_up"], open(err).read()
+            assert time.monotonic() < deadline, "no beat"
+            time.sleep(0.05)
+        g = sup.metrics_snapshots()["card"]["gauges"]
+        assert g["on_card"]["value"] == 1.0
+        assert g["card_launches"]["value"] >= 1.0
+        pid = sup.status()["card"]["pid"]
+    finally:
+        sup.stop()
+    with pytest.raises(ProcessLookupError):
+        os.kill(pid, 0)

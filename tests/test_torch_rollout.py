@@ -2,10 +2,13 @@
 rollout transitions, DynamicScorer's split, shadow mirrors and guardrail
 ticks) held to the JAX package on the CPU.
 
-Every scenario of the JAX package's tests/test_rollout.py that needs no
-supervisor runs here through the port's ``DynamicScorer`` on the CPU, most
-of them through the JAX scorer too on the same events, and the two must
-route, emit and decide alike. The guardrail controller is also held to
+Every scenario of the JAX package's tests/test_rollout.py runs here
+through the port's ``DynamicScorer`` on the CPU, most of them through the
+JAX scorer too on the same events, and the two must route, emit and
+decide alike. The fleet binding is held too: a rollback broadcast over
+the heartbeat replies converges a beating worker's registry, and the
+supervisor's ``rollout_controller()`` takes the JAX controller's decision
+on two workers' merged structs. The guardrail controller is also held to
 the JAX controller directly: the same sequence of metrics structs on the
 same injected clock gives the same decisions, field for field. Constant
 regression documents make the two versions' outputs tell which one
@@ -819,3 +822,109 @@ def test_block_path_adopts_a_candidate_only_at_full(tmp_path):
     ctrl.push(RolloutMessage("m", 2, "full", 3.0))
     pipe._poll_control()
     assert pipe.serving_key == ModelId("m", 2).key()
+
+
+# -- the fleet binding: the supervisor's controller and its broadcast ------------
+
+
+def test_broadcast_rollback_converges_a_beating_worker(tmp_path):
+    from flink_jpmml_tpu_torch.parallel.health import (
+        HealthCoordinator,
+        HealthReporter,
+    )
+    from flink_jpmml_tpu_torch.runtime.supervisor import rollout_control_hook
+
+    v1 = _write_const(tmp_path, "v1.pmml", 1.0)
+    v2 = _write_const(tmp_path, "v2.pmml", 2.0)
+    reg = ModelRegistry(batch_size=8, async_warmup=False, device="cpu")
+    reg.apply(AddMessage("m", 1, v1, timestamp=1.0))
+    reg.apply(RolloutMessage("m", 2, "canary", 2.0, path=v2, fraction=0.2))
+    assert reg.rollout("m") is not None
+    coord = HealthCoordinator(timeout_s=5.0)
+    rep = HealthReporter(coord.host, coord.port, "w0", interval_s=0.05,
+                         on_control=rollout_control_hook(reg))
+    try:
+        # the supervisor-side decision, broadcast over the beat reply
+        coord.set_control({"rollout": to_wire(
+            RolloutMessage("m", 2, "rollback", 3.0))})
+        deadline = time.monotonic() + 10.0
+        while reg.rollout("m") is not None:
+            assert time.monotonic() < deadline, "never converged"
+            time.sleep(0.02)
+        assert reg.resolve("m", 2) is None  # candidate dropped
+        assert reg.resolve("m") == ModelId("m", 1)
+        out = reg.model(ModelId("m", 1)).score_records([{"a": 0.0}])
+        assert out[0].score.value == 1.0
+    finally:
+        rep.stop()
+        coord.close()
+
+
+# two workers' cumulative structs at each tick: together they disagree on
+# 56 of the window's 360 mirrored records (15.6% against the 2% limit)
+_FLEET_STEPS = [
+    (1.0, dict(compared=100, cand=30), dict(compared=100, cand=30)),
+    (2.0, dict(compared=300, disagree=30, cand=90),
+     dict(compared=260, disagree=26, cand=80)),
+]
+
+
+def test_supervisor_controller_rolls_back_like_the_jax_one():
+    from flink_jpmml_tpu_torch.parallel.health import HealthReporter
+    from flink_jpmml_tpu_torch.runtime.supervisor import Supervisor
+
+    spec = GuardrailSpec(min_samples=50, promote_after_s=3600.0)
+    canary = RolloutMessage("m", 2, "canary", 0.0, fraction=0.2,
+                            guardrails=spec)
+    t = [0.0]
+    cur = {"w0": None, "w1": None}
+    sup = Supervisor([], heartbeat_timeout_s=5.0)
+    sup.start()
+    addr = sup.coordinator_address.rsplit(":", 1)
+    docs = []
+    reps = [HealthReporter(addr[0], int(addr[1]), w, interval_s=0.02,
+                           snapshot_fn=lambda w=w: cur[w])
+            for w in cur]
+    listener = HealthReporter(addr[0], int(addr[1]), "listener",
+                              interval_s=0.02, on_control=docs.append)
+    jsent = []
+    jbook = jctl.RolloutBook(jsent.append)
+    jbook.apply(jcontrol.from_wire(to_wire(canary)))
+    jc = jctl.RolloutController(book=jbook, struct_fn=None,
+                                metrics=jmetrics.MetricsRegistry(),
+                                interval_s=0.0, clock=lambda: t[0])
+    try:
+        ctl = sup.rollout_controller(interval_s=0.0, start=False)
+        ctl._clock = lambda: t[0]
+        ctl._book.apply(canary)
+        trail, jtrail = [], []
+        for when, kw0, kw1 in _FLEET_STEPS:
+            cur.update(w0=_struct(tmetrics, **kw0), w1=_struct(tmetrics, **kw1))
+            want = kw0["compared"] + kw1["compared"]
+            deadline = time.monotonic() + 10.0
+            while sup.fleet_metrics()["counters"].get(
+                    'rollout_shadow_compared{model="m"}') != want:
+                assert time.monotonic() < deadline, "beats never arrived"
+                time.sleep(0.01)
+            t[0] = when
+            trail.append(ctl.tick())
+            jstructs = [_struct(jmetrics, **kw0), _struct(jmetrics, **kw1)]
+            jc._struct_fn = lambda s=jstructs: jmetrics.merge_structs(s)
+            jtrail.append(jc.tick())
+        assert trail == jtrail
+        fired = [d for step in trail for d in step]
+        assert [(d["action"], d["compared"], d["disagree"]) for d in fired] \
+            == [("rollback", 360.0, 56.0)]
+        assert ctl._book.rollouts() == {} and jbook.rollouts() == {}
+        # the verdict went out over the beat replies, as the JAX book's
+        deadline = time.monotonic() + 10.0
+        while not any(d["rollout"]["stage"] == "rollback" for d in docs):
+            assert time.monotonic() < deadline, "no broadcast reached"
+            time.sleep(0.01)
+        assert [d["rollout"] for d in docs][-1] == jcontrol.to_wire(jsent[-1])
+        assert sup.fleet_metrics()["counters"][
+            'rollout_rollbacks{model="m"}'] == 1.0
+    finally:
+        for r in reps + [listener]:
+            r.stop()
+        sup.stop()
