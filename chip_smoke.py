@@ -390,6 +390,28 @@ JAX package, and prints one JSON line per phase:
     are printed, and no worker pid may be alive at the end. Workers send
     stdout to ``/dev/null`` and stderr to a file per incarnation, whose
     tails a failure prints.
+28. cli — the operator's entry points (``cli.py``, ``utils/demo.py``,
+    ``examples_torch/``), each in a subprocess whose stdout and stderr go
+    to files in the run's temporary directory. ``score``: ``python -m
+    flink_jpmml_tpu_torch.cli`` (``fjt-score``) over a CSV of 65,536 rows
+    of the main paths' generator (missing cells empty) against
+    ``gbm_500.pmml`` at ``--batch 16384`` on the card, every line within
+    rtol 1e-4 / atol 1e-5 of this process's ``score_records``, the empty
+    records empty, the stderr count 65,536. ``redrive``: 64 main-path rows
+    quarantined with trace contexts (plus one duplicate envelope),
+    redriven by ``fjt-dlq redrive`` in a process that sees no card into a
+    port ``MiniKafkaBroker``, consumed by a ``KafkaBlockSource`` feeding
+    a ``BlockPipeline`` over the fused GBM: exactly 64 records, scores
+    equal to the direct run's, each ``traceparent`` read back as its
+    envelope's. ``examples``: ``examples_torch/gbm_throughput.py
+    --seconds 2`` and ``examples_torch/kafka_stream.py`` on the card, each
+    run by ``runpy`` in a child that sets the kernel's count to 0 and
+    prints it after the job; that count, held to the dispatches and
+    redispatches of the metrics the job printed (plus gbm_throughput's
+    one warm launch), is the kernel's launches on this path beside part
+    b's own. The kernel is also held bit for bit to its plain version at
+    ``kafka_stream``'s shape (50 trees of depth 5 over 8 fields, blocks
+    of 256 rows), which no other phase gives it.
 
 Every main path runs the C++ ring, and its line carries the stage ledger
 of its registry (``attribution``: per stage the count, total ms, p50 /
@@ -411,7 +433,7 @@ OTHER_CHECKOUT`` instead times the fused GBM's block path in child
 processes alternating between another checkout and this one
 (``ab_main``), and ``python3 chip_smoke.py --phase NAME`` runs one
 phase alone (``serving_edge``, ``kernel_search``, ``zoo_state``,
-``rollout_drift``, ``mesh`` or ``fleet``) with what it needs built
+``rollout_drift``, ``mesh``, ``fleet`` or ``cli``) with what it needs built
 (``run_phase_alone``). After the last phase a ``run`` line prints the
 whole run's seconds. Any failed phase raises, and the
 script exits non-zero without printing the last line. Without a CUDA
@@ -427,6 +449,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import shutil
 import subprocess
@@ -434,6 +457,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 import numpy as np
 
@@ -6797,15 +6821,25 @@ class FleetWatch:
                 for r in self.inc.values()]
 
 
-def fleet_tails(outdir: str) -> str:
-    """The last 1,500 bytes of every worker incarnation's stderr file."""
+def file_tails(paths: list, n: int = 1500) -> str:
+    """The last ``n`` bytes of each file in ``paths``."""
     parts = []
-    for name in sorted(os.listdir(outdir)):
-        if name.startswith("fleet-") and name.endswith(".err"):
-            with open(os.path.join(outdir, name), "rb") as f:
-                tail = f.read()[-1500:].decode(errors="replace")
-            parts.append(f"--- {name}:\n{tail}")
-    return "\n".join(parts) or "(no worker stderr files)"
+    for path in paths:
+        try:
+            with open(path, "rb") as f:
+                f.seek(max(os.path.getsize(path) - n, 0))
+                tail = f.read().decode(errors="replace")
+        except OSError as e:
+            tail = repr(e)
+        parts.append(f"--- {os.path.basename(path)}:\n{tail}")
+    return "\n".join(parts) or "(no output files)"
+
+
+def fleet_tails(outdir: str) -> str:
+    """The tails of every worker incarnation's stderr file."""
+    return file_tails([os.path.join(outdir, name)
+                       for name in sorted(os.listdir(outdir))
+                       if name.startswith("fleet-") and name.endswith(".err")])
 
 
 def fleet_extra_restarts(seq0: int, kills: dict) -> list:
@@ -7343,6 +7377,342 @@ def fleet(workdir: str, q, smi: str) -> dict:
             "launches_lower_bound": True}
 
 
+# -- the operator's entry points (phase "cli") -------------------------------
+
+CLI_ROWS = 4 * BATCH  # part a: the CSV's rows (the main paths' generator, seed 0)
+CLI_DLQ_ROWS = 64  # part b: the quarantined main-path rows
+CLI_GBM_SECONDS = "2"  # part c: gbm_throughput's --seconds
+CLI_TIMEOUT_S = 300.0  # a subprocess's wall limit
+CLI_KAFKA_ROWS = 20_000  # kafka_stream's log (its N, rows from seed 11)
+CLI_KAFKA_BLOCK = 256  # kafka_stream's batch
+
+# part c: an example job run by runpy in a child that sets the kernel's
+# count to 0 first and prints it, after the job, as its last line
+CLI_EXAMPLE = r"""
+import json, runpy, sys
+sys.path.insert(0, sys.argv[1])
+from flink_jpmml_tpu_torch.compile import qtrees_cuda
+qtrees_cuda.leaf_rows.launches = 0
+qtrees_cuda.leaf_rows.launches_by_classes = {}
+sys.argv = sys.argv[2:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+print("launches: " + json.dumps({
+    "launches": qtrees_cuda.leaf_rows.launches,
+    "launches_by_classes": qtrees_cuda.leaf_rows.launches_by_classes,
+}), flush=True)
+"""
+
+# part b's redrive: the port's fjt-dlq in a process that sees no card
+CLI_REDRIVE = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+from flink_jpmml_tpu_torch.cli import dlq_main
+sys.exit(dlq_main(sys.argv[2:]))
+"""
+
+
+def cli_spawn(workdir: str, name: str, argv: list, env=None) -> dict:
+    """Start ``argv`` from the checkout's root with its stdout and stderr
+    in ``cli-<name>.out`` / ``.err`` under ``workdir``: nothing of it
+    reaches this script's standard output."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    paths = {k: os.path.join(workdir, f"cli-{name}.{k}") for k in ("out", "err")}
+    with open(paths["out"], "wb") as out, open(paths["err"], "wb") as err:
+        proc = subprocess.Popen(argv, cwd=here, stdout=out, stderr=err,
+                                stdin=subprocess.DEVNULL,
+                                env=dict(os.environ, **(env or {})))
+    return {"name": name, "proc": proc, "t0": time.perf_counter(), **paths}
+
+
+def cli_tails(jobs: list) -> str:
+    return file_tails([job[k] for job in jobs for k in ("out", "err")], 3000)
+
+
+def cli_wait(jobs: list) -> list:
+    """Wait for every job in one polling loop → their stdouts. Each job's
+    ``seconds`` run from its start to the poll that saw it exit (a job
+    that ended while this process was busy elsewhere is stamped when the
+    loop starts). Raises on a non-zero exit or past ``CLI_TIMEOUT_S``
+    from a job's start; the caller kills what is left."""
+    pending = list(jobs)
+    while pending:
+        now = time.perf_counter()
+        for job in list(pending):
+            rc = job["proc"].poll()
+            if rc is None:
+                if now - job["t0"] > CLI_TIMEOUT_S:
+                    raise RuntimeError(f"cli: {job['name']} ran past "
+                                       f"{CLI_TIMEOUT_S} s")
+                continue
+            job["seconds"] = now - job["t0"]
+            pending.remove(job)
+            if rc != 0:
+                raise RuntimeError(f"cli: {job['name']} exited {rc}")
+        if pending:
+            time.sleep(0.02)
+    outs = []
+    for job in jobs:
+        with open(job["out"], encoding="utf-8") as f:
+            outs.append(f.read())
+    return outs
+
+
+def cli_launches(text: str, label: str, warms: int) -> dict:
+    """Part c: the kernel's count the ``CLI_EXAMPLE`` child printed last,
+    held (``held_launches``) against the dispatches and redispatches of
+    every metrics snapshot the job printed plus its ``warms`` direct
+    launches. Each snapshot must come from the kernel's rank-wire
+    backend, so a fall-back dispatch shows as a missing launch."""
+    lines = text.splitlines()
+    snaps = [ln for ln in lines if "metrics: {" in ln]
+    if not snaps or any("'scorer_backend_rank_wire_cuda': 1.0" not in s
+                        for s in snaps):
+        raise RuntimeError(f"cli: {label} printed no rank_wire_cuda metrics")
+    if not lines or not lines[-1].startswith("launches: "):
+        raise RuntimeError(f"cli: {label} printed no launch count")
+
+    def total(key: str) -> int:
+        return sum(int(float(m.group(1))) for m in (
+            re.search(rf"'{key}': ([\d.]+)", s) for s in snaps) if m)
+
+    counted = json.loads(lines[-1][len("launches: "):])
+    counter = types.SimpleNamespace(**counted)
+    return held_launches(counter, {"dispatches": total("dispatches"),
+                                   "redispatches": total("redispatches")},
+                         f"cli {label}", warms=warms)
+
+
+def cli_kafka_kernel(workdir: str) -> list:
+    """The kernel at ``kafka_stream``'s shape, which no other phase gives
+    it: its model (``gen_gbm(50, depth=5, n_features=8)``) and its own
+    rows, as one full block of 256, a partial block and the whole log,
+    bit for bit against the plain version."""
+    from flink_jpmml_tpu_torch.assets_gen import gen_gbm
+    from flink_jpmml_tpu_torch.compile import compile_pmml
+    from flink_jpmml_tpu_torch.pmml import parse_pmml_file
+
+    path = gen_gbm(workdir, n_trees=50, depth=5, n_features=8,
+                   name="cli_kafka_stream.pmml")
+    q = compile_pmml(parse_pmml_file(path),
+                     batch_size=CLI_KAFKA_BLOCK).quantized_scorer()
+    if q is None or q.backend != "cuda":
+        raise RuntimeError("cli: kafka_stream's model is not on the kernel")
+    X = np.random.default_rng(11).normal(
+        0.0, 1.5, size=(CLI_KAFKA_ROWS, 8)).astype(np.float32)
+    return [check_kernel(q, X[lo:hi], f"kafka_stream_50x5_f8_{hi - lo}",
+                         "cli")
+            for lo, hi in ((0, CLI_KAFKA_BLOCK), (CLI_KAFKA_BLOCK, 353),
+                           (0, CLI_KAFKA_ROWS))]
+
+
+def cli_score_check(out_path: str, err_text: str, preds) -> dict:
+    """Part a: fjt-score's lines against the parent's ``score_records``."""
+    with open(out_path, encoding="utf-8") as f:
+        lines = [json.loads(ln) for ln in f]
+    if len(lines) != len(preds):
+        raise RuntimeError(f"cli: fjt-score wrote {len(lines)} lines for "
+                           f"{len(preds)} records")
+    if err_text.strip().splitlines()[-1:] != [f"scored {len(preds)} records"]:
+        raise RuntimeError(f"cli: fjt-score's count reads {err_text[-200:]!r}")
+    got, want, empty = [], [], 0
+    for line, p in zip(lines, preds):
+        if p.is_empty or line.get("empty"):
+            if not (p.is_empty and line == {"empty": True}):
+                raise RuntimeError(f"cli: {line} against empty={p.is_empty}")
+            empty += 1
+            continue
+        got.append(line["value"])
+        want.append(p.score.value)
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = float(np.abs(got - want).max()) if got.size else 0.0
+    if not np.isfinite(got).all() or not np.allclose(got, want, rtol=RTOL,
+                                                     atol=ATOL):
+        raise RuntimeError(f"cli: fjt-score disagrees with score_records by "
+                           f"{err}")
+    return {"records": len(lines), "empty": empty, "max_abs_err": err}
+
+
+def cli_redrive(workdir: str, q, cm, counter) -> dict:
+    """Part b: 64 main-path rows quarantined with their trace contexts
+    (and one duplicate envelope), redriven by the port's ``fjt-dlq`` in a
+    process that sees no card, consumed by a ``KafkaBlockSource`` feeding
+    a ``BlockPipeline`` over the fused GBM on the card."""
+    from flink_jpmml_tpu_torch.obs import trace as trace_mod
+    from flink_jpmml_tpu_torch.runtime.block import BlockPipeline
+    from flink_jpmml_tpu_torch.runtime.dlq import DeadLetterQueue
+    from flink_jpmml_tpu_torch.runtime.kafka import (
+        KafkaBlockSource, KafkaClient, MiniKafkaBroker,
+        record_batch_traceparents,
+    )
+    from flink_jpmml_tpu_torch.utils.config import BatchConfig, RuntimeConfig
+    from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry
+
+    F = len(q.wire.fields)
+    rows = features(np.random.default_rng(0), CLI_DLQ_ROWS, F)
+    ckdir = os.path.join(workdir, "cli-ck")
+    dlq = DeadLetterQueue(os.path.join(ckdir, "dlq"))
+    want_tp = {}
+    for i in range(CLI_DLQ_ROWS):
+        ctx = trace_mod.context_for(1000 + i)
+        dlq.quarantine(rows[i].tobytes(), offset=1000 + i, reason="score",
+                       partition=0, trace_id=ctx.trace_id,
+                       span_id=ctx.span_id)
+        want_tp[i] = ctx.to_traceparent()
+    ctx = trace_mod.context_for(1005)  # a replayed quarantine of one row
+    dlq.quarantine(rows[5].tobytes(), offset=1005, reason="score",
+                   partition=0, trace_id=ctx.trace_id, span_id=ctx.span_id)
+    direct = direct_rows(q, rows).astype(np.float32)
+    broker = MiniKafkaBroker(topic="redrive")
+    job = None
+    try:
+        here = os.path.dirname(os.path.abspath(__file__))
+        job = cli_spawn(workdir, "dlq-redrive", [
+            sys.executable, "-c", CLI_REDRIVE, here, "redrive", ckdir,
+            "--host", broker.host, "--port", str(broker.port),
+            "--topic", "redrive"], env={"CUDA_VISIBLE_DEVICES": ""})
+        out, = cli_wait([job])
+        if (out.count("redrove offset") != CLI_DLQ_ROWS
+                or broker.high_watermark != CLI_DLQ_ROWS):
+            raise RuntimeError(f"cli: the redrive produced "
+                               f"{broker.high_watermark} records")
+        c = KafkaClient(broker.host, broker.port)
+        try:
+            _, raw = c.fetch_raw("redrive", 0, 0)
+        finally:
+            c.close()
+        tps = record_batch_traceparents(bytes(raw))
+        if tps != want_tp:
+            raise RuntimeError(f"cli: traceparents read back {len(tps)} of "
+                               f"{CLI_DLQ_ROWS}, equal: {tps == want_tp}")
+        reg = MetricsRegistry()
+        src = KafkaBlockSource(broker.host, broker.port, "redrive",
+                               n_cols=F, max_wait_ms=20, metrics=reg)
+        got = {}
+
+        def sink(o, n, first_off):
+            vals = np.asarray(o, np.float32)[:n]
+            for k in range(n):
+                got[first_off + k] = vals[k]
+
+        reset(counter)
+        pipe = BlockPipeline(
+            src, cm, sink,
+            RuntimeConfig(batch=BatchConfig(size=BATCH, deadline_us=5000)),
+            metrics=reg)
+        try:
+            pipe.start()
+            deadline = time.monotonic() + 60.0
+            while (pipe.committed_offset < CLI_DLQ_ROWS
+                   and pipe._error is None and time.monotonic() < deadline):
+                time.sleep(0.01)
+            pipe.stop()
+            pipe.join(timeout=30.0)
+        finally:
+            src.close()
+        held = held_launches(counter, reg.snapshot(), "cli redrive")
+        backend = pipe.backend
+    finally:
+        broker.close()
+        if job is not None and job["proc"].poll() is None:
+            job["proc"].kill()
+    if backend != "rank_wire_cuda" or sorted(got) != list(range(CLI_DLQ_ROWS)):
+        raise RuntimeError(f"cli: {len(got)} redriven records scored on "
+                           f"{backend}")
+    vals = np.asarray([got[k] for k in range(CLI_DLQ_ROWS)], np.float32)
+    err = float(np.abs(vals - direct).max())
+    if not np.allclose(vals, direct, rtol=RTOL, atol=ATOL):
+        raise RuntimeError(f"cli: redriven scores disagree by {err}")
+    return {"envelopes": CLI_DLQ_ROWS + 1, "redriven": CLI_DLQ_ROWS,
+            "traceparents": len(tps), "max_abs_err": err,
+            "redrive_seconds": job["seconds"], "backend": backend, **held}
+
+
+def cli_phase(workdir: str, cm, q, counter, smi: str) -> dict:
+    """The ``cli`` phase: the operator's entry points on the card. Part a
+    runs ``python -m flink_jpmml_tpu_torch.cli`` (``fjt-score``) over a
+    CSV of the main paths' rows against ``gbm_500.pmml``, held to this
+    process's ``ModelReader(...).load(batch_size=BATCH).score_records``
+    on the card; part b is ``cli_redrive``; part c runs
+    ``examples_torch/gbm_throughput.py --seconds 2`` and
+    ``examples_torch/kafka_stream.py`` on the card, each in a
+    ``CLI_EXAMPLE`` child whose kernel count is held to the dispatches
+    its printed metrics carry, and checks the kernel at
+    ``kafka_stream``'s shape (``cli_kafka_kernel``). The three
+    subprocesses of parts a and c start together and run beside parts b
+    and c's kernel check. On a failure every subprocess's output tails
+    are raised."""
+    from flink_jpmml_tpu_torch.api import ModelReader
+
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    pmml = os.path.join(workdir, "gbm_500.pmml")
+    names = list(q.wire.fields)
+    X = features(np.random.default_rng(0), CLI_ROWS, len(names))
+    cells = np.char.mod("%.9g", X)
+    cells[np.isnan(X)] = ""
+    csv_path = os.path.join(workdir, "cli-records.csv")
+    with open(csv_path, "w", encoding="utf-8") as f:
+        f.write(",".join(names) + "\n")
+        f.writelines(",".join(r) + "\n" for r in cells.tolist())
+    scored = os.path.join(workdir, "cli-scored.jsonl")
+    tmp = os.path.join(workdir, "cli-tmp")
+    os.makedirs(tmp, exist_ok=True)
+    env = {"TMPDIR": tmp}
+    jobs = [
+        cli_spawn(workdir, "fjt-score", [
+            sys.executable, "-m", "flink_jpmml_tpu_torch.cli", pmml,
+            csv_path, "-o", scored, "--batch", str(BATCH)], env),
+        cli_spawn(workdir, "gbm_throughput", [
+            sys.executable, "-c", CLI_EXAMPLE, here,
+            os.path.join(here, "examples_torch", "gbm_throughput.py"),
+            "--seconds", CLI_GBM_SECONDS], env),
+        cli_spawn(workdir, "kafka_stream", [
+            sys.executable, "-c", CLI_EXAMPLE, here,
+            os.path.join(here, "examples_torch", "kafka_stream.py")], env),
+    ]
+    try:
+        ref_cm = ModelReader(pmml).load(batch_size=BATCH)
+        recs = [{n: v for n, v in zip(names, row) if v == v}
+                for row in X.tolist()]
+        preds = []
+        for i in range(0, len(recs), BATCH):
+            preds += ref_cm.score_records(recs[i:i + BATCH])
+        # before the redrive, which sets the count to 0 for its pipeline
+        kernel_cases = cli_kafka_kernel(workdir)
+        b = cli_redrive(workdir, q, cm, counter)
+        _, gbm_out, kafka_out = cli_wait(jobs)
+        with open(jobs[0]["err"], encoding="utf-8") as f:
+            a = cli_score_check(scored, f.read(), preds)
+        m = re.search(r"scored ([\d,]+) records", gbm_out)
+        gbm_records = int(m.group(1).replace(",", "")) if m else 0
+        if gbm_records <= 0:
+            raise RuntimeError("cli: gbm_throughput scored no records")
+        if (f"scored all {CLI_KAFKA_ROWS} records exactly once"
+                not in kafka_out):
+            raise RuntimeError("cli: kafka_stream did not score its log")
+        # gbm_throughput warms with one direct predict_wire launch
+        c = {"gbm_throughput": {
+                 "records": gbm_records, "seconds": jobs[1]["seconds"],
+                 **cli_launches(gbm_out, "gbm_throughput", warms=1)},
+             "kafka_stream": {
+                 "records": CLI_KAFKA_ROWS, "seconds": jobs[2]["seconds"],
+                 **cli_launches(kafka_out, "kafka_stream", warms=0)},
+             "kernel_cases": kernel_cases}
+    except BaseException as e:
+        raise RuntimeError(f"{e!r}\n{cli_tails(jobs)}") from e
+    finally:
+        for job in jobs:
+            if job["proc"].poll() is None:
+                job["proc"].kill()
+                job["proc"].wait()
+    a["seconds"] = jobs[0]["seconds"]
+    launches = (b["launches"] + c["gbm_throughput"]["launches"]
+                + c["kafka_stream"]["launches"])
+    return {"nvidia_smi": smi, "seconds": time.perf_counter() - t0,
+            "score": a, "redrive": b, "examples": c,
+            "launches_c1": launches}
+
+
 AB_CHILD = r"""
 import json, os, shutil, sys, tempfile
 tree = os.path.abspath(sys.argv[1])
@@ -7466,6 +7836,15 @@ def run_phase_alone(workdir: str, phase: str) -> int:
     if phase == "fleet":  # the workers compile their own models
         _, _, q = model_tables(workdir, 500, "gbm_500.pmml")
         emit({"phase": "fleet", **fleet(workdir, q, smi)})
+        print(smi, flush=True)
+        return 0
+    if phase == "cli":  # no vote forest on this path
+        _, cm, q = model_tables(workdir, 500, "gbm_500.pmml")
+        q.predict_fused(features(np.random.default_rng(0), BATCH,
+                                 len(q.wire.fields)))
+        torch.cuda.synchronize()
+        emit({"phase": "cli",
+              **cli_phase(workdir, cm, q, qtrees_cuda.leaf_rows, smi)})
         print(smi, flush=True)
         return 0
     _, cm, q = model_tables(workdir, 500, "gbm_500.pmml")
@@ -7817,6 +8196,10 @@ def run_phases(workdir: str) -> int:
     # -- the supervised fleet: workers on the card, the rollout broadcast ---
     flt = fleet(workdir, q, smi)
     emit({"phase": "fleet", **flt})
+
+    # -- the operator's entry points: fjt-score, the redrive, two examples --
+    cl = cli_phase(workdir, cm, q, qtrees_cuda.leaf_rows, smi)
+    emit({"phase": "cli", **cl})
     zoo_launches = zs["zoo"]["launches_solo_c1"]
     packed_checked = zs["packed_kernel"]["cases"]
     pt = zs["packed_kernel"]["timing"]
@@ -7858,8 +8241,10 @@ def run_phases(workdir: str) -> int:
                       "zoo_state": {"launches": zoo_launches},
                       "rollout_drift": {"launches": rdp["launches_c1"]},
                       "fleet": {"launches": flt["launches_c1"],
-                                "lower_bound": True}},
-                     rows + [r for r in wrows if r["classes"] == 1], timing),
+                                "lower_bound": True},
+                      "cli": {"launches": cl["launches_c1"]}},
+                     rows + [r for r in wrows if r["classes"] == 1]
+                     + cl["examples"]["kernel_cases"], timing),
         kernel_entry("qtrees_leaf_rows (vote shares)",
                      "flink_jpmml_tpu/compile/qtrees_pallas.py:187 and :238",
                      {"vote_main_path": vrun, "vote_fused_main_path": vfrun,

@@ -14,7 +14,8 @@ batch, before either encode placement stages it, and predictions at the
 block pipeline's sink and in ``DynamicScorer.finish``. ``/healthz``
 composes :meth:`DriftMonitor.health_fn` through ``ObsServer(health_fn=)``
 (``obs/server.py``), as in JAX. The ``fjt-top --drift`` and
-``fjt-drift`` surfaces (``cli.py``) and the bench drill are not ported.
+``fjt-drift`` surfaces are the port's ``cli.py``; the bench drill is not
+ported.
 
 Every observability plane so far watches the SYSTEM — latency
 attribution (obs/attr.py), freshness (obs/freshness.py), pressure
@@ -60,7 +61,7 @@ and the first that sees the payload:
   alarm/clear hysteresis (on/off thresholds + dwell), and an optional
   ``/healthz`` composition (:meth:`DriftMonitor.health_fn`).
 
-Surfaces: ``fjt-top --drift`` (cli.py) renders :func:`summary`;
+Surfaces: ``fjt-top --drift`` (the port's cli.py) renders :func:`summary`;
 ``bench.py --drift-drill`` perturbs one feature's generator mid-run and
 asserts the alarm lands on the right feature while a control feature
 stays quiet; the rollout controller evaluates candidate-vs-incumbent

@@ -3,8 +3,7 @@
 A copy of ``flink_jpmml_tpu/obs/mesh.py`` with the import lines renamed.
 What differs: a chip's id is its ``torch.device.index``
 (``parallel/mesh.device_id``) where the JAX module reads ``Device.id``.
-The ``fjt-top --mesh`` renderer is not ported (the CLI is ROADMAP Queue
-1 item 7); :func:`summary` is.
+``fjt-top --mesh`` (the port's ``cli.py``) renders :func:`summary`.
 
 DrJAX's map/reduce framing (PAPERS.md) is the discipline here: every
 per-chip series is either a counter (fleet merge: SUM — per-chip record

@@ -54,7 +54,7 @@ Checkpoints deliberately carry nothing: journeys are reconstructed
 from the durable fragments (journey rows + span files + flight dumps +
 DLQ envelopes), not from checkpointed state — :func:`read_rows` and
 :func:`trace_payload` are the read side, across all worker incarnations
-(the ``fjt-trace`` CLI that renders them is not ported yet).
+(the ``fjt-trace`` command of the port's ``cli.py`` renders them).
 """
 
 from __future__ import annotations

@@ -23,14 +23,15 @@ one returns None). The ``dlq=`` argument stays, duck-typed; without a
 DLQ, decode errors raise as in the JAX package. The header-aware decode
 ``decode_record_batches_h`` and the traceparent walk
 ``record_batch_traceparents`` are copies; the other decoders skip the
-headers of a record that carries some. Left out until the observability
-and control slice brings the DLQ redrive CLI, since nothing in the port
-reaches them: the Produce API (``KafkaClient.produce`` and the broker's
-Produce handler) and record headers on the producer side
-(``encode_record_batch(headers=)``, ``append(headers=)``). Left out as well,
-since no port path or test drives them: ``KafkaClient.fetch`` (the
-value-list fetch; the sources use ``fetch_raw``), and the broker's
-keyed producer (``append_rows_keyed``) and log compaction (``compact``).
+headers of a record that carries some. The producer side is the JAX
+package's: ``KafkaClient.produce`` (Produce v3) and ``KafkaClient.fetch``,
+``encode_record_batch(headers=)``, and in the broker the per-record
+header lists, ``append(headers=)`` and the Produce v3 handler, which
+ApiVersions advertises; the DLQ redrive (``cli.dlq_main``) stamps a
+``traceparent`` header through them. A headered ``append`` takes the
+Python encoder, as a stamped ``append_rows`` does. Left out, since no
+port path or test drives them: the broker's keyed producer
+(``append_rows_keyed``) and log compaction (``compact``).
 
 BASELINE config 2 puts the north-star GBM on a "Kafka tabular stream"; the
 reference rode Flink's Kafka connector (SURVEY.md §2 EXT-A). This
@@ -86,6 +87,7 @@ from flink_jpmml_tpu_torch.runtime.block import BlockSource
 from flink_jpmml_tpu_torch.runtime.sources import Polled, Source
 from flink_jpmml_tpu_torch.utils.retry import Backoff
 
+API_PRODUCE = 0
 API_FETCH = 1
 API_LIST_OFFSETS = 2
 API_METADATA = 3
@@ -396,8 +398,14 @@ def encode_record_batch(
     base_offset: int,
     values: Sequence[bytes],
     timestamp_ms: int = 0,
+    headers: Optional[Sequence[Optional[Sequence[Tuple[str, bytes]]]]] = None,
 ) -> bytes:
-    """values → one magic-2 record batch (null keys, no headers)."""
+    """values → one magic-2 record batch (null keys). ``headers`` is an
+    optional per-record list aligned with ``values``: each entry None
+    (no headers) or ``[(key, value_bytes), ...]`` — the carrier the
+    record-journey tracing plane uses for ``traceparent`` propagation
+    (obs/trace.py; ``fjt-dlq redrive`` stamps one so a redriven
+    record's journey links its original)."""
     recs = bytearray()
     for i, v in enumerate(values):
         body = bytearray()
@@ -407,7 +415,18 @@ def encode_record_batch(
         write_varint(body, -1)  # null key
         write_varint(body, len(v))
         body += v
-        write_varint(body, 0)  # headers count
+        hdrs = headers[i] if headers is not None else None
+        if hdrs:
+            write_varint(body, len(hdrs))
+            for hk, hv in hdrs:
+                hk_raw = hk.encode() if isinstance(hk, str) else bytes(hk)
+                hv_raw = bytes(hv)
+                write_varint(body, len(hk_raw))
+                body += hk_raw
+                write_varint(body, len(hv_raw))
+                body += hv_raw
+        else:
+            write_varint(body, 0)  # headers count
         rec = bytearray()
         write_varint(rec, len(body))
         rec += body
@@ -1032,6 +1051,66 @@ class KafkaClient:
         if len(chunks) == 1:
             return high_watermark, chunks[0]
         return high_watermark, b"".join(chunks)
+
+    def produce(
+        self,
+        topic: str,
+        partition: int,
+        values: Sequence[bytes],
+        timestamp_ms: int = 0,
+        timeout_ms: int = 10_000,
+        headers: Optional[Sequence] = None,
+    ) -> int:
+        """Produce ``values`` as one magic-2 record batch (Produce v3,
+        acks=-1) → the base offset the broker assigned. The consumer
+        side never needs this; the ``fjt-dlq redrive`` path does — a
+        quarantined record goes back INTO the topic so the live
+        pipeline re-scores it through the real consume path.
+        ``headers`` (per-record, aligned with ``values``) carries the
+        redrive's ``traceparent`` so the record's new journey segment
+        links its original (obs/trace.py)."""
+        record_set = encode_record_batch(
+            0, list(values), timestamp_ms=timestamp_ms, headers=headers
+        )
+        w = _Writer()
+        w.string(None)  # transactional id
+        w.i16(-1)  # acks: full ISR
+        w.i32(timeout_ms)
+        w.i32(1).string(topic)
+        w.i32(1).i32(partition).bytes_(record_set)
+        r = self._request(API_PRODUCE, 3, bytes(w.b))
+        base_offset = -1
+        for _ in range(r.i32()):
+            r.string()  # topic
+            for _ in range(r.i32()):
+                r.i32()  # partition
+                err = r.i16()
+                if err:
+                    raise KafkaProtocolError(f"Produce error {err}")
+                base_offset = r.i64()
+                r.i64()  # log append time
+        if base_offset < 0:
+            raise KafkaProtocolError("empty Produce response")
+        return base_offset
+
+    def fetch(
+        self,
+        topic: str,
+        partition: int,
+        offset: int,
+        max_wait_ms: int = 100,
+        min_bytes: int = 1,
+        max_bytes: int = 4 << 20,
+    ) -> Tuple[int, List[Tuple[int, bytes]]]:
+        """→ (high watermark, [(offset, value)] with offset ≥ requested)."""
+        high_watermark, record_set = self.fetch_raw(
+            topic, partition, offset, max_wait_ms, min_bytes, max_bytes
+        )
+        return high_watermark, [
+            rec
+            for rec in decode_record_batches(record_set)
+            if rec[0] >= offset
+        ]
 
 
 
@@ -1976,7 +2055,7 @@ def chip_block_sources(
 class MiniKafkaBroker:
     """In-process single-topic single-partition broker speaking the same
     wire protocol the client consumes: ApiVersions v0, Metadata v1,
-    ListOffsets v1, Fetch v0–v4, Produce ignored. The FJT1-server role
+    ListOffsets v1, Fetch v4, Produce v3. The FJT1-server role
     (runtime/net.py BlockFrameServer), but Kafka-framed — tests and
     kill/resume drills run against real protocol bytes."""
 
@@ -1989,6 +2068,12 @@ class MiniKafkaBroker:
         # gaps, like a real broker's; _next[p] = next offset to assign
         self._offs: List[List[int]] = [[] for _ in range(n_partitions)]
         self._vals: List[List[bytes]] = [[] for _ in range(n_partitions)]
+        # per-record header lists (None = no headers): a real broker
+        # stores headers with the record, so a redriven traceparent
+        # must survive produce→fetch here too
+        self._hdrs: List[List[Optional[list]]] = [
+            [] for _ in range(n_partitions)
+        ]
         self._next: List[int] = [0] * n_partitions
         # per-partition encoded segments (base_offset, end_offset, batch
         # bytes): like a real broker's log, the wire format is the
@@ -2014,18 +2099,31 @@ class MiniKafkaBroker:
     _SEG_RECORDS = 512  # records per stored batch segment
 
     def append(self, *values: bytes, partition: int = 0,
-               timestamp_ms: Optional[int] = None) -> int:
+               timestamp_ms: Optional[int] = None,
+               headers: Optional[Sequence] = None) -> int:
         """→ offset of the first appended value (in ``partition``).
         ``timestamp_ms`` stamps the batch headers (CreateTime) — the
         event time the freshness plane's watermarks read; the default
-        0 means "no event time" (consumers skip it)."""
+        0 means "no event time" (consumers skip it). ``headers`` is a
+        per-value list (aligned; each entry None or
+        ``[(key, value_bytes), ...]``) stored with the records like a
+        real broker stores record headers."""
         ts = 0 if timestamp_ms is None else int(timestamp_ms)
+        hdr_list = (
+            list(headers) if headers is not None
+            else [None] * len(values)
+        )
+        if len(hdr_list) != len(values):
+            raise ValueError(
+                f"{len(hdr_list)} header lists for {len(values)} values"
+            )
         with self._mu:
             first = self._next[partition]
             self._offs[partition].extend(
                 range(first, first + len(values))
             )
             self._vals[partition].extend(values)
+            self._hdrs[partition].extend(hdr_list)
             self._next[partition] = first + len(values)
             segs = self._segs[partition]
             for i in range(0, len(values), self._SEG_RECORDS):
@@ -2034,7 +2132,8 @@ class MiniKafkaBroker:
                     first + i,
                     first + i + len(chunk),
                     encode_record_batch(
-                        first + i, list(chunk), timestamp_ms=ts
+                        first + i, list(chunk), timestamp_ms=ts,
+                        headers=hdr_list[i : i + len(chunk)],
                     ),
                 ))
             self._mu.notify_all()
@@ -2078,6 +2177,7 @@ class MiniKafkaBroker:
             self._vals[partition].extend(
                 raw[i].tobytes() for i in range(raw.shape[0])
             )
+            self._hdrs[partition].extend([None] * rows.shape[0])
             self._next[partition] = first + rows.shape[0]
             self._mu.notify_all()
             return first
@@ -2219,8 +2319,46 @@ class MiniKafkaBroker:
                 (API_LIST_OFFSETS, 1, 1),
                 (API_METADATA, 1, 1),
                 (API_VERSIONS, 0, 0),
+                (API_PRODUCE, 3, 3),
             ):
                 w.i16(k).i16(lo).i16(hi)
+            return bytes(w.b)
+        if api_key == API_PRODUCE and v == 3:
+            # the redrive path (fjt-dlq → KafkaClient.produce): decode
+            # the record batch, append its values like an in-process
+            # append() — offsets are reassigned at the log head, exactly
+            # like a real broker
+            r.string()  # transactional id
+            r.i16()  # acks
+            r.i32()  # timeout
+            r.i32()  # topic count (1)
+            r.string()
+            r.i32()  # partition count (1)
+            part = r.i32()
+            record_set = r.bytes_() or b""
+            ok_part = 0 <= part < len(self._offs)
+            base = -1
+            err = 0 if ok_part else 3
+            if ok_part:
+                try:
+                    # the header-aware decode: a redriven traceparent
+                    # must survive the produce→append→fetch round trip
+                    recs = decode_record_batches_h(record_set)
+                    tr = record_batch_time_range(record_set)
+                except ValueError:
+                    recs, tr, err = [], None, 42  # INVALID_RECORD
+                if recs:
+                    base = self.append(
+                        *[val for _, val, _ in recs], partition=part,
+                        timestamp_ms=(
+                            int(tr[1] * 1000) if tr is not None else None
+                        ),
+                        headers=[h for _, _, h in recs],
+                    )
+            w = _Writer()
+            w.i32(1).string(self.topic)
+            w.i32(1).i32(part).i16(err).i64(base).i64(-1)
+            w.i32(0)  # throttle time (trails the responses in v1+)
             return bytes(w.b)
         if api_key == API_METADATA:
             for _ in range(max(r.i32(), 0)):
@@ -2315,6 +2453,7 @@ class MiniKafkaBroker:
                             offs_l = self._offs[part]
                             k = bisect.bisect_left(offs_l, fetch_offset)
                             values = []
+                            hdrs_l = []
                             size2 = 0
                             base = None
                             while k < len(offs_l):
@@ -2327,9 +2466,12 @@ class MiniKafkaBroker:
                                 if values and size2 > part_max_bytes:
                                     break
                                 values.append(val)
+                                hdrs_l.append(self._hdrs[part][k])
                                 k += 1
                             parts = [
-                                encode_record_batch(base, values)
+                                encode_record_batch(
+                                    base, values, headers=hdrs_l
+                                )
                             ] if values else []
                             break
                         parts.append(blob)

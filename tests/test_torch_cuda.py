@@ -1408,3 +1408,33 @@ def test_a_supervised_card_worker_beats_with_its_launches(card, tmp_path):
         sup.stop()
     with pytest.raises(ProcessLookupError):
         os.kill(pid, 0)
+
+
+def test_fjt_score_without_a_platform_scores_on_the_card(card, tmp_path,
+                                                         capsys):
+    """``fjt-score`` with no ``--platform`` resolves the card; its lines
+    equal the same command's with ``--platform cpu``."""
+    import json
+
+    from flink_jpmml_tpu_torch.cli import score_main
+
+    pmml = gen_gbm(str(tmp_path), n_trees=30, depth=5, n_features=8)
+    rng = np.random.default_rng(0)
+    X = rng.normal(0.0, 1.5, size=(500, 8))
+    fields = list(ModelReader(pmml).load(device="cpu").field_space.fields)
+    inp = tmp_path / "in.jsonl"
+    inp.write_text("".join(
+        json.dumps({f: float(v) for f, v in zip(fields, row)
+                    if rng.random() >= 0.2}) + "\n" for row in X))
+    runs = {}
+    for tag, extra in (("card", []), ("cpu", ["--platform", "cpu"])):
+        out = tmp_path / f"out-{tag}.jsonl"
+        assert score_main([pmml, str(inp), "-o", str(out), "--batch", "128",
+                           *extra]) == 0
+        assert capsys.readouterr().err.strip() == "scored 500 records"
+        runs[tag] = [json.loads(ln) for ln in out.read_text().splitlines()]
+    assert len(runs["card"]) == len(runs["cpu"]) == 500
+    for a, b in zip(runs["card"], runs["cpu"]):
+        assert a.keys() == b.keys()
+        if "value" in a:
+            assert a["value"] == pytest.approx(b["value"], rel=RTOL, abs=ATOL)

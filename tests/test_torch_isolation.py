@@ -104,6 +104,8 @@ DRIFT_ROLLOUT_SLICE = {"obs.drift", "rollout.controller"}
 # the supervised fleet: the exposition server, durable telemetry history
 # and the worker supervisor
 FLEET_SLICE = {"obs.server", "obs.history", "runtime.supervisor"}
+# the operator's commands and the examples' device bootstrap
+CLI_SLICE = {"cli", "utils.demo"}
 
 
 def test_every_port_module_imports_without_jax():
@@ -113,12 +115,13 @@ def test_every_port_module_imports_without_jax():
     )
     assert res.returncode == 0, res.stderr
     count, names = res.stdout.split(maxsplit=1)
-    assert int(count) >= 108  # every module ported so far
+    assert int(count) >= 110  # every module ported so far
     names = set(names.split())
     for slice_ in (KAFKA_SLICE, DENSE_SLICE, TREE_SHAPES_SLICE,
                    MORE_FAMILIES_SLICE, API_SLICE, RECOVERY_SLICE,
                    EDGE_SLICE, TUNING_SLICE, ZOO_STATE_SLICE,
-                   PARALLEL_SLICE, DRIFT_ROLLOUT_SLICE, FLEET_SLICE):
+                   PARALLEL_SLICE, DRIFT_ROLLOUT_SLICE, FLEET_SLICE,
+                   CLI_SLICE):
         assert {f"flink_jpmml_tpu_torch.{m}" for m in slice_} <= names
     assert {f"flink_jpmml_tpu_torch.{m}" for m in DENSE_SLICE} <= names
 

@@ -286,3 +286,128 @@ def test_chip_smoke_kafka_wire_phase_on_a_small_log():
     assert line["read_back_identical"] and line["tiers_identical"]
     assert line["python_check_rows"] == 20_480 and line["fetches"] >= 1
     assert line["cpp_decode_ms"] > 0 and line["value_bytes"] == rows.nbytes
+
+
+# -- the producer side: record headers and Produce v3 ------------------------
+
+
+def _header_cases():
+    rng = np.random.default_rng(21)
+    vals = [rng.integers(0, 256, size=int(k), dtype=np.uint8).tobytes()
+            for k in rng.integers(0, 40, size=6)]
+    tp = b"00-" + b"ab" * 16 + b"-" + b"cd" * 8 + b"-01"
+    binary = rng.integers(0, 256, size=300, dtype=np.uint8).tobytes()
+    return {
+        "none": (vals, None),
+        "all_none": (vals, [None] * 6),
+        "empty_lists": (vals, [[] for _ in range(6)]),
+        "mixed": (vals, [None, [("traceparent", tp)], [],
+                         [("traceparent", tp), ("other", b"\x00\x01")],
+                         None, [("k", b"")]]),
+        "several_keys": (vals, [[(f"key{j}", bytes([i, j]) * (j + 1))
+                                 for j in range(i + 1)] for i in range(6)]),
+        "binary_values": (vals, [[(b"raw-key", binary[i * 50:(i + 1) * 50]),
+                                  ("été", binary[:i])]
+                                 for i in range(6)]),
+    }
+
+
+@pytest.mark.parametrize("timestamp_ms", [0, 1_700_000_000_123])
+@pytest.mark.parametrize("case", sorted(_header_cases()))
+def test_encode_record_batch_with_headers_is_byte_identical(case,
+                                                            timestamp_ms):
+    vals, hdrs = _header_cases()[case]
+    got = tk.encode_record_batch(7, vals, timestamp_ms=timestamp_ms,
+                                 headers=hdrs)
+    assert got == jk.encode_record_batch(7, vals, timestamp_ms=timestamp_ms,
+                                         headers=hdrs)
+    assert tk.decode_record_batches_h(got) == jk.decode_record_batches_h(got)
+
+
+def test_produce_roundtrip():
+    broker = tk.MiniKafkaBroker(topic="t")
+    try:
+        c = tk.KafkaClient(broker.host, broker.port)
+        try:
+            assert c.produce("t", 0, [b"abc", b"def"]) == 0
+            assert c.produce("t", 0, [b"ghi"]) == 2
+            hw, recs = c.fetch("t", 0, 0)
+            assert hw == 3
+            assert [v for _, v in recs] == [b"abc", b"def", b"ghi"]
+            assert c.fetch("t", 0, 1)[1] == [(1, b"def"), (2, b"ghi")]
+            assert c.api_versions()[tk.API_PRODUCE] == (3, 3)
+        finally:
+            c.close()
+    finally:
+        broker.close()
+
+
+def test_broker_produce_fetch_preserves_headers():
+    from flink_jpmml_tpu_torch.obs import trace as ttrace
+
+    broker = tk.MiniKafkaBroker(topic="t")
+    try:
+        client = tk.KafkaClient(broker.host, broker.port)
+        try:
+            tp = ttrace.context_for(3).to_traceparent().encode()
+            base = client.produce("t", 0, [b"v0", b"v1"],
+                                  headers=[None, [("traceparent", tp)]])
+            assert base == 0
+            _, raw = client.fetch_raw("t", 0, 0)
+            got = tk.decode_record_batches_h(raw)
+            assert [(o, v) for o, v, _ in got] == [(0, b"v0"), (1, b"v1")]
+            assert got[0][2] is None
+            assert got[1][2] == [("traceparent", tp)]
+            assert tk.record_batch_traceparents(raw) == {1: tp.decode()}
+        finally:
+            client.close()
+    finally:
+        broker.close()
+
+
+def test_append_with_headers_checks_their_count():
+    broker = tk.MiniKafkaBroker(topic="t")
+    try:
+        with pytest.raises(ValueError, match="2 header lists for 1 values"):
+            broker.append(b"x", headers=[None, None])
+        assert broker.high_watermark == 0
+    finally:
+        broker.close()
+
+
+@pytest.mark.parametrize("client_pkg,broker_pkg",
+                         [("port", "jax"), ("jax", "port")])
+def test_produce_interoperates_across_packages(client_pkg, broker_pkg):
+    """A port client producing into a JAX broker, and the reverse: the
+    base offsets, the fetched values and the stored headers (and the
+    bytes a fetch serves) are the same as the same package's pair."""
+    ck = jk if client_pkg == "jax" else tk
+    bk = jk if broker_pkg == "jax" else tk
+    X = _rows(9, 40)
+    tp = b"00-" + b"12" * 16 + b"-" + b"34" * 8 + b"-01"
+    hdrs = [[("traceparent", tp)] if i % 3 == 0 else None
+            for i in range(20)]
+    views = []
+    for producer, broker_mod in ((ck, bk), (bk, bk)):
+        broker = broker_mod.MiniKafkaBroker(topic="t")
+        try:
+            broker.append_rows(X[:5])
+            c = producer.KafkaClient(broker.host, broker.port)
+            try:
+                bases = [c.produce("t", 0, _values(X[5:25]), headers=hdrs),
+                         c.produce("t", 0, _values(X[25:]),
+                                   timestamp_ms=1_700_000_000_000)]
+                hw, recs = c.fetch("t", 0, 3)
+                _, raw = c.fetch_raw("t", 0, 0)
+            finally:
+                c.close()
+        finally:
+            broker.close()
+        views.append((bases, hw, recs, bytes(raw)))
+    assert views[0] == views[1]
+    bases, hw, recs, raw = views[0]
+    assert bases == [5, 25] and hw == 40
+    assert [v for _, v in recs] == _values(X[3:])
+    got = jk.decode_record_batches_h(raw)
+    assert [h for _, _, h in got[5:25]] == hdrs
+    assert jk.record_batch_time_range(raw)[1] == 1_700_000_000.0

@@ -304,26 +304,51 @@ def test_first_beat_deadline_kills_a_silent_worker(sup_mod, tmp_path):
         sup.stop()
 
 
+def _dumped_spawn_and_death(directory, worker):
+    """The first ``flight-*`` dump that parses whole and holds ``worker``'s
+    death with returncode 3 → (its spawn event, its death event), paired
+    by the worker's pid; None while no dump does. A dump is written in
+    place (the recorder opens its file, then writes the lines), so a read
+    can meet it half-written: such a file is read again at the next poll.
+    """
+    for n in sorted(os.listdir(directory)):
+        if not n.startswith("flight-"):
+            continue
+        try:
+            with open(os.path.join(directory, n), encoding="utf-8") as f:
+                events = [json.loads(ln) for ln in f if ln.strip()]
+        except (OSError, ValueError):
+            continue
+        for d in events:
+            if (d.get("kind") == "worker_death" and d.get("worker") == worker
+                    and d.get("returncode") == 3):
+                spawns = [e for e in events
+                          if e.get("kind") == "worker_spawn"
+                          and e.get("worker") == worker
+                          and e.get("pid") == d.get("pid")]
+                if spawns:
+                    return spawns[0], d
+    return None
+
+
 def test_worker_death_dumps_flight_jsonl(sup_mod, tmp_path, monkeypatch):
     monkeypatch.setenv("FJT_FLIGHT_DIR", str(tmp_path))
+    # the ring is process-wide: without a clear, a dump carries the events
+    # of earlier tests run in the same process
+    sup_mod.flight.DEFAULT.clear()
     sup = sup_mod.Supervisor(
         [sup_mod.WorkerSpec("w0", _py("import sys; sys.exit(3)"))],
         policy=sup_mod.RestartPolicy(max_restarts=0),
         heartbeat_timeout_s=None)
     sup.start()
     try:
-        assert _wait(lambda: any(n.startswith("flight-")
-                                 for n in os.listdir(tmp_path)), 15.0)
-        events = []
-        for n in sorted(os.listdir(tmp_path)):
-            if n.startswith("flight-"):
-                with open(tmp_path / n, encoding="utf-8") as f:
-                    events += [json.loads(ln) for ln in f if ln.strip()]
-        deaths = [e for e in events if e.get("kind") == "worker_death"]
-        assert deaths and deaths[0]["worker"] == "w0"
-        assert deaths[0]["returncode"] == 3
-        spawns = [e for e in events if e.get("kind") == "worker_spawn"]
-        assert spawns and spawns[0]["worker"] == "w0"
+        found = []
+        assert _wait(lambda: found.append(
+            _dumped_spawn_and_death(tmp_path, "w0")) or found[-1], 15.0)
+        spawn, death = found[-1]
+        assert death["worker"] == "w0" and death["returncode"] == 3
+        assert spawn["worker"] == "w0" and spawn["pid"] == death["pid"]
+        assert spawn["seq"] < death["seq"]
     finally:
         sup.stop()
 
