@@ -412,6 +412,22 @@ JAX package, and prints one JSON line per phase:
     b's own. The kernel is also held bit for bit to its plain version at
     ``kafka_stream``'s shape (50 trees of depth 5 over 8 fields, blocks
     of 256 rows), which no other phase gives it.
+29. soak — the random-model parity soak and the chaos soaks
+    (``flink_jpmml_tpu_torch/tools/fuzz_soak.py``) on the card: the seven
+    families, 8 seeds each from 100,000, each seed's model compiled on
+    the card and held lane by lane to the oracle at the JAX bar (rel 2e-4
+    / abs 2e-5; its line has the seeds clean and the largest value error
+    of each family); ``--chaos`` for 3 seeds over the tool's own model
+    and 1 seed over config 2's GBM (``gen_gbm`` 500 trees, depth 6, 32
+    fields, seed 11) at compile batch 32; ``--zoo`` for 2 seeds (its
+    packs through ``qtrees_leaf_rows_packed``); ``--stateful`` for 1 seed,
+    its workers on the card, beside the others in a thread; and the
+    ``--mesh`` profile, which must refuse a one-card host, naming the
+    count. The kernels' counts are set to 0 before the chaos and zoo
+    profiles and read after them (the stateful workers launch in their
+    own processes: their last incarnation's count is printed apart), and
+    each kernel is held bit for bit to its plain version at the
+    profiles' shapes. A cut seed is listed in the line's ``cuts``.
 
 Every main path runs the C++ ring, and its line carries the stage ledger
 of its registry (``attribution``: per stage the count, total ms, p50 /
@@ -433,7 +449,8 @@ OTHER_CHECKOUT`` instead times the fused GBM's block path in child
 processes alternating between another checkout and this one
 (``ab_main``), and ``python3 chip_smoke.py --phase NAME`` runs one
 phase alone (``serving_edge``, ``kernel_search``, ``zoo_state``,
-``rollout_drift``, ``mesh``, ``fleet`` or ``cli``) with what it needs built
+``rollout_drift``, ``mesh``, ``fleet``, ``cli`` or ``soak``) with what it
+needs built
 (``run_phase_alone``). After the last phase a ``run`` line prints the
 whole run's seconds. Any failed phase raises, and the
 script exits non-zero without printing the last line. Without a CUDA
@@ -5062,7 +5079,8 @@ def _main_member(seed: int) -> tuple:
             q.wire.encode(X))
 
 
-def check_packed(label: str, members: list, rows: list) -> dict:
+def check_packed(label: str, members: list, rows: list,
+                 phase: str = "zoo_state") -> dict:
     """The packed launch against each member's solo launch and against
     its plain version on the card, bit for bit. ``members`` are (tables on
     the card, codes u8[n, F] on the card)."""
@@ -5095,7 +5113,7 @@ def check_packed(label: str, members: list, rows: list) -> dict:
            "classes": sorted({int(t["rows"].shape[2]) for t in tables}),
            "max_abs_err": err, "ok": ok}
     if not ok:
-        emit({"phase": "zoo_state", "packed_kernel": row})
+        emit({"phase": phase, "packed_kernel": row})
         raise RuntimeError(f"{label}: the packed launch differs from a "
                            f"member's solo launch or its plain version")
     return row
@@ -7713,6 +7731,152 @@ def cli_phase(workdir: str, cm, q, counter, smi: str) -> dict:
             "launches_c1": launches}
 
 
+# -- the parity soak and the chaos soaks (phase "soak") -----------------------
+
+SOAK_START = 100_000  # the tool's default --start
+SOAK_FAMILY_SEEDS = 8
+SOAK_CHAOS_SEEDS = 3  # over the tool's own model
+SOAK_CHAOS_FULL_SEEDS = 1  # over config 2's GBM at compile batch 32
+SOAK_ZOO_SEEDS = 2
+SOAK_STATEFUL_SEEDS = 1
+SOAK_CUTS: list = []  # seeds cut to keep the phase within its time
+SOAK_CHAOS_ROWS = (1, 17, 32, 128, 1500)  # a dispatch's rows: OOM halves,
+# one to four compile batches of 32, and the whole stream
+SOAK_PACK_ROWS = (8, 0, 63, 17, 64, 1)  # a zoo round's rows a tenant (0: a
+# churned-out tenant)
+
+
+def soak_kernel_checks(models: dict, zoo_paths: list, dev) -> list:
+    """Each kernel the soak launches, bit for bit against its plain
+    version at the soak's shapes: ``qtrees_leaf_rows`` on the chaos
+    models' tables, ``qtrees_leaf_rows_packed`` over the zoo's six
+    tenants."""
+    import torch
+
+    from flink_jpmml_tpu_torch.compile import compile_pmml, qtrees_cuda
+    from flink_jpmml_tpu_torch.pmml import parse_pmml_file
+
+    rng = np.random.default_rng(23)
+    cases = []
+    for label, cm in models.items():
+        q = cm.quantized_scorer()
+        tables = {k: q.params[k] for k in qtrees_cuda.TABLE_KEYS}
+        F = len(q.wire.fields)
+        for n in SOAK_CHAOS_ROWS:
+            codes = torch.from_numpy(q.wire.encode(features(rng, n, F)))
+            cases.append(check_tables(tables, codes.to(dev),
+                                      f"soak_{label}_{n}", "soak"))
+    members = []
+    for path, n in zip(zoo_paths, SOAK_PACK_ROWS):
+        q = compile_pmml(parse_pmml_file(path), batch_size=128,
+                         device=dev).quantized_scorer()
+        codes = q.wire.encode(features(rng, max(n, 1), len(q.wire.fields)))
+        members.append(({k: q.params[k] for k in qtrees_cuda.TABLE_KEYS},
+                        torch.from_numpy(codes).to(dev)))
+    cases.append(check_packed("soak_zoo_6", members, list(SOAK_PACK_ROWS),
+                              "soak"))
+    return cases
+
+
+def soak_phase(workdir: str, smi: str, dev=None) -> dict:
+    """The ``soak`` phase: ``tools/fuzz_soak.py``'s profiles on the card
+    (docstring item 29). The stateful profile's workers are processes of
+    their own, so it runs in a thread beside the in-process profiles,
+    and the phase waits for it whether they pass or fail. ``dev``: the
+    card (default: the current one)."""
+    import torch
+
+    from flink_jpmml_tpu_torch.assets_gen import gen_gbm
+    from flink_jpmml_tpu_torch.compile import compile_pmml, qtrees_cuda
+    from flink_jpmml_tpu_torch.pmml import parse_pmml_file
+    from flink_jpmml_tpu_torch.tools import fuzz_soak as fs
+    from flink_jpmml_tpu_torch.utils.exceptions import DeviceUnavailableError
+
+    t0 = time.perf_counter()
+    dev = dev or torch.device("cuda", torch.cuda.current_device())
+    lines = []
+    stateful = {}
+
+    def run_stateful():
+        try:
+            stateful["r"] = fs.soak(
+                "stateful-chaos", fs.soak_stateful_chaos,
+                SOAK_STATEFUL_SEEDS, SOAK_START, dev, log=lines.append)
+        except BaseException as e:  # raised in the phase's thread below
+            stateful["error"] = e
+
+    side = threading.Thread(target=run_stateful, name="soak-stateful",
+                            daemon=True)
+    side.start()
+    try:
+        reset(qtrees_cuda.leaf_rows)
+        qtrees_cuda.leaf_rows_packed.launches = 0
+        qtrees_cuda.leaf_rows_packed.launches_by_classes = {}
+        runs = {fam: fs.soak(fam, fn, SOAK_FAMILY_SEEDS, SOAK_START, dev,
+                             log=lines.append)
+                for fam, fn in fs.FAMILIES.items()}
+        full = compile_pmml(parse_pmml_file(gen_gbm(
+            workdir, n_trees=500, depth=6, n_features=32, seed=11,
+            name="soak_gbm_500.pmml")), batch_size=32, device=dev)
+        if full.quantized_scorer().backend != "cuda":
+            raise RuntimeError("soak: config 2's GBM not on the kernel")
+        runs["chaos"] = fs.soak("chaos", fs.soak_chaos, SOAK_CHAOS_SEEDS,
+                                SOAK_START, dev, log=lines.append)
+        runs["chaos_config2"] = fs.soak(
+            "chaos-config2", fs.soak_chaos, SOAK_CHAOS_FULL_SEEDS,
+            SOAK_START, dev, log=lines.append, model=full)
+        runs["zoo"] = fs.soak("zoo-chaos", fs.soak_zoo_chaos,
+                              SOAK_ZOO_SEEDS, SOAK_START, dev,
+                              log=lines.append)
+        launches_c1 = qtrees_cuda.leaf_rows.launches
+        by_classes = dict(qtrees_cuda.leaf_rows.launches_by_classes)
+        launches_packed = qtrees_cuda.leaf_rows_packed.launches
+        # the mesh profile needs four cards: on one it must refuse
+        try:
+            fs.main(["--chaos", "--mesh", "--seeds", "1", "--platform",
+                     "cuda"])
+        except DeviceUnavailableError as e:
+            refusal = str(e)
+        else:
+            raise RuntimeError("soak: the mesh profile ran on "
+                               f"{torch.cuda.device_count()} card(s)")
+        if f"found {torch.cuda.device_count()}" not in refusal:
+            raise RuntimeError(f"soak: the mesh refusal names no count: "
+                               f"{refusal}")
+        cases = soak_kernel_checks(
+            {"chaos_gbm4": fs.chaos_model(dev), "config2_gbm500": full},
+            fs.zoo_docs(), dev)
+    finally:
+        side.join()
+    if "error" in stateful:
+        raise RuntimeError(f"soak: stateful profile: "
+                           f"{stateful['error']!r}") from stateful["error"]
+    runs["stateful"] = stateful["r"]
+    failed = {k: r["failed"] for k, r in runs.items() if r["failed"]}
+    if failed:
+        raise RuntimeError(f"soak: failed seeds {failed}:\n"
+                           + "\n".join(lines[-40:]))
+    if launches_c1 <= 0 or launches_packed <= 0:
+        raise RuntimeError(f"soak: {launches_c1} leaf_rows and "
+                           f"{launches_packed} packed launches")
+    return {
+        "nvidia_smi": smi, "seconds": time.perf_counter() - t0,
+        "start": SOAK_START, "cuts": SOAK_CUTS,
+        "families": {fam: {"clean": runs[fam]["ok"],
+                           "seeds": runs[fam]["seeds"],
+                           "max_abs_err": max(runs[fam]["results"]),
+                           "seconds": runs[fam]["seconds"]}
+                     for fam in fs.FAMILIES},
+        **{k: runs[k]["results"] for k in
+           ("chaos", "chaos_config2", "zoo", "stateful")},
+        "profile_seconds": {k: runs[k]["seconds"] for k in
+                            ("chaos", "chaos_config2", "zoo", "stateful")},
+        "mesh_refusal": refusal, "lines": lines,
+        "launches_c1": launches_c1, "launches_by_classes": by_classes,
+        "launches_packed": launches_packed, "kernel_cases": cases,
+    }
+
+
 AB_CHILD = r"""
 import json, os, shutil, sys, tempfile
 tree = os.path.abspath(sys.argv[1])
@@ -7836,6 +8000,10 @@ def run_phase_alone(workdir: str, phase: str) -> int:
     if phase == "fleet":  # the workers compile their own models
         _, _, q = model_tables(workdir, 500, "gbm_500.pmml")
         emit({"phase": "fleet", **fleet(workdir, q, smi)})
+        print(smi, flush=True)
+        return 0
+    if phase == "soak":  # the soak compiles its own models
+        emit({"phase": "soak", **soak_phase(workdir, smi)})
         print(smi, flush=True)
         return 0
     if phase == "cli":  # no vote forest on this path
@@ -8200,6 +8368,10 @@ def run_phases(workdir: str) -> int:
     # -- the operator's entry points: fjt-score, the redrive, two examples --
     cl = cli_phase(workdir, cm, q, qtrees_cuda.leaf_rows, smi)
     emit({"phase": "cli", **cl})
+
+    # -- the parity soak and the chaos soaks, on the card -------------------
+    sk = soak_phase(workdir, smi)
+    emit({"phase": "soak", **sk})
     zoo_launches = zs["zoo"]["launches_solo_c1"]
     packed_checked = zs["packed_kernel"]["cases"]
     pt = zs["packed_kernel"]["timing"]
@@ -8242,9 +8414,12 @@ def run_phases(workdir: str) -> int:
                       "rollout_drift": {"launches": rdp["launches_c1"]},
                       "fleet": {"launches": flt["launches_c1"],
                                 "lower_bound": True},
-                      "cli": {"launches": cl["launches_c1"]}},
+                      "cli": {"launches": cl["launches_c1"]},
+                      "soak": {"launches": sk["launches_c1"]}},
                      rows + [r for r in wrows if r["classes"] == 1]
-                     + cl["examples"]["kernel_cases"], timing),
+                     + cl["examples"]["kernel_cases"]
+                     + [r for r in sk["kernel_cases"]
+                        if r.get("classes") == 1], timing),
         kernel_entry("qtrees_leaf_rows (vote shares)",
                      "flink_jpmml_tpu/compile/qtrees_pallas.py:187 and :238",
                      {"vote_main_path": vrun, "vote_fused_main_path": vfrun,
@@ -8261,9 +8436,12 @@ def run_phases(workdir: str) -> int:
             "replaces": "flink_jpmml_tpu/compile/qtrees_pallas.py:170 and "
                         ":218 (each member; flink_jpmml_tpu/compile/"
                         "packs.py:150 packs them in one program)",
-            "launches": zs["zoo"]["launches_packed"],
-            "launches_by_path": {"zoo_state": zs["zoo"]["launches_packed"]},
-            "max_abs_err": max(r["max_abs_err"] for r in packed_checked),
+            "launches": zs["zoo"]["launches_packed"] + sk["launches_packed"],
+            "launches_by_path": {"zoo_state": zs["zoo"]["launches_packed"],
+                                 "soak": sk["launches_packed"]},
+            "max_abs_err": max(r["max_abs_err"] for r in packed_checked
+                               + [r for r in sk["kernel_cases"]
+                                  if "members" in r]),
             "ms": pt["packed_ms"], "plain_ms": pt["plain_ms"],
             "bound_ms": pt["bound_ms"], "bound_by": pt["bound_by"],
             "library_ms": None, "ops": pt["ops"],

@@ -38,6 +38,11 @@ the score loop, and recovery:
   when retries run out the ladder re-raises, and an open circuit keeps
   dispatching the rank wire to the card. Only an f32 model whose caller
   asked (``failover=`` or ``FJT_FAILOVER=1``) serves on the host tier.
+  For the same reason a transient ``device_error`` inside the OOM
+  bisection sends a handle the tier does not serve to the transient rung
+  (re-dispatch of that slice under the backoff) instead of bisecting it
+  on to one record, where the JAX package's tier takes the record and
+  the port's ladder would raise.
 
 Batches are retained past the async dispatch (one private copy each)
 only when a DLQ or a failover plane is wired, as in the JAX package.
@@ -1091,6 +1096,14 @@ class BlockPipelineBase:
                         )
                         return
                     raise
+                if (k2 == devfault.KIND_ERROR
+                        and not plane.tier.supports(handle)):
+                    # no host tier below the slice (module docstring):
+                    # the transient rung re-dispatches it
+                    self._device_recover(
+                        handle, X[lo:hi], offsets[lo:hi], e2, k2, ctx=ctx
+                    )
+                    return
                 plane.note_fault(
                     k2, key, first_off=int(offsets[lo]), n=size,
                     error=e2,

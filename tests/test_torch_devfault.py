@@ -290,6 +290,40 @@ def test_oom_bisects_like_the_jax_package(models, tmp_path, monkeypatch):
     same_deliveries(runs["port"][2], runs["jax"][2])
 
 
+def test_transient_error_inside_the_oom_bisection_redispatches(
+        models, tmp_path, monkeypatch):
+    """An OOM, then a device_error streak the bisection meets: the JAX
+    package bisects each slice on to one record, which its XLA tier
+    serves; the port's rank wire has no host tier, so a transient error
+    in the bisection sends the slice to the transient rung (re-dispatch
+    under the backoff) instead of raising at one record. Both deliver
+    every record once and quarantine nothing."""
+    monkeypatch.setenv("FJT_FAILOVER_THRESHOLD", "100")
+    monkeypatch.setenv("FJT_DEVICE_RETRIES", "9")
+    runs = _ladder(models, tmp_path, [
+        ("device_oom", {"site": "device_dispatch", "n": 1}),
+        ("device_error", {"site": "device_readback", "n": 8}),
+    ])
+    for name in TWINS:
+        assert (coverage(runs[name][2], 20 * B) == 1).all(), name
+        assert runs[name][3] == [], name
+        assert runs[name][1] == {"device_oom": 1, "device_error": 8}, name
+    port = runs["port"][0]
+    assert port["fallback_records"] == 0
+    assert port["oom_shrinks"] == 1
+    assert port["redispatch_records"] == B
+
+    def by_offset(out):
+        got = np.empty(20 * B, np.float32)
+        for off, n, v in out:
+            got[off:off + n] = v
+        return got
+
+    np.testing.assert_allclose(by_offset(runs["port"][2]),
+                               by_offset(runs["jax"][2]),
+                               rtol=RTOL, atol=ATOL)
+
+
 def test_poison_beside_device_errors_quarantines_exactly(models, tmp_path):
     runs = _ladder(models, tmp_path, [
         ("poison_record", {"offset": 100}),
