@@ -288,12 +288,17 @@ JAX package, and prints one JSON line per phase:
 24. zoo_state — multi-tenant and stateful scoring. ``packed_kernel``:
     the packed launch (``qtrees_leaf_rows_packed``) against each member's
     solo launch and its plain version, bit for bit: 16 zoo members at 256
-    rows, a pack mixing C = 1 and a 3-class vote forest, ragged row counts
-    (0 to 256), and eight members of the main path's shape
-    (``gen_gbm(500, depth=6, n_features=32)``, seeds 11-18, compiled in
-    worker processes on the host) at 16,384 rows each, timed in CUDA-event
-    medians against the eight solo launches back to back (blocks, launches
-    and the bound as ``time_kernel`` counts them). ``zoo``: the JAX zoo
+    rows, packs mixing C = 1 with 3- and 16-class vote forests, ragged row
+    counts (0 to 256), row counts one short of, at and one over the
+    launch's tiles, the soak's six zoo tenants, and eight members of the
+    main path's shape (``gen_gbm(500, depth=6, n_features=32)``, seeds
+    11-18, compiled in worker processes on the host) at tile-edge rows and
+    at 16,384 rows each. The latter, 16 zoo members at 256 rows and the
+    soak's pack are timed in CUDA-event medians (the wrapper's host work
+    included) beside their bound and share of it, the launch's threads,
+    records a thread, blocks, shared memory and resident blocks an SM (the
+    runtime's occupancy calculator's, and the shape rule's); the eight
+    members also against their eight solo launches back to back. ``zoo``: the JAX zoo
     drill's geometry (1,000 registered tenants cycling 10 ``gen_gbm``
     documents of 6-15 trees, depth 3, 4 features, seeds 100-109; 100 hot
     with 1,024 records each, 1% missing, batch 256): a one-tenant
@@ -447,8 +452,11 @@ Then the kernels line, the ``nvidia-smi`` line, and last the contract
 line ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --ab
 OTHER_CHECKOUT`` instead times the fused GBM's block path in child
 processes alternating between another checkout and this one
-(``ab_main``), and ``python3 chip_smoke.py --phase NAME`` runs one
-phase alone (``serving_edge``, ``kernel_search``, ``zoo_state``,
+(``ab_main``); ``--ab OTHER_CHECKOUT packed`` times the packed launch at
+the three timed packs the same way (``ab_packed_main``);
+``--packed-sweep`` times the packed launch at every block its shape rule
+chooses from (``packed_sweep_main``); and ``python3 chip_smoke.py
+--phase NAME`` runs one phase alone (``serving_edge``, ``kernel_search``, ``zoo_state``,
 ``rollout_drift``, ``mesh``, ``fleet``, ``cli`` or ``soak``) with what it
 needs built
 (``run_phase_alone``). After the last phase a ``run`` line prints the
@@ -5088,12 +5096,7 @@ def check_packed(label: str, members: list, rows: list,
 
     from flink_jpmml_tpu_torch.compile import qtrees_cuda
 
-    B = max(max(rows), 1)
-    F = max(c.shape[1] for _, c in members)
-    codes = torch.zeros((len(members), B, F), dtype=torch.uint8,
-                        device=members[0][1].device)
-    for m, (_, c) in enumerate(members):
-        codes[m, : rows[m], : c.shape[1]] = c[: rows[m]]
+    codes = packed_codes(members, rows)
     tables = [t for t, _ in members]
     fields = [c.shape[1] for _, c in members]
     got = qtrees_cuda.leaf_rows_packed(codes, rows, tables, fields)
@@ -5119,11 +5122,22 @@ def check_packed(label: str, members: list, rows: list,
     return row
 
 
-def packed_kernel(workdir: str, zoo_paths: list) -> dict:
-    """The packed launch on the card: 16 zoo members at 256 rows, a
-    mixed-C pack with a 3-class vote member, ragged row counts, and eight
-    members of the main path's shape at 16,384 rows each, which it also
-    times against the eight solo launches."""
+# row counts about the packed launch's tiles (32 to 1,024 rows a block):
+# each member's last block one row short of full, full, or one row over
+PACK_EDGE_ROWS_ZOO = (31, 32, 33, 63, 64, 65, 127, 128, 129, 255, 256, 1)
+PACK_EDGE_ROWS_MAIN = (255, 256, 257, 511, 512, 513, 1023, 1025)
+# the packed launches timed in the zoo_state phase (and paired by --ab
+# packed): the main path's shape, the JAX zoo drill's and the soak's
+PACK_TIMED = ("main8_16384", "zoo16_256", "soak_zoo_6")
+
+
+def pack_members(workdir: str, zoo_paths: list) -> dict:
+    """The packs the packed launch is checked on, label → (members, rows),
+    each member (tables on the card, codes u8[n, F] on the card): 16 zoo
+    members at 256 rows, a mixed pack with 3- and 16-class vote forests,
+    ragged and tile-edge row counts, the soak's six zoo tenants, and eight
+    members of the main path's shape at 16,384 rows each (compiled in
+    worker processes on the host) and at tile-edge rows."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -5133,7 +5147,6 @@ def packed_kernel(workdir: str, zoo_paths: list) -> dict:
     from flink_jpmml_tpu_torch.compile import compile_pmml, qtrees_cuda
     from flink_jpmml_tpu_torch.pmml import parse_pmml_file
 
-    t0 = time.perf_counter()
     # the eight main-path-shaped members compile on the host, side by side
     pool = ProcessPoolExecutor(
         max_workers=min(len(PACK_SEEDS), os.cpu_count() or 1),
@@ -5157,69 +5170,155 @@ def packed_kernel(workdir: str, zoo_paths: list) -> dict:
         vote = small(gen_vote_forest(workdir, n_trees=8, depth=3,
                                      n_features=4, n_classes=3, seed=42,
                                      name="zoo_votes.pmml"), ZOO_BATCH)
-        cases = [
-            check_packed("zoo16_256", [zoo[i % ZOO_DOCS] for i in range(16)],
-                         [ZOO_BATCH] * 16),
-            check_packed("mixed_c_votes3", [zoo[0], vote, zoo[1], vote],
-                         [ZOO_BATCH] * 4),
-            check_packed("ragged", zoo[:8],
-                         [1, 255, 0, 256, 129, 7, 256, 64]),
-        ]
+        vote16 = small(gen_vote_forest(workdir, n_trees=7, depth=4,
+                                       n_features=6, n_classes=16, seed=43,
+                                       name="zoo_votes16.pmml"), ZOO_BATCH)
         mains = [f.result() for f in futures]
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
     members = [({k: torch.from_numpy(v).cuda() for k, v in t.items()},
                 torch.from_numpy(c).cuda()) for t, c in mains]
-    rows = [PACK_ROWS] * len(members)
-    cases.append(check_packed("main8_16384", members, rows))
-    # time the eight-member pack against its members' solo launches
+    edge_zoo = [zoo[i % ZOO_DOCS] for i in range(len(PACK_EDGE_ROWS_ZOO))]
+    return {
+        "zoo16_256": ([zoo[i % ZOO_DOCS] for i in range(16)],
+                      [ZOO_BATCH] * 16),
+        "mixed_c_votes3": ([zoo[0], vote, zoo[1], vote], [ZOO_BATCH] * 4),
+        "mixed_c1_c3_c16": ([zoo[2], vote, vote16, zoo[3], vote16],
+                            [ZOO_BATCH, 129, 255, 1, 64]),
+        "ragged": (zoo[:8], [1, 255, 0, 256, 129, 7, 256, 64]),
+        "edges_zoo": (edge_zoo, list(PACK_EDGE_ROWS_ZOO)),
+        "soak_zoo_6": (zoo[:6], list(SOAK_PACK_ROWS)),
+        "edges_main8": (members, list(PACK_EDGE_ROWS_MAIN)),
+        "main8_16384": (members, [PACK_ROWS] * len(members)),
+    }
+
+
+def pack_shape_of(members: list, rows: list):
+    """The packed launch's shape (``qtrees_cuda.packed_shape``) for a pack
+    of ``members`` at their default launch shapes."""
+    from flink_jpmml_tpu_torch.compile import qtrees_cuda
+
+    return qtrees_cuda.packed_shape(
+        [(c.shape[1], t["walk"].shape[0], t["walk"].shape[1], None, None)
+         for t, c in members], rows,
+        max(int(t["rows"].shape[2]) for t, _ in members))
+
+
+def packed_codes(members: list, rows: list):
+    """The packed buffer u8[N, B, F_max] of ``members``' first rows."""
+    import torch
+
+    B = max(max(rows), 1)
+    F = max(c.shape[1] for _, c in members)
+    codes = torch.zeros((len(members), B, F), dtype=torch.uint8,
+                        device=members[0][1].device)
+    for m, (_, c) in enumerate(members):
+        codes[m, : rows[m], : c.shape[1]] = c[: rows[m]]
+    return codes
+
+
+def time_packed(label: str, members: list, rows: list) -> dict:
+    """CUDA-event median of one packed launch over ``members`` (the
+    wrapper's host work included, as a caller meets it), beside its shape
+    (threads, records a thread, blocks, shared memory, the resident blocks
+    an SM that the shape rule counts on and that the runtime's occupancy
+    calculator reads) and the least time the card could take: the live
+    codes, the tables and the sums moved once over HBM's rate, or the
+    needed integer steps and f32 adds over their pipes' rates."""
+    from flink_jpmml_tpu_torch.compile import qtrees_cuda
+
+    codes = packed_codes(members, rows)
+    tables = [t for t, _ in members]
+    fields = [c.shape[1] for _, c in members]
+    shape = pack_shape_of(members, rows)
+    classes = max(int(t["rows"].shape[2]) for t in tables)
+    ms = cuda_ms(lambda: qtrees_cuda.leaf_rows_packed(
+        codes, rows, tables, fields), 5, 40)
+    steps = adds = 0
+    for m, r in enumerate(rows):
+        if r:
+            ops = needed_ops(codes[m, :r, : fields[m]], tables[m])
+            steps += ops["int_steps"]
+            adds += ops["f32_adds"]
+    n_bytes = sum(r * f + 4 * r * int(t["rows"].shape[2])
+                  for r, f, t in zip(rows, fields, tables)) + sum(
+        t["walk"].numel() * t["walk"].element_size() for t in tables)
+    bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
+    ops_ms = max(steps / PEAK_INT32_OPS_S, adds / PEAK_F32_FLOP_S) * 1e3
+    bound = max(bytes_ms, ops_ms)
+    return {
+        "shape": label, "members": len(members), "rows": sum(rows),
+        "packed_ms": ms, "bound_ms": bound,
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "share_of_bound": bound / ms,
+        "threads": shape.threads,
+        "records_per_thread": shape.records_per_thread,
+        "blocks": shape.n_blocks, "smem_bytes": shape.smem,
+        "resident_blocks_per_sm": qtrees_cuda.packed_resident_on_card(
+            shape, classes),
+        "resident_blocks_per_sm_rule": shape.resident,
+        "ops": {"int_steps": steps, "f32_adds": adds},
+        "bytes": n_bytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+    }
+
+
+def packed_kernel(workdir: str, zoo_paths: list) -> dict:
+    """The packed launch on the card, bit for bit against each member's
+    solo launch and its plain version on every pack of ``pack_members``;
+    timed (``time_packed``) at ``PACK_TIMED``, and the eight main-path
+    members also against their eight solo launches."""
+    import torch
+
+    from flink_jpmml_tpu_torch.compile import qtrees_cuda
+
+    t0 = time.perf_counter()
+    packs = pack_members(workdir, zoo_paths)
+    cases = []
+    for label, (members, rows) in packs.items():
+        row = check_packed(label, members, rows)
+        shape = pack_shape_of(members, rows)
+        row.update(threads=shape.threads,
+                   records_per_thread=shape.records_per_thread,
+                   blocks=shape.n_blocks)
+        cases.append(row)
+    shapes = [time_packed(label, *packs[label]) for label in PACK_TIMED]
+    # the eight-member pack against its members' solo launches
+    members, rows = packs["main8_16384"]
     F = 32
-    codes = torch.stack([c for _, c in members]).contiguous()
+    codes = packed_codes(members, rows)
     tables = [t for t, _ in members]
     fields = [F] * len(members)
-
-    def packed():
-        qtrees_cuda.leaf_rows_packed(codes, rows, tables, fields)
 
     def solos():
         for m in range(len(members)):
             qtrees_cuda.leaf_rows(codes[m], tables[m], F)
 
-    packed_ms = cuda_ms(packed, 3, 20)
     solo_seq_ms = cuda_ms(solos, 3, 20)
     solo_each_ms = [cuda_ms(lambda m=m: qtrees_cuda.leaf_rows(
         codes[m], tables[m], F), 3, 20) for m in range(len(members))]
     plain_ms = cuda_ms(lambda: qtrees_cuda.leaf_rows_packed_reference(
         codes, rows, tables, fields), 1, 3)
-    threads, _, smem = qtrees_cuda.packed_shape([
-        (F, t["walk"].shape[0], t["walk"].shape[1], None, None)
-        for t in tables])
-    per_block = threads * qtrees_cuda.RECORDS_PER_THREAD
-    blocks = sum(-(-r // per_block) for r in rows)
-    steps = adds = 0
-    for m in range(len(members)):
-        ops = needed_ops(codes[m], tables[m])
-        steps += ops["int_steps"]
-        adds += ops["f32_adds"]
-    n_bytes = codes.numel() + 4 * sum(rows) + sum(
-        t["walk"].numel() * t["walk"].element_size() for t in tables)
-    bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
-    ops_ms = max(steps / PEAK_INT32_OPS_S, adds / PEAK_F32_FLOP_S) * 1e3
+    torch.cuda.synchronize()
+    main = shapes[0]
     return {
         "seconds": time.perf_counter() - t0,
         "cases": cases,
+        "shapes": shapes,
         "timing": {
             "members": len(members), "rows_per_member": PACK_ROWS,
-            "threads": threads, "smem_bytes": smem, "blocks": blocks,
+            "threads": main["threads"],
+            "records_per_thread": main["records_per_thread"],
+            "smem_bytes": main["smem_bytes"], "blocks": main["blocks"],
+            "resident_blocks_per_sm": main["resident_blocks_per_sm"],
             "launches_packed": 1, "launches_solo": len(members),
-            "packed_ms": packed_ms, "solo_sequence_ms": solo_seq_ms,
+            "packed_ms": main["packed_ms"], "solo_sequence_ms": solo_seq_ms,
             "solo_sum_ms": sum(solo_each_ms), "solo_each_ms": solo_each_ms,
-            "packed_vs_solo_sequence": solo_seq_ms / packed_ms,
+            "packed_vs_solo_sequence": solo_seq_ms / main["packed_ms"],
             "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "ops": {"int_steps": steps, "f32_adds": adds},
-            "bytes": n_bytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "share_of_bound": main["share_of_bound"],
+            "ops": main["ops"], "bytes": main["bytes"],
+            "bytes_ms": main["bytes_ms"], "ops_ms": main["ops_ms"],
             "library_ms": None,
         },
     }
@@ -7949,6 +8048,230 @@ def ab_main(other: str, rounds: int = 2, runs: int = 5) -> int:
     return 0
 
 
+AB_PACKED_CHILD = r"""
+import json, os, statistics, sys
+tree = os.path.abspath(sys.argv[1])
+sys.path.insert(0, tree)
+import numpy as np
+import torch
+from flink_jpmml_tpu_torch.compile import qtrees_cuda
+assert os.path.abspath(qtrees_cuda.__file__).startswith(tree + os.sep)
+qtrees_cuda.build()
+data = np.load(sys.argv[2])
+reps = int(sys.argv[3])
+out = {}
+for label in sys.argv[4].split(","):
+    n = int(data[label + "/n"])
+    rows = [int(r) for r in data[label + "/rows"]]
+    fields = [int(f) for f in data[label + "/fields"]]
+    codes = torch.from_numpy(data[label + "/codes"]).cuda()
+    tables = [{k: torch.from_numpy(data[f"{label}/{m}/{k}"]).cuda()
+               for k in qtrees_cuda.TABLE_KEYS} for m in range(n)]
+    got = qtrees_cuda.leaf_rows_packed(codes, rows, tables, fields)
+    ref = qtrees_cuda.leaf_rows_packed_reference(codes, rows, tables, fields)
+    ok = all(torch.equal(g, r) for g, r in zip(got, ref))
+    for _ in range(5):
+        qtrees_cuda.leaf_rows_packed(codes, rows, tables, fields)
+    times = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        qtrees_cuda.leaf_rows_packed(codes, rows, tables, fields)
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+    out[label] = {"ok": ok, "median_ms": statistics.median(times)}
+print(json.dumps(out), flush=True)
+"""
+
+
+def ab_packed_main(other: str, rounds: int = 3, reps: int = 60) -> int:
+    """``python3 chip_smoke.py --ab OTHER_CHECKOUT packed``: the packed
+    launch at ``PACK_TIMED`` (inputs built once here from the seeds of
+    ``pack_members`` and handed to both sides in a file) in child
+    processes alternating between another checkout and this one, in the
+    order other, this, this, other, ``rounds`` times. Each child checks
+    its sums bit for bit against its plain version and prints the
+    CUDA-event median of ``reps`` launches a shape; then a line with
+    both sides' medians a shape, this side's over the other's, and the
+    pairs this checkout won."""
+    import torch
+
+    from flink_jpmml_tpu_torch.compile import qtrees_cuda
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    here = os.path.dirname(os.path.abspath(__file__))
+    other = os.path.abspath(other)
+    smi = nvidia_smi_line()
+    print(smi, flush=True)
+    scratch = tempfile.mkdtemp(prefix="fjt-ab-packed-")
+    try:
+        packs = pack_members(scratch, zoo_doc_paths(scratch))
+        arrays = {}
+        for label in PACK_TIMED:
+            members, rows = packs[label]
+            arrays[label + "/n"] = np.array(len(members))
+            arrays[label + "/rows"] = np.array(rows)
+            arrays[label + "/fields"] = np.array(
+                [c.shape[1] for _, c in members])
+            arrays[label + "/codes"] = packed_codes(members, rows).cpu(
+                ).numpy()
+            for m, (t, _) in enumerate(members):
+                for k in qtrees_cuda.TABLE_KEYS:
+                    arrays[f"{label}/{m}/{k}"] = t[k].cpu().numpy()
+        inputs = os.path.join(scratch, "packs.npz")
+        np.savez(inputs, **arrays)
+        got = []
+        for tree in [other, here, here, other] * rounds:
+            res = subprocess.run(
+                [sys.executable, "-c", AB_PACKED_CHILD, tree, inputs,
+                 str(reps), ",".join(PACK_TIMED)], cwd=tree,
+                capture_output=True, text=True, timeout=600)
+            lines = [ln for ln in res.stdout.splitlines()
+                     if ln.startswith("{")]
+            if res.returncode or not lines:
+                print(res.stderr[-2000:], file=sys.stderr)
+                return 1
+            side = "this" if tree == here else "other"
+            run = json.loads(lines[-1])
+            if not all(r["ok"] for r in run.values()):
+                emit({"ab_packed": side, "tree": tree, "shapes": run})
+                print("chip_smoke: a packed launch differs from its plain "
+                      "version", file=sys.stderr)
+                return 1
+            got.append((side, run))
+            emit({"ab_packed": side, "tree": tree, "shapes": run})
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    summary = {}
+    for label in PACK_TIMED:
+        ms = {sd: [r[label]["median_ms"] for s2, r in got if s2 == sd]
+              for sd in ("this", "other")}
+        wins = pairs = 0
+        for (sa, ra), (sb, rb) in zip(got[0::2], got[1::2]):
+            this, oth = (ra, rb) if sa == "this" else (rb, ra)
+            pairs += 1
+            wins += this[label]["median_ms"] < oth[label]["median_ms"]
+        med = {sd: statistics.median(v) for sd, v in ms.items()}
+        summary[label] = {"this_ms": med["this"], "other_ms": med["other"],
+                          "this_over_other": med["this"] / med["other"],
+                          "runs": ms, "pairs": pairs, "this_won": wins}
+    emit({"ab_packed_summary": summary, "nvidia_smi": smi})
+    return 0
+
+
+def back_to_back_ms(fn, warmup: int, repeats: int) -> float:
+    """Milliseconds a call of ``fn()`` when ``repeats`` calls are queued
+    back to back between two CUDA events: the device's time a launch
+    wherever it exceeds the host's."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(repeats):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / repeats
+
+
+def packed_sweep_main() -> int:
+    """``python3 chip_smoke.py --packed-sweep``: the packed launch at every
+    block of ``qtrees_cuda.PACKED_BLOCKS`` (the shape rule held to one
+    candidate at a time) over the packs of ``PACK_TIMED`` and the eight
+    main-path members at 4,096 rows each. Each shape is checked bit for
+    bit against the plain version and timed as ``cuda_ms`` times it (one
+    launch between events, the wrapper's host work included) and back to
+    back (``back_to_back_ms``); a line a pack lists them fastest first
+    beside the shape the rule picks, then the solo launch at 262,144 rows
+    of the first main-path member is timed the same two ways, and last
+    comes the ``nvidia-smi`` line."""
+    import torch
+
+    from flink_jpmml_tpu_torch.compile import qtrees_cuda
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = nvidia_smi_line()
+    qtrees_cuda.build()
+    scratch = tempfile.mkdtemp(prefix="fjt-packed-sweep-")
+    every = qtrees_cuda.PACKED_BLOCKS
+    ok = True
+    try:
+        packs = pack_members(scratch, zoo_doc_paths(scratch))
+        mains = packs["main8_16384"][0]
+        packs["main8_4096"] = (mains, [4096] * len(mains))
+        for label in PACK_TIMED + ("main8_4096",):
+            members, rows = packs[label]
+            codes = packed_codes(members, rows)
+            tables = [t for t, _ in members]
+            fields = [c.shape[1] for _, c in members]
+            classes = max(int(t["rows"].shape[2]) for t in tables)
+            ref = qtrees_cuda.leaf_rows_packed_reference(codes, rows, tables,
+                                                         fields)
+            chosen = pack_shape_of(members, rows)
+            runs = []
+            for block in every:
+                qtrees_cuda._PLANS.clear()
+                qtrees_cuda.PACKED_BLOCKS = (block,)
+                qtrees_cuda._packed_shape.cache_clear()
+                try:
+                    shape = pack_shape_of(members, rows)
+                    # the plan this launch builds keeps the candidate's
+                    # shape for the timed launches below
+                    got = qtrees_cuda.leaf_rows_packed(codes, rows, tables,
+                                                       fields)
+                except ValueError:
+                    continue
+                finally:
+                    qtrees_cuda.PACKED_BLOCKS = every
+                    qtrees_cuda._packed_shape.cache_clear()
+
+                def fn():
+                    return qtrees_cuda.leaf_rows_packed(codes, rows, tables,
+                                                        fields)
+
+                same = all(torch.equal(g, r) for g, r in zip(got, ref))
+                ok &= same
+                runs.append({
+                    "threads": shape.threads,
+                    "records_per_thread": shape.records_per_thread,
+                    "blocks": shape.n_blocks, "smem_bytes": shape.smem,
+                    "resident_blocks_per_sm":
+                        qtrees_cuda.packed_resident_on_card(shape, classes),
+                    "ok": same, "ms": cuda_ms(fn, 5, 40),
+                    "back_to_back_ms": back_to_back_ms(fn, 5, 40)})
+                qtrees_cuda._PLANS.clear()
+            runs.sort(key=lambda r: r["back_to_back_ms"])
+            emit({"packed_sweep": label, "rows": sum(rows),
+                  "members": len(members),
+                  "rule": [chosen.threads, chosen.records_per_thread],
+                  "shapes": runs})
+        t0m, c0 = mains[0]
+        big = c0.repeat(-(-262144 // c0.shape[0]), 1)[:262144].contiguous()
+        solo = (lambda: qtrees_cuda.leaf_rows(big, t0m, c0.shape[1]))
+        emit({"packed_sweep": "solo_262144", "ms": cuda_ms(solo, 3, 20),
+              "back_to_back_ms": back_to_back_ms(solo, 3, 20)})
+    finally:
+        qtrees_cuda.PACKED_BLOCKS = every
+        qtrees_cuda._packed_shape.cache_clear()
+        qtrees_cuda._PLANS.clear()
+        shutil.rmtree(scratch, ignore_errors=True)
+    print(smi, flush=True)
+    if not ok:
+        print("chip_smoke: a packed launch differs from its plain version",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
 def main(phase: str = None) -> int:
     import importlib.util
 
@@ -8446,7 +8769,18 @@ def run_phases(workdir: str) -> int:
             "bound_ms": pt["bound_ms"], "bound_by": pt["bound_by"],
             "library_ms": None, "ops": pt["ops"],
             "solo_sequence_ms": pt["solo_sequence_ms"],
-            "blocks": pt["blocks"],
+            "blocks": pt["blocks"], "threads": pt["threads"],
+            "records_per_thread": pt["records_per_thread"],
+            "smem_bytes": pt["smem_bytes"],
+            "resident_blocks_per_sm": pt["resident_blocks_per_sm"],
+            "share_of_bound": pt["share_of_bound"],
+            # main8_16384 (131,072 rows) against the C = 1 launch at
+            # 262,144 rows, both timed in this run
+            "ms_over_c1_kernel_ms": pt["packed_ms"] / timing["kernel_ms"],
+            # each timed pack: packed_ms, bound, share of bound and shape
+            "shapes": [{k: v for k, v in sh.items()
+                        if k not in ("ops", "bytes", "bytes_ms", "ops_ms")}
+                       for sh in zs["packed_kernel"]["shapes"]],
         },
     ]})
     print(smi, flush=True)
@@ -8456,6 +8790,11 @@ def run_phases(workdir: str) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--packed-sweep"]:
+        sys.exit(packed_sweep_main())
+    if len(sys.argv) > 3 and sys.argv[1] == "--ab" and (
+            sys.argv[3] == "packed"):
+        sys.exit(ab_packed_main(sys.argv[2]))
     if len(sys.argv) > 2 and sys.argv[1] == "--ab":
         sys.exit(ab_main(sys.argv[2]))
     if len(sys.argv) > 2 and sys.argv[1] == "--phase":

@@ -27,8 +27,9 @@ module's. What differs is which members ride a pack and how they score:
   another order than the XLA ``qfn``).
 - **No fall-back.** A pack never scores its ``"cuda"`` members with
   launches of their own. A mix the packed launch cannot take (its
-  shared-memory need over the block's limit, ``qtrees_cuda.packed_shape``)
-  raises at build, and the zoo serves that group solo.
+  shared-memory need at the smallest block over the block's limit,
+  ``qtrees_cuda.packed_shape``) raises at build, and the zoo serves that
+  group solo.
 
 Design, as in the JAX module: one staged array ``Xp[N, B, F_max]`` in the
 widest member wire dtype; slot ``i`` holds tenant ``i``'s rank-encoded
@@ -192,11 +193,15 @@ class PackedScorer:
         self._whole = (not self._torch and self.in_dtype is np.uint8
                        and self._fk == self.F_max)
         if self._cuda:
-            # refuses a mix the packed launch cannot take (ValueError)
+            # refuses a mix the packed launch cannot take (ValueError):
+            # one whose smallest block's shared memory is over the limit,
+            # whatever rows a dispatch brings
             qtrees_cuda.packed_shape([
                 (f, t["walk"].shape[0], t["walk"].shape[1], *ln)
                 for f, t, ln in zip(self._fields, self._tables,
-                                    self._launches)])
+                                    self._launches)],
+                [self.B] * len(self._cuda),
+                max(t["rows"].shape[2] for t in self._tables))
 
     @property
     def n_members(self) -> int:

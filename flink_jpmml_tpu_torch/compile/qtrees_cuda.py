@@ -70,13 +70,16 @@ the package (bound through a plain C interface with ``ctypes``).
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 import os
 import pathlib
 import re
 import shutil
 import threading
-from typing import Dict, Iterator, Optional, Tuple
+import weakref
+from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -412,8 +415,11 @@ def build() -> ctypes.CDLL:
             p, i64, i32, p, i32, i32, i32, i32, i32, i32, i32, i32, p, p]
         lib.qtrees_leaf_rows.restype = ctypes.c_int
         lib.qtrees_leaf_rows_packed.argtypes = [
-            p, p, i32, i64, i32, i64, i32, i32, p, p]
+            p, p, i32, i64, i32, i32, i64, i32, i32, p, p]
         lib.qtrees_leaf_rows_packed.restype = ctypes.c_int
+        lib.qtrees_packed_resident_blocks.argtypes = [
+            i32, i32, i64, i32, ctypes.POINTER(ctypes.c_int)]
+        lib.qtrees_packed_resident_blocks.restype = ctypes.c_int
         _LIB = lib
         return lib
 
@@ -612,35 +618,165 @@ DESC_WORDS = 16
 (_D_CODES_OFF, _D_ROWS, _D_SRC_STRIDE, _D_FIELDS, _D_WALK, _D_TREES,
  _D_TREE_WORDS, _D_CHUNK_TREES, _D_LEAF_BASE, _D_ROW_WORD, _D_CLASSES,
  _D_OUT_OFF, _D_BLOCK_BEGIN, _D_ROW_STRIDE) = range(14)
+# the packed launch's blocks, (threads, records a thread), largest tile
+# first and, for one tile, fewest records a thread first: the packed
+# kernel has an instance for each records count (kR)
+PACKED_BLOCKS = ((256, 4), (256, 2), (128, 4), (256, 1), (128, 2), (64, 4),
+                 (128, 1), (64, 2), (32, 4), (64, 1), (32, 2), (32, 1))
+# the card the packed shape is sized for (an H100 SXM): its SMs and what
+# one SM gives its resident blocks (the .cu source sets the largest
+# shared-memory carveout for the packed kernel)
+SM_COUNT = 132
+SM_SMEM = 233472  # 228 KB of shared memory an SM
+SM_SMEM_RESERVED = 1024  # the runtime's own shared memory a block
+SM_SMEM_UNIT = 128  # shared memory is allocated in these steps
+SM_THREADS = 2048
+SM_BLOCKS = 32
+SM_REGISTERS = 65536
+# members a packed launch takes: its descriptor table is a kernel
+# parameter (kMaxPackMembers in the .cu source)
+MAX_PACK_MEMBERS = 64
+# a member of at least this many rows has at least half of its blocks'
+# lanes live
+HALF_LIVE_ROWS = 64
 
 
-def packed_shape(members) -> Tuple[int, list, int]:
+class PackedShape(NamedTuple):
+    """A packed launch's shape (:func:`packed_shape`): ``threads`` a block
+    and ``records_per_thread`` (the tile is their product), and per member
+    its ``chunks`` (trees a table buffer), ``bufs`` (table buffers: 1 when
+    one chunk holds the whole table) and ``blocks``; ``smem`` bytes of
+    shared memory a block (the largest need among the members) and the
+    blocks of this shape one SM holds (``resident``)."""
+
+    threads: int
+    records_per_thread: int
+    chunks: Tuple[int, ...]
+    bufs: Tuple[int, ...]
+    blocks: Tuple[int, ...]
+    smem: int
+    resident: int
+
+    @property
+    def tile(self) -> int:
+        return self.threads * self.records_per_thread
+
+    @property
+    def n_blocks(self) -> int:
+        return sum(self.blocks)
+
+    @property
+    def slots(self) -> int:
+        """Blocks the card holds at once at this shape."""
+        return SM_COUNT * self.resident
+
+
+def class_bucket(n_classes: int) -> int:
+    """The accumulator bucket of a class count: 1, 4 or ``MAX_CLASSES``."""
+    return 1 if n_classes == 1 else 4 if n_classes <= 4 else MAX_CLASSES
+
+
+def packed_min_blocks(n_classes: int, records_per_thread: int) -> int:
+    """Blocks of ``MAX_THREADS`` threads the packed instance for
+    ``n_classes`` and ``records_per_thread`` fits in one SM's registers:
+    its ``__launch_bounds__`` (``packed_min_blocks`` in the .cu source)."""
+    bucket = class_bucket(n_classes)
+    if bucket == MAX_CLASSES:
+        return {1: 6, 2: 4}.get(records_per_thread, 2)
+    return 5 if bucket == 4 and records_per_thread == 4 else 8
+
+
+def packed_resident(threads: int, records_per_thread: int, smem: int,
+                    n_classes: int) -> int:
+    """Blocks of ``threads`` threads and ``smem`` bytes of dynamic shared
+    memory that one SM holds: the least that its shared memory (with the
+    runtime's reserve, in allocation steps), its threads, its registers
+    (each thread at the register cap its instance's ``__launch_bounds__``
+    sets, so this many at least) and its block limit allow."""
+    per_block = -(-(smem + SM_SMEM_RESERVED) // SM_SMEM_UNIT) * SM_SMEM_UNIT
+    regs = (SM_REGISTERS // (packed_min_blocks(n_classes, records_per_thread)
+                             * MAX_THREADS)) // 8 * 8
+    by_regs = SM_REGISTERS // (regs * 32) // (threads // 32)
+    return min(SM_SMEM // per_block, SM_THREADS // threads, by_regs,
+               SM_BLOCKS)
+
+
+def packed_shape(members, rows, n_classes: int = 1) -> PackedShape:
     """The launch shape of a packed launch over ``members``, each
     ``(n_fields, n_trees, tree_words, threads, chunk_bytes)`` as its solo
-    launch takes them (:func:`launch_shape`; None: the default) →
-    ``(threads, [chunk_trees per member], smem_bytes)``.
+    launch takes them (:func:`launch_shape`; None: the default), with
+    ``rows[m]`` live rows each and ``n_classes`` the largest class count.
 
-    The pack's block is the smallest of the members' own blocks, each
-    member keeps its own chunk of trees, and the launch's shared memory is
-    the largest need among the members at that block; the class bucket is
-    the largest (the .cu source). The sums do not depend on the block or
-    the chunk (trees are added in ascending order whatever the shape), so
-    each member's rows are its solo launch's bit for bit. Raises
-    ValueError when a member's shape is one the card cannot take or the
-    largest need exceeds ``SMEM_MAX``: the pack plan refuses that mix."""
+    Each member keeps its own chunk of trees (the kernel search's
+    ``chunk_bytes`` stands) and takes one table buffer when that chunk is
+    its whole table, two otherwise. The block is the pack's, not a
+    member's. Of ``PACKED_BLOCKS`` whose shared memory fits (the largest
+    need among the members) and whose tile leaves at least half of the
+    lanes live in the blocks of each member of ``HALF_LIVE_ROWS`` rows or
+    more (the tile at most twice its rows), it takes those whose waves
+    (blocks over the card's resident slots, rounded up) times records a
+    thread is least: the walks a thread takes one after another, each
+    ``kWalks`` deep (the .cu source's note says why that sets the time).
+    Among those, the largest tile whose grid fills every resident slot;
+    where none does, the largest with a block for every SM; where none
+    does, the smallest. The sums do not depend on the shape (trees are
+    added in ascending order whatever it is), so each member's rows are
+    its solo launch's bit for bit. Raises ValueError when a member's
+    shape is one the card cannot take, there are more than
+    ``MAX_PACK_MEMBERS`` members, or even the smallest block's shared
+    memory exceeds ``SMEM_MAX``: the pack plan refuses that mix."""
     if not members:
         raise ValueError("a packed launch needs at least one member")
-    shapes = [launch_shape(f, t, w, th, cb) for f, t, w, th, cb in members]
-    threads = min(sh[0] for sh in shapes)
-    chunks = [sh[1] for sh in shapes]
-    smem = max(
-        BAR_BYTES + 2 * c * w * 8
-        + threads * RECORDS_PER_THREAD * staged_row_stride(f)
-        for (f, _t, w, _th, _cb), c in zip(members, chunks))
-    if smem > SMEM_MAX:
-        raise ValueError(f"a packed launch needs {smem} bytes of shared "
-                         f"memory, over the block's {SMEM_MAX}")
-    return threads, chunks, smem
+    if len(members) > MAX_PACK_MEMBERS:
+        raise ValueError(f"{len(members)} members: a packed launch takes at "
+                         f"most {MAX_PACK_MEMBERS}")
+    if len(rows) != len(members):
+        raise ValueError(f"{len(members)} members but {len(rows)} row counts")
+    return _packed_shape(tuple(tuple(m) for m in members),
+                         tuple(int(r) for r in rows), int(n_classes))
+
+
+@functools.lru_cache(maxsize=256)
+def _packed_shape(members, rows, n_classes) -> PackedShape:
+    chunks, bufs, needs = [], [], []
+    for f, t, w, th, cb in members:
+        chunk = launch_shape(f, t, w, th, cb)[1]
+        buf = 1 if chunk >= t else 2
+        chunks.append(chunk)
+        bufs.append(buf)
+        needs.append((BAR_BYTES + buf * chunk * w * 8, staged_row_stride(f)))
+    live = [r for r in rows if r >= HALF_LIVE_ROWS]
+    cap = 2 * min(live) if live else None
+    plans = []
+    for threads, per_thread in PACKED_BLOCKS:
+        tile = threads * per_thread
+        if cap is not None and tile > cap:
+            continue
+        smem = max(tables + tile * stride for tables, stride in needs)
+        if smem > SMEM_MAX:
+            continue
+        plans.append(PackedShape(
+            threads, per_thread, tuple(chunks), tuple(bufs),
+            tuple(-(-r // tile) for r in rows), smem,
+            packed_resident(threads, per_thread, smem, n_classes)))
+    if not plans:
+        raise ValueError(f"a packed launch needs over the block's {SMEM_MAX} "
+                         "bytes of shared memory even at its smallest block")
+    least = min(map(_chains, plans))
+    plans = [plan for plan in plans if _chains(plan) == least]
+    for plan in plans:
+        if plan.n_blocks >= plan.slots:
+            return plan
+    for plan in plans:
+        if plan.n_blocks >= SM_COUNT:
+            return plan
+    return plans[-1]
+
+
+def _chains(plan: PackedShape) -> int:
+    """Waves of the grid times records a thread: how many walks of
+    ``kWalks`` chains the busiest thread slot takes one after another."""
+    return -(-plan.n_blocks // plan.slots) * plan.records_per_thread
 
 
 def _packed_members(codes, rows, tables, n_fields, launches):
@@ -678,6 +814,108 @@ def leaf_rows_packed_reference(codes: torch.Tensor, rows, tables, n_fields):
     ]
 
 
+def _packed_desc(codes: torch.Tensor, rows, tables, n_fields, dims,
+                 shape: PackedShape) -> np.ndarray:
+    """The packed launch's descriptor table, i64[N, DESC_WORDS] (DescWord
+    in the .cu source): member m's codes in slot m of ``codes``
+    (u8[N, B, F]), its sums after those of the members before it, its
+    blocks after theirs."""
+    N, B, F = codes.shape
+    words = []
+    out_off = begin = 0
+    for m, (T, S, L, C) in enumerate(dims):
+        words.append((
+            m * B * F, rows[m], F, n_fields[m], tables[m]["walk"].data_ptr(),
+            T, tables[m]["walk"].shape[1], shape.chunks[m], 1 + S, 1 + S + L,
+            C, out_off, begin, staged_row_stride(n_fields[m]), 0, 0))
+        out_off += rows[m] * C
+        begin += shape.blocks[m]
+    return np.array(words, np.int64).reshape(N, DESC_WORDS)
+
+
+class _PackedPlan(NamedTuple):
+    """What a packed launch over given operands needs beside the codes and
+    the output: its shape, its descriptor table (and that table's host
+    address), each member's class count, the output's shape and the
+    launch's arguments between the descriptor and the output."""
+
+    shape: PackedShape
+    desc: np.ndarray
+    desc_ptr: int
+    classes: Tuple[int, ...]
+    out_shape: Tuple[int, ...]
+    args: Tuple[int, ...]
+
+
+# packed launch plans by operands: a pack dispatched again over the same
+# tables, row counts and buffer shape skips the checks, the shape rule and
+# the descriptor's build (host time that the launch waits for). A plan
+# goes when one of its tables dies, or when _PLANS_MAX newer ones were
+# made.
+_PLANS: "collections.OrderedDict[tuple, _PackedPlan]" = (
+    collections.OrderedDict())
+_PLANS_MAX = 64
+_PLANS_LOCK = threading.RLock()
+# each plan's weak references to its tables, by the plan's key
+_PLAN_REFS: Dict[tuple, list] = {}
+_PLAN_TABLES = ("walk", "split", "rows")
+
+
+def _drop_plan(key):
+    def drop(_ref):
+        with _PLANS_LOCK:
+            _PLANS.pop(key, None)
+            _PLAN_REFS.pop(key, None)
+    return drop
+
+
+def _packed_plan(codes: torch.Tensor, rows, tables, n_fields,
+                 launches) -> _PackedPlan:
+    """The plan of a packed launch on the card, checked and built once per
+    operands: the codes' device, type and shape, the row counts, widths
+    and launch shapes, and the identity of each member's ``walk``,
+    ``split`` and ``rows`` tables (the plan is dropped when one of them
+    dies, before its id can name another table)."""
+    key = (codes.dtype, codes.shape, codes.get_device(), tuple(rows),
+           tuple(n_fields),
+           None if launches is None else tuple(map(tuple, launches)),
+           tuple([id(t[k]) for t in tables for k in _PLAN_TABLES]))
+    plan = _PLANS.get(key)
+    if plan is not None:
+        return plan
+    dims = _packed_members(codes, rows, tables, n_fields, launches)
+    shape = _packed_shape_of(dims, rows, n_fields, launches)
+    desc = _packed_desc(codes, rows, tables, n_fields, dims, shape)
+    classes = tuple(d[3] for d in dims)
+    max_c = max(classes)
+    # one class count: the members' outputs are row ranges of one
+    # [rows, C] tensor, cut in one call
+    out_shape = ((sum(rows), max_c) if min(classes) == max_c
+                 else (sum(r * c for r, c in zip(rows, classes)),))
+    plan = _PackedPlan(
+        shape, desc, desc.ctypes.data, classes, out_shape,
+        (len(dims), shape.n_blocks, shape.threads, shape.records_per_thread,
+         shape.smem, max_c, SENTINEL))
+    with _PLANS_LOCK:
+        drop = _drop_plan(key)
+        # the references live as long as the plan: their callbacks drop it
+        refs = [weakref.ref(t[k], drop) for t in tables
+                for k in _PLAN_TABLES]
+        _PLANS[key] = plan
+        _PLAN_REFS[key] = refs
+        while len(_PLANS) > _PLANS_MAX:
+            old, _ = _PLANS.popitem(last=False)
+            _PLAN_REFS.pop(old, None)
+    return plan
+
+
+def _packed_shape_of(dims, rows, n_fields, launches) -> PackedShape:
+    launches = launches or [(None, None)] * len(dims)
+    return packed_shape([
+        (n_fields[m], d[0], walk_words(*d[1:]), *launches[m])
+        for m, d in enumerate(dims)], rows, max(d[3] for d in dims))
+
+
 def leaf_rows_packed(codes: torch.Tensor, rows, tables, n_fields,
                      launches=None):
     """One launch over many members → a list of f32[rows[m], C_m]: member
@@ -687,65 +925,59 @@ def leaf_rows_packed(codes: torch.Tensor, rows, tables, n_fields,
 
     ``codes`` is the packed buffer u8[N, B, F_max]: member m's records in
     slot m, its fields first, the rest of a row ignored. On a CUDA tensor:
-    one launch of ``walk_packed_kernel`` on the current stream, a block of
-    the grid a (member, row block) pair (counted in
-    ``leaf_rows_packed.launches`` and, by the largest class count, in
-    ``leaf_rows_packed.launches_by_classes``), or a raise: on a shape the
-    pack cannot take (:func:`packed_shape`), a table not on the card, or
+    one launch of ``walk_packed_kernel`` on the current stream at the
+    pack's shape (:func:`packed_shape`), a block of the grid a (member,
+    row tile) pair (counted in ``leaf_rows_packed.launches`` and, by the
+    largest class count, in ``leaf_rows_packed.launches_by_classes``), or
+    a raise: on a shape the pack cannot take, a table not on the card, or
     a launch the runtime refused (:class:`KernelLaunchError`). There is no
     fall-back to launches a member. On a CPU tensor: the plain version."""
-    dims = _packed_members(codes, rows, tables, n_fields, launches)
-    N, B, F = codes.shape
-    launches = launches or [(None, None)] * N
-    threads, chunks, smem = packed_shape([
-        (n_fields[m], d[0], walk_words(*d[1:]), *launches[m])
-        for m, d in enumerate(dims)])
     if codes.device.type == "cpu":
+        dims = _packed_members(codes, rows, tables, n_fields, launches)
+        _packed_shape_of(dims, rows, n_fields, launches)
         return leaf_rows_packed_reference(codes, rows, tables, n_fields)
+    plan = _packed_plan(codes, rows, tables, n_fields, launches)
+    if not codes.is_contiguous():
+        raise ValueError("packed codes must be contiguous")
     lib = build()
-    per_block = threads * RECORDS_PER_THREAD
-    desc = np.zeros((N, DESC_WORDS), np.int64)
-    out_off = blocks = 0
-    for m, (T, S, L, C) in enumerate(dims):
-        d = desc[m]
-        d[_D_CODES_OFF] = m * B * F
-        d[_D_ROWS] = rows[m]
-        d[_D_SRC_STRIDE] = F
-        d[_D_FIELDS] = n_fields[m]
-        d[_D_WALK] = tables[m]["walk"].data_ptr()
-        d[_D_TREES] = T
-        d[_D_TREE_WORDS] = tables[m]["walk"].shape[1]
-        d[_D_CHUNK_TREES] = chunks[m]
-        d[_D_LEAF_BASE] = 1 + S
-        d[_D_ROW_WORD] = 1 + S + L
-        d[_D_CLASSES] = C
-        d[_D_OUT_OFF] = out_off
-        d[_D_BLOCK_BEGIN] = blocks
-        d[_D_ROW_STRIDE] = staged_row_stride(n_fields[m])
-        out_off += rows[m] * C
-        blocks += -(-rows[m] // per_block)
-    out = torch.empty(out_off, dtype=torch.float32, device=codes.device)
-    dev_desc = torch.from_numpy(desc).pin_memory().to(
-        codes.device, non_blocking=True)
-    max_c = max(d[3] for d in dims)
+    out = torch.empty(plan.out_shape, dtype=torch.float32,
+                      device=codes.device)
     stream = torch.cuda.current_stream(codes.device).cuda_stream
     rc = lib.qtrees_leaf_rows_packed(
-        codes.data_ptr(), dev_desc.data_ptr(), N, blocks, threads, smem,
-        max_c, SENTINEL, out.data_ptr(), stream)
+        codes.data_ptr(), plan.desc_ptr, *plan.args, out.data_ptr(), stream)
     if rc != 0:
         raise KernelLaunchError(f"qtrees_leaf_rows_packed launch failed: "
                                 f"cudaError {rc}", cuda_error=rc)
-    if blocks:
+    if plan.shape.n_blocks:
+        max_c = plan.args[5]
         with _COUNT_LOCK:
             leaf_rows_packed.launches += 1
             by_c = leaf_rows_packed.launches_by_classes
             by_c[max_c] = by_c.get(max_c, 0) + 1
+    if len(plan.out_shape) == 2:
+        return list(out.split(list(rows)))
     outs, at = [], 0
-    for m, d in enumerate(dims):
-        n = rows[m] * d[3]
-        outs.append(out[at: at + n].view(rows[m], d[3]))
-        at += n
+    for r, c in zip(rows, plan.classes):
+        outs.append(out[at: at + r * c].view(r, c))
+        at += r * c
     return outs
+
+
+def packed_resident_on_card(shape: PackedShape, n_classes: int) -> int:
+    """The blocks of ``shape`` one SM of the current card holds, as the
+    CUDA runtime's occupancy calculator reads them for the packed instance
+    of ``n_classes`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
+    :func:`packed_shape` counts on ``shape.resident``. Raises
+    :class:`KernelLaunchError` on the runtime's error."""
+    lib = build()
+    blocks = ctypes.c_int(0)
+    rc = lib.qtrees_packed_resident_blocks(
+        shape.threads, shape.records_per_thread, shape.smem, n_classes,
+        ctypes.byref(blocks))
+    if rc != 0:
+        raise KernelLaunchError(f"qtrees_packed_resident_blocks failed: "
+                                f"cudaError {rc}", cuda_error=rc)
+    return blocks.value
 
 
 leaf_rows_packed.launches = 0

@@ -386,11 +386,11 @@ def test_walk_kernel_needs_only_the_walk_table_on_the_card(card):
 def test_ptxas_reports_no_spills(card):
     qtrees_cuda.build()
     report = qtrees_cuda.ptxas_report()
-    # one instance per class bucket (1, 4, 16) of each kernel: the solo
-    # walk and the packed walk
+    # one instance per class bucket (1, 4, 16) of the solo walk, and of
+    # the packed walk per class bucket and records a thread (1, 2, 4)
     names = sorted(k["kernel"] for k in report)
-    assert len(report) == 6, names
-    assert sum("walk_packed_kernel" in n for n in names) == 3, names
+    assert len(report) == 12, names
+    assert sum("walk_packed_kernel" in n for n in names) == 9, names
     for kernel in report:
         assert kernel["spill_stores"] == 0 and kernel["spill_loads"] == 0, \
             kernel
@@ -1073,16 +1073,26 @@ def _pack_members(tmp_path, card, specs, rows, seed=3):
     return members
 
 
-@pytest.mark.parametrize("rows", [(256, 256, 256), (1, 0, 255), (1024, 7, 300)])
+# row counts one short of, at and one over the packed launch's tiles
+# (32 to 1,024 rows a block), beside ragged and empty members
+@pytest.mark.parametrize("rows", [
+    (256, 256, 256, 256), (1, 0, 255, 3), (1024, 7, 300, 64),
+    (31, 32, 33, 63), (255, 256, 257, 511), (1023, 1024, 1025, 513),
+    (0, 129, 1, 65)])
 def test_packed_launch_equals_solo_launches_on_the_card(card, tmp_path, rows):
+    # C = 1, 3 and 16 in one pack, one-chunk tables and a double-buffered
+    # one (29 depth-6 trees over two chunks)
     members = _pack_members(tmp_path, card, [
         dict(n_trees=6, depth=3, n_features=4, seed=100),
         dict(n_trees=8, depth=3, n_features=4, n_classes=3, seed=5,
              votes=True),
-        dict(n_trees=19, depth=6, n_features=32, seed=11),
+        dict(n_trees=29, depth=6, n_features=32, seed=11),
+        dict(n_trees=5, depth=3, n_features=6, n_classes=16, seed=4,
+             votes=True),
     ], rows)
     F = max(c.shape[1] for _, c in members)
-    codes = torch.zeros((3, max(rows), F), dtype=torch.uint8, device=card)
+    codes = torch.zeros((len(rows), max(rows), F), dtype=torch.uint8,
+                        device=card)
     for m, (_, c) in enumerate(members):
         codes[m, :, : c.shape[1]] = c
     tables = [t for t, _ in members]

@@ -12,6 +12,8 @@ of the walk kernel (qtrees_cuda.leaf_rows_packed), on the CPU.
 - Eligibility, the pack cap and the model-set hash are the JAX module's.
 """
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -32,7 +34,8 @@ RTOL, ATOL = 1e-4, 1e-5
 
 def _docs(tmp_path):
     """name → (pmml path or xml text, fields): GBMs of 3–8 trees at depth
-    3 over 4 features, a 3-class vote forest, a uint16 stump forest."""
+    3 over 4 features, a 3-class vote forest, a 16-class one over 6
+    features, a uint16 stump forest."""
     d = str(tmp_path)
     out = {
         f"gbm{i}": (gen_gbm(d, n_trees=t, depth=3, n_features=4, seed=s,
@@ -41,6 +44,9 @@ def _docs(tmp_path):
     }
     out["votes"] = (gen_vote_forest(d, n_trees=6, depth=3, n_features=4,
                                     n_classes=3, seed=3), None)
+    out["votes16"] = (gen_vote_forest(d, n_trees=5, depth=3, n_features=6,
+                                      n_classes=16, seed=4, name="v16"),
+                      None)
     out["wide"] = (None, stump_forest_xml())
     return out
 
@@ -123,25 +129,204 @@ def test_packed_plain_version_equals_each_solo_plain_version(docs, rows):
         assert routed[m].numpy().tobytes() == solo.numpy().tobytes()
 
 
+def _cdiv(a, b):
+    return -(-a // b)
+
+
 def test_packed_shape_takes_the_smallest_block_and_largest_need():
-    # a member whose default block is 256 threads and one of 64 fields
-    # wide enough to shrink its block
+    # a member of 3 small trees and one of 500 trees over 256 fields: each
+    # keeps its own chunk (one table buffer where the chunk is the whole
+    # table); the block is the pack's, no larger than twice the smallest
+    # member's rows; its shared memory is the largest need at that tile
     small = (4, 3, 8, None, None)
     wide = (256, 500, 200, None, None)
-    t_small = qc.launch_shape(*small)
-    t_wide = qc.launch_shape(*wide)
-    threads, chunks, smem = qc.packed_shape([small, wide])
-    assert threads == min(t_small[0], t_wide[0])
-    assert chunks == [t_small[1], t_wide[1]]
-    assert smem == max(
-        qc.BAR_BYTES + 2 * c * w * 8 + threads * qc.RECORDS_PER_THREAD
-        * qc.staged_row_stride(f)
-        for (f, _t, w, _, _), c in zip([small, wide], chunks))
-    assert smem <= qc.SMEM_MAX
+    rows = [100, 3000]
+    sh = qc.packed_shape([small, wide], rows, 1)
+    chunks = [qc.launch_shape(*m)[1] for m in (small, wide)]
+    assert list(sh.chunks) == chunks
+    assert sh.bufs == (1, 2)
+    assert (sh.threads, sh.records_per_thread) in qc.PACKED_BLOCKS
+    assert sh.tile <= 2 * min(rows)
+    assert sh.blocks == tuple(_cdiv(r, sh.tile) for r in rows)
+    assert sh.smem == max(
+        qc.BAR_BYTES + b * c * w * 8 + sh.tile * qc.staged_row_stride(f)
+        for (f, _t, w, _, _), c, b in zip([small, wide], chunks, sh.bufs))
+    assert sh.smem <= qc.SMEM_MAX
+    assert sh.resident == qc.packed_resident(
+        sh.threads, sh.records_per_thread, sh.smem, 1)
+    # of the blocks that fit, the fewest walks one after another a thread
+    # slot takes (waves times records a thread)
+    for threads, per_thread in qc.PACKED_BLOCKS:
+        tile = threads * per_thread
+        smem = max(qc.BAR_BYTES + b * c * w * 8
+                   + tile * qc.staged_row_stride(f)
+                   for (f, _t, w, _, _), c, b in zip([small, wide], chunks,
+                                                     sh.bufs))
+        if tile > 2 * min(rows) or smem > qc.SMEM_MAX:
+            continue
+        slots = qc.SM_COUNT * qc.packed_resident(threads, per_thread, smem, 1)
+        waves = _cdiv(sum(_cdiv(r, tile) for r in rows), slots)
+        assert waves * per_thread >= (
+            _cdiv(sh.n_blocks, sh.slots) * sh.records_per_thread)
     with pytest.raises(ValueError):
-        qc.packed_shape([small, (4, 3, 8, 48, None)])  # not a warp multiple
+        qc.packed_shape([small, (4, 3, 8, 48, None)], [1, 1])  # not a warp
     with pytest.raises(ValueError):
-        qc.packed_shape([])
+        qc.packed_shape([], [])
+    with pytest.raises(ValueError):
+        qc.packed_shape([small, wide], [1])
+    with pytest.raises(ValueError):
+        qc.packed_shape([small] * (qc.MAX_PACK_MEMBERS + 1),
+                        [1] * (qc.MAX_PACK_MEMBERS + 1))
+
+
+# the main path's model (gen_gbm(500, depth=6, n_features=32)): 500 trees
+# of 63 splits and 64 leaves, 160 words a tree
+MAIN = (32, 500, qc.walk_words(63, 64, 1), None, None)
+
+
+def test_packed_shape_fills_every_resident_slot_for_eight_main_members():
+    sh = qc.packed_shape([MAIN] * 8, [16384] * 8, 1)
+    assert sh.n_blocks >= sh.slots == qc.SM_COUNT * sh.resident
+    assert sh.resident >= 3  # the solo block's shape holds two an SM
+    assert sh.bufs == (2,) * 8  # 500 trees take 27 chunks of 19
+    assert sh.smem <= qc.SMEM_MAX
+
+
+def test_packed_shape_leaves_zoo_blocks_at_least_half_live():
+    # the zoo drill's members: 6-15 depth-3 trees over 4 fields
+    zoo = [(4, 6 + i % 10, qc.walk_words(7, 8, 1), None, None)
+           for i in range(16)]
+    sh = qc.packed_shape(zoo, [256] * 16, 1)
+    assert sh.bufs == (1,) * 16
+    for r, n in zip([256] * 16, sh.blocks):
+        for b in range(n):
+            assert min(sh.tile, r - b * sh.tile) * 2 >= sh.tile
+    # ragged: each member of 64 rows or more has at least half of its
+    # blocks' lanes live
+    rows = [64, 65, 127, 500, 1, 0, 63, 3000]
+    sh = qc.packed_shape(zoo[: len(rows)], rows, 1)
+    for r, n in zip(rows, sh.blocks):
+        assert n == _cdiv(r, sh.tile)
+        if r >= qc.HALF_LIVE_ROWS:
+            assert 2 * r >= n * sh.tile
+
+
+def test_packed_shape_gives_a_one_chunk_member_one_table_buffer():
+    one = (4, 12, 40, None, None)
+    # the same table in chunks of 5 trees: double buffered
+    split = (4, 12, 40, None, 5 * 40 * 8)
+    sh1 = qc.packed_shape([one], [256], 1)
+    sh2 = qc.packed_shape([split], [256], 1)
+    assert (sh1.chunks, sh1.bufs) == ((12,), (1,))
+    assert (sh2.chunks, sh2.bufs) == ((5,), (2,))
+    assert sh1.tile == sh2.tile
+    assert sh1.smem == qc.BAR_BYTES + 12 * 40 * 8 + sh1.tile * 4 * 1
+    assert sh2.smem == qc.BAR_BYTES + 2 * 5 * 40 * 8 + sh2.tile * 4 * 1
+
+
+@pytest.mark.parametrize("threads,per_thread,smem,classes,want", [
+    # 57,872 B + 1 KB reserve in 128 B steps: 58,880 B, 3 in 228 KB
+    (256, 1, 57872, 1, 3),
+    # one-warp blocks: the SM's 32-block limit
+    (32, 1, 2544, 1, 32),
+    # 85,520 B (the solo block of the main path's model): 2
+    (256, 4, 85520, 1, 2),
+    # registers: C = 16 at 4 records a thread is capped at 128 a thread,
+    # two 256-thread blocks an SM
+    (256, 4, 4096, 16, 2),
+    (128, 4, 4096, 16, 4),
+    # C = 4 at 4 records: 48 registers, five 256-thread blocks
+    (256, 4, 4096, 4, 5),
+    # threads: eight 256-thread blocks
+    (256, 1, 4096, 1, 8),
+])
+def test_packed_resident_blocks_arithmetic(threads, per_thread, smem,
+                                           classes, want):
+    assert qc.packed_resident(threads, per_thread, smem, classes) == want
+
+
+@pytest.mark.parametrize("rows", [
+    (0, 1, 31, 32, 33),
+    (63, 64, 65, 0, 1, 127),
+    (128, 129, 255, 256, 257),
+    (511, 512, 513, 1),
+    (1023, 1024, 1025, 7, 300),
+])
+def test_packed_grid_model_covers_every_live_row_once(docs, rows):
+    # members cycle a GBM (C = 1), a 3-class and a 16-class vote forest
+    names = ("gbm0", "votes", "votes16", "gbm2")
+    qs = [_port(docs[names[m % len(names)]]) for m in range(len(rows))]
+    tables = [_member_tables(q) for q in qs]
+    fields = [len(q.wire.fields) for q in qs]
+    N, Bm, F = len(rows), max(rows), max(fields)
+    codes = torch.zeros((N, Bm, F), dtype=torch.uint8)
+    rows = list(rows)
+    dims = qc._packed_members(codes, rows, tables, fields, None)
+    shape = qc._packed_shape_of(dims, rows, fields, None)
+    assert shape == qc.packed_shape(
+        [(f, t["walk"].shape[0], t["walk"].shape[1], None, None)
+         for f, t in zip(fields, tables)], rows, 16)
+    desc = qc._packed_desc(codes, rows, tables, fields, dims, shape)
+    # the model: member m's blocks follow the members' before it, its sums
+    # follow theirs, its codes sit in slot m
+    classes = [int(t["rows"].shape[2]) for t in tables]
+    begin = np.cumsum([0] + [_cdiv(r, shape.tile) for r in rows])
+    out_off = np.cumsum([0] + [r * c for r, c in zip(rows, classes)])
+    assert desc.shape == (N, qc.DESC_WORDS)
+    assert list(desc[:, qc._D_BLOCK_BEGIN]) == list(begin[:-1])
+    assert list(desc[:, qc._D_OUT_OFF]) == list(out_off[:-1])
+    assert list(desc[:, qc._D_ROWS]) == rows
+    assert list(desc[:, qc._D_CODES_OFF]) == [m * Bm * F for m in range(N)]
+    assert list(desc[:, qc._D_CLASSES]) == classes
+    assert list(desc[:, qc._D_CHUNK_TREES]) == list(shape.chunks)
+    assert shape.n_blocks == begin[-1]
+    # block -> (member, first row, live rows), the member found as the
+    # kernel finds it: the last whose first block is at most the block
+    seen = [np.zeros(r, np.int64) for r in rows]
+    for b in range(shape.n_blocks):
+        lo, hi = 0, N - 1
+        while lo < hi:
+            mid = (lo + hi + 1) >> 1
+            if desc[mid, qc._D_BLOCK_BEGIN] <= b:
+                lo = mid
+            else:
+                hi = mid - 1
+        first = (b - desc[lo, qc._D_BLOCK_BEGIN]) * shape.tile
+        live = min(shape.tile, rows[lo] - first)
+        assert 0 < live <= shape.tile
+        seen[lo][first: first + live] += 1
+    assert all((s == 1).all() for s in seen)
+    # and the routed plain version is each member's solo one
+    got = qc.leaf_rows_packed(codes, rows, tables, fields)
+    for m in range(N):
+        solo = qc.leaf_rows_reference(codes[m, : rows[m], : fields[m]]
+                                      .contiguous(), tables[m])
+        assert got[m].numpy().tobytes() == solo.numpy().tobytes()
+
+
+def test_packed_plan_is_built_once_and_goes_with_its_tables(docs):
+    qs = [_port(docs[k]) for k in ("gbm0", "votes")]
+    tables = [_member_tables(q) for q in qs]
+    fields = [len(q.wire.fields) for q in qs]
+    codes = torch.zeros((2, B, max(fields)), dtype=torch.uint8)
+    plan = qc._packed_plan(codes, [B, 5], tables, fields, None)
+    assert qc._packed_plan(codes, [B, 5], tables, fields, None) is plan
+    assert qc._packed_plan(codes, [B, 6], tables, fields, None) is not plan
+    assert plan.out_shape == (B * 1 + 5 * 3,)
+    assert plan.args == (2, plan.shape.n_blocks, plan.shape.threads,
+                         plan.shape.records_per_thread, plan.shape.smem, 3,
+                         qc.SENTINEL)
+    assert plan.desc_ptr == plan.desc.ctypes.data
+    # a copy of a table is another table; the plans over the first go
+    # when it dies
+    tables[1] = {k: v.clone() for k, v in tables[1].items()}
+    again = qc._packed_plan(codes, [B, 5], tables, fields, None)
+    assert again is not plan and again == plan._replace(
+        desc=again.desc, desc_ptr=again.desc_ptr)
+    del qs
+    gc.collect()
+    assert all(p is not plan for p in qc._PLANS.values())
+    assert qc._packed_plan(codes, [B, 5], tables, fields, None) is again
 
 
 def test_packed_launch_checks_its_operands(docs):
