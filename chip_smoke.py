@@ -96,7 +96,17 @@ JAX package, and prints one JSON line per phase:
     gauge and its age, the lag forecaster, the pressure score and the
     record count of every dispatch;
 15. kafka main path serial — 14 again with ``prefetch=False``: fetch and
-    decode on the pipeline's ingest thread, the sidecar's ablation;
+    decode on the pipeline's ingest thread, the sidecar's ablation; then
+    kafka keyed topic (``kafka_keyed_topic``) — 262,144 rows of the
+    feature stream keyed by 10,000 users over 3 partitions
+    (``append_rows_keyed``), each partition compacted by a run of 4,096
+    offsets from its middle, consumed by the fused GBM's checkpointed
+    ``BlockPipeline`` through a ``KafkaBlockSource`` on the three
+    partitions (``interleave="auto"``), stopped at a third of the
+    survivors and resumed by a fresh pipeline from the checkpointed
+    offset vector: every survivor scored exactly once, the scores bit
+    equal to the plain walk's on the same rows, one kernel launch a
+    dispatch in each life;
 16. device shares — for each main path, the kernel's, the encode
     stage's and the H2D copy's timed milliseconds times the dispatches,
     over the wall: an estimate of the card's idle share (the H2D copies
@@ -453,11 +463,14 @@ line ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --ab
 OTHER_CHECKOUT`` instead times the fused GBM's block path in child
 processes alternating between another checkout and this one
 (``ab_main``); ``--ab OTHER_CHECKOUT packed`` times the packed launch at
-the three timed packs the same way (``ab_packed_main``);
+the three timed packs the same way (``ab_packed_main``); ``--ab
+OTHER_CHECKOUT state`` the stateful drill's zipf mix and its state step
+(``ab_state_main``);
 ``--packed-sweep`` times the packed launch at every block its shape rule
 chooses from (``packed_sweep_main``); and ``python3 chip_smoke.py
 --phase NAME`` runs one phase alone (``serving_edge``, ``kernel_search``, ``zoo_state``,
-``rollout_drift``, ``mesh``, ``fleet``, ``cli`` or ``soak``) with what it
+``rollout_drift``, ``kafka_keyed_topic``, ``mesh``, ``fleet``, ``cli`` or
+``soak``) with what it
 needs built
 (``run_phase_alone``). After the last phase a ``run`` line prints the
 whole run's seconds. Any failed phase raises, and the
@@ -1022,14 +1035,16 @@ def device_shares(run: dict, kernel_ms: float, stage_ms: float = 0.0,
 
 def drive(cm, source, sink, count: list, counter, *, metrics=None,
           prefetch=None, target: int = MIN_DISPATCHES * DISPATCH,
-          checkpoint_dir=None) -> dict:
+          checkpoint_dir=None, restore: bool = False) -> dict:
     """BlockPipeline over ``source`` until ``target`` records reached the
     sink, in dispatches of up to DISPATCH records; ``counter`` (a kernel
     wrapper) is reset just before and read just after. The line carries
     the pipeline's stage ledger (``attribution``: ``obs.attr.summary`` of
     its registry). ``checkpoint_dir`` arms checkpoints every second there,
     and with them the DLQ beside them and the device-fault ladder (each
-    batch retained past its dispatch)."""
+    batch retained past its dispatch). ``restore`` resumes from that
+    directory's latest checkpoint first: ``count`` then starts at the
+    restored offset (``restored_at``), and ``records`` counts this run's."""
     from flink_jpmml_tpu_torch.obs import attr
     from flink_jpmml_tpu_torch.runtime.block import BlockPipeline
     from flink_jpmml_tpu_torch.runtime.checkpoint import CheckpointManager
@@ -1049,6 +1064,10 @@ def drive(cm, source, sink, count: list, counter, *, metrics=None,
         raise RuntimeError(f"pipeline backend {pipe.backend}")
     q = cm.quantized_scorer()
     placement = q.encode_placement
+    restored_at = 0
+    if restore:
+        pipe.restore()
+        restored_at = count[0] = pipe.committed_offset
     counter.launches = 0
     t0 = time.perf_counter()
     pipe.start()
@@ -1079,12 +1098,14 @@ def drive(cm, source, sink, count: list, counter, *, metrics=None,
         raise RuntimeError(f"{h2d_per_record} H2D bytes a record, expected "
                            f"{q.staged_bytes_per_record} ({placement})")
     encode_s = snap.get("encode_s", 0.0)
+    records = count[0] - restored_at
     return {
         "backend": pipe.backend, "encode_mode": placement,
         "checkpointed": checkpoint_dir is not None,
         "source": type(pipe._source).__name__,
         "host_cpus": os.cpu_count(),
-        "records": count[0], "seconds": dt, "records_per_s": count[0] / dt,
+        **({"restored_at": restored_at} if restore else {}),
+        "records": records, "seconds": dt, "records_per_s": records / dt,
         "dispatches": dispatches, "launches": launches,
         "launches_per_dispatch": launches / dispatches,
         "records_per_dispatch": snap["batch_fill_records"] / max(dispatches, 1),
@@ -1275,6 +1296,172 @@ def kafka_main_path(cm, broker, n_cols: int, counter, prefetch,
         "pressure": {k: gs[k]["value"] for k in
                      ("pressure", "pressure_ring", "pressure_window",
                       "pressure_wait", "pressure_prefetch") if k in gs},
+    }
+
+
+# the keyed, compacted topic config 2 is scored from: 262,144 rows of the
+# feature stream (32 MiB of values) keyed by 10,000 users over 3
+# partitions, each partition compacted by a run of 4,096 offsets from its
+# middle
+KEYED_ROWS = 262_144
+KEYED_USERS = 10_000
+KEYED_PARTITIONS = 3
+KEYED_GAP = 4096
+
+
+def plain_walk_scores(q, X: np.ndarray) -> np.ndarray:
+    """``q``'s fused scores of ``X`` on the card, with the walk's plain
+    version (``leaf_rows_reference``) in the kernel's place: the same
+    encode stage and epilogue, in dispatches of DISPATCH rows. Launches
+    no kernel."""
+    from flink_jpmml_tpu_torch.compile import qtrees_cuda
+
+    kernel = qtrees_cuda.leaf_rows
+    qtrees_cuda.leaf_rows = (
+        lambda codes, tables, F, *a: qtrees_cuda.leaf_rows_reference(
+            codes, tables))
+    try:
+        return np.concatenate([
+            np.asarray(q.predict_fused(X[i:i + DISPATCH]).cpu())[
+                :X[i:i + DISPATCH].shape[0]]
+            for i in range(0, X.shape[0], DISPATCH)])
+    finally:
+        qtrees_cuda.leaf_rows = kernel
+
+
+def kafka_keyed_topic(workdir: str, cm, q, counter) -> dict:
+    """Config 2 scored from a keyed, compacted topic (KEYED_*): the fused
+    rank-wire ``BlockPipeline`` with checkpoints over a
+    ``KafkaBlockSource`` on all three partitions in the default
+    ``interleave="auto"`` (a per-partition offset vector), stopped at
+    about a third of the surviving rows; a fresh pipeline restores the
+    checkpointed vector and drains the topic. Every surviving row is
+    scored exactly once (the multiset of the rows below the restore point
+    in the first life and of the second life's rows is the broker's
+    survivors, so no compacted offset is scored), the scores equal the
+    plain walk's on the same rows bit for bit, and in each life the walk
+    kernel launched once a dispatch."""
+    from flink_jpmml_tpu_torch.runtime.checkpoint import CheckpointManager
+    from flink_jpmml_tpu_torch.runtime.kafka import (
+        KafkaBlockSource,
+        MiniKafkaBroker,
+    )
+    from flink_jpmml_tpu_torch.utils.metrics import MetricsRegistry
+
+    F = len(q.wire.fields)
+    t0 = time.perf_counter()
+    data = features(np.random.default_rng(0), KEYED_ROWS, F)
+    broker = MiniKafkaBroker(topic="keyed", n_partitions=KEYED_PARTITIONS)
+    try:
+        broker.append_rows_keyed(
+            data, [f"user-{i % KEYED_USERS}" for i in range(KEYED_ROWS)])
+        with broker._mu:
+            sizes = [len(v) for v in broker._vals]
+        gaps = []
+        for p, size in enumerate(sizes):
+            lo = size // 2 - KEYED_GAP // 2
+            broker.compact(p, range(lo, lo + KEYED_GAP))
+            gaps.append([lo, lo + KEYED_GAP])
+        with broker._mu:
+            kept_offs = [np.asarray(o, np.int64) for o in broker._offs]
+            survivors = np.frombuffer(
+                b"".join(v for vals in broker._vals for v in vals),
+                np.float32).reshape(-1, F)
+        n = survivors.shape[0]
+        for p, (lo, hi) in enumerate(gaps):
+            offs = kept_offs[p]
+            if (offs.size != sizes[p] - KEYED_GAP
+                    or ((offs >= lo) & (offs < hi)).any()
+                    or int(offs[-1]) != sizes[p] - 1):
+                raise RuntimeError(f"partition {p}: compaction kept "
+                                   f"{offs.size} of {sizes[p]} offsets")
+        build_s = time.perf_counter() - t0
+        ckdir = os.path.join(workdir, "keyed-ck")
+        lives = []
+        for life, target in (("first", n // 3), ("resumed", n)):
+            polled = np.zeros((n, F), np.float32)
+            scores = np.full(n, np.nan, np.float32)
+            hits = np.zeros(n, np.int32)
+
+            class RecordingSource(KafkaBlockSource):
+                """Keeps each polled block's rows at its global offsets."""
+
+                def poll(self):
+                    got = super().poll()
+                    if got is not None:
+                        off, blk = got
+                        polled[off:off + blk.shape[0]] = blk
+                    return got
+
+            count = [0]
+
+            def sink(out, k, first_off):
+                vals = np.asarray(out)
+                scores[first_off:first_off + k] = vals[:k]
+                hits[first_off:first_off + k] += 1
+                count[0] += k
+
+            if life == "resumed":
+                state = CheckpointManager(ckdir).load_latest() or {}
+            reg = MetricsRegistry()
+            src = RecordingSource(broker.host, broker.port, broker.topic,
+                                  partitions=list(range(KEYED_PARTITIONS)),
+                                  n_cols=F, max_wait_ms=20, metrics=reg)
+            try:
+                run = drive(cm, src, sink, count, counter, metrics=reg,
+                            target=target, checkpoint_dir=ckdir,
+                            restore=life == "resumed")
+            finally:
+                src.close()
+            if run["launches"] != run["dispatches"]:
+                raise RuntimeError(f"keyed topic, {life} life: "
+                                   f"{run['launches']} kernel launches for "
+                                   f"{run['dispatches']} dispatches")
+            lo = run.get("restored_at", 0)
+            hi = lo + run["records"]
+            if (hits[lo:hi] != 1).any() or hits[:lo].any() or hits[hi:].any():
+                raise RuntimeError(f"keyed topic, {life} life: the sink "
+                                   f"did not cover [{lo}, {hi}) once")
+            lives.append({"life": life, "run": run, "lo": lo, "hi": hi,
+                          "polled": polled, "scores": scores})
+        first, resumed = lives
+        R = resumed["lo"]
+        if not 0 < R <= first["hi"] or resumed["hi"] != n:
+            raise RuntimeError(f"keyed topic: restored at {R} after "
+                               f"{first['hi']} scored, drained to "
+                               f"{resumed['hi']} of {n}")
+        rows = np.concatenate([first["polled"][:R], resumed["polled"][R:]])
+        scored = np.concatenate([first["scores"][:R], resumed["scores"][R:]])
+
+        def multiset(a):
+            return np.sort(np.ascontiguousarray(a).view(
+                np.dtype((np.void, 4 * F))).ravel())
+
+        if not np.array_equal(multiset(rows), multiset(survivors)):
+            raise RuntimeError("keyed topic: the scored rows are not the "
+                               "broker's survivors, each once")
+        plain = plain_walk_scores(q, rows)
+        if not np.array_equal(scored.view(np.uint32), plain.view(np.uint32)):
+            bad = int((scored.view(np.uint32) != plain.view(np.uint32)).sum())
+            raise RuntimeError(f"keyed topic: {bad} scores differ from the "
+                               "plain walk's")
+    finally:
+        broker.close()
+    return {
+        "rows": KEYED_ROWS, "users": KEYED_USERS,
+        "partitions": KEYED_PARTITIONS, "partition_rows": sizes,
+        "gaps": gaps, "survivors": n, "build_s": build_s,
+        "restore_offset": R,
+        "restore_vector": state.get("source_state"),
+        "scored_exactly_once": True, "plain_walk_bit_equal": True,
+        "lives": [{"life": lv["life"], "records": lv["run"]["records"],
+                   "records_per_s": lv["run"]["records_per_s"],
+                   "dispatches": lv["run"]["dispatches"],
+                   "launches": lv["run"]["launches"],
+                   "source": lv["run"]["source"],
+                   "encode_mode": lv["run"]["encode_mode"]}
+                  for lv in lives],
+        "seconds": time.perf_counter() - t0,
     }
 
 
@@ -5046,8 +5233,8 @@ STATE_KEYS = 10_000_000
 STATE_RECORDS = 10_485_760
 STATE_CAPACITY = 1 << 21
 STATE_BATCH = 8192
-STATE_SAMPLE_KEYS = 2048
 STATE_CPU_BATCHES = 32  # the stream prefix the CPU port replays
+STATE_GROUP = 4  # batches a dispatch in the grouping check
 KILL_RECORDS, KILL_KEYS, KILL_CAPACITY, KILL_BATCH, KILLS = (
     49_152, 16_384, 32_768, 1024, 2)
 _PERM = 2654435761  # 0x9E3779B1: offset → key, a permutation of the domain
@@ -5648,9 +5835,11 @@ def stateful_drill(workdir: str) -> dict:
     2^21-row table (64 MiB on the card), 10,000,000 keys, a sweep and a
     zipf a = 1.1 mix of 10,485,760 records each through
     ``dispatch_quantized(state=)``, against the stateless loop; the zipf
-    stream twice more, the two tables the same bytes; a 2,048-key sample
-    of a 262,144-record prefix held to the CPU port; then the SIGKILL
-    replay."""
+    stream twice more, the two tables the same bytes; a 262,144-record
+    prefix in batches and in dispatches of STATE_GROUP batches, both
+    tables the same bytes as each other and as the CPU port's (the fold
+    runs in record order and the routing a compile batch at a time,
+    whatever the grouping); then the SIGKILL replay."""
     import torch
 
     from flink_jpmml_tpu_torch.assets_gen import gen_gbm
@@ -5660,13 +5849,6 @@ def stateful_drill(workdir: str) -> dict:
     from flink_jpmml_tpu_torch.runtime.pipeline import dispatch_quantized
     from flink_jpmml_tpu_torch.runtime.state import (
         COL_COUNT,
-        COL_DCOUNT,
-        COL_DSUM,
-        COL_LAST_T,
-        COL_MAX,
-        COL_MIN,
-        COL_SQSUM,
-        COL_SUM,
         KeyedStateTable,
         StateSpec,
     )
@@ -5741,34 +5923,46 @@ def stateful_drill(workdir: str) -> dict:
             or not cs["counters"].get("state_evictions")):
         raise RuntimeError(f"stateful mixes: {cs['counters']} / "
                            f"{cz['counters']}")
-    # the CPU port over a prefix of the zipf stream, against the card
+    # a prefix of the zipf stream on the card in batches and in dispatches
+    # of STATE_GROUP batches, and on the CPU port in batches: three tables
+    # of the same bytes
     q_cpu = compile_pmml(doc, batch_size=STATE_BATCH,
                          device="cpu").quantized_scorer()
     card = KeyedStateTable(spec)
+    grouped = KeyedStateTable(spec)
     cpu = KeyedStateTable(spec, device="cpu")
     run_mix(lambda off: zipf[off: off + STATE_BATCH], card,
             STATE_CPU_BATCHES)
+    rows = STATE_GROUP * STATE_BATCH
+    with torch.cuda.stream(stream):
+        for off in range(0, STATE_CPU_BATCHES * STATE_BATCH, rows):
+            dispatch_quantized(
+                q, pool[off % pool_n: off % pool_n + rows], staging=staging,
+                state=grouped, state_keys=zipf[off: off + rows],
+                offsets=np.arange(off, off + rows, dtype=np.int64),
+            ).synchronize()
     for b in range(STATE_CPU_BATCHES):
         off = b * STATE_BATCH
         dispatch_quantized(
             q_cpu, pool[off % pool_n: off % pool_n + STATE_BATCH],
             state=cpu, state_keys=zipf[off: off + STATE_BATCH],
             offsets=np.arange(off, off + STATE_BATCH, dtype=np.int64))
-    cv, pv = card.host_values(), cpu.host_values()
-    occ = np.flatnonzero(card._occ)
-    sample = np.random.default_rng(7).choice(
-        occ, size=min(STATE_SAMPLE_KEYS, occ.size), replace=False)
-    exact = [COL_COUNT, COL_LAST_T, COL_MIN, COL_MAX]
-    summed = [COL_SUM, COL_SQSUM, COL_DCOUNT, COL_DSUM]
-    cpu_ok = (np.array_equal(card._keys, cpu._keys)
-              and np.array_equal(card._occ, cpu._occ)
-              and np.array_equal(cv[sample][:, exact], pv[sample][:, exact])
-              and np.allclose(cv[sample][:, summed], pv[sample][:, summed],
-                              rtol=1e-5, atol=1e-6))
-    cpu_err = float(np.abs(cv[sample] - pv[sample]).max())
-    if not cpu_ok:
-        raise RuntimeError(f"the card's table disagrees with the CPU port's "
-                           f"on the sampled keys: {cpu_err}")
+    cv, gv, pv = (t.host_values() for t in (card, grouped, cpu))
+    repeats = int(np.count_nonzero(cv[:, COL_COUNT] > STATE_GROUP))
+    tables_equal = {
+        "grouped_vs_batches": bool(
+            np.array_equal(grouped._keys, card._keys)
+            and gv.tobytes() == cv.tobytes()),
+        "cpu_vs_card": bool(np.array_equal(card._keys, cpu._keys)
+                            and np.array_equal(card._occ, cpu._occ)
+                            and cv.tobytes() == pv.tobytes()),
+    }
+    cpu_err = float(np.abs(np.nan_to_num(cv - pv, posinf=0.0,
+                                         neginf=0.0)).max())
+    if not all(tables_equal.values()):
+        raise RuntimeError(f"state tables differ: {tables_equal}, largest "
+                           f"card/CPU difference {cpu_err}")
+    del grouped
     # where a state-armed batch's time goes: the host's slot routing of
     # one zipf batch, and one step on the card at the table's full size
     # (its operands' copies included), issued alone
@@ -5811,7 +6005,9 @@ def stateful_drill(workdir: str) -> dict:
                   "stateless_ms_per_batch": 1e3 * STATE_BATCH / stateless,
                   "zipf_ms_per_batch": 1e3 * STATE_BATCH / zipf_rps},
         "cpu_check": {"records": STATE_CPU_BATCHES * STATE_BATCH,
-                      "sampled_keys": int(sample.size),
+                      "group_batches": STATE_GROUP,
+                      "keys_past_group_size": repeats,
+                      "bytes_equal": tables_equal,
                       "max_abs_diff": cpu_err},
         "kill_parity": kill,
     }
@@ -8086,6 +8282,116 @@ print(json.dumps(out), flush=True)
 """
 
 
+AB_STATE_CHILD = r"""
+import json, sys, tempfile, time
+tree, batches = sys.argv[1], int(sys.argv[2])
+B, keys, capacity = (int(v) for v in sys.argv[3:6])
+sys.path.insert(0, tree)
+import numpy as np
+import torch
+from flink_jpmml_tpu_torch.assets_gen import gen_gbm
+from flink_jpmml_tpu_torch.compile import compile_pmml, statekernel
+from flink_jpmml_tpu_torch.pmml import parse_pmml_file
+from flink_jpmml_tpu_torch.runtime.engine import new_staging
+from flink_jpmml_tpu_torch.runtime.pipeline import dispatch_quantized
+from flink_jpmml_tpu_torch.runtime.state import KeyedStateTable, StateSpec
+pmml = gen_gbm(tempfile.mkdtemp(), n_trees=20, depth=4, n_features=8,
+               seed=29, name="stateful.pmml")
+q = compile_pmml(parse_pmml_file(pmml), batch_size=B).quantized_scorer()
+rng = np.random.default_rng(29)
+pool = rng.normal(0.0, 1.0, (batches * B, 8)).astype(np.float32)
+zipf = ((rng.zipf(1.1, size=batches * B) - 1) % keys).astype(np.int64)
+spec = StateSpec(capacity=capacity, key_col=0)
+stream = torch.cuda.Stream()
+staging = new_staging(q.device)
+
+def run(n):
+    t = KeyedStateTable(spec)
+    with torch.cuda.stream(stream):
+        window = []
+        t0 = time.perf_counter()
+        for b in range(n):
+            off = b * B
+            window.append(dispatch_quantized(
+                q, pool[off:off + B], staging=staging, state=t,
+                state_keys=zipf[off:off + B],
+                offsets=np.arange(off, off + B, dtype=np.int64)))
+            if len(window) > 2:
+                window.pop(0).synchronize()
+        for w in window:
+            w.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n, t
+
+run(2)
+zipf_ms, t = run(batches)
+slots, reset, rel, w = t.assign_slots(zipf[:B].astype(np.uint32),
+                                      np.arange(B, dtype=np.int64))
+score = torch.zeros(B, device=q.device)
+times = []
+for i in range(23):
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    statekernel._state_step(t.values, score, slots, rel, w, reset,
+                            t.scratch, spec.decay)
+    e1.record()
+    e1.synchronize()
+    if i >= 3:
+        times.append(e0.elapsed_time(e1))
+print(json.dumps({"zipf_ms_per_batch": zipf_ms,
+                  "step_ms": float(np.median(times))}))
+"""
+
+
+def ab_state_main(other: str, rounds: int = 3, batches: int = 64) -> int:
+    """``python3 chip_smoke.py --ab OTHER_CHECKOUT state``: the stateful
+    drill's zipf mix (``stateful_drill``'s model, table and key stream,
+    ``batches`` batches of STATE_BATCH, two in flight) and one state step
+    of it (CUDA events, the median of 20, the operands' copies included,
+    as ``split.card_step_ms_per_batch``) in child processes alternating
+    between another checkout and this one, in the order other, this,
+    this, other, ``rounds`` times; then a line with both sides' medians
+    and the pairs this checkout won."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    here = os.path.dirname(os.path.abspath(__file__))
+    other = os.path.abspath(other)
+    smi = nvidia_smi_line()
+    print(smi, flush=True)
+    got = []
+    for tree in [other, here, here, other] * rounds:
+        res = subprocess.run(
+            [sys.executable, "-c", AB_STATE_CHILD, tree, str(batches),
+             str(STATE_BATCH), str(STATE_KEYS), str(STATE_CAPACITY)],
+            cwd=tree, capture_output=True, text=True, timeout=600)
+        lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+        if res.returncode or not lines:
+            print(res.stderr[-2000:], file=sys.stderr)
+            return 1
+        side = "this" if tree == here else "other"
+        run = json.loads(lines[-1])
+        got.append((side, run))
+        emit({"ab_state": side, "tree": tree, **run})
+    summary = {}
+    for key in ("zipf_ms_per_batch", "step_ms"):
+        ms = {sd: [r[key] for s2, r in got if s2 == sd]
+              for sd in ("this", "other")}
+        wins = pairs = 0
+        for (sa, ra), (sb, rb) in zip(got[0::2], got[1::2]):
+            this, oth = (ra, rb) if sa == "this" else (rb, ra)
+            pairs += 1
+            wins += this[key] < oth[key]
+        med = {sd: statistics.median(v) for sd, v in ms.items()}
+        summary[key] = {"this": med["this"], "other": med["other"],
+                        "this_over_other": med["this"] / med["other"],
+                        "runs": ms, "pairs": pairs, "this_won": wins}
+    emit({"ab_state_summary": summary, "nvidia_smi": smi})
+    return 0
+
+
 def ab_packed_main(other: str, rounds: int = 3, reps: int = 60) -> int:
     """``python3 chip_smoke.py --ab OTHER_CHECKOUT packed``: the packed
     launch at ``PACK_TIMED`` (inputs built once here from the seeds of
@@ -8357,6 +8663,9 @@ def run_phase_alone(workdir: str, phase: str) -> int:
     elif phase == "rollout_drift":
         rd = rollout_drift(workdir, cm, q, smi)
         emit({"phase": "rollout_drift", **rd})
+    elif phase == "kafka_keyed_topic":
+        kk = kafka_keyed_topic(workdir, cm, q, qtrees_cuda.leaf_rows)
+        emit({"phase": "kafka_keyed_topic", **kk})
     else:
         raise ValueError(f"no phase {phase!r} runs alone")
     print(smi, flush=True)
@@ -8616,6 +8925,10 @@ def run_phases(workdir: str) -> int:
         emit({"phase": "kafka_main_path_serial", **ksrun})
     finally:
         broker.close()
+    # -- the GBM over a keyed, compacted topic, resumed from its offset
+    # vector ----------------------------------------------------------------
+    kk = kafka_keyed_topic(workdir, cm, q, qtrees_cuda.leaf_rows)
+    emit({"phase": "kafka_keyed_topic", **kk})
     emit({"phase": "device_shares",
           "main_path": device_shares(run, timing["kernel_ms"], 0.0,
                                      enc["h2d_codes_ms"]),
@@ -8724,6 +9037,8 @@ def run_phases(workdir: str) -> int:
                      {"main_path": run, "fused_main_path": frun,
                       "kafka_main_path": krun,
                       "kafka_main_path_serial": ksrun,
+                      "kafka_keyed_topic": {"launches": sum(
+                          lv["launches"] for lv in kk["lives"])},
                       "record_static": rec["static"],
                       "record_quick": rec["quick"],
                       "record_dicts": rec["dicts"],
@@ -8795,6 +9110,9 @@ if __name__ == "__main__":
     if len(sys.argv) > 3 and sys.argv[1] == "--ab" and (
             sys.argv[3] == "packed"):
         sys.exit(ab_packed_main(sys.argv[2]))
+    if len(sys.argv) > 3 and sys.argv[1] == "--ab" and (
+            sys.argv[3] == "state"):
+        sys.exit(ab_state_main(sys.argv[2]))
     if len(sys.argv) > 2 and sys.argv[1] == "--ab":
         sys.exit(ab_main(sys.argv[2]))
     if len(sys.argv) > 2 and sys.argv[1] == "--phase":

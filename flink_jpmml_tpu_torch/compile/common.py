@@ -143,10 +143,13 @@ class DeviceConst:
 class TpLeaf:
     """A wide parameter leaf split into model-axis row slices, one on each
     of a mesh row's devices (``parallel/sharding.mesh_sharded`` places it
-    where the unsharded tree holds a tensor). Its consumer computes one
-    partial product per slice on the slice's device and adds the partials
-    in slice order (:meth:`partial_sum`), where the JAX package lets GSPMD
-    partition the contracting dot and ``psum`` the partials."""
+    where the unsharded tree holds a tensor). A contracting consumer
+    computes one partial product per slice on the slice's device and adds
+    the partials in slice order (:meth:`partial_sum`), where the JAX
+    package lets GSPMD partition the contracting dot and ``psum`` the
+    partials; a consumer that selects rather than sums reads the slices
+    gathered onto one device (:meth:`gather`), the all-gather GSPMD
+    inserts."""
 
     __slots__ = ("name", "parts", "bounds", "shape")
 
@@ -175,6 +178,11 @@ class TpLeaf:
             p = fn(lo, hi, part, *(o.parts[k] for o in paired)).to(device)
             total = p if total is None else total + p
         return total
+
+    def gather(self, device: torch.device) -> torch.Tensor:
+        """The whole leaf on ``device``: the slices concatenated in slice
+        order (made anew on every call; the leaf stays stored split)."""
+        return torch.cat([part.to(device) for part in self.parts])
 
 
 def tp_matmul(x: torch.Tensor, w) -> torch.Tensor:

@@ -22,6 +22,11 @@ the Cox baseline lookup keeps ``jnp.searchsorted(side="right")`` as
 ``torch.searchsorted(right=True)``.
 
 Deliberate difference: ``label_idx`` is int64.
+
+On a mesh with a model axis (``parallel/sharding.mesh_sharded``) a β
+table of at least the wide threshold's parameters is a ``common.TpLeaf``:
+η is one partial product a slice of the design matrix's columns, added in
+slice order (``common.tp_matmul``).
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from flink_jpmml_tpu_torch.compile.common import (
     Lowered,
     LowerCtx,
     ModelOutput,
+    tp_matmul,
 )
 from flink_jpmml_tpu_torch.pmml import ir
 from flink_jpmml_tpu_torch.utils.exceptions import ModelCompilationException
@@ -241,7 +247,7 @@ def lower_general_regression(
     def fn(p, X, M):
         B = X.shape[0]
         missing = (M & used_c.on(X.device)[None, :]).any(dim=1)
-        eta = torch.matmul(design(X), p["beta"])  # [B, T or 1]
+        eta = tp_matmul(design(X), p["beta"])  # [B, T or 1]
         if ordinal:
             cum = inverse_link(model.cumulative_link, eta)  # [B, J]
             probs = torch.cat(

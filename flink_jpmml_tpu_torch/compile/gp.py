@@ -26,6 +26,11 @@ Deliberate differences: the cube is built for at most
 ``knn.CUBE_ELEMS`` elements at a time (batch rows in chunks inside the
 lowered function), so the card's peak stays bounded where XLA fuses it
 into its reduction; the column indices are device constants.
+
+On a mesh with a model axis (``parallel/sharding.mesh_sharded``) at least
+the wide threshold's training rows are held as ``common.TpLeaf`` split
+alike with α: each slice's kernel row contracts with its slice of α, and
+the partials add in slice order.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from flink_jpmml_tpu_torch.compile.common import (
     Lowered,
     LowerCtx,
     ModelOutput,
+    TpLeaf,
 )
 from flink_jpmml_tpu_torch.compile.knn import chunk_rows
 from flink_jpmml_tpu_torch.pmml import ir
@@ -134,23 +140,42 @@ def lower_gp(model: ir.GaussianProcessIR, ctx: LowerCtx) -> Lowered:
             parts.append(gamma * torch.exp(-diff.sum(dim=-1)))
         return parts[0] if len(parts) == 1 else torch.cat(parts)
 
+    def sq_kernel(xs, Zs, Zs_sq):
+        """γ·exp(−½ max(‖xs‖² + ‖zs‖² − 2·xs·zsᵀ, 0)) → [B, N]."""
+        d2 = (
+            (xs ** 2).sum(dim=1, keepdim=True)
+            + Zs_sq[None, :]
+            - 2.0 * torch.matmul(xs, Zs.T)
+        )
+        d2 = torch.clamp(d2, min=0.0)  # catastrophic-cancellation guard
+        return gamma * torch.exp(-0.5 * d2)
+
     def fn(p, X, M):
         c = cols.on(X.device)
         Xi = X[:, c]  # [B, D]
         valid = ~M[:, c].any(dim=1)
+        alpha = p["alpha"]
+        if isinstance(alpha, TpLeaf):
+            # training rows split alike with α: one partial a slice
+            if sq_family:
+                xs = Xi * p["inv_lam"][None, :]
+                value = p["Zs"].partial_sum(
+                    lambda lo, hi, z, zsq, a: torch.matmul(
+                        sq_kernel(xs.to(z.device), z, zsq), a[:, None]),
+                    X.device, p["Zs_sq"], alpha)
+            else:
+                value = p["Ztr"].partial_sum(
+                    lambda lo, hi, z, a: torch.matmul(
+                        cube_kernel(Xi.to(z.device), z,
+                                    p["inv_lam"].to(z.device)), a[:, None]),
+                    X.device, alpha)
+            return ModelOutput(value=value[:, 0], valid=valid)
         if sq_family:
             xs = Xi * p["inv_lam"][None, :]
-            cross = torch.matmul(xs, p["Zs"].T)  # [B, N]
-            d2 = (
-                (xs ** 2).sum(dim=1, keepdim=True)
-                + p["Zs_sq"][None, :]
-                - 2.0 * cross
-            )
-            d2 = torch.clamp(d2, min=0.0)  # catastrophic-cancellation guard
-            k_star = gamma * torch.exp(-0.5 * d2)
+            k_star = sq_kernel(xs, p["Zs"], p["Zs_sq"])
         else:
             k_star = cube_kernel(Xi, p["Ztr"], p["inv_lam"])
-        value = torch.matmul(k_star, p["alpha"][:, None])[:, 0]
+        value = torch.matmul(k_star, alpha[:, None])[:, 0]
         return ModelOutput(value=value, valid=valid)
 
     return Lowered(fn=fn, params=params)

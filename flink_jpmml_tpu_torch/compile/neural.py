@@ -19,6 +19,11 @@ are one column gather, not one expression each: the JAX package's
 per-input expressions fuse under XLA, but in eager torch they would be
 about three kernel launches an input (2,350 for BASELINE config 3's 784
 inputs), issued from the dispatching thread.
+
+On a mesh with a model axis (``parallel/sharding.mesh_sharded``) a layer
+whose input width reaches the wide threshold holds ``W`` as a
+``common.TpLeaf``: the layer's product, and a radial-basis layer's
+expansion, become one partial a slice of the inputs, added in slice order.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ from flink_jpmml_tpu_torch.compile.common import (
     Lowered,
     LowerCtx,
     ModelOutput,
+    TpLeaf,
+    tp_matmul,
 )
 from flink_jpmml_tpu_torch.compile.exprs import lower_expression
 from flink_jpmml_tpu_torch.compile.regression import softmax
@@ -62,6 +69,17 @@ def _resolve(neuron_v, layer_v, model_v):
     if neuron_v is not None:
         return neuron_v
     return layer_v if layer_v is not None else model_v
+
+
+def _rbf_z(h, W, conn):
+    """z_j = Σ_i conn_ij (w_ij − h_i)², expanded into matmuls:
+    colsum(conn·W²) − 2 h@(conn·W) + h²@conn."""
+    cw = conn * W
+    return (
+        (cw * W).sum(dim=0)[None, :]
+        - 2.0 * torch.matmul(h, cw)
+        + torch.matmul(h * h, conn)
+    )
 
 
 def _rbf_spec(layer, model, prev_ids) -> dict:
@@ -188,20 +206,20 @@ def lower_neural_network(model: ir.NeuralNetworkIR, ctx: LowerCtx) -> Lowered:
         for i, spec in enumerate(layer_acts):
             lp = p[f"l{i}"]
             if spec["kind"] == "rbf":
-                # z_j = Σ_i conn_ij (w_ij − h_i)², expanded into matmuls:
-                # colsum(conn·W²) − 2 h@(conn·W) + h²@conn
                 W_, conn = lp["W"], spec["conn"].on(h.device)
-                cw = conn * W_
-                z = (
-                    (cw * W_).sum(dim=0)[None, :]
-                    - 2.0 * torch.matmul(h, cw)
-                    + torch.matmul(h * h, conn)
-                )
+                if isinstance(W_, TpLeaf):
+                    z = W_.partial_sum(
+                        lambda lo, hi, w: _rbf_z(
+                            h[:, lo:hi].to(w.device), w,
+                            conn[lo:hi].to(w.device)),
+                        h.device)
+                else:
+                    z = _rbf_z(h, W_, conn)
                 h = torch.exp(
                     spec["log_term"].on(h.device) - z / spec["two_w2"].on(h.device)
                 )
             else:
-                z = torch.matmul(h, lp["W"]) + lp["b"]
+                z = tp_matmul(h, lp["W"]) + lp["b"]
                 if spec["kind"] == "threshold":
                     h = (z > spec["thr"]).to(torch.float32)
                 else:

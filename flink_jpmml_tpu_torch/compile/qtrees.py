@@ -455,7 +455,7 @@ class QuantizedScorer:
         current stream → ``(out, derived[B, 8], S')``; the caller commits
         ``S'`` to the table. ``out`` is byte-identical to the stateless
         dispatch's. Slot and decay operands come from
-        ``KeyedStateTable.assign_slots``."""
+        ``KeyedStateTable.route``."""
         from flink_jpmml_tpu_torch.compile import statekernel
 
         return statekernel.entry_for(self, "wire")(

@@ -103,17 +103,6 @@ def _lower_table(table: ir.RegressionTable, ctx: LowerCtx):
     return params, fn
 
 
-# the table leaves the model-axis split may slice (``mesh_sharded``): a
-# RegressionTable's params dict holds "intercept" beside them
-TP_LEAVES = ("num_coefs", "cat_codes", "cat_coefs")
-
-
-def is_tp_leaf(parent: dict, key: str) -> bool:
-    """Is ``parent[key]`` a regression table's coefficient vector, whose
-    consumer above computes per-slice partials?"""
-    return key in TP_LEAVES and set(parent) == {"intercept", *TP_LEAVES}
-
-
 def lower_regression(model: ir.RegressionModelIR, ctx: LowerCtx) -> Lowered:
     nm = model.normalization_method
     lowered_tables = [_lower_table(t, ctx) for t in model.tables]

@@ -14,27 +14,28 @@ features see the table as of the batch start; the updates are sums with
 product-form decay weights, a max of the last-seen stride, and min / max
 of the score.
 
-**Deterministic sums.** ``index_add_`` and ``index_put_(accumulate=True)``
-use float atomics on CUDA, so the order of the adds into a slot that
-appears twice in a batch would change from run to run, and a replayed
-table would not be byte-identical (the JAX acceptance: ``bench.py``
-``_stateful_kill_parity``). The step therefore sorts the batch by slot
-with a stable sort, sums each slot's run of records in record order
-(``torch.segment_reduce`` over the sorted rows: one sequential loop per
-slot, no atomics), and adds the sum to the slot's row once, through an
-index write whose indices are unique apart from the scratch row (which
-the step zeroes). Min and max are order-free (``scatter_reduce_``
-``amin`` / ``amax``). On the same inputs the result is the same bytes on
-every run and on either device.
+**Deterministic sums, in the JAX order.** ``index_add_`` and
+``index_put_(accumulate=True)`` use float atomics on CUDA, so the order of
+the adds into a slot that appears twice in a batch would change from run
+to run, and a replayed table would not be byte-identical (the JAX
+acceptance: ``bench.py`` ``_stateful_kill_parity``). The step therefore
+sorts the batch by slot with a stable sort, puts each touched slot's
+current row at the head of its run of records, and folds the run in one
+sequential loop (``torch.segment_reduce`` over the laid-out rows, from
+``-0.0``: no atomics), then writes the fold back through an index write
+whose indices are unique apart from the scratch row (which the step
+zeroes). Min and max are order-free (``scatter_reduce_`` ``amin`` /
+``amax``).
 
-How that order differs from the JAX CPU scatter: XLA adds a slot's
-records into the row one at a time, ``((S + a1) + a2) + a3``; the port
-adds ``S + ((a1 + a2) + a3)``. A slot that appears once in the batch gets
-``S + a1`` either way, so a batch without a repeated key gives the same
-bytes as the JAX package; a repeated key may differ in the last bits of
-the sum, sqsum and decayed columns (held at rtol 1e-5 / atol 1e-6 in the
-tests). Count, last-seen, min and max are exact either way (integer
-counts stay exact in f32 far past any batch).
+That fold is the order of the JAX CPU scatter, which adds a slot's
+records into the row one at a time: ``((S + a1) + a2) + a3``. So the
+port's table is byte-identical to the JAX step's on any batch, repeated
+keys included, and it does not depend on how a stream was cut into
+dispatches: a block pipeline that aggregates a backed-up ring into one
+multi-batch dispatch, or a replay after a kill that groups the same
+records otherwise, folds the same records in the same order into the
+same bytes. On the same inputs the result is the same bytes on every
+run and on either device.
 
 A table held in data-axis row blocks over several cards
 (``runtime/state.RowBlocks``, ``KeyedStateTable.shard``) steps block by
@@ -101,27 +102,46 @@ def _init_row(device) -> torch.Tensor:
     return row
 
 
-def _segment_sums(slots: torch.Tensor, adds: torch.Tensor):
-    """Per distinct slot, the sum of its records' ``adds`` rows in record
-    order → ``(seg_slot i64[B], seg_sum f32[B, K])``: segment j's slot
-    and sum, for j below the number of distinct slots; the rest are
-    empty segments (slot -1, sum 0). No host sync: the shapes are the
-    batch's."""
-    B = slots.shape[0]
+def _segment_folds(slots: torch.Tensor, heads: torch.Tensor,
+                   adds: torch.Tensor):
+    """Per distinct slot, its row's ``heads`` value with the slot's
+    records' ``adds`` rows folded in one at a time, in record order:
+    ``((h + a1) + a2) + a3``, the order of the JAX CPU scatter-add →
+    ``(seg_slot i64[B], seg_fold f32[B, K])``: segment j's slot and fold,
+    for j below the number of distinct slots; the rest are empty
+    segments (slot -1, fold -0). ``heads[i]`` is the current row of
+    ``slots[i]``. No host sync: the shapes are the batch's.
+
+    The records, stably sorted by slot, are laid out with each segment's
+    head just before its first record (sorted row i moves to
+    ``i + seg[i] + 1``, segment j's head to ``start[j] + j``), and
+    ``torch.segment_reduce`` adds each segment's rows in a sequential
+    loop from ``-0.0``, which leaves the head's bytes as they are. Each
+    empty segment j takes one row of the fill behind the laid-out rows
+    (row ``B + j``), so no segment's loop runs over the fill."""
+    B, K = adds.shape
+    dev = slots.device
     order = torch.sort(slots, stable=True).indices
     ss = slots[order]
-    first = torch.ones(B, dtype=torch.bool, device=slots.device)
+    first = torch.ones(B, dtype=torch.bool, device=dev)
     first[1:] = ss[1:] != ss[:-1]
     seg = torch.cumsum(first.long(), 0) - 1  # segment of each sorted row
-    pos = torch.arange(B, device=slots.device)
-    # each segment's start; unused segments start (and end) at B
-    offsets = torch.full((B + 1,), B, dtype=torch.long, device=slots.device)
-    offsets.scatter_reduce_(0, seg, pos, "amin")
-    seg_sum = torch.segment_reduce(
-        adds[order], "sum", offsets=offsets, axis=0, unsafe=True)
-    seg_slot = torch.full((B,), -1, dtype=torch.long, device=slots.device)
+    ar = torch.arange(B + 1, device=dev)
+    # each segment's start; unused segments start at B
+    starts = torch.full((B + 1,), B, dtype=torch.long, device=dev)
+    starts.scatter_reduce_(0, seg, ar[:B], "amin")
+    # rows B + n_seg .. 2B - 1 are fill, one an unused segment, and row
+    # 2B takes the heads of the sorted rows that start no segment
+    head_at = ar[:B] + seg
+    ext = torch.full((2 * B + 1, K), -0.0, dtype=adds.dtype, device=dev)
+    ext[head_at + 1] = adds[order]
+    ext[torch.where(first, head_at, 2 * B)] = heads[order]
+    offsets = starts + ar
+    seg_fold = torch.segment_reduce(
+        ext, "sum", offsets=offsets, axis=0, unsafe=True, initial=-0.0)
+    seg_slot = torch.full((B,), -1, dtype=torch.long, device=dev)
     seg_slot.scatter_(0, seg, ss)
-    return seg_slot, seg_sum
+    return seg_slot, seg_fold
 
 
 def _state_step(S, score, slots, rel, w, reset, scratch, decay):
@@ -166,11 +186,11 @@ def _state_step(S, score, slots, rel, w, reset, scratch, decay):
     # the five accumulator columns are contiguous: one segmented sum
     adds = torch.stack(
         [torch.ones_like(score), score, score * score, w, w * score], dim=1)
-    seg_slot, seg_sum = _segment_sums(slots, adds)
-    # empty segments write +0 into the scratch row, zeroed below
+    seg_slot, seg_fold = _segment_folds(
+        slots, pre[:, COL_COUNT:COL_DSUM + 1], adds)
+    # empty segments write -0 into the scratch row, zeroed below
     dst = torch.where(seg_slot >= 0, seg_slot, scratch)
-    acc = S[dst, COL_COUNT:COL_DSUM + 1] + seg_sum
-    S[dst, COL_COUNT:COL_DSUM + 1] = acc
+    S[dst, COL_COUNT:COL_DSUM + 1] = seg_fold
     S[:, COL_LAST_T].scatter_reduce_(0, slots, rel, "amax")
     S[:, COL_MIN].scatter_reduce_(0, slots, score, "amin")
     S[:, COL_MAX].scatter_reduce_(0, slots, score, "amax")

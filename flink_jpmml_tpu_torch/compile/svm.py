@@ -25,6 +25,11 @@ Deliberate differences: the vote one-hots are built once on the host in
 numpy (the JAX package scatters them with ``.at[].set`` on every call)
 and kept on the device beside the column indices, thresholds and label
 maps (``common.DeviceConst``); ``label_idx`` is int64.
+
+On a mesh with a model axis (``parallel/sharding.mesh_sharded``) a table
+of at least the wide threshold's vectors holds ``S`` and ``A`` as
+``common.TpLeaf`` split alike: each slice's kernel block contracts with
+its coefficient rows, and the partial decision values add in slice order.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from flink_jpmml_tpu_torch.compile.common import (
     Lowered,
     LowerCtx,
     ModelOutput,
+    TpLeaf,
 )
 from flink_jpmml_tpu_torch.pmml import ir
 from flink_jpmml_tpu_torch.utils.exceptions import ModelCompilationException
@@ -143,8 +149,14 @@ def lower_svm(model: ir.SvmModelIR, ctx: LowerCtx) -> Lowered:
         dev = X.device
         c = cols.on(dev)
         missing = M_[:, c].any(dim=1)
-        K = kfn(X[:, c], p["S"])  # [B, N]
-        f = torch.matmul(K, p["A"]) + p["b"][None, :]  # [B, M]
+        Xc = X[:, c]
+        if isinstance(p["S"], TpLeaf):
+            f = p["S"].partial_sum(
+                lambda lo, hi, s, a: torch.matmul(
+                    kfn(Xc.to(s.device), s), a), dev, p["A"])
+        else:
+            f = torch.matmul(kfn(Xc, p["S"]), p["A"])  # K [B, N] → [B, M]
+        f = f + p["b"][None, :]
         if not classification:
             return ModelOutput(value=f[:, 0], valid=~missing)
         if one_v_one:

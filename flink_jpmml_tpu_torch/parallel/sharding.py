@@ -14,14 +14,25 @@ here one scoring call spans the mesh —
 - :func:`mesh_sharded` adds the model axis. There is no GSPMD in
   PyTorch, so the JAX rule only *picks* the wide leaves (leading dim ≥
   ``tp_wide_threshold``, divisible by the model width, model width > 1;
-  ``tp_sharded_leaves`` names the same leaves as the JAX model's).
-  Each wide leaf becomes a ``compile.common.TpLeaf``: model-axis row
-  slices on the row's devices, whose consumer computes one partial
-  product per slice and adds the partials in slice order — the
-  regression table's ``num_coefs`` and ``cat_codes`` / ``cat_coefs``
-  (``compile/regression.py``). A wide leaf whose consumer the port does
-  not split raises :class:`NotPortedError` naming it; it is never
-  replicated quietly.
+  ``tp_sharded_leaves`` names the same leaves as the JAX model's), and
+  every leaf it picks is stored as a ``compile.common.TpLeaf``:
+  model-axis row slices on the row's devices, never a quiet replica.
+  Its consumer takes it in one of two ways. A contracting consumer
+  computes one partial product per slice on the slice's device and adds
+  the partials in slice order (the partitioned dot and ``psum`` GSPMD
+  derives): a regression table's ``num_coefs`` and paired ``cat_codes``
+  / ``cat_coefs`` (``compile/regression.py``), a neural layer's weights
+  or radial-basis centres ``W`` (``compile/neural.py``), the GLM's
+  ``beta`` (``compile/glm.py``), the SVM's support vectors ``S`` paired
+  with their coefficient rows ``A`` (``compile/svm.py``), and the GP's
+  training rows ``Zs`` / ``Zs_sq`` or ``Ztr`` paired with ``alpha``
+  (``compile/gp.py``) — :data:`CONTRACTING`. Every other leaf the rule
+  picks is gathered onto the row's first device, in slice order, right
+  before each call (the all-gather GSPMD inserts): KNN's instance,
+  label and target tables (``compile/knn.py``), the text model's
+  document matrix and its norms (``compile/textmodel.py``), a wide
+  neural bias, the GP's ``inv_lam`` over a wide input, the Cox
+  baseline, a tree ensemble's stacked tables, and any other family's.
 - :func:`tp_linear` / :class:`TpLinearScorer` and :func:`mp_gp` spell
   the same recipe out by hand: per-slice partial products with
   ``torch.matmul`` (TF32 off, ``utils/device.py``), added in slice order
@@ -43,7 +54,6 @@ import torch
 
 from flink_jpmml_tpu_torch.compile.common import ModelOutput, TpLeaf, to_device
 from flink_jpmml_tpu_torch.compile.compiler import CompiledModel, as_tensor
-from flink_jpmml_tpu_torch.compile.regression import is_tp_leaf
 from flink_jpmml_tpu_torch.obs import recorder as flight
 from flink_jpmml_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -55,7 +65,6 @@ from flink_jpmml_tpu_torch.parallel.mesh import (
 from flink_jpmml_tpu_torch.utils.exceptions import (
     FlinkJpmmlTpuError,
     InputValidationException,
-    NotPortedError,
 )
 
 
@@ -65,8 +74,9 @@ def _keystr(path) -> str:
 
 
 def _leaves(tree, path=()):
-    """(path, parent dict, key, tensor) of every leaf of a nested dict."""
-    for k, v in tree.items():
+    """(path, parent dict, key, tensor) of every leaf of a nested dict, in
+    the order ``jax.tree_util`` flattens a dict (sorted keys)."""
+    for k, v in sorted(tree.items()):
         if isinstance(v, dict):
             yield from _leaves(v, path + (k,))
         else:
@@ -84,6 +94,12 @@ def _with_leaves(tree, new: Dict[tuple, object], path=()):
         else:
             out[k] = new.get(p, v)
     return out
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def _stream_for(streams: dict, dev: torch.device):
@@ -118,6 +134,9 @@ class ShardedModel:
     # the wide threshold a TP-sharded model was built with (a rebuild
     # over the survivors picks the same leaves)
     _wide_threshold: Optional[int] = None
+    # paths (in the params tree) of the split leaves whose consumer
+    # selects rather than sums: gathered before each call
+    _gathered: tuple = ()
 
     def __post_init__(self):
         self._row_dev = [physical(self.mesh.devices[r, 0])
@@ -138,6 +157,16 @@ class ShardedModel:
     def params(self) -> dict:
         """The first data row's params tree."""
         return self._row_params[0]
+
+    def _call_params(self, r: int) -> dict:
+        """Row ``r``'s params tree as its call reads it: each gathered
+        leaf's slices concatenated on the row's first device."""
+        tree = self._row_params[r]
+        if not self._gathered:
+            return tree
+        dev = self._row_dev[r]
+        return _with_leaves(tree, {
+            p: _at(tree, p).gather(dev) for p in self._gathered})
 
     def in_flight_depth(self, base_depth: int) -> int:
         """Mesh-aware in-flight window: the carried dispatch_state's
@@ -170,18 +199,19 @@ class ShardedModel:
         fn = self.base._fn
         with torch.no_grad():
             if self.batch_divisor == 1:
-                return fn(self._row_params[0], X, M)
+                return fn(self._call_params(0), X, M)
             outs = []
             for r, (Xr, Mr) in enumerate(zip(X.chunk(self.batch_divisor),
                                              M.chunk(self.batch_divisor))):
                 rdev = self._row_dev[r]
                 if rdev == dev:
-                    outs.append(fn(self._row_params[r], Xr, Mr))
+                    outs.append(fn(self._call_params(r), Xr, Mr))
                     continue
                 # another card: its own stream; the cross-device copies
                 # order themselves against both devices' current streams
                 with torch.cuda.stream(_stream_for(self._streams, rdev)):
-                    out = fn(self._row_params[r], Xr.to(rdev), Mr.to(rdev))
+                    out = fn(self._call_params(r), Xr.to(rdev),
+                             Mr.to(rdev))
                     outs.append(ModelOutput(*(
                         None if t is None else t.to(dev) for t in out)))
             return ModelOutput(*(
@@ -365,6 +395,34 @@ def wide_leaves(params: dict, n_model: int, wide_threshold: int) -> list:
     ]
 
 
+# the consumers that contract over a split leaf's leading dim and take a
+# TpLeaf themselves: (the keys of the params dict that holds the leaf,
+# the keys among them a contracting consumer splits). Leaves split alike
+# (same leading dim) are passed to ``TpLeaf.partial_sum`` as its paired
+# leaves.
+CONTRACTING = (
+    # compile/regression.py: a RegressionTable
+    ({"intercept", "num_coefs", "cat_codes", "cat_coefs"},
+     {"num_coefs", "cat_codes", "cat_coefs"}),
+    # compile/neural.py: a layer (the bias is added, so gathered)
+    ({"W", "b"}, {"W"}),
+    # compile/glm.py: β, with or without the Cox baseline
+    ({"beta"}, {"beta"}),
+    ({"beta", "cox_times", "cox_haz"}, {"beta"}),
+    # compile/svm.py: support vectors and their coefficient rows
+    ({"S", "A", "b"}, {"S", "A"}),
+    # compile/gp.py: training rows (pre-scaled or raw) and α
+    ({"alpha", "inv_lam", "Zs", "Zs_sq"}, {"alpha", "Zs", "Zs_sq"}),
+    ({"alpha", "inv_lam", "Ztr"}, {"alpha", "Ztr"}),
+)
+
+
+def is_contracting(parent: dict, key: str) -> bool:
+    """Does ``parent[key]``'s consumer compute per-slice partials?"""
+    keys = set(parent)
+    return any(keys == held and key in split for held, split in CONTRACTING)
+
+
 def mesh_sharded(
     model: CompiledModel,
     mesh: Mesh,
@@ -377,20 +435,16 @@ def mesh_sharded(
     params (the JAX ``CompiledModel.params``; the port's tree holds them
     under ``"model"`` beside the compiler's own replacement / validity
     tables, which JAX closes over as constants). Each becomes a
-    :class:`TpLeaf` over the row's devices; narrow params replicate. A
-    pure-DP mesh (model axis 1) is exactly :func:`dp_sharded`."""
+    :class:`TpLeaf` over the row's devices, taken per slice by a
+    contracting consumer (:func:`is_contracting`) and gathered before
+    the call for any other; narrow params replicate. A pure-DP mesh
+    (model axis 1) is exactly :func:`dp_sharded`."""
     if wide_threshold is None:
         from flink_jpmml_tpu_torch.utils.config import CompileConfig
 
         wide_threshold = CompileConfig().tp_wide_threshold
     n_model = mesh.shape[MODEL_AXIS]
     wide = wide_leaves(model.params["model"], n_model, wide_threshold)
-    for path, parent, key, _ in wide:
-        if not is_tp_leaf(parent, key):
-            raise NotPortedError(
-                f"tensor-parallel sharding of param leaf {_keystr(path)}: "
-                "the port splits only a regression table's coefficients "
-                "(num_coefs, cat_codes, cat_coefs)")
     sm = dp_sharded(model, mesh)
     sm._wide_threshold = wide_threshold
     if not wide:
@@ -408,6 +462,8 @@ def mesh_sharded(
             })
         rows.append(tree)
     sm._row_params = rows
+    sm._gathered = tuple(("model",) + path for path, parent, key, _ in wide
+                         if not is_contracting(parent, key))
     sm.tp_sharded_leaves = tuple(_keystr(path) for path, _, _, _ in wide)
     return sm
 

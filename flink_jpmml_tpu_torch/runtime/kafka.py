@@ -29,9 +29,12 @@ package's: ``KafkaClient.produce`` (Produce v3) and ``KafkaClient.fetch``,
 header lists, ``append(headers=)`` and the Produce v3 handler, which
 ApiVersions advertises; the DLQ redrive (``cli.dlq_main``) stamps a
 ``traceparent`` header through them. A headered ``append`` takes the
-Python encoder, as a stamped ``append_rows`` does. Left out, since no
-port path or test drives them: the broker's keyed producer
-(``append_rows_keyed``) and log compaction (``compact``).
+Python encoder, as a stamped ``append_rows`` does. The broker's keyed
+producer (``append_rows_keyed``, the JAX partitioning ``crc32(str(key)) %
+n_partitions``) and log compaction (``compact``, surviving records keep
+their offsets and headers; the rebuilt segments take the Python encoder)
+are copies: they make the keyed, unevenly filled, gapped topics that the
+``interleave="auto"`` offset-vector mode consumes.
 
 BASELINE config 2 puts the north-star GBM on a "Kafka tabular stream"; the
 reference rode Flink's Kafka connector (SURVEY.md §2 EXT-A). This
@@ -74,6 +77,7 @@ import socket
 import struct
 import threading
 import time
+import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -2195,6 +2199,70 @@ class MiniKafkaBroker:
                 rows[p :: self.n_partitions], partition=p,
                 timestamp_ms=timestamp_ms,
             )
+
+    def append_rows_keyed(self, rows: np.ndarray, keys) -> None:
+        """Keyed producer: row i → partition ``crc32(str(keys[i])) %
+        n_partitions`` (the JAX broker's rule, so a key lands in the same
+        partition in both packages) — the layout real keyed producers
+        create, where partitions fill unevenly and NO round-robin
+        bijection exists. The vector-offset consumer mode exists for
+        exactly this."""
+        rows = np.ascontiguousarray(rows, np.float32)
+        if len(keys) != rows.shape[0]:
+            raise ValueError(
+                f"{len(keys)} keys for {rows.shape[0]} rows"
+            )
+        parts = np.asarray([
+            zlib.crc32(str(k).encode()) % self.n_partitions for k in keys
+        ])
+        for p in range(self.n_partitions):
+            self.append_rows(rows[parts == p], partition=p)
+
+    def compact(self, partition: int, remove_offsets) -> None:
+        """Log compaction: drop the given offsets from the partition,
+        leaving REAL gaps (surviving records keep their original
+        offsets and headers, exactly like Kafka compaction). Segments are
+        rebuilt as contiguous surviving runs — a drill operation;
+        efficiency is irrelevant next to correctness here."""
+        remove = set(int(o) for o in remove_offsets)
+        with self._mu:
+            offs = self._offs[partition]
+            vals = self._vals[partition]
+            hdrs = self._hdrs[partition]
+            keep = [
+                (o, v, h) for o, v, h in zip(offs, vals, hdrs)
+                if o not in remove
+            ]
+            self._offs[partition] = [o for o, _, _ in keep]
+            self._vals[partition] = [v for _, v, _ in keep]
+            self._hdrs[partition] = [h for _, _, h in keep]
+            segs: List[Tuple[int, int, bytes]] = []
+            run: List[Tuple[int, bytes, Optional[list]]] = []
+            for o, v, h in keep:
+                if run and o != run[-1][0] + 1:
+                    segs.append(self._encode_run(run))
+                    run = []
+                run.append((o, v, h))
+                if len(run) >= self._SEG_RECORDS:
+                    segs.append(self._encode_run(run))
+                    run = []
+            if run:
+                segs.append(self._encode_run(run))
+            self._segs[partition] = segs
+            self._mu.notify_all()
+
+    @staticmethod
+    def _encode_run(run) -> Tuple[int, int, bytes]:
+        base = run[0][0]
+        return (
+            base,
+            run[-1][0] + 1,
+            encode_record_batch(
+                base,
+                [v for _, v, _ in run],
+                headers=[h for _, _, h in run],
+            ),
+        )
 
     @property
     def high_watermark(self) -> int:

@@ -364,7 +364,9 @@ def dispatch_quantized(
 def _state_armed(q, X, n: int, rows: int, placement: str, state,
                  state_keys, offsets):
     """Host slot routing for one state-armed dispatch (one vectorized
-    pass, as the JAX package's) → the dispatch's ``predict`` in its
+    pass an aligned compile batch of stream offsets, so that the slots do
+    not depend on how many batches the dispatch aggregates:
+    ``KeyedStateTable.route``) → the dispatch's ``predict`` in its
     state-armed form, which scores, steps the table and commits."""
     khash = (
         np.asarray(state_keys, np.uint32) if state_keys is not None
@@ -374,7 +376,7 @@ def _state_armed(q, X, n: int, rows: int, placement: str, state,
     first = (int(offs[0]) if offs is not None and offs.size
              else state.applied_hi)
     state.maybe_renorm(first)
-    slots, reset, rel, w = state.assign_slots(khash, offs)
+    slots, reset, rel, w = state.route(khash, offs, q.batch_size)
     pad = rows - n
     if pad > 0:
         # alignment rows ride the scratch slot with zero weight: by

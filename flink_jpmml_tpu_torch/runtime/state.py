@@ -30,6 +30,23 @@ differs:
   own device (``compile/statekernel.py``). ``migrate`` re-places every
   row from the host copy over the surviving rows, so no key loses its
   vector.
+- **Routing by aligned blocks** (:meth:`KeyedStateTable.route`). The
+  block pipeline aggregates a backed-up ring into multi-batch dispatches,
+  and a kill or a delay changes that grouping between two lives of one
+  stream. ``assign_slots`` settles the claims of one call's new keys in
+  rounds over the call's sorted key hashes, and stamps the LRU clock once
+  a call, so two keys that share a home slot could land in swapped slots,
+  and an eviction pick another victim, when they first arrive in one
+  dispatch in one life and in two in another. ``route`` calls
+  ``assign_slots`` once per aligned block of ``block`` stream offsets
+  (``offset // block``), each call its own LRU stamp, as if each block
+  were a dispatch; where a later block of the dispatch claims a slot anew
+  (an eviction), the records that an earlier block of it routed to that
+  slot ride the scratch slot, since the claim would have wiped their
+  folds. So the slots, and with the in-order fold of
+  ``compile/statekernel.py`` the table's bytes, do not depend on the
+  grouping. The JAX pipeline routes once per dispatch; the two agree
+  wherever a dispatch is one block.
 
 Keyed per-record session state, device-resident and dispatch-fused.
 
@@ -317,6 +334,41 @@ class KeyedStateTable:
         """Block-path key column of a raw f32 batch → int64 keys."""
         col = np.asarray(X)[:, self.spec.key_col]
         return col.astype(np.int64)
+
+    def route(self, khash: np.ndarray, offsets, block: Optional[int]):
+        """:meth:`assign_slots` once per aligned block of ``block`` stream
+        offsets (``offset // block``) of one dispatch → the same
+        ``(slots, reset, rel, w)`` for the whole dispatch, in which a
+        record whose slot a later block claims anew is bypassed (scratch
+        slot, zero weight). ``offsets`` None, or ``block`` None or < 1,
+        route the dispatch in one call."""
+        offs = None if offsets is None else np.asarray(offsets, np.int64)
+        if offs is None or not block or block < 1 or offs.size <= 1:
+            return self.assign_slots(khash, offs)
+        cut = np.flatnonzero(np.diff(offs // int(block)) != 0) + 1
+        if not cut.size:
+            return self.assign_slots(khash, offs)
+        khash = np.asarray(khash, np.uint32)
+        parts = [self.assign_slots(k, o) for k, o in
+                 zip(np.split(khash, cut), np.split(offs, cut))]
+        slots, reset, rel, w = (np.concatenate(c) for c in zip(*parts))
+        # the last block of the dispatch that claimed each claimed slot;
+        # a record of an earlier block on that slot is superseded
+        blk = np.repeat(np.arange(len(parts)), np.diff(np.r_[0, cut,
+                                                               offs.size]))
+        claimed = reset & (slots != self.scratch)
+        if claimed.any():
+            u, inv = np.unique(slots[claimed], return_inverse=True)
+            last = np.full(u.size, -1)
+            np.maximum.at(last, inv, blk[claimed])
+            at = np.minimum(np.searchsorted(u, slots), u.size - 1)
+            gone = (u[at] == slots) & (blk < last[at])
+            if gone.any():
+                slots[gone] = self.scratch
+                reset[gone] = False
+                rel[gone] = 0.0
+                w[gone] = 0.0
+        return slots, reset, rel, w
 
     def assign_slots(self, khash: np.ndarray, offsets=None):
         """Resolve one batch of key hashes to table slots (host-side,

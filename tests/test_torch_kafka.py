@@ -411,3 +411,187 @@ def test_produce_interoperates_across_packages(client_pkg, broker_pkg):
     got = jk.decode_record_batches_h(raw)
     assert [h for _, _, h in got[5:25]] == hdrs
     assert jk.record_batch_time_range(raw)[1] == 1_700_000_000.0
+
+
+# -- keyed and compacted topics (the JAX tests/test_kafka.py TestVectorOffsets
+# and tests/test_trace.py test_compaction_keeps_headers, on the port) -------
+
+
+def _keyed_gapped_broker(data, n_partitions=3):
+    """Keyed producer over ``n_partitions`` + compaction gaps in every
+    partition → (port broker, surviving row multiset)."""
+    broker = tk.MiniKafkaBroker(topic="vec", n_partitions=n_partitions)
+    keys = [f"user-{i % 17}" for i in range(data.shape[0])]
+    broker.append_rows_keyed(data, keys)
+    # compact away a slice of each partition's middle (real gaps)
+    with broker._mu:
+        sizes = [len(v) for v in broker._vals]
+    for p in range(n_partitions):
+        broker.compact(p, list(range(5, min(25, sizes[p]))))
+    with broker._mu:
+        survivors = [v for p in range(n_partitions) for v in broker._vals[p]]
+    return broker, survivors
+
+
+def _vec_source(broker, parts=(0, 1, 2)):
+    return tk.KafkaBlockSource(broker.host, broker.port, "vec",
+                               partitions=list(parts), n_cols=4,
+                               max_wait_ms=20)
+
+
+def test_keyed_uneven_fill_consumes_everything():
+    data = np.random.default_rng(3).normal(size=(300, 4)).astype(np.float32)
+    broker = tk.MiniKafkaBroker(topic="vec", n_partitions=3)
+    try:
+        broker.append_rows_keyed(data, [f"k{i % 11}" for i in range(300)])
+        with broker._mu:
+            sizes = [len(v) for v in broker._vals]
+        assert sum(sizes) == 300 and len(set(sizes)) > 1  # uneven fill
+        src = _vec_source(broker)
+        rows, pos = [], 0
+        deadline = time.monotonic() + 15.0
+        while len(rows) < 300 and time.monotonic() < deadline:
+            polled = src.poll()
+            if polled is None:
+                continue
+            off, blk = polled
+            assert off == pos  # global indices stay contiguous
+            pos += blk.shape[0]
+            rows.extend(blk[i].tobytes() for i in range(blk.shape[0]))
+        src.close()
+    finally:
+        broker.close()
+    # every produced row consumed exactly once (content multiset)
+    assert sorted(rows) == sorted(data[i].tobytes() for i in range(300))
+
+
+def test_compaction_gaps_are_data_not_errors():
+    data = np.random.default_rng(4).normal(size=(240, 4)).astype(np.float32)
+    broker, survivors = _keyed_gapped_broker(data)
+    try:
+        assert len(survivors) == 240 - 60
+        src = _vec_source(broker)
+        rows = []
+        deadline = time.monotonic() + 15.0
+        while len(rows) < len(survivors) and time.monotonic() < deadline:
+            polled = src.poll()
+            if polled is None:
+                continue
+            _, blk = polled
+            rows.extend(blk[i].tobytes() for i in range(blk.shape[0]))
+        src.close()
+    finally:
+        broker.close()
+    assert sorted(rows) == sorted(survivors)
+
+
+def test_vector_state_resume_is_content_exact():
+    """checkpoint_state/restore_state round trip: rows below the resume
+    boundary never refetch; the union of pre-boundary and post-restore
+    emissions is EXACTLY the surviving log."""
+    data = np.random.default_rng(5).normal(size=(240, 4)).astype(np.float32)
+    broker, survivors = _keyed_gapped_broker(data)
+    try:
+        src = _vec_source(broker)
+        run1 = []  # (global_idx, row bytes)
+        deadline = time.monotonic() + 15.0
+        while len(run1) < len(survivors) // 2:
+            assert time.monotonic() < deadline
+            polled = src.poll()
+            if polled is None:
+                continue
+            off, blk = polled
+            run1.extend((off + i, blk[i].tobytes())
+                        for i in range(blk.shape[0]))
+        committed = len(run1) - 3  # a commit mid-emission
+        state = src.checkpoint_state(committed)
+        assert state is not None and state["offset"] <= committed
+        src.close()
+
+        src2 = _vec_source(broker)
+        resume = src2.restore_state(state)
+        assert resume == state["offset"]
+        run2 = []
+        deadline = time.monotonic() + 15.0
+        while time.monotonic() < deadline:
+            polled = src2.poll()
+            if polled is None:
+                if len(run2) + resume >= len(survivors):
+                    break
+                continue
+            off, blk = polled
+            assert off == resume + len(run2)  # contiguous from k'
+            run2.extend(blk[i].tobytes() for i in range(blk.shape[0]))
+        src2.close()
+    finally:
+        broker.close()
+    kept = [row for g, row in run1 if g < resume]
+    assert sorted(kept + run2) == sorted(survivors), (
+        len(kept), len(run2), len(survivors), resume)
+
+
+def test_source_fails_fast_on_unknown_partition():
+    # err 3 must propagate THROUGH the source's reconnect shield: the
+    # fetch loop swallows KafkaProtocolError and retries, which would
+    # turn a misconfigured partition list into an endless silent poll
+    broker = tk.MiniKafkaBroker(topic="vec", n_partitions=2)
+    try:
+        broker.append(b"\x00" * 16, partition=0)
+        src = _vec_source(broker, parts=(0, 7))
+        with pytest.raises(tk.KafkaPartitionError, match="partition 7"):
+            deadline = time.monotonic() + 5.0
+            while time.monotonic() < deadline:
+                src.poll()
+        src.close()
+    finally:
+        broker.close()
+
+
+def test_compaction_keeps_headers():
+    broker = tk.MiniKafkaBroker(topic="t")
+    try:
+        hx = [("traceparent",
+               b"00-" + b"a" * 32 + b"-" + b"b" * 16 + b"-01")]
+        broker.append(b"x", b"y", b"z", headers=[None, hx, None])
+        broker.compact(0, [0])
+        client = tk.KafkaClient(broker.host, broker.port)
+        try:
+            _, raw = client.fetch_raw("t", 0, 0)
+        finally:
+            client.close()
+    finally:
+        broker.close()
+    got = tk.decode_record_batches_h(raw)
+    assert [(o, v) for o, v, _ in got] == [(1, b"y"), (2, b"z")]
+    assert got[0][2] == hx and got[1][2] is None
+
+
+def test_keyed_compacted_partitions_hold_the_jax_brokers_bytes():
+    """The port broker and the JAX broker, fed the same rows and keys and
+    compacted alike (a run from each partition's middle, plus every
+    seventh offset), hold the same offsets, values, headers and encoded
+    segments per partition: a key lands in the same partition in both
+    packages, and compaction keeps the same surviving offsets."""
+    X = _rows(21, 280, cols=4)
+    keys = [f"user-{i % 23}" for i in range(X.shape[0])]
+    held = {}
+    for name, mod in (("port", tk), ("jax", jk)):
+        broker = mod.MiniKafkaBroker(topic="vec", n_partitions=3)
+        try:
+            broker.append_rows_keyed(X, keys)
+            with broker._mu:
+                sizes = [len(v) for v in broker._vals]
+            for p in range(3):
+                mid = sizes[p] // 2
+                broker.compact(p, list(range(mid - 10, mid + 10))
+                               + list(range(0, sizes[p], 7)))
+            with broker._mu:
+                held[name] = [(list(broker._offs[p]), list(broker._vals[p]),
+                               list(broker._hdrs[p]), list(broker._segs[p]))
+                              for p in range(3)]
+        finally:
+            broker.close()
+    assert held["port"] == held["jax"]
+    offs = [o for o, _, _, _ in held["port"]]
+    assert all(np.diff(o).max() > 1 for o in offs)  # real gaps
+    assert sum(len(o) for o in offs) < X.shape[0]

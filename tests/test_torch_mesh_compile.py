@@ -4,7 +4,10 @@ package, on the CPU: the twin of tests/test_mesh_compile.py.
 ``compile_pmml(..., mesh=)`` must feature-shard the stacked model's wide
 linear stage over the ``model`` axis inside the compiled scorer, pick the
 same leaves as the JAX rule, and agree with the JAX sharded model, the
-unsharded port and the oracle. The JAX side runs on the 8-device virtual
+unsharded port and the oracle. Every leaf the rule picks is split, in
+every family: the contracting consumers (NN, GLM, SVM, GP) take one
+partial a slice, the selecting ones (KNN, text) gather the slices, and
+each agrees with the JAX sharded model at a lowered threshold. The JAX side runs on the 8-device virtual
 CPU mesh; the port's on logical ``cpu:i`` devices.
 """
 
@@ -27,7 +30,6 @@ from flink_jpmml_tpu_torch.parallel.sharding import (
 )
 from flink_jpmml_tpu_torch.pmml import parse_pmml_file
 from flink_jpmml_tpu_torch.utils.config import CompileConfig, MeshConfig
-from flink_jpmml_tpu_torch.utils.exceptions import NotPortedError
 
 WIDE_F = 10_000  # config 5's 10k-dim feature space
 RTOL, ATOL = 1e-4, 1e-5
@@ -219,12 +221,169 @@ class TestMeshCompile:
             sm.predict(X, M).value.numpy(),
             np.asarray(jsm.predict(X, M).value), rtol=RTOL, atol=ATOL)
 
-    def test_unsplittable_wide_leaf_is_refused(self, tmp_path):
-        # a wide leaf whose consumer computes no per-slice partials in
-        # the port raises and names the leaf — never replicated quietly
+
+# -- every wide leaf the JAX rule picks, in six families ----------------------
+
+
+def _rbf_nn_xml(n_inputs=8, n_rbf=8):
+    """A radial-basis hidden layer over ``n_inputs`` continuous inputs
+    (one width, per-neuron altitudes) and a logistic output layer: its
+    centres ``W[n_inputs, n_rbf]`` split over the model axis."""
+    rng = np.random.default_rng(17)
+    dd = "".join(f'<DataField name="x{i}" optype="continuous" '
+                 f'dataType="double"/>' for i in range(n_inputs))
+    ms = "".join(f'<MiningField name="x{i}"/>' for i in range(n_inputs))
+    ins = "".join(
+        f'<NeuralInput id="i{i}"><DerivedField optype="continuous" '
+        f'dataType="double"><FieldRef field="x{i}"/></DerivedField>'
+        f"</NeuralInput>" for i in range(n_inputs))
+    rbf = "".join(
+        f'<Neuron id="r{j}" bias="0" altitude="{1 + 0.1 * j:.1f}">' + "".join(
+            f'<Con from="i{i}" weight="{rng.normal():.4f}"/>'
+            for i in range(n_inputs)) + "</Neuron>" for j in range(n_rbf))
+    out = "".join(
+        f'<Neuron id="o{c}" bias="{0.1 * c:.1f}">' + "".join(
+            f'<Con from="r{j}" weight="{rng.normal():.4f}"/>'
+            for j in range(n_rbf)) + "</Neuron>" for c in range(2))
+    outs = "".join(
+        f'<NeuralOutput outputNeuron="o{c}"><DerivedField '
+        f'optype="categorical" dataType="string"><NormDiscrete field="y" '
+        f'value="k{c}"/></DerivedField></NeuralOutput>' for c in range(2))
+    return (
+        '<PMML version="4.3"><DataDictionary>' + dd
+        + '<DataField name="y" optype="categorical" dataType="string">'
+        '<Value value="k0"/><Value value="k1"/></DataField></DataDictionary>'
+        '<NeuralNetwork functionName="classification" '
+        'activationFunction="radialBasis" width="2.5" '
+        'normalizationMethod="softmax"><MiningSchema>'
+        '<MiningField name="y" usageType="target"/>' + ms
+        + "</MiningSchema><NeuralInputs>" + ins + "</NeuralInputs>"
+        "<NeuralLayer>" + rbf + "</NeuralLayer>"
+        '<NeuralLayer activationFunction="logistic">' + out
+        + "</NeuralLayer><NeuralOutputs>" + outs
+        + "</NeuralOutputs></NeuralNetwork></PMML>")
+
+
+def _tp_case_xml(case, tmp_path):
+    import chip_smoke as cs
+
+    if case == "mlp":
         from flink_jpmml_tpu_torch.assets_gen import gen_mlp
 
-        doc = parse_pmml_file(gen_mlp(str(tmp_path)))
-        with pytest.raises(NotPortedError, match=r"\['"):
-            compile_pmml(doc, batch_size=8, mesh=tmesh(4, 2),
-                         config=CompileConfig(tp_wide_threshold=2))
+        with open(gen_mlp(str(tmp_path), n_inputs=16, hidden=(8,),
+                          n_classes=3)) as f:
+            return f.read()
+    return {
+        "rbf_nn": lambda: _rbf_nn_xml(),
+        "glm": lambda: cs.glm_probit_xml(n_fields=13),
+        "svm": lambda: cs.svm_xml(n_classes=3, n_vectors=64, n_fields=6),
+        "svm_poly": lambda: cs.svm_xml("poly", n_vectors=64, n_fields=6),
+        "gp": lambda: cs.gp_xml("ard", n_rows=64, n_fields=4),
+        "gp_absexp": lambda: cs.gp_xml("absexp", n_rows=64, n_fields=4),
+        "knn": lambda: cs.knn_xml(n_instances=64, n_fields=4),
+        "knn_median": lambda: cs.knn_xml(n_instances=64, n_fields=4, k=4,
+                                         scoring="median"),
+        "text": lambda: cs.text_xml(n_terms=16, n_docs=32),
+    }[case]()
+
+
+# (case, lowered threshold, leaves that must be among those picked)
+TP_CASES = [
+    ("mlp", 8, {"['l0']['W']", "['l0']['b']", "['l1']['W']"}),
+    ("rbf_nn", 8, {"['l0']['W']", "['l0']['b']"}),
+    ("glm", 16, {"['beta']"}),
+    ("svm", 64, {"['S']", "['A']"}),
+    ("svm_poly", 64, {"['S']", "['A']"}),
+    ("gp", 64, {"['alpha']", "['Zs']", "['Zs_sq']"}),
+    ("gp_absexp", 4, {"['alpha']", "['Ztr']", "['inv_lam']"}),
+    ("knn", 64, {"['S']", "['lab']"}),
+    ("knn_median", 64, {"['S']", "['y']"}),
+    ("text", 16, {"['W']", "['Wsq']", "['Wnorm']", "['idf']"}),
+]
+
+
+def _tp_rows(tm, n, seed, case):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(0.0, 1.5, size=(n, tm.field_space.arity))
+    if case == "text":
+        X = rng.poisson(1.0, size=X.shape)  # term counts
+    M = rng.random(size=X.shape) < 0.05
+    X = np.where(M, 0.0, X).astype(np.float32)
+    return X, M
+
+
+@pytest.mark.parametrize("shape", [(4, 2), (2, 4)], ids=["4x2", "2x4"])
+@pytest.mark.parametrize("case,threshold,picked", TP_CASES,
+                         ids=[c for c, _, _ in TP_CASES])
+def test_every_wide_leaf_is_split_like_the_jax_model(case, threshold,
+                                                     picked, shape,
+                                                     tmp_path):
+    """The port picks the JAX rule's leaves, stores each one split, and
+    scores like the JAX sharded model (values at rtol 1e-4 / atol 1e-5,
+    labels and neighbour ids equal)."""
+    from flink_jpmml_tpu.pmml import parse_pmml as jparse
+    from flink_jpmml_tpu_torch.parallel.sharding import _leaves
+    from flink_jpmml_tpu_torch.pmml import parse_pmml
+
+    xml = _tp_case_xml(case, tmp_path)
+    sm = compile_pmml(parse_pmml(xml), batch_size=16, mesh=tmesh(*shape),
+                      config=CompileConfig(tp_wide_threshold=threshold))
+    jsm = jcompile(jparse(xml), batch_size=16, mesh=jmesh(*shape),
+                   config=JCompileConfig(tp_wide_threshold=threshold))
+    assert sm.tp_sharded_leaves == jsm.tp_sharded_leaves
+    assert picked <= set(sm.tp_sharded_leaves)
+    split = {"".join(f"['{k}']" for k in path)
+             for path, _, _, leaf in _leaves(sm.params["model"])
+             if isinstance(leaf, TpLeaf)}
+    assert split == set(sm.tp_sharded_leaves)  # none replicated quietly
+    X, M = _tp_rows(sm, 16, 5, case)
+    got, want = sm.predict(X, M), jsm.predict(X, M)
+    valid = np.asarray(want.valid)
+    assert np.array_equal(got.valid.numpy(), valid)
+    np.testing.assert_allclose(got.value.numpy()[valid],
+                               np.asarray(want.value)[valid],
+                               rtol=RTOL, atol=ATOL)
+    if want.probs is not None:
+        gp, wp = got.probs.numpy()[valid], np.asarray(want.probs)[valid]
+    if want.label_idx is not None:
+        gl = got.label_idx.numpy()[valid]
+        wl = np.asarray(want.label_idx)[valid]
+        # labels equal, but where two candidates tie exactly the JAX
+        # sharded model's partitioned sum may put the later one an ulp
+        # ahead: there the port's pick must score as the JAX winner does
+        # in the JAX model's own output
+        off = np.flatnonzero(gl != wl)
+        assert len(off) <= 1, off
+        for r in off:
+            np.testing.assert_allclose(wp[r, gl[r]], wp[r, wl[r]],
+                                       rtol=RTOL, atol=0)
+    if want.probs is not None:
+        if case == "knn":  # class rows, then the ranked neighbour ids
+            L = len(jsm.labels)
+            assert np.array_equal(gp[:, L:], wp[:, L:])
+            gp, wp = gp[:, :L], wp[:, :L]
+        elif case == "knn_median":
+            assert np.array_equal(gp, wp)
+        np.testing.assert_allclose(gp, wp, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("case", ["mlp", "svm", "knn"])
+def test_one_by_one_mesh_splits_nothing(case, tmp_path):
+    """At model width 1 the rule picks nothing: the 1×1 mesh runs the
+    base's function on the base's params, the same bytes."""
+    from flink_jpmml_tpu_torch.pmml import parse_pmml
+
+    xml = _tp_case_xml(case, tmp_path)
+    cfg = CompileConfig(tp_wide_threshold=2)
+    sm = compile_pmml(parse_pmml(xml), batch_size=16, config=cfg,
+                      mesh=make_mesh(MeshConfig(data=1, model=1),
+                                     devices=cpu_devices(1)))
+    base = compile_pmml(parse_pmml(xml), batch_size=16, device="cpu",
+                        config=cfg)
+    assert sm.tp_sharded_leaves == () and not sm._gathered
+    X, M = _tp_rows(sm, 16, 6, case)
+    got, want = sm.predict(X, M), base.predict(X, M)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert g.numpy().tobytes() == w.numpy().tobytes()
